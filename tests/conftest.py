@@ -97,6 +97,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: >=10s on the 8-device CPU mesh; excluded from the "
         "smoke tier (`pytest -m 'not slow'`)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(scope="session", autouse=True)
