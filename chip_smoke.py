@@ -6,23 +6,39 @@
 Phases, each printing its lines before the last:
   1. the card (nvidia-smi name and power limit, torch's device name) and
      the kernels' build: every csrc/*.cu compiled by nvcc for sm_90a, all
-     sources at once;
-  2. each kernel against its plain PyTorch version on the card (for the
-     histogram, the plain version in float64), at small shapes: route with and without the margin update, histogram with
-     half False and True at L = 1, 64 and 128;
+     sources at once, with each kernel's registers and the shared-memory
+     atomic instructions it compiled to;
+  2. each kernel against its plain PyTorch version on the card (for f32
+     histograms, the plain version in float64; int32 histograms must be
+     equal), at small shapes: route with and without the margin update;
+     the dense histogram, f32 and int8, with half False and True at L = 1,
+     64 and 128; the shallow-window histogram at L = 1 full and L = 2 and
+     4 half, f32 and int8; the fused route+histogram at L_h = 2, 4 and 32,
+     f32 and int8, heap ids identical;
   3. the main path at small size: a seeded CSV through import_file, a
-     bernoulli GBM, predict and AUC, on the card and on the CPU (plain
-     versions), which must agree;
-  4. the main path at full width: a HIGGS-shaped frame (11M rows x 28
-     features, made on the card from a seeded torch.Generator), GBM with
-     10 trees of depth 8 over 255 bins through the estimator, predict and
-     AUC; launch counts per tree, throughput and peak memory; then a
-     second training run with a stopwatch on each estimator stage;
-  5. each kernel at the shapes of one tree of that run: its time from CUDA
-     events beside its plain version's, one PyTorch library call's where
-     there is one, and its bound (the bytes that tree's data needs, each
-     input read once and each output written once, over 3.35 TB/s, or its
-     f32 operations over 67 TFLOP/s, whichever is larger), and its
+     bernoulli GBM (the default configuration, then int8_hist=True),
+     predict and AUC, on the card and on the CPU (plain versions), which
+     must agree;
+  4. the main path at full width on a HIGGS-shaped frame (11M rows x 28
+     features, made on the card from a seeded torch.Generator), GBM of
+     depth 8 over 255 bins through the estimator, each run with its launch
+     counts per tree checked:
+       (a) the sequential route-then-histogram path
+           (radix_shallow=False, fused_level=False), 10 trees, predict
+           and AUC;
+       (b) the default configuration (shallow-window kernel at level 0,
+           fused kernel at levels 1-5, route + dense histogram at 6-7),
+           50 trees with a 1M-row validation frame and early stopping
+           armed; train and validation AUC, trees built, throughput and
+           peak memory;
+       (c) (b) with int8_hist=True;
+     then a default-configuration run of 10 trees with a stopwatch on each
+     estimator stage and each kernel wrapper;
+  5. each kernel at the shapes of one tree of those runs: its time from
+     CUDA events beside its plain version's, one PyTorch library call's
+     where there is one, and its bound (the bytes that tree's data needs,
+     each input read once and each output written once, over 3.35 TB/s,
+     or its f32 operations over 67 TFLOP/s, whichever is larger), and its
      agreement with the plain version on those inputs.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
@@ -51,10 +67,25 @@ TPU_KERNELS = {
     "sbh_route": "h2o3_tpu/ops/hist_pallas.py:425",
     "sbh_route_emit_f": "h2o3_tpu/ops/hist_pallas.py:458",
     "sbh_hist": "h2o3_tpu/ops/hist_pallas.py:574",
+    "sbh_hist_i8": "h2o3_tpu/ops/hist_pallas.py:585",
+    "sbh_hist_radix": "h2o3_tpu/ops/hist_pallas.py:702",
+    "sbh_route_hist_fused": "h2o3_tpu/ops/hist_pallas.py:798",
 }
 SOURCE = "h2o3_tpu_torch/ops/csrc/hist.cu"
 HIGGS_N, HIGGS_C, HIGGS_TREES, HIGGS_DEPTH, HIGGS_NBINS = \
     11_000_000, 28, 10, 8, 255
+HIGGS_VALID_N = 1_000_000
+# run (b)/(c): the default configuration with early stopping armed
+HIGGS_DEFAULT = dict(ntrees=50, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
+                     score_tree_interval=5, stopping_rounds=3,
+                     stopping_metric="logloss", distribution="bernoulli",
+                     seed=1)
+# launches per tree of the three HIGGS runs (depth 8)
+PER_TREE = {
+    "sequential": {"hist": 8, "route": 7, "route_f": 1},
+    "default": {"radix": 1, "fused": 5, "route": 2, "hist": 2, "route_f": 1},
+    "int8": {"radix": 1, "fused": 5, "route": 2, "hist_i8": 2, "route_f": 1},
+}
 
 
 def fail(msg):
@@ -89,20 +120,58 @@ def phase_card(torch, _build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    for name in logs:
+        sass_atomics(_build, name)
     return card
 
 
-def _codes_heap_stats(torch, dev, seed, *, n, c_pad, b_val, L):
+def sass_atomics(_build, name):
+    """Print the shared-memory atomic instructions (ATOMS.*) each kernel
+    of a built library compiled to, from cuobjdump -sass where the toolkit
+    has it: an add done as a compare-and-swap loop shows as ATOMS.CAS*,
+    a native one as ATOMS.ADD*."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        say(f"sass {name}: cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120)
+    fn, ops = None, {}
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            ops[fn] = set()
+        elif fn and "ATOMS." in line:
+            ops[fn].add(line.split("ATOMS.")[1].split()[0].rstrip(";"))
+    for fn, found in ops.items():
+        if found:
+            say(f"sass {name} {fn}: ATOMS.{{{', '.join(sorted(found))}}}")
+
+
+def _codes_heap_stats(torch, dev, seed, *, n, c_pad, b_val, L, int8=False):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, b_val, (c_pad, n)).astype(np.uint8)
     codes[rng.random((c_pad, n)) < 0.05] = b_val
+    codes[-2:] = 0                     # padding columns: every row in bin 0
     base = L - 1
     heap = rng.integers(base, base + L, n).astype(np.int32)
     heap[rng.random(n) < 0.1] = max(0, base - 1)
     stats = rng.normal(0, 1, (4, n)).astype(np.float32)
     stats[3] = 0.0
+    if int8:
+        stats = np.clip(np.round(stats * 40.0), -127, 127).astype(np.int32)
     return (torch.from_numpy(codes).to(dev), torch.from_numpy(heap).to(dev),
             torch.from_numpy(stats).to(dev), base)
+
+
+def _route_tables(torch, dev, seed, L, c_pad, n_bins):
+    rng = np.random.default_rng(seed)
+    lp = max(8, L)
+    tbl = np.zeros((8, lp), np.float32)
+    tbl[0, :L] = rng.integers(0, c_pad, L)
+    tbl[1, :L] = rng.random(L) < 0.8
+    route_f = (rng.random((lp, n_bins)) < 0.5).astype(np.float32)
+    return torch.from_numpy(tbl).to(dev), torch.from_numpy(route_f).to(dev)
 
 
 def hist_rel_err(got, want):
@@ -142,16 +211,76 @@ def phase_kernels_small(torch, HC, dev):
             f"F max err {ferr:.3g} (tol {F_ATOL})")
     for L in (1, 64, 128):
         for half in (False, True):
+            for int8 in (False, True):
+                codes, heap, stats, base = _codes_heap_stats(
+                    torch, dev, 10 + L, n=n, c_pad=c_pad, b_val=b_val, L=L,
+                    int8=int8)
+                kw = dict(base=base, L=L, n_bins=n_bins, half=half)
+                got = HC.sbh_hist_dense(codes, heap, stats, int8=int8, **kw)
+                check_hist(torch, HC, f"hist int8={int8} L={L} half={half} "
+                           f"n={n}", got, codes, heap, stats, kw, int8)
+    for L, half in ((1, False), (2, True), (4, True)):
+        for int8 in (False, True):
             codes, heap, stats, base = _codes_heap_stats(
-                torch, dev, 10 + L, n=n, c_pad=c_pad, b_val=b_val, L=L)
+                torch, dev, 20 + L, n=n, c_pad=c_pad, b_val=b_val, L=L,
+                int8=int8)
             kw = dict(base=base, L=L, n_bins=n_bins, half=half)
-            got = HC.sbh_hist(codes, heap, stats, **kw)
-            want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
-            torch.cuda.synchronize()
-            err = hist_rel_err(got.double(), want)
-            check(err <= HIST_RTOL, f"hist L={L} half={half}: rel err {err}")
-            say(f"kernel hist L={L} half={half} n={n}: rel err {err:.3g} "
-                f"(tol {HIST_RTOL})")
+            got = HC.sbh_hist_radix(codes, heap, stats, int8=int8, **kw)
+            check_hist(torch, HC, f"radix int8={int8} L={L} half={half} "
+                       f"n={n}", got, codes, heap, stats, kw, int8)
+    for L_h in (2, 4, 32):
+        for int8 in (False, True):
+            L_r = L_h // 2
+            codes, heap, stats, base_r = _codes_heap_stats(
+                torch, dev, 30 + L_h, n=n, c_pad=c_pad, b_val=b_val, L=L_r,
+                int8=int8)
+            tbl, route_f = _route_tables(torch, dev, 31 + L_h, L_r, c_pad,
+                                         n_bins)
+            kw = dict(base_r=base_r, L_r=L_r, base_h=L_h - 1, L_h=L_h,
+                      n_bins=n_bins)
+            h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f,
+                                               stats, int8=int8, **kw)
+            check_fused(torch, HC, f"fused int8={int8} L_h={L_h} n={n}",
+                        h_k, got, (codes, heap, tbl, route_f, stats), kw, int8)
+
+
+def check_hist(torch, HC, what, got, codes, heap, stats, kw, int8):
+    """Hold a histogram kernel's result against the plain version: equal
+    for int32 sums, within HIST_RTOL of each stat row's scale against the
+    plain version in f64 for f32 sums. Returns the max abs error."""
+    want = HC.sbh_hist_plain(codes, heap, stats if int8 else stats.double(),
+                             **kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}, "
+          f"expected {tuple(want.shape)}")
+    if int8:
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"{what}: int32 sums differ")
+        say(f"kernel {what}: int32 sums equal")
+        return 0.0
+    err = hist_rel_err(got.double(), want)
+    check(err <= HIST_RTOL, f"{what}: rel err {err}")
+    say(f"kernel {what}: rel err {err:.3g} (tol {HIST_RTOL})")
+    return (got.double() - want).abs().max().item()
+
+
+def check_fused(torch, HC, what, h_k, got, args, kw, int8):
+    """Hold the fused kernel against the sequential plain pair: heap ids
+    identical, the histogram as check_hist holds it."""
+    codes, heap, tbl, route_f, stats = args
+    h_p, want = HC.sbh_route_hist_plain(
+        codes, heap, tbl, route_f, stats if int8 else stats.double(), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h_k, h_p), f"{what}: heap differs")
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    if int8:
+        check(torch.equal(got, want), f"{what}: int32 sums differ")
+        say(f"kernel {what}: heap identical, int32 sums equal")
+        return 0.0
+    err = hist_rel_err(got.double(), want)
+    check(err <= HIST_RTOL, f"{what}: rel err {err}")
+    say(f"kernel {what}: heap identical, rel err {err:.3g} (tol {HIST_RTOL})")
+    return (got.double() - want).abs().max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -172,37 +301,44 @@ def _write_csv(path, n=4000, seed=3):
 
 
 def phase_small_path(torch, h2o, HC):
-    gbm = dict(ntrees=5, max_depth=4, learn_rate=0.2,
-               distribution="bernoulli", seed=5)
-    with tempfile.TemporaryDirectory() as tmp:
-        csv = os.path.join(tmp, "train.csv")
-        _write_csv(csv)
-        h2o.init(device="cpu")
-        cfr = h2o.import_file(csv)
-        cm = h2o.H2OGradientBoostingEstimator(**gbm)
-        cm.train(y="label", training_frame=cfr)
-        cpu_p = cm.predict(cfr).to_numpy()
-        h2o.init()
-        HC.reset_launches()
-        fr = h2o.import_file(csv)
-        m = h2o.H2OGradientBoostingEstimator(**gbm)
-        m.train(y="label", training_frame=fr)
-        pred = m.predict(fr)
-        torch.cuda.synchronize()
-        launches = dict(HC.LAUNCHES)
-    check(fr.matrix().device.type == "cuda", "frame not on the card")
-    p = pred.to_numpy()
-    check(p.shape == (4000, 3) and np.isfinite(p).all(), "bad predictions")
-    for k in ("route", "route_f", "hist"):
-        check(launches[k] > 0, f"small path never launched {k}: {launches}")
-    perr = float(np.abs(p[:, 1:] - cpu_p[:, 1:]).max())
-    aerr = abs(m.auc() - cm.auc())
-    say(f"small path: 4000 rows csv -> gbm 5x4 -> predict: AUC card "
-        f"{m.auc():.6f} cpu {cm.auc():.6f}; pred max err {perr:.3g}; "
-        f"launches {launches}")
-    check(perr < 1e-3 and aerr < 1e-3,
-          f"card and CPU disagree: pred {perr} auc {aerr}")
-    check(m.auc() > 0.75, f"small path AUC {m.auc()}")
+    """The CSV path on the card against the CPU, in the default
+    configuration and with int8_hist=True. At depth 4 every level runs the
+    shallow-window or the fused kernel."""
+    for extra in ({}, {"int8_hist": True}):
+        gbm = dict(ntrees=5, max_depth=4, learn_rate=0.2,
+                   distribution="bernoulli", seed=5, **extra)
+        with tempfile.TemporaryDirectory() as tmp:
+            csv = os.path.join(tmp, "train.csv")
+            _write_csv(csv)
+            h2o.init(device="cpu")
+            cfr = h2o.import_file(csv)
+            cm = h2o.H2OGradientBoostingEstimator(**gbm)
+            cm.train(y="label", training_frame=cfr)
+            cpu_p = cm.predict(cfr).to_numpy()
+            h2o.init()
+            HC.reset_launches()
+            fr = h2o.import_file(csv)
+            m = h2o.H2OGradientBoostingEstimator(**gbm)
+            m.train(y="label", training_frame=fr)
+            pred = m.predict(fr)
+            torch.cuda.synchronize()
+            launches = dict(HC.LAUNCHES)
+        check(fr.matrix().device.type == "cuda", "frame not on the card")
+        p = pred.to_numpy()
+        check(p.shape == (4000, 3) and np.isfinite(p).all(),
+              "bad predictions")
+        want = {"radix": 5, "fused": 15, "route_f": 5}
+        got = {k: v for k, v in launches.items() if v}
+        check(got == want, f"small path {extra} launches {launches}, "
+              f"expected {want}")
+        perr = float(np.abs(p[:, 1:] - cpu_p[:, 1:]).max())
+        aerr = abs(m.auc() - cm.auc())
+        say(f"small path {extra or 'default'}: 4000 rows csv -> gbm 5x4 -> "
+            f"predict: AUC card {m.auc():.6f} cpu {cm.auc():.6f}; pred max "
+            f"err {perr:.3g}; launches {got}")
+        check(perr < 1e-3 and aerr < 1e-3,
+              f"card and CPU disagree: pred {perr} auc {aerr}")
+        check(m.auc() > 0.75, f"small path AUC {m.auc()}")
 
 
 # ---------------------------------------------------------------------------
@@ -219,65 +355,125 @@ class Recorder:
         return self.fn(*args, **kw)
 
 
-def phase_higgs(torch, h2o, HC):
+def _higgs_frame(torch, h2o, dev, n, seed):
+    """HIGGS-shaped frame made on the card: C N(0,1) features, the bench's
+    logit, y ~ Bernoulli(sigmoid(logit))."""
     from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
-    dev = h2o.init().device
-    N, C = HIGGS_N, HIGGS_C
+    C = HIGGS_C
     g = torch.Generator(device=dev)
-    g.manual_seed(7)
-    X = torch.randn((N, C), generator=g, device=dev)
+    g.manual_seed(seed)
+    X = torch.randn((n, C), generator=g, device=dev)
     logit = (1.2 * X[:, 0] - 0.8 * X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
              + 0.4 * torch.sin(X[:, 4]) + 0.3 * X[:, 5] * X[:, 6])
-    y = (torch.rand(N, generator=g, device=dev)
+    y = (torch.rand(n, generator=g, device=dev)
          < torch.sigmoid(logit)).float()
     names = [f"x{j}" for j in range(C)] + ["y"]
     vecs = [Vec.from_tensor(X[:, j].contiguous()) for j in range(C)]
     vecs.append(Vec.from_tensor(y, type=T_CAT, domain=["0", "1"]))
-    fr = Frame(names, vecs)
-    del X, logit, y
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    return Frame(names, vecs)
 
-    rec_h = Recorder(HC.sbh_hist, HIGGS_DEPTH)
-    rec_r = Recorder(HC.sbh_route, HIGGS_DEPTH)
-    real = (HC.sbh_hist, HC.sbh_route)
-    HC.sbh_hist, HC.sbh_route = rec_h, rec_r
+
+# kernel wrappers recorded in the HIGGS runs (the dispatchers reach them
+# through the module, so recording them catches every launch)
+RECORDED = ("sbh_hist_dense", "sbh_route", "sbh_hist_radix",
+            "sbh_route_hist_fused")
+
+
+def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
+    """Train one HIGGS model with the launch counts reset just before and
+    read just after; keep the first `keep[name]` calls of each recorded
+    wrapper (one tree's). Returns (model, per-tree launches, train
+    seconds, trees built, {name: calls})."""
+    recs = {name: Recorder(getattr(HC, name), keep.get(name, 0))
+            for name in RECORDED}
+    saved = {name: getattr(HC, name) for name in RECORDED}
+    for name, r in recs.items():
+        setattr(HC, name, r)
     try:
-        m = h2o.H2OGradientBoostingEstimator(
-            ntrees=HIGGS_TREES, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
-            distribution="bernoulli", seed=1)
-        HC.reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = h2o.H2OGradientBoostingEstimator(**params)
+        HC.reset_launches()
         t0 = time.perf_counter()
-        m.train(y="y", training_frame=fr)
+        m.train(y="y", training_frame=fr, validation_frame=valid)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = dict(HC.LAUNCHES)
     finally:
-        HC.sbh_hist, HC.sbh_route = real
+        for name, fn in saved.items():
+            setattr(HC, name, fn)
+    trees = int(m.summary()["number_of_trees"])
+    per_tree = {k: v / trees for k, v in launches.items() if v}
+    say(f"higgs ({label}): {fr.nrows} rows x {HIGGS_C} features, {trees} "
+        f"trees depth {params['max_depth']} nbins {params['nbins']}: train "
+        f"{t_train:.3f} s ({fr.nrows * trees / t_train:.0f} row*trees/s), "
+        f"train AUC {m.auc():.6f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say(f"higgs ({label}) launches per tree: {per_tree} (expected "
+        f"{expect})")
+    check(per_tree == expect, f"higgs ({label}) launches per tree "
+          f"{per_tree}, expected {expect}")
+    check(m.auc() > 0.7, f"higgs ({label}) train AUC {m.auc()}")
+    for name, r in recs.items():
+        check(len(r.calls) == keep.get(name, 0),
+              f"higgs ({label}): {len(r.calls)} calls of {name} recorded")
+    return m, launches, t_train, trees, {n: r.calls for n, r in recs.items()}
+
+
+def phase_higgs(torch, h2o, HC):
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    torch.cuda.synchronize()
+    D = HIGGS_DEPTH
+    out = {}
+
+    # (a) the sequential route-then-histogram path, flags passed explicitly
+    m, launches, _, _, calls = higgs_run(
+        torch, h2o, HC, fr, "a: sequential", PER_TREE["sequential"],
+        {"sbh_hist_dense": D, "sbh_route": D}, ntrees=HIGGS_TREES,
+        max_depth=D, nbins=HIGGS_NBINS, distribution="bernoulli", seed=1,
+        radix_shallow=False, fused_level=False)
     t0 = time.perf_counter()
     pred = m.predict(fr)
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
     p1 = pred.vec("p1").data
-    check(pred.nrows == N and bool(torch.isfinite(p1).all()),
+    check(pred.nrows == HIGGS_N and bool(torch.isfinite(p1).all()),
           "HIGGS predictions not finite")
-    auc = m.auc()
-    per_tree = {k: v / HIGGS_TREES for k, v in launches.items()}
-    say(f"higgs: {N} rows x {C} features, {HIGGS_TREES} trees depth "
-        f"{HIGGS_DEPTH} nbins {HIGGS_NBINS}: train {t_train:.3f} s "
-        f"({N * HIGGS_TREES / t_train:.0f} row*trees/s), predict "
-        f"{t_pred:.3f} s, train AUC {auc:.6f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say(f"higgs launches per tree: {per_tree} (expected hist "
-        f"{HIGGS_DEPTH}, route {HIGGS_DEPTH - 1}, route_f 1)")
-    check(auc > 0.7, f"HIGGS train AUC {auc}")
-    check(per_tree == {"hist": HIGGS_DEPTH, "route": HIGGS_DEPTH - 1,
-                       "route_f": 1}, f"launches per tree {per_tree}")
-    check(len(rec_h.calls) == HIGGS_DEPTH and len(rec_r.calls) == HIGGS_DEPTH,
-          "did not capture one tree's kernel inputs")
-    breakdown(torch, h2o, fr)
-    return launches, rec_h.calls, rec_r.calls
+    say(f"higgs (a) predict {HIGGS_N} rows: {t_pred:.3f} s")
+    out["a"] = (launches, calls)
+    del m, pred, p1
+
+    # (b) the default configuration, validation frame, early stopping
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    keep = {"sbh_hist_radix": 1, "sbh_route_hist_fused": 5,
+            "sbh_hist_dense": 2, "sbh_route": 3}
+    aucs = {}
+    for label, extra, expect in (("b: default", {}, PER_TREE["default"]),
+                                 ("c: int8_hist", {"int8_hist": True},
+                                  PER_TREE["int8"])):
+        m, launches, t_train, trees, calls = higgs_run(
+            torch, h2o, HC, fr, label, expect, keep, valid=valid,
+            **HIGGS_DEFAULT, **extra)
+        hist = m.scoring_history()
+        vauc, last = m.auc(valid=True), hist[-1]
+        stopped = trees < HIGGS_DEFAULT["ntrees"]
+        say(f"higgs ({label}): train AUC {m.auc():.6f}, validation AUC "
+            f"{vauc:.6f} (last history entry {last['validation_auc']:.6f}, "
+            f"validation logloss {last['validation_logloss']:.6f}); "
+            f"{trees} trees built, stopped early: {stopped}")
+        check(vauc > 0.7, f"higgs ({label}) validation AUC {vauc}")
+        check(abs(last["validation_auc"] - vauc) < 1e-4,
+              f"higgs ({label}): history validation AUC "
+              f"{last['validation_auc']} vs final {vauc}")
+        aucs[label[0]] = m.auc()
+        out[label[0]] = (launches, calls)
+        del m
+    say(f"higgs train AUC: default {aucs['b']:.6f}, int8_hist "
+        f"{aucs['c']:.6f}")
+    del valid
+    breakdown(torch, h2o, HC, fr)
+    return out
 
 
 class Stopwatch:
@@ -297,9 +493,11 @@ class Stopwatch:
         return out
 
 
-def breakdown(torch, h2o, fr):
-    """A second HIGGS training run with a stopwatch on each stage of the
-    estimator (the syncs make it a little slower than the run above)."""
+def breakdown(torch, h2o, HC, fr):
+    """A HIGGS training run of the default configuration (10 trees, no
+    validation frame) with a stopwatch on each stage of the estimator and
+    on each kernel wrapper (the syncs make it a little slower than an
+    unperturbed run)."""
     from h2o3_tpu_torch.models import model as MB
     from h2o3_tpu_torch.models.tree import binned as BN
     from h2o3_tpu_torch.models.tree import shared_tree as ST
@@ -308,6 +506,7 @@ def breakdown(torch, h2o, fr):
               (BN.BinnedGrower, "grow"), (BN, "find_splits_binned"),
               (ST.SharedTreeEstimator, "_record_history"),
               (MB.ModelBase, "_score_train_valid")]
+    stages += [(HC, name) for name in RECORDED]
     saved = [(obj, name, getattr(obj, name)) for obj, name in stages]
     watches = {}
     try:
@@ -331,8 +530,9 @@ def breakdown(torch, h2o, fr):
             setattr(obj, name, fn)
     parts = ", ".join(f"{n} {w.seconds:.3f} s/{w.calls}"
                       for n, w in watches.items())
-    say(f"higgs train breakdown: total {total:.3f} s; {parts} "
-        "(find_splits_binned runs inside grow)")
+    say(f"higgs train breakdown (default configuration): total "
+        f"{total:.3f} s; {parts} (find_splits_binned and the kernel "
+        "wrappers run inside grow)")
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +556,9 @@ def _bound_ms(nbytes, ops):
 
 def _hist_index_add(torch, HC, codes, heap, stats, base, L, n_bins, half):
     """One library call computing the same histogram: index_add_ over the
-    flattened (slot, column, bin) index of every (row, column). Returns
-    the call; building its index is set-up, not timed."""
+    flattened (slot, column, bin) index of every (row, column), in the
+    stats' dtype. Returns the call; building its index is set-up, not
+    timed."""
     _, _, _, L_pad = HC.hist_layout(L, half)
     c_pad, n = codes.shape
     leaf = heap.long() - base
@@ -369,106 +570,170 @@ def _hist_index_add(torch, HC, codes, heap, stats, base, L, n_bins, half):
     cols = torch.arange(c_pad, device=codes.device)[:, None]
     idx = ((slot[None, :] * c_pad + cols) * n_bins + codes.long()).reshape(-1)
     src = stats[:3].t().repeat(c_pad, 1)
-    out = torch.zeros(((L_pad + 1) * c_pad * n_bins, 3), device=codes.device)
+    out = torch.zeros(((L_pad + 1) * c_pad * n_bins, 3), dtype=stats.dtype,
+                      device=codes.device)
     return lambda: out.index_add_(0, idx, src)
 
 
-def phase_timing(torch, HC, launches, hist_calls, route_calls):
-    rows = {k: [] for k in TPU_KERNELS}
-    for d, (args, kw) in enumerate(hist_calls):
-        codes, heap, stats = args
-        c_pad, n = codes.shape
-        _, _, _, L_pad = HC.hist_layout(kw["L"], kw.get("half", False))
-        got = HC.sbh_hist(*args, **kw)
-        # the plain version in float64 is the reference here: its f32 sums
-        # run sequentially over ~43k rows per bin at 11M rows and lose
-        # about n*eps (~3e-3) themselves; that gap is printed beside it
-        want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
-        want32 = HC.sbh_hist_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = hist_rel_err(got.double(), want)
-        err32 = hist_rel_err(want32.double(), want)
-        abs_err = (got.double() - want).abs().max().item()
-        check(err <= HIST_RTOL, f"hist level {d} at HIGGS shape: rel err {err}")
-        del got, want, want32
-        k_ms = time_ms(torch, lambda: HC.sbh_hist(*args, **kw), 10)
-        p_ms = time_ms(torch, lambda: HC.sbh_hist_plain(*args, **kw), 2)
-        lib = _hist_index_add(torch, HC, codes, heap, stats, kw["base"], kw["L"],
-                              kw["n_bins"], kw.get("half", False))
-        l_ms = time_ms(torch, lib, 2)
-        del lib
-        torch.cuda.empty_cache()
-        # bytes this data needs: every heap id, then the codes and the three
-        # used stats of the rows the level sums (left children with half),
-        # and the output once
-        l_eff = HC.hist_layout(kw["L"], kw.get("half", False))[0]
-        leaf = heap.long() - kw["base"]
-        inw = (leaf >= 0) & (leaf < kw["L"])
-        if kw.get("half", False):
-            inw &= (leaf & 1) == 0
-        rows_in = int(inw.sum().item())
-        nbytes = (4 * n + rows_in * (c_pad + 12)
-                  + L_pad * c_pad * 4 * kw["n_bins"] * 4)
-        b_ms, by = _bound_ms(nbytes, 3 * c_pad * rows_in)
-        rows["sbh_hist"].append(dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                     bound_ms=b_ms, bound_by=by,
-                                     max_abs_err=abs_err))
-        say(f"timing hist level {d} L={kw['L']} half={kw.get('half', False)}"
-            f" n={n} C={c_pad}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, "
-            f"{rows_in} rows summed of {l_eff} slots); "
-            f"rel err vs f64 plain {err:.3g} (f32 plain: {err32:.3g})")
-    for d, (args, kw) in enumerate(route_calls):
-        emit_f = kw.get("emit_f", False)
-        codes, heap, tbl, route_f = args[:4]
-        n = heap.numel()
-        h_k, f_k = HC.sbh_route(*args, **kw)
-        h_p, f_p = HC.sbh_route_plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(h_k, h_p), f"route level {d}: heap differs")
-        ferr = (f_k - f_p).abs().max().item() if emit_f else 0.0
-        check(ferr < F_ATOL, f"route level {d}: F err {ferr}")
-        k_ms = time_ms(torch, lambda: HC.sbh_route(*args, **kw), 20)
-        p_ms = time_ms(torch, lambda: HC.sbh_route_plain(*args, **kw), 3)
-        # bytes this data needs: heap in and out, one code byte for each
-        # row of a leaf that split, the tables, and F in and out with emit_f
-        leaf = heap.long() - kw["base"]
-        active = (leaf >= 0) & (leaf < kw["L"])
-        did = tbl[1, leaf.clamp(0, kw["L"] - 1)] > 0.5
-        moved = int((active & did).sum().item())
-        nbytes = 8 * n + moved + tbl.numel() * 4 + route_f.numel() * 4
-        if emit_f:
-            nbytes += 8 * n + args[4].numel() * 4
-        b_ms, by = _bound_ms(nbytes, (2 if emit_f else 0) * n)
-        key = "sbh_route_emit_f" if emit_f else "sbh_route"
-        rows[key].append(dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
-                              bound_ms=b_ms, bound_by=by, max_abs_err=ferr))
-        say(f"timing route level {d} L={kw['L']} emit_f={emit_f} n={n}: "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({by}), rows routed {moved}; heap identical, F err {ferr:.3g}")
-    per_tree = sum(r["ms"] for rs in rows.values() for r in rs)
-    say(f"kernel time of one tree: {per_tree:.4f} ms "
-        f"(hist {sum(r['ms'] for r in rows['sbh_hist']):.4f} ms, route "
-        f"{sum(r['ms'] for r in rows['sbh_route']):.4f} ms, route_f "
-        f"{sum(r['ms'] for r in rows['sbh_route_emit_f']):.4f} ms)")
-    counts = {"sbh_route": launches["route"],
-              "sbh_route_emit_f": launches["route_f"],
-              "sbh_hist": launches["hist"]}
-    out = []
-    for name, rs in rows.items():
-        mean = lambda k: float(np.mean([r[k] for r in rs]))  # noqa: E731
-        lib = [r["library_ms"] for r in rs]
-        out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNELS[name], "launches": counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+def _rows_in(heap, base, L, half):
+    """Rows a histogram of leaves [base, base+L) sums (even leaves only
+    with half)."""
+    leaf = heap.long() - base
+    inw = (leaf >= 0) & (leaf < L)
+    if half:
+        inw &= (leaf & 1) == 0
+    return int(inw.sum().item())
+
+
+def _rows_routed(heap, tbl, base, L):
+    """Rows of leaves [base, base+L) that split: each reads one code byte
+    of its split column."""
+    leaf = heap.long() - base
+    active = (leaf >= 0) & (leaf < L)
+    did = tbl[1, leaf.clamp(0, L - 1)] > 0.5
+    return int((active & did).sum().item())
+
+
+def time_hist(torch, HC, name, args, kw):
+    """Time one recorded histogram launch (dense or shallow-window) beside
+    its plain version, index_add_ and its bound; hold it to the plain
+    version first."""
+    codes, heap, stats = args
+    fn = getattr(HC, name)
+    int8 = bool(kw.get("int8", False))
+    pkw = {k: v for k, v in kw.items() if k != "int8"}
+    c_pad, n = codes.shape
+    half = pkw.get("half", False)
+    l_eff, _, _, L_pad = HC.hist_layout(pkw["L"], half)
+    what = f"{name} int8={int8} L={pkw['L']} half={half} n={n} C={c_pad}"
+    abs_err = check_hist(torch, HC, what, fn(*args, **kw), codes, heap,
+                         stats, pkw, int8)
+    k_ms = time_ms(torch, lambda: fn(*args, **kw), 10)
+    p_ms = time_ms(torch, lambda: HC.sbh_hist_plain(*args, **pkw), 2)
+    lib = _hist_index_add(torch, HC, codes, heap, stats, pkw["base"],
+                          pkw["L"], pkw["n_bins"], half)
+    l_ms = time_ms(torch, lib, 2)
+    del lib
+    torch.cuda.empty_cache()
+    # bytes this data needs: every heap id, then the codes and the three
+    # used stats of the rows the level sums (left children with half), and
+    # the output once
+    rows_in = _rows_in(heap, pkw["base"], pkw["L"], half)
+    nbytes = 4 * n + rows_in * (c_pad + 12) + L_pad * c_pad * 4 * \
+        pkw["n_bins"] * 4
+    b_ms, by = _bound_ms(nbytes, 3 * c_pad * rows_in)
+    say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {rows_in} "
+        f"rows summed of {l_eff} slots)")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=by, max_abs_err=abs_err)
+
+
+def time_route(torch, HC, args, kw):
+    emit_f = kw.get("emit_f", False)
+    codes, heap, tbl, route_f = args[:4]
+    n = heap.numel()
+    h_k, f_k = HC.sbh_route(*args, **kw)
+    h_p, f_p = HC.sbh_route_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(h_k, h_p), f"route L={kw['L']}: heap differs")
+    ferr = (f_k - f_p).abs().max().item() if emit_f else 0.0
+    check(ferr < F_ATOL, f"route L={kw['L']}: F err {ferr}")
+    k_ms = time_ms(torch, lambda: HC.sbh_route(*args, **kw), 20)
+    p_ms = time_ms(torch, lambda: HC.sbh_route_plain(*args, **kw), 3)
+    # bytes this data needs: heap in and out, one code byte for each row
+    # of a leaf that split, the tables, and F in and out with emit_f
+    moved = _rows_routed(heap, tbl, kw["base"], kw["L"])
+    nbytes = 8 * n + moved + tbl.numel() * 4 + route_f.numel() * 4
+    if emit_f:
+        nbytes += 8 * n + args[4].numel() * 4
+    b_ms, by = _bound_ms(nbytes, (2 if emit_f else 0) * n)
+    say(f"timing route L={kw['L']} emit_f={emit_f} n={n}: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"rows routed {moved}; heap identical, F err {ferr:.3g}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=by, max_abs_err=ferr)
+
+
+def time_fused(torch, HC, args, kw):
+    codes, heap, tbl, route_f, stats = args
+    int8 = bool(kw.get("int8", False))
+    pkw = {k: v for k, v in kw.items() if k != "int8"}
+    c_pad, n = codes.shape
+    l_eff = (pkw["L_h"] + 1) // 2
+    what = f"fused int8={int8} L_h={pkw['L_h']} n={n} C={c_pad}"
+    h_k, got = HC.sbh_route_hist_fused(*args, **kw)
+    abs_err = check_fused(torch, HC, what, h_k, got, args, pkw, int8)
+    del got
+    k_ms = time_ms(torch, lambda: HC.sbh_route_hist_fused(*args, **kw), 10)
+    p_ms = time_ms(torch, lambda: HC.sbh_route_hist_plain(*args, **pkw), 2)
+    # bytes this data needs: the heap read and written, the split column's
+    # byte of each row of a split leaf, the tables, the codes and three
+    # stats of the rows summed (over the new heap), and the output once
+    moved = _rows_routed(heap, tbl, pkw["base_r"], pkw["L_r"])
+    rows_in = _rows_in(h_k, pkw["base_h"], pkw["L_h"], True)
+    nbytes = (8 * n + moved + tbl.numel() * 4 + route_f.numel() * 4
+              + rows_in * (c_pad + 12)
+              + l_eff * c_pad * 4 * pkw["n_bins"] * 4)
+    b_ms, by = _bound_ms(nbytes, 3 * c_pad * rows_in)
+    say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by}, {moved} rows routed, {rows_in} rows summed "
+        f"of {l_eff} slots)")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=by, max_abs_err=abs_err)
+
+
+def _summary(rs):
+    """One kernels-JSON entry's numbers from one tree's launches: means,
+    the largest error, what bounds most of them."""
+    mean = lambda k: float(np.mean([r[k] for r in rs]))  # noqa: E731
+    lib = [r["library_ms"] for r in rs]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
-            # what bounds most of the tree's launches of this kernel
             "bound_by": max(("bytes", "operations"),
                             key=[r["bound_by"] for r in rs].count),
-            "library_ms": None if lib[0] is None else float(np.mean(lib)),
-        })
+            "library_ms": None if lib[0] is None else float(np.mean(lib))}
+
+
+def phase_timing(torch, HC, runs):
+    """Every kernel at the shapes of one tree of the HIGGS runs. The
+    kernels-JSON entries come from run (b), the default configuration,
+    and for sbh_hist_i8 from run (c); run (a)'s and (c)'s other launches
+    are printed beside them."""
+    rows = {}
+    for run in ("a", "b", "c"):
+        launches, calls = runs[run]
+        rs = {}
+        rs["sbh_hist"] = [time_hist(torch, HC, "sbh_hist_dense", a, k)
+                          for a, k in calls["sbh_hist_dense"]]
+        rs["sbh_hist_radix"] = [time_hist(torch, HC, "sbh_hist_radix", a, k)
+                                for a, k in calls["sbh_hist_radix"]]
+        rs["sbh_route_hist_fused"] = [
+            time_fused(torch, HC, a, k)
+            for a, k in calls["sbh_route_hist_fused"]]
+        route = [time_route(torch, HC, a, k) for a, k in calls["sbh_route"]]
+        rs["sbh_route"] = route[:-1]
+        rs["sbh_route_emit_f"] = route[-1:]
+        if run == "c":
+            rs["sbh_hist_i8"] = rs.pop("sbh_hist")
+        rs = {k: v for k, v in rs.items() if v}
+        per_tree = sum(r["ms"] for v in rs.values() for r in v)
+        parts = ", ".join(f"{k} {sum(r['ms'] for r in v):.4f} ms/{len(v)}"
+                          for k, v in rs.items())
+        say(f"kernel time of one tree, run ({run}): {per_tree:.4f} ms "
+            f"({parts})")
+        rows[run] = (launches, rs)
+    counts = {"sbh_route": "route", "sbh_route_emit_f": "route_f",
+              "sbh_hist": "hist", "sbh_hist_i8": "hist_i8",
+              "sbh_hist_radix": "radix", "sbh_route_hist_fused": "fused"}
+    out = []
+    for name, key in counts.items():
+        launches, rs = rows["c" if name == "sbh_hist_i8" else "b"]
+        check(launches[key] > 0, f"{name} never launched on its path")
+        out.append({"name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": TPU_KERNELS[name], "launches": launches[key],
+                    **_summary(rs[name])})
     return out
 
 
@@ -491,8 +756,8 @@ def main():
     dev = torch.device("cuda", 0)
     phase_kernels_small(torch, HC, dev)
     phase_small_path(torch, h2o, HC)
-    launches, hist_calls, route_calls = phase_higgs(torch, h2o, HC)
-    kernels = phase_timing(torch, HC, launches, hist_calls, route_calls)
+    runs = phase_higgs(torch, h2o, HC)
+    kernels = phase_timing(torch, HC, runs)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

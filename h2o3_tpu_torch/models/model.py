@@ -191,8 +191,17 @@ class ModelBase:
                                    domains=self._dinfo.domains,
                                    response_domain=self._dinfo.response_domain)
         t0 = time.time()
-        self._fit(frame)
-        self._score_train_valid(frame, validation_frame)
+        # the scoring history scores the validation frame when one is given
+        # (ScoreKeeper and early stopping prefer its metrics)
+        self._valid_for_scoring = validation_frame
+        try:
+            self._fit(frame)
+            self._score_train_valid(frame, validation_frame)
+        finally:
+            # release the validation scoring state: its margins and matrix
+            # would otherwise pin device memory for the model's lifetime
+            self._vstate = None
+            self._valid_for_scoring = None
         self._output.run_time_ms = int(1000 * (time.time() - t0))
         DKV.put(self.key, self)
         return self

@@ -1,17 +1,25 @@
 """Binned tree engine of the port (h2o3_tpu/models/tree/binned.py).
 
 Features are quantized once into a uint8 code plane (C_pad, n_pad) against
-global quantile edges; each tree grows level by level on that plane. Per
-level: route the rows by the previous level's splits (ops.hist_cuda
-sbh_route), accumulate the left children's histograms (sbh_hist with
-half=True), derive the right children by sibling subtraction, and search
-the best split of every leaf (find_splits_binned). The terminal pass
-routes the last level and adds eta * leaf value to each row's margin.
+global quantile edges; each tree grows level by level on that plane. Level
+0 takes the root's histogram (ops.hist_cuda sbh_hist, the shallow-window
+kernel by default). Every later level is one `sbh_route_hist` pass: route
+the rows by the previous level's splits and accumulate the left children's
+histograms over the new heap (the fused kernel up to 16 left children,
+the route and dense histogram pair beyond), then derive the right children
+by sibling subtraction. Each level ends with the split search of every leaf
+(find_splits_binned). The terminal pass routes the last level and adds
+eta * leaf value to each row's margin.
 
-Differences from the JAX package: the K-tree `lax.scan` is a Python loop,
-there is no mesh (the sharded psum path is a later slice), and the level
-runs the sequential route-then-histogram pair only; the radix, fused and
-int8 kernels are later slices.
+The grower's flags mean what they mean in the JAX package: `int8_stats`
+quantizes the stats to int8 per tree and sums the histograms exactly in
+int32 (off unless asked for); `use_radix_shallow` and `fused_level` are on
+unless False, which forces the dense histogram and the sequential pair.
+The flags choose kernels, never the function: every combination grows
+the same tree.
+
+Differences from the JAX package: the K-tree `lax.scan` is a Python loop
+and there is no mesh (the sharded psum path is a later slice).
 """
 
 from __future__ import annotations
@@ -231,7 +239,13 @@ class BinnedGrower:
     def __init__(self, spec: BinSpec, *, max_depth: int, min_rows: float,
                  min_split_improvement: float, reg_lambda: float = 0.0,
                  use_hess_denom: bool = False,
-                 monotone: np.ndarray | None = None, device=None):
+                 monotone: np.ndarray | None = None, device=None,
+                 int8_stats: bool | None = None,
+                 use_radix_shallow: bool | None = None,
+                 fused_level: bool | None = None):
+        self.int8 = False if int8_stats is None else bool(int8_stats)
+        self.use_radix = None if use_radix_shallow in (None, True) else False
+        self.fused = None if fused_level in (None, True) else False
         self.spec = spec
         self.D = int(max_depth)
         self.nodes = 2 ** (self.D + 1) - 1
@@ -280,26 +294,45 @@ class BinnedGrower:
         lo = torch.full((1,), -big, dtype=torch.float32, device=dev)
         hi = torch.full((1,), big, dtype=torch.float32, device=dev)
         any_cat = bool(spec.is_cat.any())
+        if self.int8:
+            # per-tree, per-stat-row symmetric quantization; the stats are
+            # fixed for the tree, so one pass serves every level
+            absmax = stats.abs().amax(dim=1, keepdim=True)
+            scale = 127.0 / absmax.clamp(min=1e-30)
+            stats_in = torch.round(stats * scale).clamp(-127, 127) \
+                .to(torch.int32)
+            inv = absmax.clamp(min=1e-30)[:, 0] / 127.0
+            hist_fn = HC.sbh_hist_i8
+        else:
+            stats_in = stats
+            hist_fn = HC.sbh_hist
+        # hist_prev keeps the level's full histogram in its native dtype
+        # (int32 with int8: the sibling subtraction stays exact)
         prev = hist_prev = did_prev = None
         for d in range(D):
             L = 1 << d
             base = L - 1
             if d == 0:
-                hacc = HC.sbh_hist(codes, heap, stats, base=base, L=L,
-                                   n_bins=BP)[:L, :C]
+                hacc = hist_fn(codes, heap, stats_in, base=base, L=L,
+                               n_bins=BP, radix=self.use_radix)[:L, :C]
             else:
-                # route the previous level, then histogram the LEFT
-                # children over the new heap; right = parent - left
+                # one level pass: route the previous level, histogram the
+                # LEFT children over the new heap; right = parent - left
                 # (routing moves every row of a split leaf to a child)
-                heap, _ = HC.sbh_route(codes, heap, prev[0], prev[1],
-                                       base=(L >> 1) - 1, L=L >> 1)
-                left = HC.sbh_hist(codes, heap, stats, base=base, L=L,
-                                   n_bins=BP, half=True)[: L >> 1, :C]
+                heap, left = HC.sbh_route_hist(
+                    codes, heap, prev[0], prev[1], stats_in,
+                    base_r=(L >> 1) - 1, L_r=L >> 1, base_h=base, L_h=L,
+                    n_bins=BP, int8=self.int8, fused=self.fused,
+                    radix=self.use_radix)
+                left = left[: L >> 1, :C]
                 par = torch.where(did_prev[:, None, None, None], hist_prev,
-                                  0.0)
+                                  torch.zeros_like(hist_prev))
                 hacc = torch.stack([left, par - left], dim=1) \
                     .reshape(L, *left.shape[1:])
             hist_prev = hacc
+            # the int8 histogram is dequantized once per level
+            hist = hacc.float() * inv[None, None, :, None] if self.int8 \
+                else hacc
 
             if mtries and mtries < c_real:
                 r = torch.rand((L, C), generator=generator, device=dev)
@@ -312,7 +345,7 @@ class BinnedGrower:
                 cmask = cmask & tree_mask[None, :]
 
             s = find_splits_binned(
-                hacc, self.is_cat_dev, self.mono, cmask, lo, hi,
+                hist, self.is_cat_dev, self.mono, cmask, lo, hi,
                 b_val=spec.b_val, min_rows=self.min_rows, msi=self.msi,
                 lam=self.lam, use_hess=self.use_hess, any_cat=any_cat)
             did = s["did"]

@@ -5,9 +5,14 @@ The frame is quantized once into a uint8 code plane on its device; trees
 grow in chunks of `score_tree_interval` through
 `binned.gbm_chunk_trainer`, which runs the CUDA route and histogram
 kernels for tensors on a card. After each chunk the training margins are
-scored into the scoring history. The adaptive (UniformAdaptive) engine,
-multinomial GBM, checkpoint restart, early stopping and the radix, fused
-and int8 kernels are later slices.
+scored into the scoring history, and so is a validation frame when one is
+given (its margins advance chunk by chunk); early stopping reads that
+history (ScoreKeeper.stopEarly). The estimator's kernel flags mean what
+they mean in the JAX package: `int8_hist` (off unless True) quantizes the
+histogram stats to int8; `radix_shallow` and `fused_level` (on unless
+False) take the shallow-window and level-fused kernels where a level
+qualifies. The adaptive (UniformAdaptive) engine, multinomial GBM and
+checkpoint restart are later slices.
 """
 
 from __future__ import annotations
@@ -23,15 +28,6 @@ from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
 
-# Kernel families of the JAX engine that this port does not have yet, by
-# estimator parameter; True asks for one and raises.
-_LATER_KERNELS = {
-    "int8_hist": "sbh_hist_pallas_i8",
-    "radix_shallow": "sbh_hist_radix",
-    "fused_level": "sbh_route_hist_fused_pallas",
-}
-
-
 class SharedTreeEstimator(ModelBase):
     """Common driver of the tree estimators."""
 
@@ -44,24 +40,39 @@ class SharedTreeEstimator(ModelBase):
         "stopping_metric": "AUTO", "stopping_tolerance": 1e-3,
         "histogram_type": "AUTO", "balance_classes": False,
         "monotone_constraints": None, "nbins_top_level": None,
-        # accepted for the JAX package's signature; only False/None run here
+        # kernel flags (None = the JAX package's default: int8 off, radix
+        # and fused on wherever the level qualifies; False forces the dense
+        # histogram / the sequential route-then-histogram pair)
         "int8_hist": None, "radix_shallow": None, "fused_level": None,
     }
 
-    def _check_ported(self):
-        super()._check_ported()
-        for name, kernel in _LATER_KERNELS.items():
-            if self.params.get(name):
-                raise NotImplementedError(
-                    f"{name}=True needs the {kernel} kernel, which is not "
-                    "ported yet (a later slice of the port)")
-        if int(self.params.get("stopping_rounds") or 0) > 0:
-            raise NotImplementedError(
-                "early stopping is not ported yet "
-                "(h2o3_tpu/models/tree/shared_tree.py _should_stop)")
+    def _validate_early_stopping(self):
+        """Fail fast on an unusable stopping_metric (H2O validates at
+        build-parameter time, not 2*stopping_rounds scoring events in)."""
+        if int(self.params.get("stopping_rounds") or 0) <= 0:
+            return
+        want = str(self.params.get("stopping_metric") or "AUTO").lower()
+        want = {"aucpr": "pr_auc"}.get(want, want)
+        if want in ("auto", ""):
+            return
+        known = {"auc", "pr_auc", "logloss", "rmse", "mae", "r2",
+                 "classification_error"}
+        cls_only = {"auc", "pr_auc", "logloss", "classification_error"}
+        reg_only = {"mae", "r2"}
+        if want not in known:
+            raise ValueError(f"unknown stopping_metric {want!r}; "
+                             f"supported: {sorted(known)}")
+        if self._is_classifier and want in reg_only:
+            raise ValueError(f"stopping_metric={want!r} is a regression "
+                             "metric but the response is categorical")
+        if not self._is_classifier and want in cls_only:
+            raise ValueError(f"stopping_metric={want!r} is a "
+                             "classification metric but the response is "
+                             "numeric")
 
     # ---- shared plumbing -----------------------------------------------------
     def _prep(self, frame: Frame):
+        self._validate_early_stopping()
         di = self._dinfo
         X = di.matrix(frame)
         y = di.response(frame)
@@ -112,7 +123,10 @@ class SharedTreeEstimator(ModelBase):
         grower = BN.BinnedGrower(
             spec, max_depth=int(p["max_depth"]), min_rows=float(p["min_rows"]),
             min_split_improvement=float(p["min_split_improvement"]),
-            monotone=mono if mc else None, device=X.device)
+            monotone=mono if mc else None, device=X.device,
+            int8_stats=p.get("int8_hist"),
+            use_radix_shallow=p.get("radix_shallow"),
+            fused_level=p.get("fused_level"))
         n_pad = grower.layout(n)
         codes = BN.quantize(X, spec, n_pad=n_pad)
         return dict(X=X, y=y, w=w, y1=BN.pad_rows(y, n_pad),
@@ -153,7 +167,90 @@ class SharedTreeEstimator(ModelBase):
             m = M.regression_metrics(y, mu, w)
             h = {"number_of_trees": ntrees, "training_rmse": m.rmse,
                  "training_mae": m.mae, "training_r2": m.r2}
+        h.update(self._valid_history_entry(dist))
         self._output.scoring_history.append(h)
+
+    # ---- incremental validation scoring (ScoreKeeper valid series) ---------
+    def _valid_setup(self, f0):
+        """Validation margins for the scoring history: the model in progress
+        scores the validation frame at every scoring event
+        (SharedTree.doScoringAndSaveModel), so the margins advance chunk by
+        chunk rather than being rebuilt from the final ensemble."""
+        vf = getattr(self, "_valid_for_scoring", None)
+        self._vstate = None
+        if vf is None:
+            return
+        di = self._dinfo
+        yv = di.response(vf)
+        wv = torch.where(torch.isnan(yv), 0.0, di.weights(vf))
+        yv = torch.where(torch.isnan(yv), 0.0, yv)
+        Fv = torch.full((int(vf.nrows),), float(f0), dtype=torch.float32,
+                        device=yv.device)
+        self._vstate = {"X": di.matrix(vf), "y": yv, "w": wv, "F": Fv}
+
+    def _valid_advance(self, new_trees, lr):
+        """Add a just-trained chunk of trees to the validation margins (one
+        batched walk over the validation rows)."""
+        self._vstate["F"] = self._vstate["F"] + \
+            lr * E.predict_ensemble(self._vstate["X"], new_trees)
+
+    def _valid_history_entry(self, dist="gaussian") -> dict:
+        if getattr(self, "_vstate", None) is None:
+            return {}
+        vs = self._vstate
+        mu = _link_inv_dist(dist, vs["F"])
+        vm = self._metrics_from_preds(vs["y"], mu, vs["w"])
+        out = {}
+        for k in ("logloss", "auc", "pr_auc", "rmse", "mae", "r2"):
+            v = getattr(vm, k, None)
+            if v is not None:
+                out[f"validation_{k}"] = v
+        return out
+
+    def _should_stop(self) -> bool:
+        """ScoreKeeper.stopEarly: stop when the chosen stopping_metric has
+        not improved over the last `stopping_rounds` scoring events."""
+        k = int(self.params.get("stopping_rounds") or 0)
+        if k <= 0 or len(self._output.scoring_history) < 2 * k:
+            return False
+        hist = self._output.scoring_history
+        want = str(self.params.get("stopping_metric") or "AUTO").lower()
+        want = {"aucpr": "pr_auc"}.get(want, want)
+        maximize = want in ("auc", "pr_auc", "r2")
+        metric = None
+        if want not in ("auto", ""):
+            # the validation series wins when a validation frame was scored
+            for prefix in ("validation_", "training_"):
+                if prefix + want in hist[-1]:
+                    metric = prefix + want
+                    break
+            if metric is None:
+                metric = next((key for key in hist[-1]
+                               if key.endswith("_" + want)), None)
+            if metric is None:
+                raise ValueError(
+                    f"stopping_metric={want!r} is not recorded for this "
+                    f"problem type (available: {sorted(hist[-1])})")
+        else:
+            maximize = False
+            metric = next((c for c in ("validation_logloss",
+                                       "validation_rmse", "training_logloss",
+                                       "training_rmse") if c in hist[-1]),
+                          None)
+            if metric is None:
+                return False
+        vals = [h[metric] for h in hist]
+        # a tolerance of 0 is valid (stop on any non-improvement); the
+        # comparisons are inclusive, so an exact plateau stops; the
+        # tolerance scales with |past|, so a negative metric (r2 < 0) keeps
+        # its direction
+        tol_raw = self.params.get("stopping_tolerance")
+        tol = 1e-3 if tol_raw is None else float(tol_raw)
+        if maximize:
+            recent, past = max(vals[-k:]), max(vals[:-k])
+            return recent <= past + tol * abs(past)
+        recent, past = min(vals[-k:]), min(vals[:-k])
+        return recent >= past - tol * abs(past)
 
     def _varimp_from_gains(self, gains: np.ndarray):
         names = self._dinfo.feature_names
@@ -225,6 +322,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         F = torch.where(torch.arange(n_pad, device=dev) < n, f0, 0.0) \
             .to(torch.float32)
         interval = max(1, int(p.get("score_tree_interval") or 5))
+        self._valid_setup(f0)
         chunks = []
         done = 0
         while done < ntrees:
@@ -237,7 +335,12 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             F, trees = trainer(ctx["codes"], y1, w1, F, gen)
             chunks.append(trees)
             done += k
+            if self._vstate is not None:
+                self._valid_advance(self._binned_tree_arrays(ctx, [trees])[0],
+                                    lr)
             self._record_history(done, F[:n], y, w, dist)
+            if self._should_stop():
+                break
 
         self._trees, gainsT = self._binned_tree_arrays(ctx, chunks)
         self._bin_spec = ctx["spec"]

@@ -50,7 +50,8 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu builds to (the name hashes source and flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
@@ -58,7 +59,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source; returns (target, process or None)."""
-    out = _target(name)
+    out = library_path(name)
     if out.exists():
         return out, None
     BUILD.mkdir(parents=True, exist_ok=True)

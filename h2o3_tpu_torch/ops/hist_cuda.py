@@ -10,12 +10,25 @@ Counterpart of h2o3_tpu/ops/hist_pallas.py. Per tree level the grower
     (w, w*grad, w*hess) over the uint8 code plane (`sbh_hist`); with
     `half=True` only even leaves (left children) are summed, at slot
     leaf >> 1, and the caller derives the right children by subtraction.
+    `sbh_hist_i8` takes int32 stats in [-127, 127] (the int8-quantized
+    stats of `int8_hist`) and sums them exactly in int32.
+  * or does both in one pass (`sbh_route_hist`): route level d-1, then the
+    half histogram of level d over the updated heap.
+
+Three kernels compute the histogram function: the dense one
+(`sbh_hist_dense`), the shallow-window one (`sbh_hist_radix`, effective
+windows of at most 2 leaves) and the level-fused route+histogram
+(`sbh_route_hist_fused`, windows of at most 16). The dispatchers
+`sbh_hist`, `sbh_hist_i8` and `sbh_route_hist` choose among them by the
+JAX package's shape gates (`_radix_shape_ok`, `_fused_applicable`), so the
+launches per level match its dispatch; `radix=False` / `fused=False` force
+the dense / sequential kernels, as there.
 
 Each wrapper runs the plain version for a tensor on the CPU, launches its
 CUDA kernel for a tensor on a CUDA device, and raises for anything else.
-There is no fallback from the kernel to the plain version. The TPU kernels'
-4-codes-per-word packing (a Mosaic tiling workaround) is not used: the
-kernels read the uint8 plane directly.
+There is no probe and no fallback from the kernel to the plain version.
+The TPU kernels' 4-codes-per-word packing (a Mosaic tiling workaround) is
+not used: the kernels read the uint8 plane directly.
 """
 
 from __future__ import annotations
@@ -31,13 +44,28 @@ from h2o3_tpu_torch.ops import _build
 GW = 64
 S_STATS = 4
 # Leaf slots one CUDA block keeps in shared memory: win x 3 stats x n_bins
-# f64 within this budget (96 KB = 16 slots at 256 bins).
+# accumulators within this budget (96 KB = 16 f64 or 32 int32 slots at 256
+# bins).
 _SMEM_BUDGET = 96 * 1024
 _HIST_ROW_ALIGN = 4
+_WARPS = 16                     # kHistThreads / 32 in csrc/hist.cu
+# The int8 histogram sums |stat| <= 127 per row in int32: exact while
+# 127 * rows < 2**31, about 16.9M rows.
+I8_MAX_ROWS = (2 ** 31 - 1) // 127
+
+# Shape gates of the JAX package's dispatch (hist_pallas.py:663-674,
+# 753-761), without its compile probes: the port's kernels always build.
+RADIX_NH = 16
+RADIX_MAX_WINDOW = 2
+FUSE_MAX_WINDOW = 16
+_FUSE_VMEM_OUT = 6 * 2 ** 20
+PACK = 4                        # codes per packed word on the TPU
+WORD_TILE = 8
 
 # Kernel launches, counted where each wrapper launches its kernel (never
 # on the plain path). Read and reset by chip_smoke.py and the card tests.
-LAUNCHES = {"route": 0, "route_f": 0, "hist": 0}
+LAUNCHES = {"route": 0, "route_f": 0, "hist": 0, "hist_i8": 0, "radix": 0,
+            "fused": 0}
 
 
 def reset_launches():
@@ -51,6 +79,29 @@ def hist_layout(L: int, half: bool):
     gwe = min(l_eff, GW)
     npass = max(1, -(-l_eff // gwe))
     return l_eff, gwe, npass, npass * gwe
+
+
+def packed_words(c_pad: int) -> int:
+    """Words of the JAX package's packed code plane for c_pad columns
+    (hist_pallas.packed_words): the fused gate's output cap is counted over
+    the packed width 4 * packed_words(c_pad), as there."""
+    w = -(-c_pad // PACK)
+    return w if w <= WORD_TILE else -(-w // WORD_TILE) * WORD_TILE
+
+
+def _radix_shape_ok(l_eff: int, n_bins: int) -> bool:
+    return (l_eff <= RADIX_MAX_WINDOW and n_bins % RADIX_NH == 0
+            and n_bins // RADIX_NH >= 8)
+
+
+def _radix_applicable(L: int, n_bins: int, half: bool) -> bool:
+    return _radix_shape_ok(hist_layout(L, half)[0], n_bins)
+
+
+def _fused_applicable(L_h: int, n_bins: int, c_pack: int) -> bool:
+    l_eff = (L_h + 1) // 2
+    return (l_eff <= FUSE_MAX_WINDOW
+            and c_pack * l_eff * S_STATS * n_bins * 4 <= _FUSE_VMEM_OUT)
 
 
 # ===========================================================================
@@ -86,7 +137,8 @@ def _hist_slots(heap, *, base, L, half, L_pad):
 
 def sbh_hist_plain(codes, heap, stats, *, base, L, n_bins, half=False):
     """index_add_ over the flattened (slot, bin) index, one column at a
-    time (hist_pallas.sbh_hist_xla). Stat row 3 stays zero."""
+    time (hist_pallas.sbh_hist_xla). Stat row 3 stays zero. Sums in the
+    stats' dtype: f32, f64, or int32 for the int8-quantized stats."""
     c_pad, n_pad = codes.shape
     _, _, _, L_pad = hist_layout(L, half)
     slot = _hist_slots(heap, base=base, L=L, half=half, L_pad=L_pad)
@@ -102,6 +154,16 @@ def sbh_hist_plain(codes, heap, stats, *, base, L, n_bins, half=False):
     return out
 
 
+def sbh_route_hist_plain(codes, heap, tbl, route_f, stats, *, base_r, L_r,
+                         base_h, L_h, n_bins):
+    """The sequential pair the fused kernel replaces: route, then the half
+    histogram over the new heap."""
+    newheap, _ = sbh_route_plain(codes, heap, tbl, route_f, base=base_r,
+                                 L=L_r)
+    return newheap, sbh_hist_plain(codes, newheap, stats, base=base_h, L=L_h,
+                                   n_bins=n_bins, half=True)
+
+
 # ===========================================================================
 # CUDA wrappers
 def _lib():
@@ -112,8 +174,14 @@ def _lib():
                                               ctypes.c_float, i32, vp]
         lib.h2o3_route.restype = i32
         lib.h2o3_hist.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, i32,
-                                             i32, i32, i64, vp]
+                                             i32, i32, i64, i32, vp]
         lib.h2o3_hist.restype = i32
+        lib.h2o3_radix.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, i32,
+                                              i32, i32, i64, i32, vp]
+        lib.h2o3_radix.restype = i32
+        lib.h2o3_fused.argtypes = [vp] * 7 + [i64] + [i32] * 9 + [i64, i32,
+                                                                  vp]
+        lib.h2o3_fused.restype = i32
         lib._h2o3_typed = True
     return lib
 
@@ -153,6 +221,53 @@ def _device_kind(t):
     raise ValueError(f"no route/hist implementation for device {t.device}")
 
 
+def _check_i8_rows(n_pad: int):
+    """The int32 sums of |stat| <= 127 stay exact only up to I8_MAX_ROWS
+    rows; raise past it rather than wrap."""
+    if n_pad > I8_MAX_ROWS:
+        raise ValueError(f"int8 histogram over {n_pad} rows: 127 * rows "
+                         f"overflows int32 past {I8_MAX_ROWS} rows")
+
+
+def _check_hist_inputs(codes, heap, stats, n_bins, int8):
+    """Validate the inputs every histogram kernel takes; returns
+    (device, c_pad, n_pad)."""
+    dev = codes.device
+    c_pad, n_pad = codes.shape
+    _check("codes", codes, torch.uint8, (c_pad, n_pad), dev)
+    _check("heap", heap, torch.int32, (n_pad,), dev)
+    _check("stats", stats, torch.int32 if int8 else torch.float32,
+           (S_STATS, n_pad), dev)
+    if n_pad % _HIST_ROW_ALIGN:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of "
+                         f"{_HIST_ROW_ALIGN}")
+    if not 0 < n_bins <= 256:
+        raise ValueError(f"n_bins={n_bins} outside (0, 256]")
+    return dev, c_pad, n_pad
+
+
+def _check_tables(tbl, route_f, n_bins, L, dev):
+    lp = route_f.shape[0]
+    _check("tbl", tbl, torch.float32, (8, lp), dev)
+    _check("route_f", route_f, torch.float32, (lp, n_bins), dev)
+    if not 0 < L <= lp:
+        raise ValueError(f"L={L} outside the table width {lp}")
+    return lp
+
+
+def _hist_out(L_pad, c_pad, n_bins, int8, dev):
+    """Zeroed accumulator of a histogram launch: int32 for int stats, f64
+    for float stats (the kernels sum in f64 and the wrapper hands back the
+    f32 cast)."""
+    return torch.zeros((L_pad, c_pad, S_STATS, n_bins),
+                       dtype=torch.int32 if int8 else torch.float64,
+                       device=dev)
+
+
+def _hist_result(acc, int8):
+    return acc if int8 else acc.to(torch.float32)
+
+
 def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
               eta=0.0, emit_f=False):
     """Route rows of leaves [base, base+L) by their splits.
@@ -167,13 +282,10 @@ def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
                                base=base, L=L, eta=eta, emit_f=emit_f)
     dev = codes.device
     c_pad, n_pad = codes.shape
-    lp, n_bins = route_f.shape
+    n_bins = route_f.shape[1]
     _check("codes", codes, torch.uint8, (c_pad, n_pad), dev)
     _check("heap", heap, torch.int32, (n_pad,), dev)
-    _check("tbl", tbl, torch.float32, (8, lp), dev)
-    _check("route_f", route_f, torch.float32, (lp, n_bins), dev)
-    if not 0 < L <= lp:
-        raise ValueError(f"L={L} outside the table width {lp}")
+    lp = _check_tables(tbl, route_f, n_bins, L, dev)
     newheap = torch.empty_like(heap)
     if emit_f:
         if valtab is None or F is None:
@@ -196,43 +308,155 @@ def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
     return newheap, newF
 
 
-def hist_grid(l_eff: int, n_bins: int):
+def hist_grid(l_eff: int, n_bins: int, acc_bytes: int = 8):
     """(win, n_windows, rows_per_block) of one histogram launch: the widest
-    leaf window that fits the shared-memory budget, and a row chunk long
-    enough that the per-block flush stays small next to the row work."""
-    win = max(1, min(l_eff, _SMEM_BUDGET // (3 * 8 * n_bins)))
+    leaf window that fits the shared-memory budget at `acc_bytes` per
+    accumulator (8 for f64, 4 for int32), and a row chunk long enough that
+    the per-block flush stays small next to the row work."""
+    win = max(1, min(l_eff, _SMEM_BUDGET // (3 * acc_bytes * n_bins)))
     n_windows = -(-l_eff // win)
     rows = max(16384, 8 * win * 3 * n_bins)
     rows = -(-rows // 1024) * 1024
     return win, n_windows, rows
 
 
-def sbh_hist(codes, heap, stats, *, base, L, n_bins, half=False):
-    """hist[l, c, s, b] = sum of stats[s, r] over rows with heap == base + l
-    (half: heap == base + 2l) and codes[c, r] == b, for s in 0..2; row 3
-    stays zero. codes uint8 (C_pad, n_pad); heap int32 (n_pad,); stats f32
-    (4, n_pad). Returns f32 (L_pad, C_pad, 4, n_bins)."""
+def radix_grid(l_eff: int, n_bins: int, acc_bytes: int = 8):
+    """(win, ncopy, rows_per_block) of one shallow-window launch: the
+    whole window (l_eff <= 2 slots) in each of `ncopy` private copies, one
+    per warp where the budget allows."""
+    win = max(1, l_eff)
+    ncopy = max(1, min(_WARPS, _SMEM_BUDGET // (win * 3 * acc_bytes * n_bins)))
+    return win, ncopy, 32768
+
+
+def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
+                   int8=False):
+    """The dense histogram kernel (every window width). hist[l, c, s, b] =
+    sum of stats[s, r] over rows with heap == base + l (half: heap ==
+    base + 2l) and codes[c, r] == b, for s in 0..2; row 3 stays zero.
+    codes uint8 (C_pad, n_pad); heap int32 (n_pad,); stats f32 (4, n_pad),
+    or int32 with int8. Returns (L_pad, C_pad, 4, n_bins), f32 or int32."""
+    if int8:
+        _check_i8_rows(codes.shape[1])
     if _device_kind(codes) == "cpu":
         return sbh_hist_plain(codes, heap, stats, base=base, L=L,
                               n_bins=n_bins, half=half)
-    dev = codes.device
-    c_pad, n_pad = codes.shape
-    _check("codes", codes, torch.uint8, (c_pad, n_pad), dev)
-    _check("heap", heap, torch.int32, (n_pad,), dev)
-    _check("stats", stats, torch.float32, (S_STATS, n_pad), dev)
-    if n_pad % _HIST_ROW_ALIGN:
-        raise ValueError(f"n_pad={n_pad} is not a multiple of "
-                         f"{_HIST_ROW_ALIGN}")
-    if not 0 < n_bins <= 256:
-        raise ValueError(f"n_bins={n_bins} outside (0, 256]")
+    dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     l_eff, _, _, L_pad = hist_layout(L, half)
-    # the kernel sums in f64 (see hist.cu) and hands back the f32 cast
-    acc = torch.zeros((L_pad, c_pad, S_STATS, n_bins), dtype=torch.float64,
-                      device=dev)
-    win, n_windows, rows = hist_grid(l_eff, n_bins)
+    acc = _hist_out(L_pad, c_pad, n_bins, int8, dev)
+    win, n_windows, rows = hist_grid(l_eff, n_bins, 4 if int8 else 8)
     rc = _lib().h2o3_hist(_ptr(codes), _ptr(heap), _ptr(stats), _ptr(acc),
                           n_pad, c_pad, n_bins, base, L, int(bool(half)),
-                          win, n_windows, rows, _stream(dev))
-    _raise_on(rc, "hist")
-    LAUNCHES["hist"] += 1
-    return acc.to(torch.float32)
+                          win, n_windows, rows, int(bool(int8)),
+                          _stream(dev))
+    _raise_on(rc, "hist_i8" if int8 else "hist")
+    LAUNCHES["hist_i8" if int8 else "hist"] += 1
+    return _hist_result(acc, int8)
+
+
+def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
+                   int8=False):
+    """The shallow-window histogram kernel (hist_pallas.sbh_hist_radix):
+    the same function as sbh_hist_dense, for effective windows of at most
+    RADIX_MAX_WINDOW leaves. Returns exactly (l_eff, C_pad, 4, n_bins)."""
+    l_eff = hist_layout(L, half)[0]
+    if not _radix_shape_ok(l_eff, n_bins):
+        raise ValueError(f"radix histogram needs a window <= "
+                         f"{RADIX_MAX_WINDOW} and n_bins a multiple of "
+                         f"{RADIX_NH} >= {8 * RADIX_NH}: l_eff={l_eff}, "
+                         f"n_bins={n_bins}")
+    if int8:
+        _check_i8_rows(codes.shape[1])
+    if _device_kind(codes) == "cpu":
+        return sbh_hist_plain(codes, heap, stats, base=base, L=L,
+                              n_bins=n_bins, half=half)
+    dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
+    acc = _hist_out(l_eff, c_pad, n_bins, int8, dev)
+    win, ncopy, rows = radix_grid(l_eff, n_bins, 4 if int8 else 8)
+    rc = _lib().h2o3_radix(_ptr(codes), _ptr(heap), _ptr(stats), _ptr(acc),
+                           n_pad, c_pad, n_bins, base, L, int(bool(half)),
+                           win, ncopy, rows, int(bool(int8)), _stream(dev))
+    _raise_on(rc, "radix")
+    LAUNCHES["radix"] += 1
+    return _hist_result(acc, int8)
+
+
+def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
+                         base_h, L_h, n_bins, int8=False):
+    """The level-fused kernel (hist_pallas.sbh_route_hist_fused_pallas):
+    route the splits of leaves [base_r, base_r+L_r), then the half
+    (left-children) histogram of leaves [base_h, base_h+L_h) over the
+    updated heap, in one pass. Returns (newheap int32 (n_pad,), hist
+    (l_eff, C_pad, 4, n_bins) f32, or int32 with int8)."""
+    l_eff = (L_h + 1) // 2
+    if l_eff > FUSE_MAX_WINDOW:
+        raise ValueError(f"fused level needs L_h <= {2 * FUSE_MAX_WINDOW}, "
+                         f"got {L_h}")
+    if route_f.shape[1] != n_bins:
+        raise ValueError(f"route_f has {route_f.shape[1]} bins, expected "
+                         f"{n_bins}")
+    if int8:
+        _check_i8_rows(codes.shape[1])
+    if _device_kind(codes) == "cpu":
+        return sbh_route_hist_plain(codes, heap, tbl, route_f, stats,
+                                    base_r=base_r, L_r=L_r, base_h=base_h,
+                                    L_h=L_h, n_bins=n_bins)
+    dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
+    lp = _check_tables(tbl, route_f, n_bins, L_r, dev)
+    newheap = torch.empty_like(heap)
+    acc = _hist_out(l_eff, c_pad, n_bins, int8, dev)
+    win, n_windows, rows = hist_grid(l_eff, n_bins, 4 if int8 else 8)
+    rc = _lib().h2o3_fused(_ptr(codes), _ptr(heap), _ptr(tbl), _ptr(route_f),
+                           _ptr(stats), _ptr(newheap), _ptr(acc), n_pad,
+                           c_pad, lp, n_bins, base_r, L_r, base_h, L_h, win,
+                           n_windows, rows, int(bool(int8)), _stream(dev))
+    _raise_on(rc, "fused")
+    LAUNCHES["fused"] += 1
+    return newheap, _hist_result(acc, int8)
+
+
+# ===========================================================================
+# Dispatch (hist_pallas.py sbh_hist, sbh_hist_i8, sbh_route_hist)
+def sbh_hist(codes, heap, stats, *, base, L, n_bins, half=False,
+             radix=None):
+    """f32 histogram. `radix`: None (auto) or True take the shallow-window
+    kernel wherever the window qualifies, False never."""
+    if radix is not False and _radix_applicable(L, n_bins, half):
+        return sbh_hist_radix(codes, heap, stats, base=base, L=L,
+                              n_bins=n_bins, half=half)
+    return sbh_hist_dense(codes, heap, stats, base=base, L=L, n_bins=n_bins,
+                          half=half)
+
+
+def sbh_hist_i8(codes, heap, stats_i8, *, base, L, n_bins, half=False,
+                radix=None):
+    """int8-stats histogram: int32 stats in [-127, 127], exact int32 sums
+    (the same function as sbh_hist over integer stats). `radix` as in
+    sbh_hist."""
+    if radix is not False and _radix_applicable(L, n_bins, half):
+        return sbh_hist_radix(codes, heap, stats_i8, base=base, L=L,
+                              n_bins=n_bins, half=half, int8=True)
+    return sbh_hist_dense(codes, heap, stats_i8, base=base, L=L,
+                          n_bins=n_bins, half=half, int8=True)
+
+
+def sbh_route_hist(codes, heap, tbl, route_f, stats, *, base_r, L_r, base_h,
+                   L_h, n_bins, int8=False, fused=None, radix=None):
+    """One level pass: route the previous level's splits, then the new
+    level's half (left-children) histogram over the updated heap. `fused`:
+    None (auto) or True take the fused kernel wherever the level qualifies,
+    False always the sequential pair (route, then sbh_hist / sbh_hist_i8
+    with `radix`). Unlike the JAX package's, it takes no `any_cat` or
+    `na_code`: route_f encodes numeric thresholds, categorical sets and the
+    NA direction alike. Returns (newheap, hist)."""
+    if int8:
+        _check_i8_rows(codes.shape[1])
+    if fused is not False and _fused_applicable(
+            L_h, n_bins, PACK * packed_words(codes.shape[0])):
+        return sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
+                                    base_r=base_r, L_r=L_r, base_h=base_h,
+                                    L_h=L_h, n_bins=n_bins, int8=int8)
+    newheap, _ = sbh_route(codes, heap, tbl, route_f, base=base_r, L=L_r)
+    hist_fn = sbh_hist_i8 if int8 else sbh_hist
+    return newheap, hist_fn(codes, newheap, stats, base=base_h, L=L_h,
+                            n_bins=n_bins, half=True, radix=radix)

@@ -5,7 +5,8 @@ one categorical column, its bin spec, code plane and bernoulli stats. The
 port runs the plain PyTorch versions of its kernels, the JAX package its
 XLA twins. Integer results (codes, split columns and bins, NA directions,
 routing tables, heap ids) must be equal; float results within 1e-5
-(f32 sums in another order).
+(f32 sums in another order). With int8 stats the histograms are exact
+integer sums in both packages, so the tree structure is equal too.
 """
 
 import jax
@@ -115,18 +116,19 @@ def test_pack_route_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
-def _growers(spec):
+def _growers(spec, int8=False):
     ref = JB.BinnedGrower(spec, max_depth=DEPTH, min_rows=10.0,
                           min_split_improvement=1e-5, axis_name=None,
-                          int8_stats=False, use_radix_shallow=False,
+                          int8_stats=int8, use_radix_shallow=False,
                           fused_level=False)
     ours = TB.BinnedGrower(spec, max_depth=DEPTH, min_rows=10.0,
-                           min_split_improvement=1e-5, device="cpu")
+                           min_split_improvement=1e-5, device="cpu",
+                           int8_stats=int8)
     return ref, ours
 
 
-def test_grow_one_tree_matches_jax(data):
-    ref_g, our_g = _growers(data["spec"])
+def _grow_matches_jax(data, int8):
+    ref_g, our_g = _growers(data["spec"], int8)
     # one jitted program: eager dispatch of grow() costs seconds on the CPU
     ref = jax.jit(lambda c, s, f: ref_g.grow(
         c, s, f, eta=0.1, clip_val=19.0, key=jax.random.PRNGKey(0)))(
@@ -143,6 +145,44 @@ def test_grow_one_tree_matches_jax(data):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
                                    rtol=ATOL, atol=ATOL, err_msg=k)
 
+
+def test_grow_one_tree_matches_jax(data):
+    _grow_matches_jax(data, int8=False)
+
+
+def test_grow_int8_tree_matches_jax(data):
+    """int8_stats=True in both growers: per-tree quantization, exact int32
+    histograms and sibling subtraction, dequantized once per level."""
+    _grow_matches_jax(data, int8=True)
+
+
+def test_grow_flags_give_one_tree(data):
+    """Every combination of use_radix_shallow and fused_level grows the
+    same tree (the flags choose kernels, never the function), with and
+    without int8 stats; the counterpart of the JAX package's
+    test_grow_radix_fused_flags_bit_identical."""
+    codes, stats, F = (torch.from_numpy(data[k])
+                       for k in ("codes", "stats", "F"))
+    for int8 in (False, True):
+        outs = []
+        for radix, fused in ((None, None), (False, False), (None, False),
+                             (False, None)):
+            g = TB.BinnedGrower(data["spec"], max_depth=DEPTH, min_rows=10.0,
+                                min_split_improvement=1e-5, device="cpu",
+                                int8_stats=int8, use_radix_shallow=radix,
+                                fused_level=fused)
+            assert (g.use_radix, g.fused, g.int8) == (radix, fused, int8)
+            outs.append(g.grow(codes, stats, F, eta=0.1, clip_val=19.0))
+        assert (outs[0]["col"] >= 0).sum() >= 7
+        for o in outs[1:]:
+            for k in ("col", "bin", "nal", "route", "val", "cover", "F",
+                      "heap"):
+                assert torch.equal(o[k], outs[0][k]), (int8, k)
+    # the JAX package's defaulting of the flags
+    g = TB.BinnedGrower(data["spec"], max_depth=DEPTH, min_rows=10.0,
+                        min_split_improvement=1e-5, use_radix_shallow=True,
+                        fused_level=True)
+    assert (g.int8, g.use_radix, g.fused) == (False, None, None)
 
 
 @pytest.mark.parametrize("dist", ["gaussian", "bernoulli", "poisson", "gamma",

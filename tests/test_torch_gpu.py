@@ -7,9 +7,10 @@ is installed; there, skip the repository's conftest (which sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances: routed heap ids bit-identical; the margin update within 1e-5
-(one f32 multiply-add); histograms within 1e-4 of each stat row's largest
-magnitude against the plain version in float64, since the kernel sums in
-float64 and casts once.
+(one f32 multiply-add); f32 histograms within 1e-4 of each stat row's
+largest magnitude against the plain version in float64, since the kernels
+sum in float64 and cast once; histograms of int32 stats (the int8 path)
+equal to the plain version (`torch.equal`: integer sums are exact).
 """
 
 import numpy as np
@@ -33,16 +34,29 @@ def HC():
     return hist_cuda
 
 
-def _inputs(dev, seed, *, n=1 << 16, c_pad=32, b_val=255, L=64):
+def _inputs(dev, seed, *, n=1 << 16, c_pad=32, b_val=255, L=64, int8=False):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, b_val, (c_pad, n)).astype(np.uint8)
     codes[rng.random((c_pad, n)) < 0.05] = b_val
+    codes[-2:] = 0                     # padding columns: every row in bin 0
     base = L - 1
     heap = rng.integers(base, base + L, n).astype(np.int32)
     heap[rng.random(n) < 0.1] = max(0, base - 1)
     stats = rng.normal(0, 1, (4, n)).astype(np.float32)
     stats[3] = 0.0
+    if int8:
+        stats = np.clip(np.round(stats * 40.0), -127, 127).astype(np.int32)
     return [torch.from_numpy(a).to(dev) for a in (codes, heap, stats)], base
+
+
+def _tables(dev, seed, L, c_pad, n_bins=256):
+    rng = np.random.default_rng(seed)
+    lp = max(8, L)
+    tbl = np.zeros((8, lp), np.float32)
+    tbl[0, :L] = rng.integers(0, c_pad, L)
+    tbl[1, :L] = rng.random(L) < 0.8
+    route_f = (rng.random((lp, n_bins)) < 0.5).astype(np.float32)
+    return torch.from_numpy(tbl).to(dev), torch.from_numpy(route_f).to(dev)
 
 
 def _rel_err(got, want):
@@ -91,7 +105,7 @@ def test_hist_kernel_matches_plain(dev, HC, L, half):
     (codes, heap, stats), base = _inputs(dev, 10 + L, L=L)
     kw = dict(base=base, L=L, n_bins=256, half=half)
     before = HC.LAUNCHES["hist"]
-    got = HC.sbh_hist(codes, heap, stats, **kw)
+    got = HC.sbh_hist(codes, heap, stats, radix=False, **kw)
     want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
     torch.cuda.synchronize()
     assert HC.LAUNCHES["hist"] == before + 1
@@ -125,6 +139,79 @@ def test_gbm_trains_through_the_kernels(dev, HC):
     HC.reset_launches()
     m = h2o.H2OGradientBoostingEstimator(ntrees=3, max_depth=4)
     m.train(y="y", training_frame=fr)
-    assert HC.LAUNCHES == {"hist": 12, "route": 9, "route_f": 3}
+    # per tree: the shallow-window kernel at level 0, the fused kernel at
+    # levels 1-3 (1, 2 and 4 left children), the terminal route
+    assert HC.LAUNCHES == {"hist": 0, "hist_i8": 0, "radix": 3, "fused": 9,
+                           "route": 0, "route_f": 3}
     p = m.predict(fr).to_numpy()
     assert np.isfinite(p).all() and m.auc() > 0.75
+    HC.reset_launches()
+    m8 = h2o.H2OGradientBoostingEstimator(ntrees=3, max_depth=4,
+                                          int8_hist=True)
+    m8.train(y="y", training_frame=fr)
+    assert HC.LAUNCHES == {"hist": 0, "hist_i8": 0, "radix": 3, "fused": 9,
+                           "route": 0, "route_f": 3}
+    HC.reset_launches()
+    ms = h2o.H2OGradientBoostingEstimator(ntrees=3, max_depth=4,
+                                          radix_shallow=False,
+                                          fused_level=False)
+    ms.train(y="y", training_frame=fr)
+    assert HC.LAUNCHES == {"hist": 12, "hist_i8": 0, "radix": 0, "fused": 0,
+                           "route": 9, "route_f": 3}
+    assert m8.auc() > 0.75 and abs(ms.auc() - m.auc()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("L", [1, 64, 128])
+def test_hist_i8_kernel_matches_plain(dev, HC, L, half):
+    (codes, heap, stats), base = _inputs(dev, 20 + L, L=L, int8=True)
+    kw = dict(base=base, L=L, n_bins=256, half=half)
+    before = HC.LAUNCHES["hist_i8"]
+    got = HC.sbh_hist_i8(codes, heap, stats, radix=False, **kw)
+    want = HC.sbh_hist_plain(codes, heap, stats, **kw)
+    torch.cuda.synchronize()
+    assert HC.LAUNCHES["hist_i8"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("L,half", [(1, False), (2, True), (4, True)])
+def test_radix_kernel_matches_plain(dev, HC, L, half, int8):
+    (codes, heap, stats), base = _inputs(dev, 30 + L, L=L, int8=int8)
+    kw = dict(base=base, L=L, n_bins=256, half=half)
+    before = HC.LAUNCHES["radix"]
+    got = HC.sbh_hist_radix(codes, heap, stats, int8=int8, **kw)
+    want = HC.sbh_hist_plain(codes, heap, stats if int8 else stats.double(),
+                             **kw)
+    torch.cuda.synchronize()
+    assert HC.LAUNCHES["radix"] == before + 1
+    assert got.shape == want.shape
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_err(got, want) <= HIST_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("L_h", [2, 4, 32])
+def test_fused_kernel_matches_plain(dev, HC, L_h, int8):
+    L_r = L_h // 2
+    (codes, heap, stats), base_r = _inputs(dev, 40 + L_h, L=L_r, int8=int8)
+    tbl, route_f = _tables(dev, 41 + L_h, L_r, codes.shape[0])
+    kw = dict(base_r=base_r, L_r=L_r, base_h=L_h - 1, L_h=L_h, n_bins=256)
+    before = HC.LAUNCHES["fused"]
+    h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
+                                       int8=int8, **kw)
+    h_p, want = HC.sbh_route_hist_plain(
+        codes, heap, tbl, route_f, stats if int8 else stats.double(), **kw)
+    torch.cuda.synchronize()
+    assert HC.LAUNCHES["fused"] == before + 1
+    assert torch.equal(h_k, h_p) and (h_k != heap).any()
+    assert got.shape == want.shape == (L_h // 2, codes.shape[0], 4, 256)
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_err(got, want) <= HIST_RTOL
