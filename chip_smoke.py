@@ -6,15 +6,20 @@
 Phases, each printing its lines before the last:
   1. the card (nvidia-smi name and power limit, torch's device name) and
      the kernels' build: every csrc/*.cu compiled by nvcc for sm_90a, all
-     sources at once, with each kernel's registers and the shared-memory
-     atomic instructions it compiled to;
+     sources at once, with each kernel's registers and the atomic
+     instructions it compiled to; the f32 dense and fused kernels must show
+     no compare-and-swap shared atomic;
   2. each kernel against its plain PyTorch version on the card (for f32
      histograms, the plain version in float64; int32 histograms must be
      equal), at small shapes: route with and without the margin update;
      the dense histogram, f32 and int8, with half False and True at L = 1,
      64 and 128; the shallow-window histogram at L = 1 full and L = 2 and
      4 half, f32 and int8; the fused route+histogram at L_h = 2, 4 and 32,
-     f32 and int8, heap ids identical;
+     f32 and int8, heap ids identical; then the f32 dense and fused
+     kernels on adversarial stats (weights up to 1e4, alternating-sign
+     grads, every row in one slot and one bin, one NaN and one inf stat:
+     their bins as in float64, every other bin within tolerance), each
+     launched twice on the same inputs with bit-identical results;
   3. the main path at small size: a seeded CSV through import_file, a
      bernoulli GBM (the default configuration, then int8_hist=True),
      predict and AUC, on the card and on the CPU (plain versions), which
@@ -39,7 +44,9 @@ Phases, each printing its lines before the last:
      where there is one, and its bound (the bytes that tree's data needs,
      each input read once and each output written once, over 3.35 TB/s,
      or its f32 operations over 67 TFLOP/s, whichever is larger), and its
-     agreement with the plain version on those inputs.
+     agreement with the plain version on those inputs; the f32 dense and
+     fused kernels also at one column per block and at the column groups
+     of two shared-memory budgets, each grouping's result bit-identical.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,7 +69,7 @@ import numpy as np
 # operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-HIST_RTOL = 1e-4      # f32 sums in another order (atomics on the card)
+HIST_RTOL = 1e-4      # f32 results of sums in another order or fixed point
 F_ATOL = 1e-5         # one f32 multiply-add
 TPU_KERNELS = {
     "sbh_route": "h2o3_tpu/ops/hist_pallas.py:425",
@@ -120,32 +128,47 @@ def phase_card(torch, _build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    ops = {}
     for name in logs:
-        sass_atomics(_build, name)
+        ops.update(sass_atomics(_build, name))
+    # the f32 dense and fused kernels sum in fixed point: no shared atomic
+    # of theirs may be a compare-and-swap loop (the f64 adds they replace
+    # compiled to ATOMS.CAST.SPIN.64)
+    f32 = {fn: found for fn, found in ops.items()
+           if re.search(r"(hist|fused)_kernelIfE", fn)}
+    check(len(f32) == 2, f"f32 dense and fused kernels not found in the "
+          f"SASS: {sorted(ops)}")
+    for fn, found in f32.items():
+        cas = sorted(op for op in found if op.startswith("ATOMS.CAS"))
+        check(not cas, f"{fn} compiled a compare-and-swap shared atomic: "
+              f"{cas}")
     return card
 
 
 def sass_atomics(_build, name):
-    """Print the shared-memory atomic instructions (ATOMS.*) each kernel
-    of a built library compiled to, from cuobjdump -sass where the toolkit
-    has it: an add done as a compare-and-swap loop shows as ATOMS.CAS*,
-    a native one as ATOMS.ADD*."""
+    """Print the atomic instructions each kernel of a built library
+    compiled to, from cuobjdump -sass: shared-memory ATOMS.* (an add done
+    as a compare-and-swap loop shows as ATOMS.CAS*, a native one as
+    ATOMS.ADD*) and global RED.* / ATOM.*. Returns {function: set of
+    ops}."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    if not os.path.isfile(tool):
-        say(f"sass {name}: cuobjdump not found")
-        return
+    check(os.path.isfile(tool), f"cuobjdump not found beside nvcc: {tool}")
     sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
     fn, ops = None, {}
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             ops[fn] = set()
-        elif fn and "ATOMS." in line:
-            ops[fn].add(line.split("ATOMS.")[1].split()[0].rstrip(";"))
+        elif fn:
+            m = re.search(r"\b(ATOMS|RED|ATOM)\.([A-Z0-9_.]+)", line)
+            if m:
+                ops[fn].add(f"{m.group(1)}.{m.group(2)}")
     for fn, found in ops.items():
         if found:
-            say(f"sass {name} {fn}: ATOMS.{{{', '.join(sorted(found))}}}")
+            say(f"sass {name} {fn}: {{{', '.join(sorted(found))}}}")
+    return ops
 
 
 def _codes_heap_stats(torch, dev, seed, *, n, c_pad, b_val, L, int8=False):
@@ -242,6 +265,112 @@ def phase_kernels_small(torch, HC, dev):
                                                stats, int8=int8, **kw)
             check_fused(torch, HC, f"fused int8={int8} L_h={L_h} n={n}",
                         h_k, got, (codes, heap, tbl, route_f, stats), kw, int8)
+
+
+def _adversarial(torch, dev, seed, *, n, c_pad, b_val, L, one_bin=False,
+                 nonfinite=False):
+    """Stats that stress a fixed-point sum: weights up to 1e4, grads of
+    alternating sign (the first half of the rows in pairs that cancel
+    exactly), hess a fraction of the weight. one_bin puts every row in the
+    window's first slot and every code in one bin; nonfinite makes one
+    grad NaN and one hess +inf, in rows of the window."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, b_val, (c_pad, n)).astype(np.uint8)
+    codes[-2:] = 0
+    base = L - 1
+    heap = rng.integers(base, base + L, n).astype(np.int32)
+    if one_bin:
+        codes[:] = 7
+        heap[:] = base
+    w = rng.uniform(0.0, 1e4, n)
+    g = w * rng.uniform(0.5, 1.5, n)
+    g[1: n // 2: 2] = g[0: n // 2 - 1: 2]
+    g[1::2] *= -1.0
+    stats = np.stack([w, g, w * rng.uniform(0.05, 0.25, n),
+                      np.zeros(n)]).astype(np.float32)
+    if nonfinite:
+        stats[1, 10] = np.nan
+        stats[2, 21] = np.inf
+        heap[[10, 21]] = base            # leaf 0: slot 0 of a half window
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(heap).to(dev),
+            torch.from_numpy(stats).to(dev), base)
+
+
+def bit_equal(torch, a, b):
+    """Equal bit for bit (NaN included) and of one shape."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_adversarial(torch, what, got, again, want, nonfinite):
+    """Hold an f32 histogram of adversarial stats to the float64 plain
+    version: bins the plain version makes NaN or +-inf equal (and present
+    where the stats hold a NaN and an inf), every other bin within
+    HIST_RTOL of its stat row's scale; and a second launch on the same
+    inputs bit-identical to the first."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    check(bit_equal(torch, got, again), f"{what}: two launches differ")
+    fin = torch.isfinite(want)
+    check(bool((~fin).any()) == nonfinite, f"{what}: "
+          f"{int((~fin).sum())} non-finite bins in the plain version")
+    check(torch.equal(fin, torch.isfinite(got)), f"{what}: non-finite bins "
+          f"differ ({int((~fin).sum())} in the plain version)")
+    check(torch.equal(torch.isnan(want), torch.isnan(got)),
+          f"{what}: NaN bins differ")
+    inf = torch.isinf(want)
+    check(torch.equal(got[inf].double(), want[inf]), f"{what}: inf bins "
+          "differ")
+    zero = torch.zeros((), dtype=torch.float64, device=want.device)
+    err = hist_rel_err(torch.where(fin, got.double(), zero),
+                       torch.where(fin, want, zero))
+    check(err <= HIST_RTOL, f"{what}: rel err {err}")
+    say(f"kernel {what}: rel err {err:.3g} (tol {HIST_RTOL}), "
+        f"{int((~fin).sum())} non-finite bins as in f64, two launches "
+        "bit-identical")
+    return err
+
+
+def phase_adversarial(torch, HC, dev):
+    n, c_pad, n_bins, b_val = 1 << 16, 32, 256, 255
+    cases = (("one slot, one bin", 1, dict(one_bin=True)),
+             ("L=64 half", 64, {}),
+             ("L=64 half, NaN and inf", 64, dict(nonfinite=True)))
+    for what, L, extra in cases:
+        codes, heap, stats, base = _adversarial(torch, dev, 60 + L, n=n,
+                                                c_pad=c_pad, b_val=b_val,
+                                                L=L, **extra)
+        kw = dict(base=base, L=L, n_bins=n_bins, half=L > 1)
+        got, again = (HC.sbh_hist_dense(codes, heap, stats, **kw)
+                      for _ in range(2))
+        want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
+        check_adversarial(torch, f"hist adversarial {what} n={n}", got,
+                          again, want, "nonfinite" in extra)
+    for what, L_h, extra in (("every row to one slot, one bin", 2,
+                              dict(one_bin=True)),
+                             ("L_h=32", 32, {}),
+                             ("L_h=32, NaN and inf", 32,
+                              dict(nonfinite=True))):
+        L_r = L_h // 2
+        codes, heap, stats, base_r = _adversarial(torch, dev, 70 + L_h, n=n,
+                                                  c_pad=c_pad, b_val=b_val,
+                                                  L=L_r, **extra)
+        tbl, route_f = _route_tables(torch, dev, 71 + L_h, L_r, c_pad, n_bins)
+        if extra:
+            tbl[1, 0] = 1.0               # leaf 0 splits, every row left
+            route_f[0] = 0.0
+        kw = dict(base_r=base_r, L_r=L_r, base_h=L_h - 1, L_h=L_h,
+                  n_bins=n_bins)
+        (h_k, got), (h_2, again) = (
+            HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats, **kw)
+            for _ in range(2))
+        h_p, want = HC.sbh_route_hist_plain(codes, heap, tbl, route_f,
+                                            stats.double(), **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(h_k, h_p) and torch.equal(h_k, h_2),
+              f"fused adversarial {what}: heap differs")
+        check_adversarial(torch, f"fused adversarial {what} n={n}", got,
+                          again, want, "nonfinite" in extra)
 
 
 def check_hist(torch, HC, what, got, codes, heap, stats, kw, int8):
@@ -601,7 +730,7 @@ def time_hist(torch, HC, name, args, kw):
     codes, heap, stats = args
     fn = getattr(HC, name)
     int8 = bool(kw.get("int8", False))
-    pkw = {k: v for k, v in kw.items() if k != "int8"}
+    pkw = {k: v for k, v in kw.items() if k not in ("int8", "scale")}
     c_pad, n = codes.shape
     half = pkw.get("half", False)
     l_eff, _, _, L_pad = HC.hist_layout(pkw["L"], half)
@@ -622,11 +751,37 @@ def time_hist(torch, HC, name, args, kw):
     nbytes = 4 * n + rows_in * (c_pad + 12) + L_pad * c_pad * 4 * \
         pkw["n_bins"] * 4
     b_ms, by = _bound_ms(nbytes, 3 * c_pad * rows_in)
+    groups = ""
+    if name == "sbh_hist_dense" and not int8:
+        groups = "; " + time_groups(
+            torch, HC, lambda g: fn(*args, **kw, group=g), l_eff, c_pad,
+            pkw["n_bins"])
     say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {rows_in} "
-        f"rows summed of {l_eff} slots)")
+        f"rows summed of {l_eff} slots){groups}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=abs_err)
+
+
+def time_groups(torch, HC, run, l_eff, c_pad, n_bins):
+    """Time an f32 dense or fused launch, run(group), at one column per
+    block (the widest window), two, and the column groups that a 96 KB and
+    the largest shared-memory budget give at the default window; every
+    grouping's histogram must equal the first's bit for bit (fixed-point
+    sums are exact). Returns the times as text."""
+    win = HC.level_grid(l_eff, n_bins, c_pad, False)[0]
+    gs = sorted({1, min(2, c_pad),
+                 HC.column_group(win, n_bins, c_pad, 96 * 1024),
+                 HC.column_group(win, n_bins, c_pad, HC.SMEM_MAX)})
+    ref, parts = None, []
+    for g in gs:
+        out = run(g)
+        if ref is None:
+            ref = out
+        check(bit_equal(torch, out, ref), f"group {g}: histogram differs "
+              f"from group {gs[0]}")
+        parts.append(f"G={g} {time_ms(torch, lambda: run(g), 10):.4f} ms")
+    return "columns per block " + ", ".join(parts) + " (bit-identical)"
 
 
 def time_route(torch, HC, args, kw):
@@ -658,7 +813,7 @@ def time_route(torch, HC, args, kw):
 def time_fused(torch, HC, args, kw):
     codes, heap, tbl, route_f, stats = args
     int8 = bool(kw.get("int8", False))
-    pkw = {k: v for k, v in kw.items() if k != "int8"}
+    pkw = {k: v for k, v in kw.items() if k not in ("int8", "scale")}
     c_pad, n = codes.shape
     l_eff = (pkw["L_h"] + 1) // 2
     what = f"fused int8={int8} L_h={pkw['L_h']} n={n} C={c_pad}"
@@ -676,9 +831,15 @@ def time_fused(torch, HC, args, kw):
               + rows_in * (c_pad + 12)
               + l_eff * c_pad * 4 * pkw["n_bins"] * 4)
     b_ms, by = _bound_ms(nbytes, 3 * c_pad * rows_in)
+    groups = ""
+    if not int8:
+        groups = "; " + time_groups(
+            torch, HC,
+            lambda g: HC.sbh_route_hist_fused(*args, **kw, group=g)[1],
+            l_eff, c_pad, pkw["n_bins"])
     say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({by}, {moved} rows routed, {rows_in} rows summed "
-        f"of {l_eff} slots)")
+        f"of {l_eff} slots){groups}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=by, max_abs_err=abs_err)
 
@@ -755,6 +916,7 @@ def main():
     card = phase_card(torch, _build)
     dev = torch.device("cuda", 0)
     phase_kernels_small(torch, HC, dev)
+    phase_adversarial(torch, HC, dev)
     phase_small_path(torch, h2o, HC)
     runs = phase_higgs(torch, h2o, HC)
     kernels = phase_timing(torch, HC, runs)

@@ -303,9 +303,13 @@ class BinnedGrower:
                 .to(torch.int32)
             inv = absmax.clamp(min=1e-30)[:, 0] / 127.0
             hist_fn = HC.sbh_hist_i8
+            hkw = {}
         else:
             stats_in = stats
             hist_fn = HC.sbh_hist
+            # the f32 dense and fused kernels' fixed-point scale, once per
+            # tree for the same reason (kept on the device)
+            hkw = {"scale": HC.hist_scale(stats)}
         # hist_prev keeps the level's full histogram in its native dtype
         # (int32 with int8: the sibling subtraction stays exact)
         prev = hist_prev = did_prev = None
@@ -314,7 +318,8 @@ class BinnedGrower:
             base = L - 1
             if d == 0:
                 hacc = hist_fn(codes, heap, stats_in, base=base, L=L,
-                               n_bins=BP, radix=self.use_radix)[:L, :C]
+                               n_bins=BP, radix=self.use_radix,
+                               **hkw)[:L, :C]
             else:
                 # one level pass: route the previous level, histogram the
                 # LEFT children over the new heap; right = parent - left
@@ -323,7 +328,7 @@ class BinnedGrower:
                     codes, heap, prev[0], prev[1], stats_in,
                     base_r=(L >> 1) - 1, L_r=L >> 1, base_h=base, L_h=L,
                     n_bins=BP, int8=self.int8, fused=self.fused,
-                    radix=self.use_radix)
+                    radix=self.use_radix, **hkw)
                 left = left[: L >> 1, :C]
                 par = torch.where(did_prev[:, None, None, None], hist_prev,
                                   torch.zeros_like(hist_prev))

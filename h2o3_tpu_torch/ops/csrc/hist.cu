@@ -7,12 +7,19 @@
 //   heap    int32 (n_pad,)  heap node id of every row
 //   stats   f32 or int32 (4, n_pad) rows 0 = w, 1 = w*grad, 2 = w*hess,
 //                 3 = spare (0); int32 holds the int8-quantized stats
+//   scale   f64   (3,)       power-of-two fixed-point scale of each stat row
+//                 (float stats of the dense and fused kernels)
 //   tbl     f32   (8, lp)    row 0 = split column, row 1 = did-split
 //   route_f f32   (lp, n_bins) 1.0 = code goes right
 //   valtab  f32   (8, nodes_p) row 0 = leaf values (emit_f only)
-//   hist    f64 (float stats) or int32 (int stats), (l_pad, c_pad, 4,
-//                 n_bins), zeroed by the caller; the wrapper hands back the
-//                 f64 sums' f32 cast
+//   hist    (l_pad, c_pad, 4, n_bins), zeroed by the caller: int64 fixed
+//                 point for the float stats of the dense and fused kernels
+//                 (stat s in units of 1 / scale[s]), f64 for the float stats
+//                 of the shallow-window kernel, int32 for int stats; the
+//                 wrapper hands back the f32 value
+//   side    f32   hist's shape, zeroed by the caller: the sum of the
+//                 non-finite stats that reached each bin (dense and fused
+//                 kernels, float stats)
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() of its launch (or the
@@ -20,6 +27,7 @@
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -90,13 +98,142 @@ route_kernel(const uint8_t* __restrict__ codes,
 // ---------------------------------------------------------------------------
 // Shared pieces of the histogram kernels.
 //
-// T is the stats type (float, or int32 for the int8-quantized stats) and Acc
-// the accumulator: f64 for float stats, int32 for int stats. Both sums are
-// order-independent in effect: the int32 sums exactly, and a bin that holds
-// most rows (a dominant level, a constant or padding column) takes one add
-// per row of the block's chunk, where 16K f32 adds of one value into one
-// address lost 8e-5 of the bin (measured at 11M rows); in f64 the rounding
-// left is the final cast to f32.
+// Accumulators. A bin that holds most rows (a dominant level, a constant or
+// padding column) takes one add per row, and f32 adds of 16K values into
+// one address lost 8e-5 of the bin (measured at 11M rows), so no f32 sum
+// is used:
+//   * int stats (the int8 path) sum in int32, exactly;
+//   * the float stats of the dense and fused kernels sum in 64-bit fixed
+//     point (Fixed): stat row s of a row becomes q = round(x * scale[s]),
+//     with scale[s] the power of two that keeps n_pad * max|x| * scale[s]
+//     <= 2^62 (hist_cuda.hist_scale). The scaling is exact, so q rounds
+//     once, by at most 2^-(e+1) < n_pad * max|x| / 2^62 of x; integer sums
+//     are exact and order-free (the total fits: |sum q| <= 2^62 + n_pad/2),
+//     so every launch on the same inputs gives the same bits. The f64 sums
+//     these replace compiled to compare-and-swap loops
+//     (ATOMS.CAST.SPIN.64) and ran at a quarter of the int32 forms' speed;
+//   * the shallow-window kernel keeps f64 for float stats.
+using Fixed = unsigned long long;       // two's complement int64 bits
+
+// Values a row adds to the histogram, one per stat row and row of a 4-row
+// step, and the mask of the values that cannot be summed there.
+template <typename T> struct Values;
+
+template <> struct Values<int32_t> {
+  using Acc = int32_t;
+  // Threads of a dense or fused block, and columns per block: the int32
+  // forms take one column per block, fixed at compile time, so their
+  // blocks keep the registers (and the occupancy at the shallow levels,
+  // where windows are small) they had before the f32 forms took column
+  // groups. With a run-time column loop they ran slower.
+  static constexpr int kThreads = 512;
+  static constexpr bool kOneColumn = true;
+  __device__ explicit Values(const double*) {}
+  __device__ unsigned operator()(const int32_t x[kStats][4], const int[4],
+                                 Acc v[kStats][4]) const {
+#pragma unroll
+    for (int s = 0; s < kStats; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[s][k] = x[s][k];
+    return 0;
+  }
+};
+
+template <> struct Values<float> {
+  using Acc = Fixed;
+  // The fixed-point adds wait on an atomic's returned word, and a block of
+  // 8-byte windows takes most of the SM's shared memory, so one block is
+  // all an SM holds: 1024 threads (64 registers each, no spills) hide that
+  // latency, and ran faster than 512 on the card; the int32 forms ran
+  // faster at 512 and keep it.
+  static constexpr int kThreads = 1024;
+  static constexpr bool kOneColumn = false;
+  // scale[s] = s1[s] * s2[s], both powers of two that f32 holds (scale is
+  // 2^-98 .. 2^211; s2 is 1 unless scale > 2^127)
+  float s1[kStats], s2[kStats];
+  __device__ explicit Values(const double* __restrict__ s) {
+#pragma unroll
+    for (int i = 0; i < kStats; ++i) {
+      const double si = __ldg(s + i);
+      s1[i] = static_cast<float>(fmin(si, 0x1p127));
+      s2[i] = static_cast<float>(si / static_cast<double>(s1[i]));
+    }
+  }
+  // round(x * scale), rounded once: both products are exact (|x * scale|
+  // <= 2^62, and where x * s1 underflows the value rounds to 0 anyway).
+  // Below 2^31 the f32 -> int32 conversion rounds it (to nearest even);
+  // from 2^31 up, y holds an integer, its 24-bit significand shifted left.
+  // (Conversions to 64-bit integers run at a quarter of the 32-bit rate on
+  // Hopper, per the CUDA programming guide's throughput table.)
+  __device__ static long long fixed(float x, float s1, float s2) {
+    const float y = (x * s1) * s2;
+    if (fabsf(y) < 0x1p31f) return __float2int_rn(y);
+    const unsigned b = __float_as_uint(y);
+    const long long m = static_cast<long long>((b & 0x7fffffu) | 0x800000u)
+                        << (((b >> 23) & 0xffu) - 150);
+    return (b >> 31) ? -m : m;
+  }
+  // A NaN or +-inf stat has no fixed-point value: it adds 0 here and goes
+  // to the side buffer (bit s * 4 + k of the mask) for rows in the window.
+  __device__ unsigned operator()(const float x[kStats][4], const int slot[4],
+                                 Acc v[kStats][4]) const {
+    unsigned nf = 0;
+#pragma unroll
+    for (int s = 0; s < kStats; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (isfinite(x[s][k])) {
+          v[s][k] = static_cast<Fixed>(fixed(x[s][k], s1[s], s2[s]));
+        } else {
+          v[s][k] = 0;
+          if (slot[k] >= 0) nf |= 1u << (s * 4 + k);
+        }
+      }
+    return nf;
+  }
+};
+
+// Window histograms [win][3][n_bins] in shared memory, one accumulator per
+// (slot, stat, bin) index i; window k of a block starts k windows into the
+// dynamic shared memory.
+//   int32: native ATOMS.ADD.
+//   f64: a compare-and-swap loop (ATOMS.CAST.SPIN.64), left in the
+//     shallow-window kernel.
+//   Fixed: a 64-bit atomicAdd on shared memory also compiles to
+//     ATOMS.CAST.SPIN.64 for sm_90a, so a value is added as two native
+//     32-bit ATOMS.ADD on its words: the low word's add returns the old
+//     word, and its carry (old + lo < old, unsigned) goes into the high
+//     word with the high half. The sum is exact modulo 2^64, and the true
+//     total fits int64. A zero low half (a weight of exactly 1 at scale
+//     2^37 has one) skips the low add, a zero high half with no carry the
+//     high add. (Keeping the low and high words in two planes, so that
+//     lanes adding into random bins spread over all 32 banks, ran slower
+//     on the card than words side by side.)
+template <typename Acc> struct Window {
+  Acc* p;
+  __device__ Window(unsigned char* smem, int k, int nsh)
+      : p(reinterpret_cast<Acc*>(smem) + static_cast<size_t>(k) * nsh) {}
+  __device__ void add(int i, Acc v) const { atomicAdd(p + i, v); }
+  __device__ Acc get(int i) const { return p[i]; }
+};
+
+template <> struct Window<Fixed> {
+  Fixed* p;
+  __device__ Window(unsigned char* smem, int k, int nsh)
+      : p(reinterpret_cast<Fixed*>(smem) + static_cast<size_t>(k) * nsh) {}
+  __device__ void add(int i, Fixed v) const {
+    unsigned* w = reinterpret_cast<unsigned*>(p + i);
+    const unsigned lo = static_cast<unsigned>(v);
+    unsigned hi = static_cast<unsigned>(v >> 32);
+    if (lo != 0) {
+      const unsigned old = atomicAdd(w, lo);
+      hi += old + lo < old ? 1u : 0u;
+    }
+    if (hi != 0) atomicAdd(w + 1, hi);
+  }
+  __device__ Fixed get(int i) const { return p[i]; }
+};
+
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int32_t> { using type = int4; };
@@ -125,14 +262,14 @@ __device__ __forceinline__ int window_slot(int h, int base, int n_leaves,
   return ok && s >= 0 && s < win ? s : -1;
 }
 
-// Fold 4 consecutive rows into a shared window histogram sh[win][3][n_bins].
-// With kRuns, rows in a run that share one (slot, bin) key are summed in
+// Fold the values of 4 consecutive rows into a window histogram. With
+// kRuns, rows in a run that share one (slot, bin) key are summed in
 // registers first and take one shared atomic per stat: a constant or
 // padding column (every row in bin 0) then costs a quarter of the atomics.
-template <bool kRuns, typename T, typename Acc>
-__device__ __forceinline__ void fold4(Acc* __restrict__ sh, const int slot[4],
-                                      const uchar4 c4, const T ws[4],
-                                      const T gs[4], const T es[4],
+// (The dense and fused kernels measured no gain from it, and fold without.)
+template <bool kRuns, typename Acc>
+__device__ __forceinline__ void fold4(const Window<Acc>& sh, const int slot[4],
+                                      const uchar4 c4, const Acc v[kStats][4],
                                       int n_bins) {
   const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
   if (!kRuns) {
@@ -141,10 +278,10 @@ __device__ __forceinline__ void fold4(Acc* __restrict__ sh, const int slot[4],
       // codes >= n_bins are outside the contract: dropped, never written
       // past the window's shared histogram
       if (slot[k] < 0 || cs[k] >= n_bins) continue;
-      Acc* dst = sh + slot[k] * kStats * n_bins + cs[k];
-      atomicAdd(dst, static_cast<Acc>(ws[k]));
-      atomicAdd(dst + n_bins, static_cast<Acc>(gs[k]));
-      atomicAdd(dst + 2 * n_bins, static_cast<Acc>(es[k]));
+      const int i = slot[k] * kStats * n_bins + cs[k];
+      sh.add(i, v[0][k]);
+      sh.add(i + n_bins, v[1][k]);
+      sh.add(i + 2 * n_bins, v[2][k]);
     }
     return;
   }
@@ -156,41 +293,139 @@ __device__ __forceinline__ void fold4(Acc* __restrict__ sh, const int slot[4],
     const int kk = slot[k] * kStats * n_bins + cs[k];
     if (kk != key) {
       if (key >= 0) {
-        atomicAdd(sh + key, aw);
-        atomicAdd(sh + key + n_bins, ag);
-        atomicAdd(sh + key + 2 * n_bins, ah);
+        sh.add(key, aw);
+        sh.add(key + n_bins, ag);
+        sh.add(key + 2 * n_bins, ah);
       }
       key = kk;
       aw = ag = ah = 0;
     }
-    aw += static_cast<Acc>(ws[k]);
-    ag += static_cast<Acc>(gs[k]);
-    ah += static_cast<Acc>(es[k]);
+    aw += v[0][k];
+    ag += v[1][k];
+    ah += v[2][k];
   }
   if (key >= 0) {
-    atomicAdd(sh + key, aw);
-    atomicAdd(sh + key + n_bins, ag);
-    atomicAdd(sh + key + 2 * n_bins, ah);
+    sh.add(key, aw);
+    sh.add(key + n_bins, ag);
+    sh.add(key + 2 * n_bins, ah);
   }
 }
 
-// Add `ncopy` shared copies of a window histogram [win][3][n_bins] and flush
-// the non-zero bins into the output (l_pad, c_pad, 4, n_bins) at slots
-// w0 .. w0 + win, column c, with global atomics.
+// Non-finite stats of a 4-row step (mask nf from Values<float>) into the
+// side buffer at their (slot, column, stat, bin), with global f32 atomics:
+// a sum of NaN and +-inf values is what the f64 sum of the bin would be.
+__device__ __forceinline__ void add_nonfinite(float* __restrict__ side, unsigned nf,
+                                              const float x[kStats][4],
+                                              const int slot[4], const uchar4 c4,
+                                              int c, int c_pad, int n_bins, int w0) {
+  const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+  for (int s = 0; s < kStats; ++s)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!((nf >> (s * 4 + k)) & 1u) || cs[k] >= n_bins) continue;
+      const int64_t o =
+          ((static_cast<int64_t>(w0 + slot[k]) * c_pad + c) * 4 + s) * n_bins + cs[k];
+      atomicAdd(side + o, x[s][k]);
+    }
+}
+
+// Zero `nwin` windows of nsh accumulators.
 template <typename Acc>
-__device__ __forceinline__ void flush_window(const Acc* __restrict__ sh, int ncopy,
-                                             int nsh, Acc* __restrict__ hist,
-                                             int c, int c_pad, int n_bins, int w0) {
-  for (int i = threadIdx.x; i < nsh; i += blockDim.x) {
-    Acc v = 0;
-    for (int k = 0; k < ncopy; ++k) v += sh[k * nsh + i];
-    if (v == 0) continue;
-    const int b = i % n_bins;
-    const int s = (i / n_bins) % kStats;
-    const int slot = w0 + i / (kStats * n_bins);
-    const int64_t o = ((static_cast<int64_t>(slot) * c_pad + c) * 4 + s) * n_bins + b;
-    atomicAdd(hist + o, v);
+__device__ __forceinline__ void zero_windows(unsigned char* smem, int nwin, int nsh) {
+  unsigned* z = reinterpret_cast<unsigned*>(smem);
+  const int words = static_cast<int>(nwin * nsh * sizeof(Acc) / sizeof(unsigned));
+  for (int i = threadIdx.x; i < words; i += blockDim.x) z[i] = 0;
+}
+
+// Add `ncopy` shared copies of `ncol` window histograms (window k * ncol + j
+// is copy k of column c0 + j) and flush the non-zero bins into the output
+// (l_pad, c_pad, 4, n_bins) at slots w0 .. w0 + win, columns c0 .. c0 +
+// ncol, with global atomics (RED.E.ADD.64 for Fixed, native).
+template <typename Acc>
+__device__ __forceinline__ void flush_window(unsigned char* smem, int ncopy,
+                                             int ncol, int nsh, Acc* __restrict__ hist,
+                                             int c0, int c_pad, int n_bins, int w0) {
+  for (int j = 0; j < ncol; ++j) {
+    for (int i = threadIdx.x; i < nsh; i += blockDim.x) {
+      Acc v = 0;
+      for (int k = 0; k < ncopy; ++k) v += Window<Acc>(smem, k * ncol + j, nsh).get(i);
+      if (v == 0) continue;
+      const int b = i % n_bins;
+      const int s = (i / n_bins) % kStats;
+      const int slot = w0 + i / (kStats * n_bins);
+      const int64_t o =
+          ((static_cast<int64_t>(slot) * c_pad + c0 + j) * 4 + s) * n_bins + b;
+      atomicAdd(hist + o, v);
+    }
   }
+}
+
+// One block of a dense or fused level pass: rows [r0, r0 + rows_per_block),
+// columns c0 .. c0 + group, leaf window w0 .. w0 + win. Per 4-row step it
+// loads the heap once (and with kRoute routes the rows by the previous
+// level's splits), loads the stats and turns them into values once, then
+// folds them into one shared window per column of the group, reading that
+// column's 4 code bytes. With kRoute, the column-group-0, window-0 block of
+// each row chunk writes the routed ids to heap_out.
+template <typename T, bool kRoute>
+__device__ __forceinline__ void level_pass(
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ heap,
+    const float* __restrict__ tbl, const float* __restrict__ route_f,
+    const T* __restrict__ stats, const double* __restrict__ scale,
+    int32_t* __restrict__ heap_out, typename Values<T>::Acc* __restrict__ hist,
+    float* __restrict__ side, int64_t n_pad, int c_pad, int lp, int n_bins,
+    int base_r, int L_r, int base_h, int L_h, bool half, int win, int group,
+    int64_t rows_per_block) {
+  using Acc = typename Values<T>::Acc;
+  extern __shared__ __align__(16) unsigned char smem[];   // group windows
+  const int c0 = blockIdx.x * group;
+  const int ncol = Values<T>::kOneColumn ? 1 : min(group, c_pad - c0);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  const int w0 = blockIdx.z * win;
+  const bool writer = kRoute && blockIdx.x == 0 && blockIdx.z == 0;
+  const int nsh = win * kStats * n_bins;
+  zero_windows<Acc>(smem, ncol, nsh);
+  const Values<T> values(scale);
+  __syncthreads();
+
+  const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
+  const uint8_t* __restrict__ cgroup = codes + static_cast<int64_t>(c0) * n_pad;
+  for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
+       r += 4 * static_cast<int64_t>(blockDim.x)) {
+    const int4 h4 = *reinterpret_cast<const int4*>(heap + r);
+    int hs[4] = {h4.x, h4.y, h4.z, h4.w};
+    int slot[4];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (kRoute) {
+        hs[k] = route_one(codes, tbl, route_f, hs[k], r + k, n_pad, c_pad, lp,
+                          n_bins, base_r, L_r);
+      }
+      slot[k] = window_slot(hs[k], base_h, L_h, half, w0, win);
+      any = any || slot[k] >= 0;
+    }
+    if (writer) {
+      *reinterpret_cast<int4*>(heap_out + r) = make_int4(hs[0], hs[1], hs[2], hs[3]);
+    }
+    if (!any) continue;
+    T x[kStats][4];
+    load4(stats + r, x[0]);
+    load4(stats + n_pad + r, x[1]);
+    load4(stats + 2 * n_pad + r, x[2]);
+    Acc v[kStats][4];
+    const unsigned nf = values(x, slot, v);
+    for (int j = 0; j < ncol; ++j) {
+      const uchar4 c4 = *reinterpret_cast<const uchar4*>(cgroup + j * n_pad + r);
+      fold4<false>(Window<Acc>(smem, j, nsh), slot, c4, v, n_bins);
+      if constexpr (std::is_same<T, float>::value) {
+        if (nf) add_nonfinite(side, nf, x, slot, c4, c0 + j, c_pad, n_bins, w0);
+      }
+    }
+  }
+  __syncthreads();
+  flush_window(smem, 1, ncol, nsh, hist, c0, c_pad, n_bins, w0);
 }
 
 // ---------------------------------------------------------------------------
@@ -203,60 +438,43 @@ __device__ __forceinline__ void flush_window(const Acc* __restrict__ sh, int nco
 //
 // Bound: bytes. Each row's heap id (4 B), three stats (12 B) and one code
 // byte per column are read once in the ideal pass; the output is small.
-// Design: grid (column, row chunk, leaf window). A block owns one column's
-// histogram for a window of `win` leaf slots in shared memory
-// (win x 3 x n_bins accumulators, up to 96 KB), folds its chunk of rows
-// into it with shared-memory atomics, then flushes the non-zero bins into
-// the output with global atomics. blockIdx.x (fastest) walks the columns,
-// so the blocks in flight share one row chunk and its heap/stats stay in L2
-// instead of being re-read from HBM once per column. Each thread takes 4
-// consecutive rows per step (int4 heap, uchar4 codes, 16-byte stats).
+// What costs instead is the shared-memory atomics: three per (row, column).
+// Design: grid (column group, row chunk, leaf window). A block owns the
+// histograms of `group` columns for a window of `win` leaf slots in shared
+// memory (group x win x 3 x n_bins accumulators), folds its chunk of rows
+// into them with shared-memory atomics (level_pass), then flushes the
+// non-zero bins into the output with global atomics. blockIdx.x (fastest)
+// walks the column groups, so the blocks in flight share one row chunk and
+// its heap/stats stay in L2 instead of being re-read from HBM once per
+// column. Each thread takes 4 consecutive rows per step (int4 heap, uchar4
+// codes, 16-byte stats). Float stats sum in 64-bit fixed point (see
+// Values<float>), with native 32-bit atomics in place of an f64 sum's
+// compare-and-swap loops; int32 stats sum in int32. Every window pass
+// reads all the rows, so the float form takes the widest window that 227 KB
+// holds (37 slots at 256 bins: level 6's 32 left children in one pass,
+// level 7's 64 in two), then as many columns of it as fit
+// (hist_cuda.level_grid); chip_smoke.py times narrower windows with two
+// columns per block beside it. The int32 form keeps 96 KB windows and one
+// column per block.
 // The TPU kernel kept a whole window block resident across a sequential row
 // sweep and accumulated one-hot products on the MXU (bf16 panels for f32
 // stats, int8 panels with exact int32 sums for the int8 form); blocks here
 // run in parallel in no order, so the cross-block sum is the atomic flush.
-// The int32 form is exact, so kernel, plain version and the JAX twin agree
-// bit for bit.
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kHistThreads)
+// Both forms are exact integer sums, so every launch gives the same bits;
+// the int32 form equals the plain version and the JAX twin bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(Values<T>::kThreads)
 hist_kernel(const uint8_t* __restrict__ codes,
             const int32_t* __restrict__ heap,
             const T* __restrict__ stats,
-            Acc* __restrict__ hist,
+            const double* __restrict__ scale,
+            typename Values<T>::Acc* __restrict__ hist,
+            float* __restrict__ side,
             int64_t n_pad, int c_pad, int n_bins, int base, int n_leaves,
-            int half, int win, int64_t rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Acc* sh = reinterpret_cast<Acc*>(smem);           // [win][kStats][n_bins]
-  const int c = blockIdx.x;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
-  const int w0 = blockIdx.z * win;
-  const int nsh = win * kStats * n_bins;
-  for (int i = threadIdx.x; i < nsh; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-
-  const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
-  const uint8_t* __restrict__ crow = codes + static_cast<int64_t>(c) * n_pad;
-  for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
-       r += 4 * static_cast<int64_t>(blockDim.x)) {
-    const int4 h4 = *reinterpret_cast<const int4*>(heap + r);
-    const int hs[4] = {h4.x, h4.y, h4.z, h4.w};
-    int slot[4];
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      slot[k] = window_slot(hs[k], base, n_leaves, half, w0, win);
-      any = any || slot[k] >= 0;
-    }
-    if (!any) continue;
-    T ws[4], gs[4], es[4];
-    load4(stats + r, ws);
-    load4(stats + n_pad + r, gs);
-    load4(stats + 2 * n_pad + r, es);
-    fold4<false>(sh, slot, *reinterpret_cast<const uchar4*>(crow + r), ws, gs,
-                 es, n_bins);
-  }
-  __syncthreads();
-  flush_window(sh, 1, nsh, hist, c, c_pad, n_bins, w0);
+            int half, int win, int group, int64_t rows_per_block) {
+  level_pass<T, false>(codes, heap, nullptr, nullptr, stats, scale, nullptr,
+                       hist, side, n_pad, c_pad, 0, n_bins, 0, 0, base, n_leaves,
+                       half != 0, win, group, rows_per_block);
 }
 
 // ---------------------------------------------------------------------------
@@ -276,7 +494,8 @@ hist_kernel(const uint8_t* __restrict__ codes,
 // histogram in shared memory (one per warp, or per group of warps where
 // fewer fit), so the warps of a block never contend with each other; runs
 // of rows sharing one (slot, bin) key are summed in registers before their
-// atomics; the copies are added once, before the flush.
+// atomics; the copies are added once, before the flush. Float stats still
+// sum in f64 here.
 template <typename T, typename Acc>
 __global__ void __launch_bounds__(kHistThreads)
 radix_kernel(const uint8_t* __restrict__ codes,
@@ -285,15 +504,14 @@ radix_kernel(const uint8_t* __restrict__ codes,
              Acc* __restrict__ hist,
              int64_t n_pad, int c_pad, int n_bins, int base, int n_leaves,
              int half, int win, int ncopy, int64_t rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Acc* sh = reinterpret_cast<Acc*>(smem);    // [ncopy][win][kStats][n_bins]
+  extern __shared__ __align__(16) unsigned char smem[];   // ncopy windows
   const int c = blockIdx.x;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int nsh = win * kStats * n_bins;
-  for (int i = threadIdx.x; i < ncopy * nsh; i += blockDim.x) sh[i] = 0;
+  zero_windows<Acc>(smem, ncopy, nsh);
   __syncthreads();
 
-  Acc* mine = sh + ((threadIdx.x >> 5) % ncopy) * nsh;
+  const Window<Acc> mine(smem, (threadIdx.x >> 5) % ncopy, nsh);
   const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
   const uint8_t* __restrict__ crow = codes + static_cast<int64_t>(c) * n_pad;
   for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
@@ -308,15 +526,19 @@ radix_kernel(const uint8_t* __restrict__ codes,
       any = any || slot[k] >= 0;
     }
     if (!any) continue;
-    T ws[4], gs[4], es[4];
-    load4(stats + r, ws);
-    load4(stats + n_pad + r, gs);
-    load4(stats + 2 * n_pad + r, es);
-    fold4<true>(mine, slot, *reinterpret_cast<const uchar4*>(crow + r), ws, gs,
-                es, n_bins);
+    T x[kStats][4];
+    load4(stats + r, x[0]);
+    load4(stats + n_pad + r, x[1]);
+    load4(stats + 2 * n_pad + r, x[2]);
+    Acc v[kStats][4];
+#pragma unroll
+    for (int s = 0; s < kStats; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[s][k] = static_cast<Acc>(x[s][k]);
+    fold4<true>(mine, slot, *reinterpret_cast<const uchar4*>(crow + r), v, n_bins);
   }
   __syncthreads();
-  flush_window(sh, ncopy, nsh, hist, c, c_pad, n_bins, 0);
+  flush_window(smem, ncopy, 1, nsh, hist, c, c_pad, n_bins, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -330,68 +552,39 @@ radix_kernel(const uint8_t* __restrict__ codes,
 //
 // Bound: bytes: the heap read and written once, the split column's byte of
 // each row of a split leaf, the codes and three stats of the rows summed,
-// and the output. Design: hist_kernel's grid (column, row chunk, leaf
-// window). The histogram's blocks are split over columns and windows but
-// the heap is per row, so every block recomputes the routed id of its rows
-// in registers from the OLD heap and the split tables; exactly one block
-// per row chunk (column 0, window 0) writes the new heap, to a separate
-// buffer, and nothing in the launch reads it. The other blocks' gathers of
-// the split column's byte hit L2, since the blocks in flight share a row
-// chunk. Rows of leaves that did not split keep an id in
-// [base_r, base_r + L_r), outside the histogram's leaves, and are not
-// summed. The TPU kernel ran one sequential row sweep with the whole
-// level's histogram resident in VMEM, hence its 16-leaf cap, kept here as
-// the dispatch gate (at 16 leaves the f64 window is 96 KB).
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kHistThreads)
+// and the output. What costs instead is the shared-memory atomics, as in
+// hist_kernel. Design: hist_kernel's grid (column group, row chunk, leaf
+// window) and level_pass. The histogram's blocks are split over column
+// groups and windows but the heap is per row, so every block computes the
+// routed ids of its rows in registers from the OLD heap and the split
+// tables, once per 4-row step for all the columns of its group (with one
+// column per block, every row would be routed once per column); the f32
+// form's group is as many columns as 227 KB holds at the level's window
+// (32 at one slot down to 2 at 16), the int32 form's one column. Exactly
+// one block per row chunk (column group 0, window 0) writes the new
+// heap, to a separate buffer, and nothing in the launch reads it. Rows of
+// leaves that did not split keep an id in [base_r, base_r + L_r), outside
+// the histogram's leaves, and are not summed. Float stats sum in 64-bit
+// fixed point, as in hist_kernel. The TPU kernel ran one sequential row
+// sweep with the whole level's histogram resident in VMEM, hence its
+// 16-leaf cap, kept here as the dispatch gate (at 16 leaves one column's
+// 8-byte window is 96 KB).
+template <typename T>
+__global__ void __launch_bounds__(Values<T>::kThreads)
 fused_kernel(const uint8_t* __restrict__ codes,
              const int32_t* __restrict__ heap,
              const float* __restrict__ tbl,
              const float* __restrict__ route_f,
              const T* __restrict__ stats,
+             const double* __restrict__ scale,
              int32_t* __restrict__ heap_out,
-             Acc* __restrict__ hist,
+             typename Values<T>::Acc* __restrict__ hist,
+             float* __restrict__ side,
              int64_t n_pad, int c_pad, int lp, int n_bins, int base_r, int L_r,
-             int base_h, int L_h, int win, int64_t rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Acc* sh = reinterpret_cast<Acc*>(smem);           // [win][kStats][n_bins]
-  const int c = blockIdx.x;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
-  const int w0 = blockIdx.z * win;
-  const bool writer = blockIdx.x == 0 && blockIdx.z == 0;
-  const int nsh = win * kStats * n_bins;
-  for (int i = threadIdx.x; i < nsh; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-
-  const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
-  const uint8_t* __restrict__ crow = codes + static_cast<int64_t>(c) * n_pad;
-  for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
-       r += 4 * static_cast<int64_t>(blockDim.x)) {
-    const int4 h4 = *reinterpret_cast<const int4*>(heap + r);
-    const int hs[4] = {h4.x, h4.y, h4.z, h4.w};
-    int nh[4];
-    int slot[4];
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      nh[k] = route_one(codes, tbl, route_f, hs[k], r + k, n_pad, c_pad, lp,
-                        n_bins, base_r, L_r);
-      slot[k] = window_slot(nh[k], base_h, L_h, true, w0, win);
-      any = any || slot[k] >= 0;
-    }
-    if (writer) {
-      *reinterpret_cast<int4*>(heap_out + r) = make_int4(nh[0], nh[1], nh[2], nh[3]);
-    }
-    if (!any) continue;
-    T ws[4], gs[4], es[4];
-    load4(stats + r, ws);
-    load4(stats + n_pad + r, gs);
-    load4(stats + 2 * n_pad + r, es);
-    fold4<false>(sh, slot, *reinterpret_cast<const uchar4*>(crow + r), ws, gs,
-                 es, n_bins);
-  }
-  __syncthreads();
-  flush_window(sh, 1, nsh, hist, c, c_pad, n_bins, w0);
+             int base_h, int L_h, int win, int group, int64_t rows_per_block) {
+  level_pass<T, true>(codes, heap, tbl, route_f, stats, scale, heap_out, hist,
+                      side, n_pad, c_pad, lp, n_bins, base_r, L_r, base_h, L_h,
+                      true, win, group, rows_per_block);
 }
 
 // Dynamic shared memory above 48 KB has to be allowed once per kernel
@@ -423,20 +616,38 @@ unsigned grid_rows(int64_t n_pad, int64_t rows_per_block) {
   return static_cast<unsigned>((n_pad + rows_per_block - 1) / rows_per_block);
 }
 
-template <typename T, typename Acc>
+// Shared memory of one dense or fused block, 0 for a group the launch
+// cannot take.
+template <typename T>
+size_t level_smem(int c_pad, int n_bins, int win, int group) {
+  if (group < 1 || group > c_pad || win < 1) return 0;
+  if (Values<T>::kOneColumn && group != 1) return 0;
+  return static_cast<size_t>(group) * win * kStats * n_bins *
+         sizeof(typename Values<T>::Acc);
+}
+
+dim3 level_grid(int c_pad, int group, int64_t n_pad, int64_t rows_per_block,
+                int n_windows) {
+  return dim3(static_cast<unsigned>((c_pad + group - 1) / group),
+              grid_rows(n_pad, rows_per_block), static_cast<unsigned>(n_windows));
+}
+
+template <typename T>
 int launch_hist(const void* codes, const void* heap, const void* stats,
-                void* hist, int64_t n_pad, int c_pad, int n_bins, int base,
-                int n_leaves, int half, int win, int n_windows,
-                int64_t rows_per_block, void* stream) {
-  const size_t smem = static_cast<size_t>(win) * kStats * n_bins * sizeof(Acc);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(hist_kernel<T, Acc>), smem);
+                const void* scale, void* hist, void* side, int64_t n_pad,
+                int c_pad, int n_bins, int base, int n_leaves, int half, int win,
+                int n_windows, int group, int64_t rows_per_block, void* stream) {
+  using Acc = typename Values<T>::Acc;
+  const size_t smem = level_smem<T>(c_pad, n_bins, win, group);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(hist_kernel<T>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(c_pad), grid_rows(n_pad, rows_per_block),
-                  static_cast<unsigned>(n_windows));
-  hist_kernel<T, Acc><<<grid, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  hist_kernel<T><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
+                   Values<T>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
-      static_cast<const T*>(stats), static_cast<Acc*>(hist), n_pad, c_pad,
-      n_bins, base, n_leaves, half, win, rows_per_block);
+      static_cast<const T*>(stats), static_cast<const double*>(scale),
+      static_cast<Acc*>(hist), static_cast<float*>(side), n_pad, c_pad, n_bins,
+      base, n_leaves, half, win, group, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -458,23 +669,26 @@ int launch_radix(const void* codes, const void* heap, const void* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename Acc>
+template <typename T>
 int launch_fused(const void* codes, const void* heap, const void* tbl,
-                 const void* route_f, const void* stats, void* heap_out,
-                 void* hist, int64_t n_pad, int c_pad, int lp, int n_bins,
-                 int base_r, int L_r, int base_h, int L_h, int win,
-                 int n_windows, int64_t rows_per_block, void* stream) {
-  const size_t smem = static_cast<size_t>(win) * kStats * n_bins * sizeof(Acc);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fused_kernel<T, Acc>), smem);
+                 const void* route_f, const void* stats, const void* scale,
+                 void* heap_out, void* hist, void* side, int64_t n_pad, int c_pad,
+                 int lp, int n_bins, int base_r, int L_r, int base_h, int L_h,
+                 int win, int n_windows, int group, int64_t rows_per_block,
+                 void* stream) {
+  using Acc = typename Values<T>::Acc;
+  const size_t smem = level_smem<T>(c_pad, n_bins, win, group);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fused_kernel<T>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(c_pad), grid_rows(n_pad, rows_per_block),
-                  static_cast<unsigned>(n_windows));
-  fused_kernel<T, Acc><<<grid, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_kernel<T><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
+                    Values<T>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
       static_cast<const float*>(tbl), static_cast<const float*>(route_f),
-      static_cast<const T*>(stats), static_cast<int32_t*>(heap_out),
-      static_cast<Acc*>(hist), n_pad, c_pad, lp, n_bins, base_r, L_r, base_h,
-      L_h, win, rows_per_block);
+      static_cast<const T*>(stats), static_cast<const double*>(scale),
+      static_cast<int32_t*>(heap_out), static_cast<Acc*>(hist),
+      static_cast<float*>(side), n_pad, c_pad, lp, n_bins, base_r, L_r, base_h,
+      L_h, win, group, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,19 +723,22 @@ int h2o3_route(const void* codes, const void* heap, const void* tbl,
   return static_cast<int>(cudaGetLastError());
 }
 
-// int8 != 0: stats int32, hist int32; else stats f32, hist f64.
+// int8 != 0: stats int32, hist int32 (scale and side unused); else stats
+// f32, hist int64 fixed point by scale, side f32. `group` columns per block.
 int h2o3_hist(const void* codes, const void* heap, const void* stats,
-              void* hist, int64_t n_pad, int c_pad, int n_bins, int base,
-              int n_leaves, int half, int win, int n_windows,
-              int64_t rows_per_block, int int8, void* stream) {
-  return int8 ? launch_hist<int32_t, int32_t>(codes, heap, stats, hist, n_pad, c_pad,
-                                              n_bins, base, n_leaves, half, win,
-                                              n_windows, rows_per_block, stream)
-              : launch_hist<float, double>(codes, heap, stats, hist, n_pad, c_pad,
-                                           n_bins, base, n_leaves, half, win,
-                                           n_windows, rows_per_block, stream);
+              const void* scale, void* hist, void* side, int64_t n_pad,
+              int c_pad, int n_bins, int base, int n_leaves, int half, int win,
+              int n_windows, int group, int64_t rows_per_block, int int8,
+              void* stream) {
+  return int8 ? launch_hist<int32_t>(codes, heap, stats, scale, hist, side, n_pad,
+                                     c_pad, n_bins, base, n_leaves, half, win,
+                                     n_windows, group, rows_per_block, stream)
+              : launch_hist<float>(codes, heap, stats, scale, hist, side, n_pad,
+                                   c_pad, n_bins, base, n_leaves, half, win,
+                                   n_windows, group, rows_per_block, stream);
 }
 
+// int8 != 0: stats int32, hist int32; else stats f32, hist f64.
 int h2o3_radix(const void* codes, const void* heap, const void* stats,
                void* hist, int64_t n_pad, int c_pad, int n_bins, int base,
                int n_leaves, int half, int win, int ncopy,
@@ -534,19 +751,21 @@ int h2o3_radix(const void* codes, const void* heap, const void* stats,
                                             ncopy, rows_per_block, stream);
 }
 
+// As h2o3_hist, plus the route tables and the new heap.
 int h2o3_fused(const void* codes, const void* heap, const void* tbl,
-               const void* route_f, const void* stats, void* heap_out,
-               void* hist, int64_t n_pad, int c_pad, int lp, int n_bins,
-               int base_r, int L_r, int base_h, int L_h, int win, int n_windows,
-               int64_t rows_per_block, int int8, void* stream) {
-  return int8 ? launch_fused<int32_t, int32_t>(codes, heap, tbl, route_f, stats,
-                                               heap_out, hist, n_pad, c_pad, lp,
-                                               n_bins, base_r, L_r, base_h, L_h,
-                                               win, n_windows, rows_per_block, stream)
-              : launch_fused<float, double>(codes, heap, tbl, route_f, stats,
-                                            heap_out, hist, n_pad, c_pad, lp,
-                                            n_bins, base_r, L_r, base_h, L_h, win,
-                                            n_windows, rows_per_block, stream);
+               const void* route_f, const void* stats, const void* scale,
+               void* heap_out, void* hist, void* side, int64_t n_pad, int c_pad,
+               int lp, int n_bins, int base_r, int L_r, int base_h, int L_h,
+               int win, int n_windows, int group, int64_t rows_per_block,
+               int int8, void* stream) {
+  return int8 ? launch_fused<int32_t>(codes, heap, tbl, route_f, stats, scale,
+                                      heap_out, hist, side, n_pad, c_pad, lp,
+                                      n_bins, base_r, L_r, base_h, L_h, win,
+                                      n_windows, group, rows_per_block, stream)
+              : launch_fused<float>(codes, heap, tbl, route_f, stats, scale,
+                                    heap_out, hist, side, n_pad, c_pad, lp,
+                                    n_bins, base_r, L_r, base_h, L_h, win,
+                                    n_windows, group, rows_per_block, stream);
 }
 
 }  // extern "C"

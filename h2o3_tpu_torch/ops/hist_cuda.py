@@ -11,7 +11,10 @@ Counterpart of h2o3_tpu/ops/hist_pallas.py. Per tree level the grower
     `half=True` only even leaves (left children) are summed, at slot
     leaf >> 1, and the caller derives the right children by subtraction.
     `sbh_hist_i8` takes int32 stats in [-127, 127] (the int8-quantized
-    stats of `int8_hist`) and sums them exactly in int32.
+    stats of `int8_hist`) and sums them exactly in int32. The dense and
+    fused kernels sum f32 stats exactly too, in 64-bit fixed point: stat
+    row s of a row adds round(x * scale[s]) (`hist_scale`), and the
+    wrapper hands back the f32 value of the sum.
   * or does both in one pass (`sbh_route_hist`): route level d-1, then the
     half histogram of level d over the updated heap.
 
@@ -43,10 +46,15 @@ from h2o3_tpu_torch.ops import _build
 # (L_pad, C_pad, 4, n_bins) with L_pad = npass * gwe, gwe = min(l_eff, GW).
 GW = 64
 S_STATS = 4
-# Leaf slots one CUDA block keeps in shared memory: win x 3 stats x n_bins
-# accumulators within this budget (96 KB = 16 f64 or 32 int32 slots at 256
-# bins).
+# Leaf slots one CUDA block keeps in shared memory for one column: win x 3
+# stats x n_bins accumulators within this budget (96 KB = 16 slots of 8-byte
+# or 32 of int32 accumulators at 256 bins).
 _SMEM_BUDGET = 96 * 1024
+# Shared memory a block may use on Hopper (227 KB). A dense or fused block
+# of the f32 forms takes all of it: the widest window of 8-byte
+# accumulators it holds, then as many columns of that window as fit
+# (level_grid). The int8 forms keep _SMEM_BUDGET and one column per block.
+SMEM_MAX = 232448
 _HIST_ROW_ALIGN = 4
 _WARPS = 16                     # kHistThreads / 32 in csrc/hist.cu
 # The int8 histogram sums |stat| <= 127 per row in int32: exact while
@@ -87,6 +95,59 @@ def packed_words(c_pad: int) -> int:
     the packed width 4 * packed_words(c_pad), as there."""
     w = -(-c_pad // PACK)
     return w if w <= WORD_TILE else -(-w // WORD_TILE) * WORD_TILE
+
+
+def hist_scale(stats, n_rows=None):
+    """Fixed-point scale of the f32 dense and fused kernels: f64 (3,) on
+    stats' device, scale[s] = 2**e with e the largest integer such that
+    n_rows * M_s * 2**e <= 2**62, where M_s is the largest finite
+    |stats[s]| (non-finite values are left out; scale 1 where M_s is 0).
+    n_rows defaults to the stats' row count. Device ops only: nothing waits
+    for the card. Exact in f64 for n_rows < 2**29."""
+    n = stats.shape[1] if n_rows is None else int(n_rows)
+    a = stats[:3].abs()
+    m = torch.where(a < float("inf"), a, torch.zeros_like(a)).amax(dim=1)
+    t = m.to(torch.float64) * n
+    mant, ex = torch.frexp(t)
+    # t = mant * 2**ex with mant in [0.5, 1): t * 2**e <= 2**62 holds up to
+    # e = 62 - ex, and up to 63 - ex when mant is exactly 0.5
+    e = (62 - ex + (mant == 0.5).to(ex.dtype)).to(torch.int64)
+    e = torch.where(t > 0, e, torch.zeros_like(e))
+    # 2**e built from its bits (torch.ldexp rounds through f32)
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def column_group(win: int, n_bins: int, c_pad: int, budget: int,
+                 acc_bytes: int = 8) -> int:
+    """Columns one dense or fused block takes: as many windows of win x 3 x
+    n_bins accumulators as fit `budget` bytes of shared memory, at least
+    one and at most c_pad."""
+    return max(1, min(c_pad, budget // (win * 3 * acc_bytes * n_bins)))
+
+
+def level_grid(l_eff: int, n_bins: int, c_pad: int, int8: bool,
+               group=None):
+    """(win, n_windows, group, rows_per_block) of a dense or fused launch.
+    int8: hist_grid's window at 4 bytes within _SMEM_BUDGET and one column
+    per block (the kernel's int32 form takes no other group). f32: within
+    SMEM_MAX, the widest window (fewest passes over the rows), then as
+    many columns as fit; a given `group` narrows the window to fit that
+    many."""
+    if int8:
+        if group not in (None, 1):
+            raise ValueError(f"group={group}: the int8 forms take one "
+                             "column per block")
+        win, n_windows, rows = hist_grid(l_eff, n_bins, 4)
+        group = 1
+    elif group is None:
+        win, n_windows, rows = hist_grid(l_eff, n_bins, 8, SMEM_MAX)
+        group = column_group(win, n_bins, c_pad, SMEM_MAX)
+    else:
+        win, n_windows, rows = hist_grid(
+            l_eff, n_bins, 8, SMEM_MAX // max(1, int(group)))
+    if not 1 <= group <= c_pad:
+        raise ValueError(f"group={group} outside [1, {c_pad}]")
+    return win, n_windows, int(group), rows
 
 
 def _radix_shape_ok(l_eff: int, n_bins: int) -> bool:
@@ -173,14 +234,14 @@ def _lib():
         lib.h2o3_route.argtypes = [vp] * 8 + [i64, i32, i32, i32, i32, i32,
                                               ctypes.c_float, i32, vp]
         lib.h2o3_route.restype = i32
-        lib.h2o3_hist.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, i32,
-                                             i32, i32, i64, i32, vp]
+        lib.h2o3_hist.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32,
+                                                                 vp]
         lib.h2o3_hist.restype = i32
         lib.h2o3_radix.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, i32,
                                               i32, i32, i64, i32, vp]
         lib.h2o3_radix.restype = i32
-        lib.h2o3_fused.argtypes = [vp] * 7 + [i64] + [i32] * 9 + [i64, i32,
-                                                                  vp]
+        lib.h2o3_fused.argtypes = [vp] * 9 + [i64] + [i32] * 10 + [i64, i32,
+                                                                   vp]
         lib.h2o3_fused.restype = i32
         lib._h2o3_typed = True
     return lib
@@ -256,9 +317,9 @@ def _check_tables(tbl, route_f, n_bins, L, dev):
 
 
 def _hist_out(L_pad, c_pad, n_bins, int8, dev):
-    """Zeroed accumulator of a histogram launch: int32 for int stats, f64
-    for float stats (the kernels sum in f64 and the wrapper hands back the
-    f32 cast)."""
+    """Zeroed accumulator of a shallow-window launch: int32 for int stats,
+    f64 for float stats (the kernel sums in f64 and the wrapper hands back
+    the f32 cast)."""
     return torch.zeros((L_pad, c_pad, S_STATS, n_bins),
                        dtype=torch.int32 if int8 else torch.float64,
                        device=dev)
@@ -266,6 +327,37 @@ def _hist_out(L_pad, c_pad, n_bins, int8, dev):
 
 def _hist_result(acc, int8):
     return acc if int8 else acc.to(torch.float32)
+
+
+def _level_out(L_pad, c_pad, n_bins, int8, stats, scale, dev):
+    """Zeroed accumulators of a dense or fused launch and its scale:
+    (int32 sums, None, None) for int stats; for f32 stats the int64
+    fixed-point sums, the f32 side buffer of the non-finite stats and the
+    f64 (3,) scale (hist_scale of the stats when `scale` is None)."""
+    shape = (L_pad, c_pad, S_STATS, n_bins)
+    if int8:
+        return torch.zeros(shape, dtype=torch.int32, device=dev), None, None
+    if scale is None:
+        scale = hist_scale(stats)
+    _check("scale", scale, torch.float64, (3,), dev)
+    return (torch.zeros(shape, dtype=torch.int64, device=dev),
+            torch.zeros(shape, dtype=torch.float32, device=dev), scale)
+
+
+def _level_result(acc, side, scale):
+    """The f32 histogram of a dense or fused launch: the fixed-point sums
+    over their scale in f64, cast once; a bin that a NaN or +-inf stat
+    reached takes the side buffer's sum there, as an f64 sum would."""
+    if side is None:
+        return acc
+    inv = torch.cat([scale.reciprocal(), scale.new_ones(1)])
+    out = (acc.to(torch.float64) * inv.view(1, 1, S_STATS, 1)) \
+        .to(torch.float32)
+    return torch.where(side != 0, side, out)
+
+
+def _ptr_or_null(t):
+    return ctypes.c_void_p(0) if t is None else _ptr(t)
 
 
 def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
@@ -308,12 +400,14 @@ def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
     return newheap, newF
 
 
-def hist_grid(l_eff: int, n_bins: int, acc_bytes: int = 8):
+def hist_grid(l_eff: int, n_bins: int, acc_bytes: int = 8,
+              budget: int = _SMEM_BUDGET):
     """(win, n_windows, rows_per_block) of one histogram launch: the widest
-    leaf window that fits the shared-memory budget at `acc_bytes` per
-    accumulator (8 for f64, 4 for int32), and a row chunk long enough that
-    the per-block flush stays small next to the row work."""
-    win = max(1, min(l_eff, _SMEM_BUDGET // (3 * acc_bytes * n_bins)))
+    leaf window that fits `budget` bytes of shared memory at `acc_bytes`
+    per accumulator (8 for f64 and fixed point, 4 for int32), and a row
+    chunk long enough that the per-block flush stays small next to the row
+    work."""
+    win = max(1, min(l_eff, budget // (3 * acc_bytes * n_bins)))
     n_windows = -(-l_eff // win)
     rows = max(16384, 8 * win * 3 * n_bins)
     rows = -(-rows // 1024) * 1024
@@ -330,12 +424,15 @@ def radix_grid(l_eff: int, n_bins: int, acc_bytes: int = 8):
 
 
 def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
-                   int8=False):
+                   int8=False, scale=None, group=None):
     """The dense histogram kernel (every window width). hist[l, c, s, b] =
     sum of stats[s, r] over rows with heap == base + l (half: heap ==
     base + 2l) and codes[c, r] == b, for s in 0..2; row 3 stays zero.
     codes uint8 (C_pad, n_pad); heap int32 (n_pad,); stats f32 (4, n_pad),
-    or int32 with int8. Returns (L_pad, C_pad, 4, n_bins), f32 or int32."""
+    or int32 with int8. `scale`: the f32 form's fixed-point scale,
+    hist_scale(stats) (computed here when None). `group`: columns per
+    block, None for the default. Returns (L_pad, C_pad, 4, n_bins), f32 or
+    int32. The plain version takes neither scale nor group."""
     if int8:
         _check_i8_rows(codes.shape[1])
     if _device_kind(codes) == "cpu":
@@ -343,15 +440,17 @@ def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
                               n_bins=n_bins, half=half)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     l_eff, _, _, L_pad = hist_layout(L, half)
-    acc = _hist_out(L_pad, c_pad, n_bins, int8, dev)
-    win, n_windows, rows = hist_grid(l_eff, n_bins, 4 if int8 else 8)
-    rc = _lib().h2o3_hist(_ptr(codes), _ptr(heap), _ptr(stats), _ptr(acc),
+    acc, side, scale = _level_out(L_pad, c_pad, n_bins, int8, stats, scale,
+                                  dev)
+    win, n_windows, g, rows = level_grid(l_eff, n_bins, c_pad, int8, group)
+    rc = _lib().h2o3_hist(_ptr(codes), _ptr(heap), _ptr(stats),
+                          _ptr_or_null(scale), _ptr(acc), _ptr_or_null(side),
                           n_pad, c_pad, n_bins, base, L, int(bool(half)),
-                          win, n_windows, rows, int(bool(int8)),
+                          win, n_windows, g, rows, int(bool(int8)),
                           _stream(dev))
     _raise_on(rc, "hist_i8" if int8 else "hist")
     LAUNCHES["hist_i8" if int8 else "hist"] += 1
-    return _hist_result(acc, int8)
+    return _level_result(acc, side, scale)
 
 
 def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
@@ -382,12 +481,14 @@ def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
 
 
 def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
-                         base_h, L_h, n_bins, int8=False):
+                         base_h, L_h, n_bins, int8=False, scale=None,
+                         group=None):
     """The level-fused kernel (hist_pallas.sbh_route_hist_fused_pallas):
     route the splits of leaves [base_r, base_r+L_r), then the half
     (left-children) histogram of leaves [base_h, base_h+L_h) over the
-    updated heap, in one pass. Returns (newheap int32 (n_pad,), hist
-    (l_eff, C_pad, 4, n_bins) f32, or int32 with int8)."""
+    updated heap, in one pass. `scale` and `group` as in sbh_hist_dense.
+    Returns (newheap int32 (n_pad,), hist (l_eff, C_pad, 4, n_bins) f32,
+    or int32 with int8)."""
     l_eff = (L_h + 1) // 2
     if l_eff > FUSE_MAX_WINDOW:
         raise ValueError(f"fused level needs L_h <= {2 * FUSE_MAX_WINDOW}, "
@@ -404,28 +505,31 @@ def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     lp = _check_tables(tbl, route_f, n_bins, L_r, dev)
     newheap = torch.empty_like(heap)
-    acc = _hist_out(l_eff, c_pad, n_bins, int8, dev)
-    win, n_windows, rows = hist_grid(l_eff, n_bins, 4 if int8 else 8)
+    acc, side, scale = _level_out(l_eff, c_pad, n_bins, int8, stats, scale,
+                                  dev)
+    win, n_windows, g, rows = level_grid(l_eff, n_bins, c_pad, int8, group)
     rc = _lib().h2o3_fused(_ptr(codes), _ptr(heap), _ptr(tbl), _ptr(route_f),
-                           _ptr(stats), _ptr(newheap), _ptr(acc), n_pad,
-                           c_pad, lp, n_bins, base_r, L_r, base_h, L_h, win,
-                           n_windows, rows, int(bool(int8)), _stream(dev))
+                           _ptr(stats), _ptr_or_null(scale), _ptr(newheap),
+                           _ptr(acc), _ptr_or_null(side), n_pad, c_pad, lp,
+                           n_bins, base_r, L_r, base_h, L_h, win, n_windows,
+                           g, rows, int(bool(int8)), _stream(dev))
     _raise_on(rc, "fused")
     LAUNCHES["fused"] += 1
-    return newheap, _hist_result(acc, int8)
+    return newheap, _level_result(acc, side, scale)
 
 
 # ===========================================================================
 # Dispatch (hist_pallas.py sbh_hist, sbh_hist_i8, sbh_route_hist)
 def sbh_hist(codes, heap, stats, *, base, L, n_bins, half=False,
-             radix=None):
+             radix=None, scale=None):
     """f32 histogram. `radix`: None (auto) or True take the shallow-window
-    kernel wherever the window qualifies, False never."""
+    kernel wherever the window qualifies, False never. `scale`: the dense
+    kernel's fixed-point scale (hist_scale), unused by the others."""
     if radix is not False and _radix_applicable(L, n_bins, half):
         return sbh_hist_radix(codes, heap, stats, base=base, L=L,
                               n_bins=n_bins, half=half)
     return sbh_hist_dense(codes, heap, stats, base=base, L=L, n_bins=n_bins,
-                          half=half)
+                          half=half, scale=scale)
 
 
 def sbh_hist_i8(codes, heap, stats_i8, *, base, L, n_bins, half=False,
@@ -441,22 +545,27 @@ def sbh_hist_i8(codes, heap, stats_i8, *, base, L, n_bins, half=False,
 
 
 def sbh_route_hist(codes, heap, tbl, route_f, stats, *, base_r, L_r, base_h,
-                   L_h, n_bins, int8=False, fused=None, radix=None):
+                   L_h, n_bins, int8=False, fused=None, radix=None,
+                   scale=None):
     """One level pass: route the previous level's splits, then the new
     level's half (left-children) histogram over the updated heap. `fused`:
     None (auto) or True take the fused kernel wherever the level qualifies,
     False always the sequential pair (route, then sbh_hist / sbh_hist_i8
     with `radix`). Unlike the JAX package's, it takes no `any_cat` or
     `na_code`: route_f encodes numeric thresholds, categorical sets and the
-    NA direction alike. Returns (newheap, hist)."""
+    NA direction alike. `scale`: the f32 kernels' fixed-point scale
+    (hist_scale of the stats), computed per launch when None. Returns
+    (newheap, hist)."""
     if int8:
         _check_i8_rows(codes.shape[1])
     if fused is not False and _fused_applicable(
             L_h, n_bins, PACK * packed_words(codes.shape[0])):
         return sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
                                     base_r=base_r, L_r=L_r, base_h=base_h,
-                                    L_h=L_h, n_bins=n_bins, int8=int8)
+                                    L_h=L_h, n_bins=n_bins, int8=int8,
+                                    scale=scale)
     newheap, _ = sbh_route(codes, heap, tbl, route_f, base=base_r, L=L_r)
-    hist_fn = sbh_hist_i8 if int8 else sbh_hist
-    return newheap, hist_fn(codes, newheap, stats, base=base_h, L=L_h,
-                            n_bins=n_bins, half=True, radix=radix)
+    kw = dict(base=base_h, L=L_h, n_bins=n_bins, half=True, radix=radix)
+    if int8:
+        return newheap, sbh_hist_i8(codes, newheap, stats, **kw)
+    return newheap, sbh_hist(codes, newheap, stats, scale=scale, **kw)

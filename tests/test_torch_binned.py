@@ -199,3 +199,39 @@ def test_grad_hess_matches_jax(dist):
                                atol=ATOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), rtol=ATOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_grow_threads_one_scale_per_tree(data, monkeypatch, int8):
+    """grow() computes the f32 kernels' fixed-point scale once per tree
+    and hands it to every histogram pass (none with int8 stats), and the
+    tree is the JAX package's as before."""
+    from h2o3_tpu_torch.ops import hist_cuda as HC
+    seen = []
+
+    def recording(fn):
+        def call(*args, **kw):
+            seen.append(kw.get("scale"))
+            return fn(*args, **kw)
+        return call
+
+    made = []
+    real_scale = HC.hist_scale
+
+    def counting_scale(*args, **kw):
+        made.append(real_scale(*args, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(HC, "sbh_hist", recording(HC.sbh_hist))
+    monkeypatch.setattr(HC, "sbh_hist_i8", recording(HC.sbh_hist_i8))
+    monkeypatch.setattr(HC, "sbh_route_hist", recording(HC.sbh_route_hist))
+    monkeypatch.setattr(HC, "hist_scale", counting_scale)
+    _grow_matches_jax(data, int8=int8)
+    assert len(seen) == DEPTH                  # level 0 + DEPTH - 1 passes
+    if int8:
+        assert made == [] and seen == [None] * DEPTH
+        return
+    assert len(made) == 1
+    want = real_scale(torch.from_numpy(data["stats"]))
+    assert torch.equal(made[0], want)
+    assert all(s is made[0] for s in seen)

@@ -9,8 +9,11 @@ is installed; there, skip the repository's conftest (which sets JAX up):
 Tolerances: routed heap ids bit-identical; the margin update within 1e-5
 (one f32 multiply-add); f32 histograms within 1e-4 of each stat row's
 largest magnitude against the plain version in float64, since the kernels
-sum in float64 and cast once; histograms of int32 stats (the int8 path)
-equal to the plain version (`torch.equal`: integer sums are exact).
+sum in float64 (shallow-window) or in exact 64-bit fixed point (dense and
+fused) and cast once; the dense and fused kernels' bins that a NaN or inf
+stat reaches as in float64, and their results bit-identical from launch to
+launch and across column groupings; histograms of int32 stats (the int8
+path) equal to the plain version (`torch.equal`: integer sums are exact).
 """
 
 import numpy as np
@@ -215,3 +218,113 @@ def test_fused_kernel_matches_plain(dev, HC, L_h, int8):
         assert torch.equal(got, want)
     else:
         assert _rel_err(got, want) <= HIST_RTOL
+
+
+def _adversarial(dev, seed, kind, *, n=1 << 16, c_pad=32, L=64):
+    """Weights up to 1e4, grads of alternating sign (exactly cancelling
+    pairs in the first half), every row in one slot and one bin
+    ("one_bin"), or one NaN grad and one inf hess in the window
+    ("nonfinite")."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 255, (c_pad, n)).astype(np.uint8)
+    codes[-2:] = 0
+    base = L - 1
+    heap = rng.integers(base, base + L, n).astype(np.int32)
+    if kind == "one_bin":
+        codes[:] = 7
+        heap[:] = base
+    w = rng.uniform(0.0, 1e4, n)
+    g = w * rng.uniform(0.5, 1.5, n)
+    g[1: n // 2: 2] = g[0: n // 2 - 1: 2]
+    g[1::2] *= -1.0
+    stats = np.stack([w, g, w * rng.uniform(0.05, 0.25, n),
+                      np.zeros(n)]).astype(np.float32)
+    if kind == "nonfinite":
+        stats[1, 10], stats[2, 21] = np.nan, np.inf
+        heap[[10, 21]] = base
+    return [torch.from_numpy(a).to(dev) for a in (codes, heap, stats)], base
+
+
+def _bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _hold_to_f64(got, want, nonfinite):
+    fin = torch.isfinite(want)
+    assert bool((~fin).any()) == nonfinite
+    assert torch.equal(fin, torch.isfinite(got))
+    assert torch.equal(torch.isnan(want), torch.isnan(got))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf].double(), want[inf])
+    zero = torch.zeros((), dtype=torch.float64, device=want.device)
+    assert _rel_err(torch.where(fin, got.double(), zero),
+                    torch.where(fin, want, zero)) <= HIST_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["one_bin", "heavy", "nonfinite"])
+def test_dense_kernel_on_adversarial_stats(dev, HC, kind):
+    L = 1 if kind == "one_bin" else 64
+    (codes, heap, stats), base = _adversarial(dev, 50, kind, L=L)
+    kw = dict(base=base, L=L, n_bins=256, half=L > 1)
+    got = HC.sbh_hist(codes, heap, stats, radix=False, **kw)
+    again = HC.sbh_hist_dense(codes, heap, stats, **kw)
+    want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _bit_equal(got, again)
+    _hold_to_f64(got, want, kind == "nonfinite")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["one_bin", "heavy", "nonfinite"])
+def test_fused_kernel_on_adversarial_stats(dev, HC, kind):
+    L_h = 2 if kind == "one_bin" else 32
+    L_r = L_h // 2
+    (codes, heap, stats), base_r = _adversarial(dev, 51, kind, L=L_r)
+    tbl, route_f = _tables(dev, 52, L_r, codes.shape[0])
+    if kind != "heavy":
+        tbl[1, 0] = 1.0                       # leaf 0 splits, every row left
+        route_f[0] = 0.0
+    kw = dict(base_r=base_r, L_r=L_r, base_h=L_h - 1, L_h=L_h, n_bins=256)
+    h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats, **kw)
+    h_2, again = HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
+                                         **kw)
+    h_p, want = HC.sbh_route_hist_plain(codes, heap, tbl, route_f,
+                                        stats.double(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(h_k, h_p) and torch.equal(h_k, h_2)
+    assert _bit_equal(got, again)
+    _hold_to_f64(got, want, kind == "nonfinite")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [2, 16, 64])
+def test_column_groups_give_the_same_bits(dev, HC, L):
+    """Every grouping of columns per block (and so every window width)
+    gives the same fixed-point sums, bit for bit."""
+    (codes, heap, stats), base = _inputs(dev, 60 + L, L=L)
+    kw = dict(base=base, L=L, n_bins=256, half=True)
+    outs = [HC.sbh_hist_dense(codes, heap, stats, group=g, **kw)
+            for g in (None, 1, 2, 3, 32)]
+    tbl, route_f = _tables(dev, 61 + L, L // 2, codes.shape[0])
+    fkw = dict(base_r=L // 2 - 1, L_r=L // 2, base_h=L - 1, L_h=L,
+               n_bins=256)
+    fused = [HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
+                                     group=g, **fkw)[1]
+             for g in (None, 1, 2, 5)] if L <= 32 else []
+    torch.cuda.synchronize()
+    assert all(_bit_equal(o, outs[0]) for o in outs[1:])
+    assert all(_bit_equal(o, fused[0]) for o in fused[1:])
+
+
+@pytest.mark.gpu
+def test_hist_scale_on_the_card_matches_the_cpu(dev, HC):
+    rng = np.random.default_rng(70)
+    stats = (rng.normal(0, 1, (4, 4096))
+             * np.array([[1e-20], [3.0], [1e20], [0.0]])).astype(np.float32)
+    stats[1, 7] = np.nan
+    st = torch.from_numpy(stats)
+    for n_rows in (None, 11_000_000):
+        assert torch.equal(HC.hist_scale(st.to(dev), n_rows).cpu(),
+                           HC.hist_scale(st, n_rows))

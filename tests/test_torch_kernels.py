@@ -260,3 +260,170 @@ def test_int8_wrappers_raise_past_the_row_limit():
             HC.sbh_route_hist(codes, heap, tbl, route_f, stats, base_r=0,
                               L_r=1, base_h=1, L_h=2, n_bins=256, int8=True,
                               fused=fused)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point sums of the f32 dense and fused kernels. On the CPU the
+# wrappers run the plain versions, so what is tested here is the arithmetic
+# the kernels rely on: the scale, the exactness of the quantized integer
+# sums against f64 sums, the wrapper's cast back, and the launch layout.
+FIXED_LIMIT = 2 ** 62
+
+
+def _adversarial_stats(kind, n, seed):
+    """(stats f32 (4, n), bins int (n,)) that stress a fixed-point sum:
+    weights up to 1e4, grads in exactly cancelling pairs of alternating
+    sign, or every row in one bin."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.0, 1e4, n)
+    g = w * rng.uniform(0.5, 1.5, n)
+    g[1::2] = -g[0::2]                          # pairs that cancel exactly
+    h = w * rng.uniform(0.05, 0.25, n)
+    bins = rng.integers(0, 256, n)
+    if kind == "cancelling":
+        bins[1::2] = bins[0::2]                 # each pair in one bin
+    elif kind == "one_bin":
+        bins[:] = 7
+    stats = np.stack([w, g, h, np.zeros(n)]).astype(np.float32)
+    return stats, bins
+
+
+@pytest.mark.parametrize("n_rows", [None, 4096, 11_000_000, 11_000_448,
+                                    2 ** 28])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hist_scale_is_the_largest_power_of_two(n_rows, seed):
+    """scale[s] = 2**e with e the largest integer such that
+    n * M_s * 2**e <= 2**62, for magnitudes from 1e-30 to 1e30."""
+    rng = np.random.default_rng(seed)
+    mags = 10.0 ** rng.uniform(-30, 30, 3)
+    stats = np.zeros((4, 4096), np.float32)
+    stats[:3] = rng.normal(0, 1, (3, 4096)) * mags[:, None]
+    scale = HC.hist_scale(torch.from_numpy(stats), n_rows)
+    assert scale.dtype == torch.float64 and tuple(scale.shape) == (3,)
+    n = 4096 if n_rows is None else n_rows
+    for s in range(3):
+        S = float(scale[s])
+        mant, _ = np.frexp(S)
+        assert mant == 0.5                          # a power of two
+        M = float(np.abs(stats[s]).max())
+        assert n * M * S <= FIXED_LIMIT < n * M * 2 * S
+
+
+def test_hist_scale_zero_row_and_non_finite_values():
+    stats = np.zeros((4, 512), np.float32)
+    stats[1, :] = np.linspace(-2.0, 3.0, 512)
+    stats[1, 5], stats[1, 9], stats[1, 11] = np.nan, np.inf, -np.inf
+    stats[2, 3] = np.nan                        # a row of zeros and a NaN
+    scale = HC.hist_scale(torch.from_numpy(stats), 11_000_000).tolist()
+    assert scale[0] == 1.0 and scale[2] == 1.0
+    M = float(np.abs(stats[1][np.isfinite(stats[1])]).max())
+    assert M == 3.0
+    assert 11_000_000 * M * scale[1] <= FIXED_LIMIT \
+        < 11_000_000 * M * 2 * scale[1]
+
+
+@pytest.mark.parametrize("kind", ["heavy", "cancelling", "one_bin"])
+@pytest.mark.parametrize("n_rows", [None, 11_000_000])
+def test_fixed_point_sums_match_f64(kind, n_rows):
+    """int64 sums of round(x * scale) (what the kernels add, rounded half
+    to even as __float2int_rn does) over 256 bins equal the f64 sums
+    within the stated bound: each value rounds by at most 0.5 / scale, so
+    a bin of c rows is off by at most c * 0.5 / scale, below 3e-12 * M
+    per row at 11M rows; pairs that cancel sum to exactly 0; the total
+    fits int64."""
+    n = 20_000
+    stats, bins = _adversarial_stats(kind, n, 7)
+    st = torch.from_numpy(stats)
+    scale = HC.hist_scale(st, n_rows)
+    N = n if n_rows is None else n_rows
+    idx = torch.from_numpy(bins)
+    cnt = torch.zeros(256, dtype=torch.float64).index_add_(
+        0, idx, torch.ones(n, dtype=torch.float64))
+    for s in range(3):
+        x = st[s].double()
+        S = float(scale[s])
+        q = torch.round(x * S).to(torch.int64)
+        assert int(q.abs().sum()) <= FIXED_LIMIT + N // 2
+        isum = torch.zeros(256, dtype=torch.int64).index_add_(0, idx, q)
+        fsum = torch.zeros(256, dtype=torch.float64).index_add_(0, idx, x)
+        asum = torch.zeros(256, dtype=torch.float64).index_add_(
+            0, idx, x.abs())
+        got = isum.double() / S
+        M = float(x.abs().max())
+        assert 0.5 / S <= N * M / FIXED_LIMIT
+        # the f64 reference rounds too: n * 2**-53 of the absolute sum
+        bound = cnt * (0.5 / S) + asum * n * 2.0 ** -53
+        assert bool(((got - fsum).abs() <= bound).all()), (kind, s)
+        if kind == "cancelling" and s == 1:
+            assert not isum.any()               # exact cancellation
+    if n_rows == 11_000_000:
+        assert float((0.5 / scale).max()) < 3e-12 * float(st.abs().max())
+
+
+def test_level_result_casts_and_takes_non_finite_bins():
+    """The wrappers' finish: fixed-point sums over their scale in f64,
+    cast once; bins a NaN or +-inf stat reached take the side sum."""
+    scale = torch.tensor([2.0 ** 40, 2.0 ** 20, 1.0], dtype=torch.float64)
+    acc = torch.zeros((2, 3, 4, 8), dtype=torch.int64)
+    acc[0, 1, 0, 2] = 3 * 2 ** 40 + 1                 # 3 + 2**-40
+    acc[1, 2, 1, 5] = -(2 ** 20) * 7                  # -7
+    acc[1, 0, 2, 0] = 11
+    side = torch.zeros((2, 3, 4, 8), dtype=torch.float32)
+    side[1, 0, 2, 0] = float("nan")                   # NaN beats the sum
+    side[0, 0, 1, 1] = float("inf")
+    side[0, 2, 2, 7] = -float("inf")
+    got = HC._level_result(acc, side, scale)
+    assert got.dtype == torch.float32 and got.shape == acc.shape
+    assert got[0, 1, 0, 2] == np.float32(3.0 + 2.0 ** -40)
+    assert got[1, 2, 1, 5] == -7.0
+    assert torch.isnan(got[1, 0, 2, 0])
+    assert got[0, 0, 1, 1] == float("inf")
+    assert got[0, 2, 2, 7] == -float("inf")
+    assert int(torch.isfinite(got).logical_not().sum()) == 3
+    assert not got[:, :, 3].any()                     # spare row stays 0
+    i32 = acc.int()
+    assert HC._level_result(i32, None, None) is i32   # int32 sums as they are
+
+
+@pytest.mark.parametrize("l_eff", [1, 2, 4, 8, 16, 32, 64])
+def test_level_grid_fits_shared_memory(l_eff):
+    """f32: the widest window the budget holds, then as many columns of it
+    as fit, never past 227 KB; a given group narrows the window. int8: one
+    column per block and hist_grid's window, as before."""
+    n_bins, c_pad = 256, 32
+    win, n_win, g, rows = HC.level_grid(l_eff, n_bins, c_pad, False)
+    assert win * n_win >= l_eff and win <= l_eff
+    assert g * win * 3 * 8 * n_bins <= HC.SMEM_MAX
+    assert (g == c_pad) or (g + 1) * win * 3 * 8 * n_bins > HC.SMEM_MAX
+    assert n_win == -(-l_eff // win)
+    assert rows % 1024 == 0 and rows >= 16384
+    w2, n2, g2, _ = HC.level_grid(l_eff, n_bins, c_pad, False, 2)
+    assert g2 == 2 and 2 * w2 * 3 * 8 * n_bins <= HC.SMEM_MAX
+    assert HC.level_grid(l_eff, n_bins, c_pad, True) == \
+        HC.hist_grid(l_eff, n_bins, 4)[:2] + (1,) + \
+        HC.hist_grid(l_eff, n_bins, 4)[2:]
+    with pytest.raises(ValueError, match="group"):
+        HC.level_grid(l_eff, n_bins, c_pad, False, c_pad + 1)
+    with pytest.raises(ValueError, match="one column per block"):
+        HC.level_grid(l_eff, n_bins, c_pad, True, 2)
+
+
+@pytest.mark.parametrize("fused", [None, False])
+def test_scale_is_ignored_by_the_plain_versions(fused):
+    """A scale handed to the dispatchers changes nothing on the CPU."""
+    n_bins, b_val, L_h = 128, 64, 8
+    codes, heap, stats, _ = _codes_heap_stats(80, L=L_h // 2, b_val=b_val)
+    rng = np.random.default_rng(81)
+    tbl, route_cat, _ = (np.array(a) for a in _route_tables(
+        rng, L_h // 2, n_bins, b_val, codes.shape[0]))
+    args = [torch.from_numpy(a) for a in (codes, heap, tbl, route_cat,
+                                          stats)]
+    kw = dict(base_r=L_h // 2 - 1, L_r=L_h // 2, base_h=L_h - 1, L_h=L_h,
+              n_bins=n_bins, fused=fused)
+    h0, hist0 = HC.sbh_route_hist(*args, **kw)
+    h1, hist1 = HC.sbh_route_hist(*args, scale=HC.hist_scale(args[4]), **kw)
+    assert torch.equal(h0, h1) and torch.equal(hist0, hist1)
+    d0 = HC.sbh_hist(args[0], args[1], args[4], base=3, L=4, n_bins=n_bins)
+    d1 = HC.sbh_hist(args[0], args[1], args[4], base=3, L=4, n_bins=n_bins,
+                     scale=HC.hist_scale(args[4]))
+    assert torch.equal(d0, d1)
