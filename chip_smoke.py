@@ -7,19 +7,22 @@ Phases, each printing its lines before the last:
   1. the card (nvidia-smi name and power limit, torch's device name) and
      the kernels' build: every csrc/*.cu compiled by nvcc for sm_90a, all
      sources at once, with each kernel's registers and the atomic
-     instructions it compiled to; the f32 dense and fused kernels must show
-     no compare-and-swap shared atomic;
+     instructions it compiled to; the f32 dense, fused and shallow-window
+     kernels must show no compare-and-swap shared atomic, and no
+     instantiation of the shallow-window kernel or of the int8 fused
+     kernel's column groups may spill;
   2. each kernel against its plain PyTorch version on the card (for f32
      histograms, the plain version in float64; int32 histograms must be
      equal), at small shapes: route with and without the margin update;
      the dense histogram, f32 and int8, with half False and True at L = 1,
      64 and 128; the shallow-window histogram at L = 1 full and L = 2 and
      4 half, f32 and int8; the fused route+histogram at L_h = 2, 4 and 32,
-     f32 and int8, heap ids identical; then the f32 dense and fused
-     kernels on adversarial stats (weights up to 1e4, alternating-sign
-     grads, every row in one slot and one bin, one NaN and one inf stat:
-     their bins as in float64, every other bin within tolerance), each
-     launched twice on the same inputs with bit-identical results;
+     f32 and int8, heap ids identical; then the f32 dense, fused and
+     shallow-window kernels on adversarial stats (weights up to 1e4,
+     alternating-sign grads, every row in one slot and one bin, one NaN
+     and one inf stat: their bins as in float64, every other bin within
+     tolerance), each launched twice on the same inputs with bit-identical
+     results;
   3. the main path at small size: a seeded CSV through import_file, a
      bernoulli GBM (the default configuration, then int8_hist=True),
      predict and AUC, on the card and on the CPU (plain versions), which
@@ -46,7 +49,11 @@ Phases, each printing its lines before the last:
      or its f32 operations over 67 TFLOP/s, whichever is larger), and its
      agreement with the plain version on those inputs; the f32 dense and
      fused kernels also at one column per block and at the column groups
-     of two shared-memory budgets, each grouping's result bit-identical.
+     of two shared-memory budgets, the int8 fused kernel at its column
+     groups of both budgets and one column, 512 and 1024 threads, the
+     shallow-window kernel (both forms) at every column group it is built
+     for, 512 and 1024 threads (one window copy per warp where they fit),
+     warp aggregation on and off: each layout's result bit-identical.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -126,23 +133,47 @@ def phase_card(torch, _build):
     say(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" \
+                    in line:
                 say(f"ptxas {name}: {line.strip()}")
+        # the shallow-window kernel and the int8 fused kernel's column
+        # groups are unrolled at compile time: none of them may spill
+        for fn, spilled in ptxas_spills(log).items():
+            if re.search(r"radix_kernel|fused_i8_kernel", fn):
+                check(not spilled, f"{fn} spills: {spilled} bytes")
     ops = {}
     for name in logs:
         ops.update(sass_atomics(_build, name))
-    # the f32 dense and fused kernels sum in fixed point: no shared atomic
-    # of theirs may be a compare-and-swap loop (the f64 adds they replace
-    # compiled to ATOMS.CAST.SPIN.64)
+    # the f32 kernels sum in fixed point: no shared atomic of theirs may be
+    # a compare-and-swap loop (the f64 adds they replace compiled to
+    # ATOMS.CAST.SPIN.64)
     f32 = {fn: found for fn, found in ops.items()
-           if re.search(r"(hist|fused)_kernelIfE", fn)}
-    check(len(f32) == 2, f"f32 dense and fused kernels not found in the "
-          f"SASS: {sorted(ops)}")
+           if re.search(r"(hist|fused|radix)_kernelIf", fn)}
+    for kind in ("hist", "fused", "radix"):
+        check(any(f"{kind}_kernelIf" in fn for fn in f32),
+              f"f32 {kind} kernel not found in the SASS: {sorted(ops)}")
     for fn, found in f32.items():
         cas = sorted(op for op in found if op.startswith("ATOMS.CAS"))
         check(not cas, f"{fn} compiled a compare-and-swap shared atomic: "
               f"{cas}")
+    say(f"sass: {len(f32)} f32 histogram kernels, no compare-and-swap "
+        "shared atomic")
     return card
+
+
+def ptxas_spills(log):
+    """{function: spill store + load bytes} from nvcc's -Xptxas -v log."""
+    fn, out = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = int(m.group(1)) + int(m.group(2))
+    return out
 
 
 def sass_atomics(_build, name):
@@ -370,6 +401,21 @@ def phase_adversarial(torch, HC, dev):
         check(torch.equal(h_k, h_p) and torch.equal(h_k, h_2),
               f"fused adversarial {what}: heap differs")
         check_adversarial(torch, f"fused adversarial {what} n={n}", got,
+                          again, want, "nonfinite" in extra)
+    # the shallow-window kernel: one slot (full warps of one key), and a
+    # half window of two slots
+    for what, L, extra in (("one slot, one bin", 1, dict(one_bin=True)),
+                           ("L=4 half", 4, {}),
+                           ("L=4 half, NaN and inf", 4,
+                            dict(nonfinite=True))):
+        codes, heap, stats, base = _adversarial(torch, dev, 80 + L, n=n,
+                                                c_pad=c_pad, b_val=b_val,
+                                                L=L, **extra)
+        kw = dict(base=base, L=L, n_bins=n_bins, half=L > 1)
+        got, again = (HC.sbh_hist_radix(codes, heap, stats, **kw)
+                      for _ in range(2))
+        want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
+        check_adversarial(torch, f"radix adversarial {what} n={n}", got,
                           again, want, "nonfinite" in extra)
 
 
@@ -756,6 +802,15 @@ def time_hist(torch, HC, name, args, kw):
         groups = "; " + time_groups(
             torch, HC, lambda g: fn(*args, **kw, group=g), l_eff, c_pad,
             pkw["n_bins"])
+    elif name == "sbh_hist_radix":
+        slot = l_eff * 3 * (4 if int8 else 8) * pkw["n_bins"]
+        groups = "; layouts " + time_layouts(torch, lambda **v: fn(
+            *args, **kw, **v), [
+            (f"G={g} T={t} agg={int(a)} copies="
+             f"{HC.radix_grid(l_eff, pkw['n_bins'], c_pad, int8, g, t)[2]}",
+             dict(group=g, threads=t, agg=a))
+            for g in HC.RADIX_GROUPS[int8] if g <= c_pad and g * slot <= HC.SMEM_MAX
+            for t in (512, 1024) for a in (True, False)])
     say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
         f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {rows_in} "
         f"rows summed of {l_eff} slots){groups}")
@@ -773,15 +828,25 @@ def time_groups(torch, HC, run, l_eff, c_pad, n_bins):
     gs = sorted({1, min(2, c_pad),
                  HC.column_group(win, n_bins, c_pad, 96 * 1024),
                  HC.column_group(win, n_bins, c_pad, HC.SMEM_MAX)})
+    return "columns per block " + time_layouts(
+        torch, lambda group: run(group),
+        [(f"G={g}", dict(group=g)) for g in gs])
+
+
+def time_layouts(torch, run, layouts):
+    """Time run(**kw) for each (label, kw) of `layouts`, each result held
+    equal bit for bit to the first's (exact sums do not depend on the
+    layout). Returns the times as text."""
     ref, parts = None, []
-    for g in gs:
-        out = run(g)
+    for label, kw in layouts:
+        out = run(**kw)
         if ref is None:
             ref = out
-        check(bit_equal(torch, out, ref), f"group {g}: histogram differs "
-              f"from group {gs[0]}")
-        parts.append(f"G={g} {time_ms(torch, lambda: run(g), 10):.4f} ms")
-    return "columns per block " + ", ".join(parts) + " (bit-identical)"
+        check(bit_equal(torch, out, ref), f"layout {label}: histogram "
+              f"differs from {layouts[0][0]}")
+        parts.append(f"{label} {time_ms(torch, lambda: run(**kw), 10):.4f} "
+                     "ms")
+    return ", ".join(parts) + " (bit-identical)"
 
 
 def time_route(torch, HC, args, kw):
@@ -837,6 +902,17 @@ def time_fused(torch, HC, args, kw):
             torch, HC,
             lambda g: HC.sbh_route_hist_fused(*args, **kw, group=g)[1],
             l_eff, c_pad, pkw["n_bins"])
+    else:
+        # the int8 form's compile-time groups: one column, and the groups
+        # of a 96 KB and the largest budget, at 512 and 1024 threads
+        win = HC.level_grid(l_eff, pkw["n_bins"], c_pad, True)[0]
+        gs = sorted({1} | {min(32, HC._pow2_floor(HC.column_group(
+            win, pkw["n_bins"], c_pad, b, 4))) for b in (96 * 1024,
+                                                        HC.SMEM_MAX)})
+        groups = "; layouts " + time_layouts(
+            torch, lambda **v: HC.sbh_route_hist_fused(*args, **kw, **v)[1],
+            [(f"G={g} T={t}", dict(group=g, threads=t))
+             for g in gs for t in (512, 1024)])
     say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({by}, {moved} rows routed, {rows_in} rows summed "
         f"of {l_eff} slots){groups}")

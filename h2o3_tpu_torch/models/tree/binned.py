@@ -307,8 +307,8 @@ class BinnedGrower:
         else:
             stats_in = stats
             hist_fn = HC.sbh_hist
-            # the f32 dense and fused kernels' fixed-point scale, once per
-            # tree for the same reason (kept on the device)
+            # the f32 histogram kernels' fixed-point scale, once per tree
+            # for the same reason (kept on the device)
             hkw = {"scale": HC.hist_scale(stats)}
         # hist_prev keeps the level's full histogram in its native dtype
         # (int32 with int8: the sibling subtraction stays exact)

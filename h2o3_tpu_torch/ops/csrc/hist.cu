@@ -8,18 +8,15 @@
 //   stats   f32 or int32 (4, n_pad) rows 0 = w, 1 = w*grad, 2 = w*hess,
 //                 3 = spare (0); int32 holds the int8-quantized stats
 //   scale   f64   (3,)       power-of-two fixed-point scale of each stat row
-//                 (float stats of the dense and fused kernels)
+//                 (float stats)
 //   tbl     f32   (8, lp)    row 0 = split column, row 1 = did-split
 //   route_f f32   (lp, n_bins) 1.0 = code goes right
 //   valtab  f32   (8, nodes_p) row 0 = leaf values (emit_f only)
 //   hist    (l_pad, c_pad, 4, n_bins), zeroed by the caller: int64 fixed
-//                 point for the float stats of the dense and fused kernels
-//                 (stat s in units of 1 / scale[s]), f64 for the float stats
-//                 of the shallow-window kernel, int32 for int stats; the
-//                 wrapper hands back the f32 value
+//                 point for float stats (stat s in units of 1 / scale[s]),
+//                 int32 for int stats; the wrapper hands back the f32 value
 //   side    f32   hist's shape, zeroed by the caller: the sum of the
-//                 non-finite stats that reached each bin (dense and fused
-//                 kernels, float stats)
+//                 non-finite stats that reached each bin (float stats)
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() of its launch (or the
@@ -37,8 +34,10 @@ namespace {
 // output row stays as the caller zeroed it.
 constexpr int kStats = 3;
 constexpr int kRouteThreads = 256;
-constexpr int kHistThreads = 512;
-constexpr int kWarps = kHistThreads / 32;
+// Launch bound of the fused and shallow-window kernels, whose launches take
+// 512 or 1024 threads (the wrapper's choice).
+constexpr int kMaxThreads = 1024;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // Route of one row (shared by route_kernel and fused_kernel): a row of a
@@ -103,7 +102,7 @@ route_kernel(const uint8_t* __restrict__ codes,
 // one address lost 8e-5 of the bin (measured at 11M rows), so no f32 sum
 // is used:
 //   * int stats (the int8 path) sum in int32, exactly;
-//   * the float stats of the dense and fused kernels sum in 64-bit fixed
+//   * float stats sum in 64-bit fixed
 //     point (Fixed): stat row s of a row becomes q = round(x * scale[s]),
 //     with scale[s] the power of two that keeps n_pad * max|x| * scale[s]
 //     <= 2^62 (hist_cuda.hist_scale). The scaling is exact, so q rounds
@@ -111,8 +110,7 @@ route_kernel(const uint8_t* __restrict__ codes,
 //     are exact and order-free (the total fits: |sum q| <= 2^62 + n_pad/2),
 //     so every launch on the same inputs gives the same bits. The f64 sums
 //     these replace compiled to compare-and-swap loops
-//     (ATOMS.CAST.SPIN.64) and ran at a quarter of the int32 forms' speed;
-//   * the shallow-window kernel keeps f64 for float stats.
+//     (ATOMS.CAST.SPIN.64) and ran at a quarter of the int32 forms' speed.
 using Fixed = unsigned long long;       // two's complement int64 bits
 
 // Values a row adds to the histogram, one per stat row and row of a 4-row
@@ -121,20 +119,21 @@ template <typename T> struct Values;
 
 template <> struct Values<int32_t> {
   using Acc = int32_t;
-  // Threads of a dense or fused block, and columns per block: the int32
-  // forms take one column per block, fixed at compile time, so their
-  // blocks keep the registers (and the occupancy at the shallow levels,
-  // where windows are small) they had before the f32 forms took column
-  // groups. With a run-time column loop they ran slower.
+  // Threads of a dense block, and columns per block: the int32 dense
+  // form takes one column per block, fixed at compile time, so its blocks
+  // keep the registers they had before the f32 forms took column groups
+  // (with a run-time column loop the int32 forms ran slower; the int32
+  // fused form takes its group at compile time, level_pass's kGroup).
   static constexpr int kThreads = 512;
   static constexpr bool kOneColumn = true;
   __device__ explicit Values(const double*) {}
-  __device__ unsigned operator()(const int32_t x[kStats][4], const int[4],
-                                 Acc v[kStats][4]) const {
+  template <int N>
+  __device__ unsigned operator()(const int32_t x[kStats][N], const int[N],
+                                 Acc v[kStats][N]) const {
 #pragma unroll
     for (int s = 0; s < kStats; ++s)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[s][k] = x[s][k];
+      for (int k = 0; k < N; ++k) v[s][k] = x[s][k];
     return 0;
   }
 };
@@ -174,19 +173,20 @@ template <> struct Values<float> {
     return (b >> 31) ? -m : m;
   }
   // A NaN or +-inf stat has no fixed-point value: it adds 0 here and goes
-  // to the side buffer (bit s * 4 + k of the mask) for rows in the window.
-  __device__ unsigned operator()(const float x[kStats][4], const int slot[4],
-                                 Acc v[kStats][4]) const {
+  // to the side buffer (bit s * N + k of the mask) for rows in the window.
+  template <int N>
+  __device__ unsigned operator()(const float x[kStats][N], const int slot[N],
+                                 Acc v[kStats][N]) const {
     unsigned nf = 0;
 #pragma unroll
     for (int s = 0; s < kStats; ++s)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < N; ++k) {
         if (isfinite(x[s][k])) {
           v[s][k] = static_cast<Fixed>(fixed(x[s][k], s1[s], s2[s]));
         } else {
           v[s][k] = 0;
-          if (slot[k] >= 0) nf |= 1u << (s * 4 + k);
+          if (slot[k] >= 0) nf |= 1u << (s * N + k);
         }
       }
     return nf;
@@ -197,8 +197,6 @@ template <> struct Values<float> {
 // (slot, stat, bin) index i; window k of a block starts k windows into the
 // dynamic shared memory.
 //   int32: native ATOMS.ADD.
-//   f64: a compare-and-swap loop (ATOMS.CAST.SPIN.64), left in the
-//     shallow-window kernel.
 //   Fixed: a 64-bit atomicAdd on shared memory also compiles to
 //     ATOMS.CAST.SPIN.64 for sm_90a, so a value is added as two native
 //     32-bit ATOMS.ADD on its words: the low word's add returns the old
@@ -214,6 +212,12 @@ template <typename Acc> struct Window {
   __device__ Window(unsigned char* smem, int k, int nsh)
       : p(reinterpret_cast<Acc*>(smem) + static_cast<size_t>(k) * nsh) {}
   __device__ void add(int i, Acc v) const { atomicAdd(p + i, v); }
+  // add a, b, c at i, i + stride, i + 2 * stride (one key's three stats)
+  __device__ void add3(int i, int stride, Acc a, Acc b, Acc c) const {
+    add(i, a);
+    add(i + stride, b);
+    add(i + 2 * stride, c);
+  }
   __device__ Acc get(int i) const { return p[i]; }
 };
 
@@ -231,20 +235,47 @@ template <> struct Window<Fixed> {
     }
     if (hi != 0) atomicAdd(w + 1, hi);
   }
+  // add a, b, c at i, i + stride, i + 2 * stride (one key's three stats):
+  // the three low words' adds first, so that they are in flight together,
+  // then the high words with their carries (add() one at a time waits on
+  // each low word before the next value's add can start)
+  __device__ void add3(int i, int stride, Fixed a, Fixed b, Fixed c) const {
+    const Fixed v[3] = {a, b, c};
+    unsigned hi[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const unsigned lo = static_cast<unsigned>(v[s]);
+      hi[s] = static_cast<unsigned>(v[s] >> 32);
+      if (lo != 0) {
+        const unsigned old = atomicAdd(reinterpret_cast<unsigned*>(p + i + s * stride), lo);
+        hi[s] += old + lo < old ? 1u : 0u;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      if (hi[s] != 0) atomicAdd(reinterpret_cast<unsigned*>(p + i + s * stride) + 1, hi[s]);
+  }
   __device__ Fixed get(int i) const { return p[i]; }
 };
 
-template <typename T> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<int32_t> { using type = int4; };
+// N consecutive elements (N = 2 or 4) in one vector load.
+template <typename T, int N> struct VecN;
+template <> struct VecN<float, 2> { using type = float2; };
+template <> struct VecN<int32_t, 2> { using type = int2; };
+template <> struct VecN<uint8_t, 2> { using type = uchar2; };
+template <> struct VecN<float, 4> { using type = float4; };
+template <> struct VecN<int32_t, 4> { using type = int4; };
+template <> struct VecN<uint8_t, 4> { using type = uchar4; };
 
-template <typename T>
-__device__ __forceinline__ void load4(const T* __restrict__ p, T out[4]) {
-  const typename Vec4<T>::type v = *reinterpret_cast<const typename Vec4<T>::type*>(p);
+template <int N, typename T, typename U>
+__device__ __forceinline__ void load_n(const T* __restrict__ p, U out[N]) {
+  const typename VecN<T, N>::type v = *reinterpret_cast<const typename VecN<T, N>::type*>(p);
   out[0] = v.x;
   out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
+  if constexpr (N == 4) {
+    out[2] = v.z;
+    out[3] = v.w;
+  }
 }
 
 // Window slot of a row's heap id h for leaves [base, base + n_leaves) (with
@@ -262,41 +293,41 @@ __device__ __forceinline__ int window_slot(int h, int base, int n_leaves,
   return ok && s >= 0 && s < win ? s : -1;
 }
 
-// Fold the values of 4 consecutive rows into a window histogram. With
-// kRuns, rows in a run that share one (slot, bin) key are summed in
-// registers first and take one shared atomic per stat: a constant or
-// padding column (every row in bin 0) then costs a quarter of the atomics.
-// (The dense and fused kernels measured no gain from it, and fold without.)
-template <bool kRuns, typename Acc>
+// Fold the values of 4 consecutive rows into a window histogram, one
+// shared atomic per (row, stat).
+template <typename Acc>
 __device__ __forceinline__ void fold4(const Window<Acc>& sh, const int slot[4],
                                       const uchar4 c4, const Acc v[kStats][4],
                                       int n_bins) {
   const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
-  if (!kRuns) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // codes >= n_bins are outside the contract: dropped, never written
-      // past the window's shared histogram
-      if (slot[k] < 0 || cs[k] >= n_bins) continue;
-      const int i = slot[k] * kStats * n_bins + cs[k];
-      sh.add(i, v[0][k]);
-      sh.add(i + n_bins, v[1][k]);
-      sh.add(i + 2 * n_bins, v[2][k]);
-    }
-    return;
+  for (int k = 0; k < 4; ++k) {
+    // codes >= n_bins are outside the contract: dropped, never written
+    // past the window's shared histogram
+    if (slot[k] < 0 || cs[k] >= n_bins) continue;
+    const int i = slot[k] * kStats * n_bins + cs[k];
+    sh.add(i, v[0][k]);
+    sh.add(i + n_bins, v[1][k]);
+    sh.add(i + 2 * n_bins, v[2][k]);
   }
+}
+
+// Fold the values of N consecutive rows into a window histogram: rows in a
+// run that share one (slot, bin) key are summed in registers first and
+// take one add per stat (add3), so a constant or padding column (every row
+// in bin 0) costs 1/N of the atomics.
+template <int N, typename Acc>
+__device__ __forceinline__ void fold_runs(const Window<Acc>& sh, const int slot[N],
+                                          const int cs[N], const Acc v[kStats][N],
+                                          int n_bins) {
   int key = -1;
   Acc aw = 0, ag = 0, ah = 0;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < N; ++k) {
     if (slot[k] < 0 || cs[k] >= n_bins) continue;
     const int kk = slot[k] * kStats * n_bins + cs[k];
     if (kk != key) {
-      if (key >= 0) {
-        sh.add(key, aw);
-        sh.add(key + n_bins, ag);
-        sh.add(key + 2 * n_bins, ah);
-      }
+      if (key >= 0) sh.add3(key, n_bins, aw, ag, ah);
       key = kk;
       aw = ag = ah = 0;
     }
@@ -304,30 +335,68 @@ __device__ __forceinline__ void fold4(const Window<Acc>& sh, const int slot[4],
     ag += v[1][k];
     ah += v[2][k];
   }
-  if (key >= 0) {
-    sh.add(key, aw);
-    sh.add(key + n_bins, ag);
-    sh.add(key + 2 * n_bins, ah);
-  }
+  if (key >= 0) sh.add3(key, n_bins, aw, ag, ah);
 }
 
-// Non-finite stats of a 4-row step (mask nf from Values<float>) into the
+// fold_runs for a whole warp, with warp aggregation (agg): when the N rows
+// of every lane share one (slot, bin) key (a constant or padding column:
+// at level 0 every row of the column in bin 0), the warp sums its 32 N
+// rows in registers (shuffles) and one lane adds the sums, where the lanes
+// would otherwise queue 32 atomics on one address. A shuffle of lane 0's
+// key and one vote test the case: __match_any_sync would return the same
+// full mask, at a higher cost. Every lane of the warp must call it.
+template <int N, typename Acc>
+__device__ __forceinline__ void fold_warp(const Window<Acc>& sh, const int slot[N],
+                                          const int cs[N], const Acc v[kStats][N],
+                                          int n_bins, bool agg) {
+  if (agg) {
+    const int key = slot[0] * kStats * n_bins + cs[0];
+    bool one = slot[0] >= 0 && cs[0] < n_bins;
+#pragma unroll
+    for (int k = 1; k < N; ++k) one = one && cs[k] == cs[0] && slot[k] == slot[0];
+    const int key0 = __shfl_sync(kFullWarp, one ? key : -1, 0);
+    if (__all_sync(kFullWarp, one && key == key0)) {
+      Acc a[kStats];
+#pragma unroll
+      for (int s = 0; s < kStats; ++s) {
+        a[s] = v[s][0];
+#pragma unroll
+        for (int k = 1; k < N; ++k) a[s] += v[s][k];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a[s] += __shfl_xor_sync(kFullWarp, a[s], o);
+      }
+      if ((threadIdx.x & 31) == 0) sh.add3(key0, n_bins, a[0], a[1], a[2]);
+      return;
+    }
+  }
+  fold_runs<N>(sh, slot, cs, v, n_bins);
+}
+
+// Non-finite stats of an N-row step (mask nf from Values<float>) into the
 // side buffer at their (slot, column, stat, bin), with global f32 atomics:
 // a sum of NaN and +-inf values is what the f64 sum of the bin would be.
+template <int N>
+__device__ __forceinline__ void add_nonfinite(float* __restrict__ side, unsigned nf,
+                                              const float x[kStats][N],
+                                              const int slot[N], const int cs[N],
+                                              int c, int c_pad, int n_bins, int w0) {
+#pragma unroll
+  for (int s = 0; s < kStats; ++s)
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (!((nf >> (s * N + k)) & 1u) || cs[k] >= n_bins) continue;
+      const int64_t o =
+          ((static_cast<int64_t>(w0 + slot[k]) * c_pad + c) * 4 + s) * n_bins + cs[k];
+      atomicAdd(side + o, x[s][k]);
+    }
+}
+
 __device__ __forceinline__ void add_nonfinite(float* __restrict__ side, unsigned nf,
                                               const float x[kStats][4],
                                               const int slot[4], const uchar4 c4,
                                               int c, int c_pad, int n_bins, int w0) {
   const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-  for (int s = 0; s < kStats; ++s)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!((nf >> (s * 4 + k)) & 1u) || cs[k] >= n_bins) continue;
-      const int64_t o =
-          ((static_cast<int64_t>(w0 + slot[k]) * c_pad + c) * 4 + s) * n_bins + cs[k];
-      atomicAdd(side + o, x[s][k]);
-    }
+  add_nonfinite<4>(side, nf, x, slot, cs, c, c_pad, n_bins, w0);
 }
 
 // Zero `nwin` windows of nsh accumulators.
@@ -367,8 +436,10 @@ __device__ __forceinline__ void flush_window(unsigned char* smem, int ncopy,
 // level's splits), loads the stats and turns them into values once, then
 // folds them into one shared window per column of the group, reading that
 // column's 4 code bytes. With kRoute, the column-group-0, window-0 block of
-// each row chunk writes the routed ids to heap_out.
-template <typename T, bool kRoute>
+// each row chunk writes the routed ids to heap_out. kGroup > 0 fixes the
+// group at compile time (the int8 fused kernel: its column loop unrolls),
+// 0 takes `group` at run time.
+template <typename T, bool kRoute, int kGroup = 0>
 __device__ __forceinline__ void level_pass(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ heap,
     const float* __restrict__ tbl, const float* __restrict__ route_f,
@@ -378,9 +449,11 @@ __device__ __forceinline__ void level_pass(
     int base_r, int L_r, int base_h, int L_h, bool half, int win, int group,
     int64_t rows_per_block) {
   using Acc = typename Values<T>::Acc;
+  static_assert(kGroup == 0 || !std::is_same<T, float>::value,
+                "the f32 forms take their group at run time");
   extern __shared__ __align__(16) unsigned char smem[];   // group windows
   const int c0 = blockIdx.x * group;
-  const int ncol = Values<T>::kOneColumn ? 1 : min(group, c_pad - c0);
+  const int ncol = Values<T>::kOneColumn && kGroup == 0 ? 1 : min(group, c_pad - c0);
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int w0 = blockIdx.z * win;
   const bool writer = kRoute && blockIdx.x == 0 && blockIdx.z == 0;
@@ -411,16 +484,26 @@ __device__ __forceinline__ void level_pass(
     }
     if (!any) continue;
     T x[kStats][4];
-    load4(stats + r, x[0]);
-    load4(stats + n_pad + r, x[1]);
-    load4(stats + 2 * n_pad + r, x[2]);
+    load_n<4>(stats + r, x[0]);
+    load_n<4>(stats + n_pad + r, x[1]);
+    load_n<4>(stats + 2 * n_pad + r, x[2]);
     Acc v[kStats][4];
     const unsigned nf = values(x, slot, v);
-    for (int j = 0; j < ncol; ++j) {
-      const uchar4 c4 = *reinterpret_cast<const uchar4*>(cgroup + j * n_pad + r);
-      fold4<false>(Window<Acc>(smem, j, nsh), slot, c4, v, n_bins);
-      if constexpr (std::is_same<T, float>::value) {
-        if (nf) add_nonfinite(side, nf, x, slot, c4, c0 + j, c_pad, n_bins, w0);
+    if constexpr (kGroup > 0) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (j < ncol) {
+          const uchar4 c4 = *reinterpret_cast<const uchar4*>(cgroup + j * n_pad + r);
+          fold4(Window<Acc>(smem, j, nsh), slot, c4, v, n_bins);
+        }
+      }
+    } else {
+      for (int j = 0; j < ncol; ++j) {
+        const uchar4 c4 = *reinterpret_cast<const uchar4*>(cgroup + j * n_pad + r);
+        fold4(Window<Acc>(smem, j, nsh), slot, c4, v, n_bins);
+        if constexpr (std::is_same<T, float>::value) {
+          if (nf) add_nonfinite(side, nf, x, slot, c4, c0 + j, c_pad, n_bins, w0);
+        }
       }
     }
   }
@@ -490,55 +573,128 @@ hist_kernel(const uint8_t* __restrict__ codes,
 // Bound: bytes, as hist_kernel. What costs here instead is contention:
 // every row of a block's chunk adds into the same one or two slots, and
 // rows of a constant or padding column into one address. Design: grid
-// (column, row chunk); the block keeps `ncopy` private copies of the window
-// histogram in shared memory (one per warp, or per group of warps where
-// fewer fit), so the warps of a block never contend with each other; runs
-// of rows sharing one (slot, bin) key are summed in registers before their
-// atomics; the copies are added once, before the flush. Float stats still
-// sum in f64 here.
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kHistThreads)
+// (column group, row chunk). A block takes kGroup columns (fixed at compile
+// time, so the column loop unrolls) and keeps `ncopy` private copies of
+// each column's window in shared memory, one per warp or per group of
+// warps where fewer fit; per step it loads the heap and the stats of its
+// rows and turns them into values once for all the columns of its group.
+// Runs of rows sharing one (slot, bin) key are summed in registers before
+// their atomics (a run's three low words added before their high words),
+// and a warp whose rows all share one key sums them in registers and adds
+// once (fold_warp, `agg`); the copies are added once, before the flush.
+// Float stats sum in exact 64-bit fixed point as in hist_kernel
+// (Values<float>, Window<Fixed>), int32 stats in int32, and NaN and +-inf
+// go to the side buffer. The copies partition the rows, so their total
+// stays within hist_scale's bound and the sum is exact and order-free:
+// every launch, copy count and grouping gives the same bits. The wrapper
+// sizes the row chunks so that the grid fills whole waves of the SMs, and
+// each block flushes once.
+//
+// On the card (cuobjdump -sass, chip_smoke.py phase 1): every shared
+// atomic of radix_kernel<float, G> is ATOMS.ADD, none ATOMS.CAS*. Its f32
+// form takes 2 rows a step (kRadixRows): with 4, the 64-bit values held
+// across the column loop took it past the 64 registers of 1024 threads
+// (spills from G = 4 up); with 2 it stays within them up to G = 16.
+// Layout, timed at HIGGS level 0 (11M rows, 32 columns; chip_smoke.py
+// phase 5, NVIDIA H100 80GB HBM3, 700 W; the f32 form, then the int8 one):
+//   * 1024 threads against 512: 1.81 against 3.18 ms (G = 16), 0.67
+//     against 1.06 (G = 32): at 512 threads the copies fill the shared
+//     memory and an SM holds one block of 16 warps;
+//   * G = 16 with 2 copies 1.81 ms; G = 1 with a copy per warp 3.04, G = 2
+//     2.34, G = 4 2.00, G = 8 1.87. int8: G = 32 with 2 copies 0.666, G = 1
+//     0.990, G = 8 0.659;
+//   * warp aggregation on against off: 1.81 against 2.03 ms, int8 0.666
+//     against 0.728 (4 of HIGGS's 32 padded columns are constant);
+//   * the low and high words in two planes (every bank for the low words'
+//     adds) ran no faster, as for the dense kernel.
+// So: 1024 threads, the widest group that leaves room for two copies (16
+// for f32, 32 for int8, at one slot and 256 bins), aggregation on.
+
+// Rows a thread takes per step of the shallow-window kernel (4 for int32
+// stats, 2 for f32), and the widest column group it is built for (16 for
+// f32: at 32 the 2-row form spilled too; 32 for int32).
+template <typename T> constexpr int kRadixRows = std::is_same<T, float>::value ? 2 : 4;
+template <typename T> constexpr int kRadixMaxGroup = std::is_same<T, float>::value ? 16 : 32;
+
+template <typename T, int kGroup>
+__global__ void __launch_bounds__(kMaxThreads)
 radix_kernel(const uint8_t* __restrict__ codes,
              const int32_t* __restrict__ heap,
              const T* __restrict__ stats,
-             Acc* __restrict__ hist,
+             const double* __restrict__ scale,
+             typename Values<T>::Acc* __restrict__ hist,
+             float* __restrict__ side,
              int64_t n_pad, int c_pad, int n_bins, int base, int n_leaves,
-             int half, int win, int ncopy, int64_t rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];   // ncopy windows
-  const int c = blockIdx.x;
+             int half, int win, int ncopy, int agg, int64_t rows_per_block) {
+  using Acc = typename Values<T>::Acc;
+  constexpr int N = kRadixRows<T>;
+  extern __shared__ __align__(16) unsigned char smem[];   // ncopy x ncol windows
+  const int c0 = blockIdx.x * kGroup;
+  const int ncol = min(kGroup, c_pad - c0);
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int nsh = win * kStats * n_bins;
-  zero_windows<Acc>(smem, ncopy, nsh);
+  zero_windows<Acc>(smem, ncopy * ncol, nsh);
+  const Values<T> values(scale);
   __syncthreads();
 
-  const Window<Acc> mine(smem, (threadIdx.x >> 5) % ncopy, nsh);
+  const int lane = threadIdx.x & 31;
+  const int copy = (threadIdx.x >> 5) % ncopy;
   const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
-  const uint8_t* __restrict__ crow = codes + static_cast<int64_t>(c) * n_pad;
-  for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
-       r += 4 * static_cast<int64_t>(blockDim.x)) {
-    const int4 h4 = *reinterpret_cast<const int4*>(heap + r);
-    const int hs[4] = {h4.x, h4.y, h4.z, h4.w};
-    int slot[4];
+  const uint8_t* __restrict__ cgroup = codes + static_cast<int64_t>(c0) * n_pad;
+  // the loop runs while the warp's first row is in the chunk, so all its
+  // lanes take the same steps (fold_warp needs every lane); a lane past the
+  // chunk's end (n_pad and the chunk are multiples of 4) has no rows
+  for (int64_t rw = r0 + N * static_cast<int64_t>(threadIdx.x - lane); rw < r1;
+       rw += N * static_cast<int64_t>(blockDim.x)) {
+    const int64_t r = rw + N * lane;
+    int slot[N];
     bool any = false;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      slot[k] = window_slot(hs[k], base, n_leaves, half, 0, win);
-      any = any || slot[k] >= 0;
+    for (int k = 0; k < N; ++k) slot[k] = -1;
+    if (r < r1) {
+      int hs[N];
+      load_n<N>(heap + r, hs);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        slot[k] = window_slot(hs[k], base, n_leaves, half != 0, 0, win);
+        any = any || slot[k] >= 0;
+      }
     }
-    if (!any) continue;
-    T x[kStats][4];
-    load4(stats + r, x[0]);
-    load4(stats + n_pad + r, x[1]);
-    load4(stats + 2 * n_pad + r, x[2]);
-    Acc v[kStats][4];
+    if (!__any_sync(kFullWarp, any)) continue;
+    T x[kStats][N] = {};
+    if (any) {
 #pragma unroll
-    for (int s = 0; s < kStats; ++s)
+      for (int s = 0; s < kStats; ++s) load_n<N>(stats + s * n_pad + r, x[s]);
+    }
+    Acc v[kStats][N];
+    const unsigned nf = values(x, slot, v);
+    // the column's codes, one plane further per column (each address from
+    // the last, so none is held across the row loop)
+    const uint8_t* __restrict__ cj = cgroup + r;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[s][k] = static_cast<Acc>(x[s][k]);
-    fold4<true>(mine, slot, *reinterpret_cast<const uchar4*>(crow + r), v, n_bins);
+    for (int j = 0; j < kGroup; ++j, cj += n_pad) {
+      if (j < ncol) {
+        int cs[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) cs[k] = 0;
+        if (any) load_n<N>(cj, cs);
+        fold_warp<N>(Window<Acc>(smem, copy * ncol + j, nsh), slot, cs, v, n_bins,
+                     agg != 0);
+        if constexpr (std::is_same<T, float>::value) {
+          if (nf) {
+            // rare: the stats are loaded again rather than held in
+            // registers across the columns
+            T y[kStats][N];
+#pragma unroll
+            for (int s = 0; s < kStats; ++s) load_n<N>(stats + s * n_pad + r, y[s]);
+            add_nonfinite<N>(side, nf, y, slot, cs, c0 + j, c_pad, n_bins, 0);
+          }
+        }
+      }
+    }
   }
   __syncthreads();
-  flush_window(smem, ncopy, 1, nsh, hist, c, c_pad, n_bins, 0);
+  flush_window(smem, ncopy, ncol, nsh, hist, c0, c_pad, n_bins, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,7 +716,8 @@ radix_kernel(const uint8_t* __restrict__ codes,
 // tables, once per 4-row step for all the columns of its group (with one
 // column per block, every row would be routed once per column); the f32
 // form's group is as many columns as 227 KB holds at the level's window
-// (32 at one slot down to 2 at 16), the int32 form's one column. Exactly
+// (32 at one slot down to 2 at 16). The int32 form is fused_i8_kernel
+// below. Exactly
 // one block per row chunk (column group 0, window 0) writes the new
 // heap, to a separate buffer, and nothing in the launch reads it. Rows of
 // leaves that did not split keep an id in [base_r, base_r + L_r), outside
@@ -585,6 +742,36 @@ fused_kernel(const uint8_t* __restrict__ codes,
   level_pass<T, true>(codes, heap, tbl, route_f, stats, scale, heap_out, hist,
                       side, n_pad, c_pad, lp, n_bins, base_r, L_r, base_h, L_h,
                       true, win, group, rows_per_block);
+}
+
+// The int32 form (int8-quantized stats): level_pass with its group of
+// columns a power of two fixed at compile time (kGroup, 1 to 32), so each
+// 4-row step routes its rows and loads their stats once for the group,
+// where one column per block routed every row once per column; a run-time
+// column loop cost the int32 forms registers and speed. The group is as many columns as 96 KB holds at the level's
+// window (32 at one slot down to 2 at 16; hist_cuda.level_grid), 1024
+// threads; 30-40 registers, no spills. Timed at HIGGS levels 1-5 (11M
+// rows; chip_smoke.py phase 5, NVIDIA H100 80GB HBM3, 700 W): 1.13, 0.99,
+// 1.04, 1.04, 1.24 ms; one column per block 1.36-1.62; the groups of a
+// 227 KB budget (32, 32, 16, 8, 4 columns) 1.13, 1.20, 1.06, 1.11, 1.39;
+// 512 threads 1.11, 0.92, 1.00, 1.27, 1.52. The shallow-window kernel's
+// run fold ran slower here. The sums are int32, exact: every group gives
+// the plain version's bits.
+template <int kGroup>
+__global__ void __launch_bounds__(kMaxThreads)
+fused_i8_kernel(const uint8_t* __restrict__ codes,
+                const int32_t* __restrict__ heap,
+                const float* __restrict__ tbl,
+                const float* __restrict__ route_f,
+                const int32_t* __restrict__ stats,
+                int32_t* __restrict__ heap_out,
+                int32_t* __restrict__ hist,
+                int64_t n_pad, int c_pad, int lp, int n_bins, int base_r, int L_r,
+                int base_h, int L_h, int win, int64_t rows_per_block) {
+  level_pass<int32_t, true, kGroup>(codes, heap, tbl, route_f, stats, nullptr,
+                                    heap_out, hist, nullptr, n_pad, c_pad, lp,
+                                    n_bins, base_r, L_r, base_h, L_h, true, win,
+                                    kGroup, rows_per_block);
 }
 
 // Dynamic shared memory above 48 KB has to be allowed once per kernel
@@ -616,15 +803,34 @@ unsigned grid_rows(int64_t n_pad, int64_t rows_per_block) {
   return static_cast<unsigned>((n_pad + rows_per_block - 1) / rows_per_block);
 }
 
-// Shared memory of one dense or fused block, 0 for a group the launch
-// cannot take.
+// Column groups the int32 fused kernel and the shallow-window kernel are
+// instantiated for: f(std::integral_constant<int, G>) for G = group up to
+// kMaxGroup, or cudaErrorInvalidValue for a group without an instantiation.
+template <int kMaxGroup = 32, typename F>
+int with_group(int group, F&& f) {
+  switch (group) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32:
+      if constexpr (kMaxGroup >= 32) return f(std::integral_constant<int, 32>());
+      [[fallthrough]];
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Shared memory of `ncopy` copies of `group` column windows, 0 for a
+// layout the launch cannot take.
 template <typename T>
-size_t level_smem(int c_pad, int n_bins, int win, int group) {
-  if (group < 1 || group > c_pad || win < 1) return 0;
-  if (Values<T>::kOneColumn && group != 1) return 0;
-  return static_cast<size_t>(group) * win * kStats * n_bins *
+size_t window_smem(int c_pad, int n_bins, int win, int group, int ncopy) {
+  if (group < 1 || group > c_pad || win < 1 || ncopy < 1) return 0;
+  return static_cast<size_t>(ncopy) * group * win * kStats * n_bins *
          sizeof(typename Values<T>::Acc);
 }
+
+bool threads_ok(int threads) { return threads == 512 || threads == kMaxThreads; }
 
 dim3 level_grid(int c_pad, int group, int64_t n_pad, int64_t rows_per_block,
                 int n_windows) {
@@ -638,7 +844,10 @@ int launch_hist(const void* codes, const void* heap, const void* stats,
                 int c_pad, int n_bins, int base, int n_leaves, int half, int win,
                 int n_windows, int group, int64_t rows_per_block, void* stream) {
   using Acc = typename Values<T>::Acc;
-  const size_t smem = level_smem<T>(c_pad, n_bins, win, group);
+  // the int32 form takes one column per block
+  if (!std::is_same<T, float>::value && group != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = window_smem<T>(c_pad, n_bins, win, group, 1);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(hist_kernel<T>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -651,45 +860,77 @@ int launch_hist(const void* codes, const void* heap, const void* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename Acc>
+template <typename T>
 int launch_radix(const void* codes, const void* heap, const void* stats,
-                 void* hist, int64_t n_pad, int c_pad, int n_bins, int base,
-                 int n_leaves, int half, int win, int ncopy,
+                 const void* scale, void* hist, void* side, int64_t n_pad,
+                 int c_pad, int n_bins, int base, int n_leaves, int half, int win,
+                 int group, int ncopy, int threads, int agg,
                  int64_t rows_per_block, void* stream) {
-  if (ncopy < 1 || ncopy > kWarps) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      static_cast<size_t>(ncopy) * win * kStats * n_bins * sizeof(Acc);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(radix_kernel<T, Acc>), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(c_pad), grid_rows(n_pad, rows_per_block));
-  radix_kernel<T, Acc><<<grid, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
-      static_cast<const T*>(stats), static_cast<Acc*>(hist), n_pad, c_pad,
-      n_bins, base, n_leaves, half, win, ncopy, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+  using Acc = typename Values<T>::Acc;
+  const size_t smem = window_smem<T>(c_pad, n_bins, win, group, ncopy);
+  if (smem == 0 || !threads_ok(threads) || ncopy > threads / 32 || rows_per_block % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the f32 form's 32-column group would take it past 64 registers
+  return with_group<kRadixMaxGroup<T>>(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    const cudaError_t e =
+        allow_smem(reinterpret_cast<const void*>(radix_kernel<T, G>), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(static_cast<unsigned>((c_pad + G - 1) / G),
+                    grid_rows(n_pad, rows_per_block));
+    radix_kernel<T, G><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
+        static_cast<const T*>(stats), static_cast<const double*>(scale),
+        static_cast<Acc*>(hist), static_cast<float*>(side), n_pad, c_pad, n_bins,
+        base, n_leaves, half, win, ncopy, agg, rows_per_block);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-template <typename T>
 int launch_fused(const void* codes, const void* heap, const void* tbl,
                  const void* route_f, const void* stats, const void* scale,
                  void* heap_out, void* hist, void* side, int64_t n_pad, int c_pad,
                  int lp, int n_bins, int base_r, int L_r, int base_h, int L_h,
-                 int win, int n_windows, int group, int64_t rows_per_block,
-                 void* stream) {
-  using Acc = typename Values<T>::Acc;
-  const size_t smem = level_smem<T>(c_pad, n_bins, win, group);
-  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fused_kernel<T>), smem);
+                 int win, int n_windows, int group, int threads,
+                 int64_t rows_per_block, void* stream) {
+  const size_t smem = window_smem<float>(c_pad, n_bins, win, group, 1);
+  if (smem == 0 || !threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(fused_kernel<float>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_kernel<T><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
-                    Values<T>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_kernel<float><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
+                        threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
       static_cast<const float*>(tbl), static_cast<const float*>(route_f),
-      static_cast<const T*>(stats), static_cast<const double*>(scale),
-      static_cast<int32_t*>(heap_out), static_cast<Acc*>(hist),
+      static_cast<const float*>(stats), static_cast<const double*>(scale),
+      static_cast<int32_t*>(heap_out), static_cast<Fixed*>(hist),
       static_cast<float*>(side), n_pad, c_pad, lp, n_bins, base_r, L_r, base_h,
       L_h, win, group, rows_per_block);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fused_i8(const void* codes, const void* heap, const void* tbl,
+                    const void* route_f, const void* stats, void* heap_out,
+                    void* hist, int64_t n_pad, int c_pad, int lp, int n_bins,
+                    int base_r, int L_r, int base_h, int L_h, int win,
+                    int n_windows, int group, int threads,
+                    int64_t rows_per_block, void* stream) {
+  const size_t smem = window_smem<int32_t>(c_pad, n_bins, win, group, 1);
+  if (smem == 0 || !threads_ok(threads)) return static_cast<int>(cudaErrorInvalidValue);
+  return with_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    const cudaError_t e =
+        allow_smem(reinterpret_cast<const void*>(fused_i8_kernel<G>), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_i8_kernel<G><<<level_grid(c_pad, G, n_pad, rows_per_block, n_windows),
+                         threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
+        static_cast<const float*>(tbl), static_cast<const float*>(route_f),
+        static_cast<const int32_t*>(stats), static_cast<int32_t*>(heap_out),
+        static_cast<int32_t*>(hist), n_pad, c_pad, lp, n_bins, base_r, L_r,
+        base_h, L_h, win, rows_per_block);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -738,34 +979,40 @@ int h2o3_hist(const void* codes, const void* heap, const void* stats,
                                    n_windows, group, rows_per_block, stream);
 }
 
-// int8 != 0: stats int32, hist int32; else stats f32, hist f64.
+// As h2o3_hist, for windows of at most 2 slots: `group` columns (1, 2, 4,
+// ..., 32) and `ncopy` window copies per block, 512 or 1024 threads, agg !=
+// 0 for warp aggregation.
 int h2o3_radix(const void* codes, const void* heap, const void* stats,
-               void* hist, int64_t n_pad, int c_pad, int n_bins, int base,
-               int n_leaves, int half, int win, int ncopy,
+               const void* scale, void* hist, void* side, int64_t n_pad,
+               int c_pad, int n_bins, int base, int n_leaves, int half, int win,
+               int group, int ncopy, int threads, int agg,
                int64_t rows_per_block, int int8, void* stream) {
-  return int8 ? launch_radix<int32_t, int32_t>(codes, heap, stats, hist, n_pad, c_pad,
-                                               n_bins, base, n_leaves, half, win,
-                                               ncopy, rows_per_block, stream)
-              : launch_radix<float, double>(codes, heap, stats, hist, n_pad, c_pad,
-                                            n_bins, base, n_leaves, half, win,
-                                            ncopy, rows_per_block, stream);
+  return int8 ? launch_radix<int32_t>(codes, heap, stats, scale, hist, side, n_pad,
+                                      c_pad, n_bins, base, n_leaves, half, win,
+                                      group, ncopy, threads, agg, rows_per_block,
+                                      stream)
+              : launch_radix<float>(codes, heap, stats, scale, hist, side, n_pad,
+                                    c_pad, n_bins, base, n_leaves, half, win,
+                                    group, ncopy, threads, agg, rows_per_block,
+                                    stream);
 }
 
-// As h2o3_hist, plus the route tables and the new heap.
+// As h2o3_hist, plus the route tables and the new heap; 512 or 1024
+// threads. The int32 form takes a group of 1, 2, 4, ..., 32 columns.
 int h2o3_fused(const void* codes, const void* heap, const void* tbl,
                const void* route_f, const void* stats, const void* scale,
                void* heap_out, void* hist, void* side, int64_t n_pad, int c_pad,
                int lp, int n_bins, int base_r, int L_r, int base_h, int L_h,
-               int win, int n_windows, int group, int64_t rows_per_block,
-               int int8, void* stream) {
-  return int8 ? launch_fused<int32_t>(codes, heap, tbl, route_f, stats, scale,
-                                      heap_out, hist, side, n_pad, c_pad, lp,
-                                      n_bins, base_r, L_r, base_h, L_h, win,
-                                      n_windows, group, rows_per_block, stream)
-              : launch_fused<float>(codes, heap, tbl, route_f, stats, scale,
-                                    heap_out, hist, side, n_pad, c_pad, lp,
-                                    n_bins, base_r, L_r, base_h, L_h, win,
-                                    n_windows, group, rows_per_block, stream);
+               int win, int n_windows, int group, int threads,
+               int64_t rows_per_block, int int8, void* stream) {
+  return int8 ? launch_fused_i8(codes, heap, tbl, route_f, stats, heap_out, hist,
+                                n_pad, c_pad, lp, n_bins, base_r, L_r, base_h,
+                                L_h, win, n_windows, group, threads,
+                                rows_per_block, stream)
+              : launch_fused(codes, heap, tbl, route_f, stats, scale, heap_out,
+                             hist, side, n_pad, c_pad, lp, n_bins, base_r, L_r,
+                             base_h, L_h, win, n_windows, group, threads,
+                             rows_per_block, stream);
 }
 
 }  // extern "C"

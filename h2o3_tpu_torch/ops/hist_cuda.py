@@ -11,10 +11,10 @@ Counterpart of h2o3_tpu/ops/hist_pallas.py. Per tree level the grower
     `half=True` only even leaves (left children) are summed, at slot
     leaf >> 1, and the caller derives the right children by subtraction.
     `sbh_hist_i8` takes int32 stats in [-127, 127] (the int8-quantized
-    stats of `int8_hist`) and sums them exactly in int32. The dense and
-    fused kernels sum f32 stats exactly too, in 64-bit fixed point: stat
-    row s of a row adds round(x * scale[s]) (`hist_scale`), and the
-    wrapper hands back the f32 value of the sum.
+    stats of `int8_hist`) and sums them exactly in int32. The kernels sum
+    f32 stats exactly too, in 64-bit fixed point: stat row s of a row adds
+    round(x * scale[s]) (`hist_scale`), and the wrapper hands back the f32
+    value of the sum.
   * or does both in one pass (`sbh_route_hist`): route level d-1, then the
     half histogram of level d over the updated heap.
 
@@ -37,6 +37,7 @@ not used: the kernels read the uint8 plane directly.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -50,13 +51,33 @@ S_STATS = 4
 # stats x n_bins accumulators within this budget (96 KB = 16 slots of 8-byte
 # or 32 of int32 accumulators at 256 bins).
 _SMEM_BUDGET = 96 * 1024
-# Shared memory a block may use on Hopper (227 KB). A dense or fused block
+# Shared memory a block may use on Hopper (227 KB), and an SM holds (228
+# KB, less 1 KB that each resident block reserves). A dense or fused block
 # of the f32 forms takes all of it: the widest window of 8-byte
 # accumulators it holds, then as many columns of that window as fit
-# (level_grid). The int8 forms keep _SMEM_BUDGET and one column per block.
+# (level_grid). The int8 dense form keeps _SMEM_BUDGET and one column per
+# block; the int8 fused form takes _SMEM_BUDGET windows and as many columns
+# of them as I8_FUSED_BUDGET holds, in a power-of-two group.
 SMEM_MAX = 232448
+_SMEM_SM = 233472
+_BLOCK_RESERVED = 1024
 _HIST_ROW_ALIGN = 4
-_WARPS = 16                     # kHistThreads / 32 in csrc/hist.cu
+# Column groups the int32 fused kernel and the shallow-window kernel are
+# built for (compile-time column loops, csrc/hist.cu with_group); the
+# shallow-window kernel's f32 form stops at 16 (kRadixMaxGroup).
+GROUPS = (1, 2, 4, 8, 16, 32)
+RADIX_GROUPS = {False: GROUPS[:-1], True: GROUPS}
+# Budget of the int8 fused kernel's column group, and threads of a fused
+# block (chip_smoke.py phase 5 times both budgets and 512 threads).
+I8_FUSED_BUDGET = _SMEM_BUDGET
+FUSED_THREADS = 1024
+# The shallow-window kernel: threads per block, warp aggregation, and the
+# fewest window copies a block keeps (its group is the widest it is built
+# for that leaves room for them).
+RADIX_THREADS = 1024
+RADIX_AGG = True
+RADIX_MIN_COPIES = 2
+_SMS = 132                      # an H100 SXM's SMs, where no card is asked
 # The int8 histogram sums |stat| <= 127 per row in int32: exact while
 # 127 * rows < 2**31, about 16.9M rows.
 I8_MAX_ROWS = (2 ** 31 - 1) // 127
@@ -125,20 +146,31 @@ def column_group(win: int, n_bins: int, c_pad: int, budget: int,
     return max(1, min(c_pad, budget // (win * 3 * acc_bytes * n_bins)))
 
 
+def _pow2_floor(x: int) -> int:
+    return 1 << (int(x).bit_length() - 1)
+
+
 def level_grid(l_eff: int, n_bins: int, c_pad: int, int8: bool,
                group=None):
     """(win, n_windows, group, rows_per_block) of a dense or fused launch.
-    int8: hist_grid's window at 4 bytes within _SMEM_BUDGET and one column
-    per block (the kernel's int32 form takes no other group). f32: within
-    SMEM_MAX, the widest window (fewest passes over the rows), then as
-    many columns as fit; a given `group` narrows the window to fit that
-    many."""
+    int8: hist_grid's window at 4 bytes within _SMEM_BUDGET, and by default
+    as many columns of it as I8_FUSED_BUDGET holds, rounded down to a power
+    of two (the int32 fused kernel's groups are fixed at compile time: a
+    given `group` must be one of GROUPS; the int32 dense kernel takes 1).
+    f32: within SMEM_MAX, the widest window (fewest passes over the rows),
+    then as many columns as fit; a given `group` narrows the window to fit
+    that many."""
     if int8:
-        if group not in (None, 1):
-            raise ValueError(f"group={group}: the int8 forms take one "
-                             "column per block")
         win, n_windows, rows = hist_grid(l_eff, n_bins, 4)
-        group = 1
+        if group is None:
+            group = min(GROUPS[-1], _pow2_floor(column_group(
+                win, n_bins, c_pad, I8_FUSED_BUDGET, 4)))
+        elif group not in GROUPS:
+            raise ValueError(f"group={group}: the int8 forms take a group "
+                             f"in {GROUPS}")
+        elif group * win * 3 * 4 * n_bins > SMEM_MAX:
+            raise ValueError(f"group={group} of {win}-slot windows exceeds "
+                             f"{SMEM_MAX} bytes of shared memory")
     elif group is None:
         win, n_windows, rows = hist_grid(l_eff, n_bins, 8, SMEM_MAX)
         group = column_group(win, n_bins, c_pad, SMEM_MAX)
@@ -237,10 +269,10 @@ def _lib():
         lib.h2o3_hist.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32,
                                                                  vp]
         lib.h2o3_hist.restype = i32
-        lib.h2o3_radix.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, i32,
-                                              i32, i32, i64, i32, vp]
+        lib.h2o3_radix.argtypes = [vp] * 6 + [i64] + [i32] * 10 + [i64, i32,
+                                                                   vp]
         lib.h2o3_radix.restype = i32
-        lib.h2o3_fused.argtypes = [vp] * 9 + [i64] + [i32] * 10 + [i64, i32,
+        lib.h2o3_fused.argtypes = [vp] * 9 + [i64] + [i32] * 11 + [i64, i32,
                                                                    vp]
         lib.h2o3_fused.restype = i32
         lib._h2o3_typed = True
@@ -316,21 +348,8 @@ def _check_tables(tbl, route_f, n_bins, L, dev):
     return lp
 
 
-def _hist_out(L_pad, c_pad, n_bins, int8, dev):
-    """Zeroed accumulator of a shallow-window launch: int32 for int stats,
-    f64 for float stats (the kernel sums in f64 and the wrapper hands back
-    the f32 cast)."""
-    return torch.zeros((L_pad, c_pad, S_STATS, n_bins),
-                       dtype=torch.int32 if int8 else torch.float64,
-                       device=dev)
-
-
-def _hist_result(acc, int8):
-    return acc if int8 else acc.to(torch.float32)
-
-
 def _level_out(L_pad, c_pad, n_bins, int8, stats, scale, dev):
-    """Zeroed accumulators of a dense or fused launch and its scale:
+    """Zeroed accumulators of a histogram launch and its scale:
     (int32 sums, None, None) for int stats; for f32 stats the int64
     fixed-point sums, the f32 side buffer of the non-finite stats and the
     f64 (3,) scale (hist_scale of the stats when `scale` is None)."""
@@ -345,7 +364,7 @@ def _level_out(L_pad, c_pad, n_bins, int8, stats, scale, dev):
 
 
 def _level_result(acc, side, scale):
-    """The f32 histogram of a dense or fused launch: the fixed-point sums
+    """The f32 histogram of a histogram launch: the fixed-point sums
     over their scale in f64, cast once; a bin that a NaN or +-inf stat
     reached takes the side buffer's sum there, as an f64 sum would."""
     if side is None:
@@ -414,13 +433,48 @@ def hist_grid(l_eff: int, n_bins: int, acc_bytes: int = 8,
     return win, n_windows, rows
 
 
-def radix_grid(l_eff: int, n_bins: int, acc_bytes: int = 8):
-    """(win, ncopy, rows_per_block) of one shallow-window launch: the
-    whole window (l_eff <= 2 slots) in each of `ncopy` private copies, one
-    per warp where the budget allows."""
+def radix_grid(l_eff: int, n_bins: int, c_pad: int, int8: bool,
+               group=None, threads=None, n_pad: int = 0, sms: int = _SMS):
+    """(win, group, ncopy, threads, rows_per_block) of one shallow-window
+    launch. A block takes `group` columns (one of RADIX_GROUPS[int8]; by
+    default the widest that leaves room for RADIX_MIN_COPIES copies of
+    their windows) and keeps `ncopy` private copies of each column's whole
+    window (l_eff <= 2 slots), one per warp where SMEM_MAX allows. The row
+    chunks are sized so that the grid over n_pad rows fills whole waves of
+    `sms` SMs (at least 4 rows per thread)."""
+    acc = 4 if int8 else 8
     win = max(1, l_eff)
-    ncopy = max(1, min(_WARPS, _SMEM_BUDGET // (win * 3 * acc_bytes * n_bins)))
-    return win, ncopy, 32768
+    threads = RADIX_THREADS if threads is None else int(threads)
+    if threads not in (512, 1024):
+        raise ValueError(f"threads={threads}: 512 or 1024")
+    slot_bytes = win * 3 * acc * n_bins           # one column's window
+    groups = RADIX_GROUPS[bool(int8)]
+    if group is None:
+        group = min(groups[-1], _pow2_floor(max(1, min(
+            c_pad, SMEM_MAX // (RADIX_MIN_COPIES * slot_bytes)))))
+    elif group not in groups or group > c_pad:
+        raise ValueError(f"group={group}: one of {groups}, at most {c_pad}")
+    ncopy = min(threads // 32, SMEM_MAX // (group * slot_bytes))
+    if ncopy < 1:
+        raise ValueError(f"group={group} of {win}-slot windows exceeds "
+                         f"{SMEM_MAX} bytes of shared memory")
+    rows = _wave_rows(n_pad, -(-c_pad // group), ncopy * group * slot_bytes,
+                     threads, sms)
+    return win, group, ncopy, threads, rows
+
+
+def _wave_rows(n_pad: int, col_blocks: int, smem: int, threads: int,
+              sms: int = _SMS) -> int:
+    """Rows per block of a grid of col_blocks x row chunks that fills whole
+    waves of `sms` SMs, each holding as many blocks of `smem` bytes and
+    `threads` threads as it can (up to 2048 threads): each block then
+    zeroes and flushes its shared windows once per wave. At least one
+    4-row step per thread."""
+    per_sm = max(1, min(2048 // threads, _SMEM_SM // (smem + _BLOCK_RESERVED)))
+    slots = sms * per_sm
+    chunks = slots // math.gcd(slots, col_blocks)
+    rows = -(-n_pad // chunks)
+    return max(4 * threads, -(-rows // 4) * 4)
 
 
 def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
@@ -431,9 +485,14 @@ def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
     codes uint8 (C_pad, n_pad); heap int32 (n_pad,); stats f32 (4, n_pad),
     or int32 with int8. `scale`: the f32 form's fixed-point scale,
     hist_scale(stats) (computed here when None). `group`: columns per
-    block, None for the default. Returns (L_pad, C_pad, 4, n_bins), f32 or
-    int32. The plain version takes neither scale nor group."""
+    block, None for the default (the int8 form takes one column per
+    block). Returns (L_pad, C_pad, 4, n_bins), f32 or int32. The plain
+    version takes neither scale nor group."""
     if int8:
+        if group not in (None, 1):
+            raise ValueError(f"group={group}: the int8 dense form takes one "
+                             "column per block")
+        group = 1
         _check_i8_rows(codes.shape[1])
     if _device_kind(codes) == "cpu":
         return sbh_hist_plain(codes, heap, stats, base=base, L=L,
@@ -454,10 +513,14 @@ def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
 
 
 def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
-                   int8=False):
+                   int8=False, scale=None, group=None, threads=None,
+                   agg=None):
     """The shallow-window histogram kernel (hist_pallas.sbh_hist_radix):
     the same function as sbh_hist_dense, for effective windows of at most
-    RADIX_MAX_WINDOW leaves. Returns exactly (l_eff, C_pad, 4, n_bins)."""
+    RADIX_MAX_WINDOW leaves. Returns exactly (l_eff, C_pad, 4, n_bins), f32
+    or int32. `scale` as in sbh_hist_dense; `group`, `threads` (radix_grid)
+    and `agg` (warp aggregation, default RADIX_AGG) choose the launch
+    layout, never the result. The plain version takes none of them."""
     l_eff = hist_layout(L, half)[0]
     if not _radix_shape_ok(l_eff, n_bins):
         raise ValueError(f"radix histogram needs a window <= "
@@ -470,23 +533,31 @@ def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
         return sbh_hist_plain(codes, heap, stats, base=base, L=L,
                               n_bins=n_bins, half=half)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
-    acc = _hist_out(l_eff, c_pad, n_bins, int8, dev)
-    win, ncopy, rows = radix_grid(l_eff, n_bins, 4 if int8 else 8)
-    rc = _lib().h2o3_radix(_ptr(codes), _ptr(heap), _ptr(stats), _ptr(acc),
+    acc, side, scale = _level_out(l_eff, c_pad, n_bins, int8, stats, scale,
+                                  dev)
+    win, g, ncopy, nt, rows = radix_grid(
+        l_eff, n_bins, c_pad, int8, group, threads, n_pad,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    rc = _lib().h2o3_radix(_ptr(codes), _ptr(heap), _ptr(stats),
+                           _ptr_or_null(scale), _ptr(acc), _ptr_or_null(side),
                            n_pad, c_pad, n_bins, base, L, int(bool(half)),
-                           win, ncopy, rows, int(bool(int8)), _stream(dev))
+                           win, g, ncopy, nt,
+                           int(RADIX_AGG if agg is None else bool(agg)), rows,
+                           int(bool(int8)), _stream(dev))
     _raise_on(rc, "radix")
     LAUNCHES["radix"] += 1
-    return _hist_result(acc, int8)
+    return _level_result(acc, side, scale)
 
 
 def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
                          base_h, L_h, n_bins, int8=False, scale=None,
-                         group=None):
+                         group=None, threads=None):
     """The level-fused kernel (hist_pallas.sbh_route_hist_fused_pallas):
     route the splits of leaves [base_r, base_r+L_r), then the half
     (left-children) histogram of leaves [base_h, base_h+L_h) over the
-    updated heap, in one pass. `scale` and `group` as in sbh_hist_dense.
+    updated heap, in one pass. `scale` as in sbh_hist_dense; `group`
+    (level_grid) and `threads` (512 or 1024, default FUSED_THREADS) choose
+    the launch layout, never the result.
     Returns (newheap int32 (n_pad,), hist (l_eff, C_pad, 4, n_bins) f32,
     or int32 with int8)."""
     l_eff = (L_h + 1) // 2
@@ -508,11 +579,14 @@ def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
     acc, side, scale = _level_out(l_eff, c_pad, n_bins, int8, stats, scale,
                                   dev)
     win, n_windows, g, rows = level_grid(l_eff, n_bins, c_pad, int8, group)
+    nt = FUSED_THREADS if threads is None else int(threads)
+    if nt not in (512, 1024):
+        raise ValueError(f"threads={threads}: 512 or 1024")
     rc = _lib().h2o3_fused(_ptr(codes), _ptr(heap), _ptr(tbl), _ptr(route_f),
                            _ptr(stats), _ptr_or_null(scale), _ptr(newheap),
                            _ptr(acc), _ptr_or_null(side), n_pad, c_pad, lp,
                            n_bins, base_r, L_r, base_h, L_h, win, n_windows,
-                           g, rows, int(bool(int8)), _stream(dev))
+                           g, nt, rows, int(bool(int8)), _stream(dev))
     _raise_on(rc, "fused")
     LAUNCHES["fused"] += 1
     return newheap, _level_result(acc, side, scale)
@@ -523,11 +597,12 @@ def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
 def sbh_hist(codes, heap, stats, *, base, L, n_bins, half=False,
              radix=None, scale=None):
     """f32 histogram. `radix`: None (auto) or True take the shallow-window
-    kernel wherever the window qualifies, False never. `scale`: the dense
-    kernel's fixed-point scale (hist_scale), unused by the others."""
+    kernel wherever the window qualifies, False never. `scale`: the
+    kernels' fixed-point scale (hist_scale), computed per launch when
+    None."""
     if radix is not False and _radix_applicable(L, n_bins, half):
         return sbh_hist_radix(codes, heap, stats, base=base, L=L,
-                              n_bins=n_bins, half=half)
+                              n_bins=n_bins, half=half, scale=scale)
     return sbh_hist_dense(codes, heap, stats, base=base, L=L, n_bins=n_bins,
                           half=half, scale=scale)
 

@@ -9,11 +9,11 @@ is installed; there, skip the repository's conftest (which sets JAX up):
 Tolerances: routed heap ids bit-identical; the margin update within 1e-5
 (one f32 multiply-add); f32 histograms within 1e-4 of each stat row's
 largest magnitude against the plain version in float64, since the kernels
-sum in float64 (shallow-window) or in exact 64-bit fixed point (dense and
-fused) and cast once; the dense and fused kernels' bins that a NaN or inf
-stat reaches as in float64, and their results bit-identical from launch to
-launch and across column groupings; histograms of int32 stats (the int8
-path) equal to the plain version (`torch.equal`: integer sums are exact).
+sum in exact 64-bit fixed point and cast once; bins that a NaN or inf stat
+reaches as in float64, and results bit-identical from launch to launch and
+across launch layouts (column groups, window copies, threads, warp
+aggregation); histograms of int32 stats (the int8 path) equal to the plain
+version (`torch.equal`: integer sums are exact) in every layout.
 """
 
 import numpy as np
@@ -186,20 +186,22 @@ def test_radix_kernel_matches_plain(dev, HC, L, half, int8):
     kw = dict(base=base, L=L, n_bins=256, half=half)
     before = HC.LAUNCHES["radix"]
     got = HC.sbh_hist_radix(codes, heap, stats, int8=int8, **kw)
+    again = HC.sbh_hist_radix(codes, heap, stats, int8=int8, **kw)
     want = HC.sbh_hist_plain(codes, heap, stats if int8 else stats.double(),
                              **kw)
     torch.cuda.synchronize()
-    assert HC.LAUNCHES["radix"] == before + 1
+    assert HC.LAUNCHES["radix"] == before + 2
     assert got.shape == want.shape
     if int8:
-        assert torch.equal(got, want)
+        assert torch.equal(got, want) and torch.equal(again, want)
     else:
         assert _rel_err(got, want) <= HIST_RTOL
+        assert got.dtype == torch.float32 and _bit_equal(got, again)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("L_h", [2, 4, 32])
+@pytest.mark.parametrize("L_h", [2, 4, 8, 16, 32])
 def test_fused_kernel_matches_plain(dev, HC, L_h, int8):
     L_r = L_h // 2
     (codes, heap, stats), base_r = _inputs(dev, 40 + L_h, L=L_r, int8=int8)
@@ -316,6 +318,23 @@ def test_column_groups_give_the_same_bits(dev, HC, L):
     torch.cuda.synchronize()
     assert all(_bit_equal(o, outs[0]) for o in outs[1:])
     assert all(_bit_equal(o, fused[0]) for o in fused[1:])
+    if L > 32:
+        return
+    # the int8 fused kernel at every group it is built for that fits,
+    # 512 and 1024 threads: the plain version's int32 sums and heap
+    (codes, heap, st8), _ = _inputs(dev, 62 + L, L=L, int8=True)
+    h_p, want = HC.sbh_route_hist_plain(codes, heap, tbl, route_f, st8,
+                                        **fkw)
+    win = HC.level_grid(L // 2, 256, codes.shape[0], True)[0]
+    groups = [g for g in HC.GROUPS if g * win * 3 * 4 * 256 <= HC.SMEM_MAX]
+    for g in groups:
+        for threads in (512, 1024):
+            h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f, st8,
+                                               int8=True, group=g,
+                                               threads=threads, **fkw)
+            torch.cuda.synchronize()
+            assert torch.equal(h_k, h_p) and torch.equal(got, want), \
+                (g, threads)
 
 
 @pytest.mark.gpu
@@ -328,3 +347,49 @@ def test_hist_scale_on_the_card_matches_the_cpu(dev, HC):
     for n_rows in (None, 11_000_000):
         assert torch.equal(HC.hist_scale(st.to(dev), n_rows).cpu(),
                            HC.hist_scale(st, n_rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["one_bin", "heavy", "nonfinite"])
+def test_radix_kernel_on_adversarial_stats(dev, HC, kind):
+    """The shallow-window kernel's f32 form on stats that stress its
+    fixed-point sum: every row in one slot and one bin (full warps of one
+    key: warp aggregation), heavy cancelling weights over a half window of
+    two slots, a NaN and an inf stat; two launches bit-identical."""
+    L = 1 if kind == "one_bin" else 4
+    (codes, heap, stats), base = _adversarial(dev, 53, kind, L=L)
+    kw = dict(base=base, L=L, n_bins=256, half=L > 1)
+    got = HC.sbh_hist(codes, heap, stats, **kw)
+    again = HC.sbh_hist_radix(codes, heap, stats, **kw)
+    want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (HC.hist_layout(L, L > 1)[0], codes.shape[0], 4, 256)
+    assert got.dtype == torch.float32 and _bit_equal(got, again)
+    _hold_to_f64(got, want, kind == "nonfinite")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("L,half", [(1, False), (4, True)])
+def test_radix_layouts_give_the_same_bits(dev, HC, L, half, int8):
+    """Every layout of the shallow-window launch (each group it is built
+    for that fits, with its window copies, 512 and 1024 threads, warp
+    aggregation on and off) gives the same bits: the f32 form's fixed-point
+    sums, the int8 form's int32 sums equal to the plain version's."""
+    (codes, heap, stats), base = _inputs(dev, 63 + L, L=L, int8=int8)
+    kw = dict(base=base, L=L, n_bins=256, half=half, int8=int8)
+    ref = HC.sbh_hist_radix(codes, heap, stats, **kw)
+    if int8:
+        assert torch.equal(ref, HC.sbh_hist_plain(codes, heap, stats,
+                                                  **{k: v for k, v in
+                                                     kw.items()
+                                                     if k != "int8"}))
+    win = HC.hist_layout(L, half)[0]
+    slot = win * 3 * (4 if int8 else 8) * 256
+    for g in (g for g in HC.RADIX_GROUPS[int8] if g * slot <= HC.SMEM_MAX):
+        for threads in (512, 1024):
+            for agg in (False, True):
+                got = HC.sbh_hist_radix(codes, heap, stats, group=g,
+                                        threads=threads, agg=agg, **kw)
+                torch.cuda.synchronize()
+                assert _bit_equal(got, ref), (g, threads, agg)

@@ -388,8 +388,10 @@ def test_level_result_casts_and_takes_non_finite_bins():
 @pytest.mark.parametrize("l_eff", [1, 2, 4, 8, 16, 32, 64])
 def test_level_grid_fits_shared_memory(l_eff):
     """f32: the widest window the budget holds, then as many columns of it
-    as fit, never past 227 KB; a given group narrows the window. int8: one
-    column per block and hist_grid's window, as before."""
+    as fit, never past 227 KB; a given group narrows the window. int8:
+    hist_grid's window, and a power-of-two group of as many columns as
+    I8_FUSED_BUDGET holds (the int32 fused kernel's compile-time groups);
+    the int8 dense wrapper takes one column per block."""
     n_bins, c_pad = 256, 32
     win, n_win, g, rows = HC.level_grid(l_eff, n_bins, c_pad, False)
     assert win * n_win >= l_eff and win <= l_eff
@@ -399,13 +401,24 @@ def test_level_grid_fits_shared_memory(l_eff):
     assert rows % 1024 == 0 and rows >= 16384
     w2, n2, g2, _ = HC.level_grid(l_eff, n_bins, c_pad, False, 2)
     assert g2 == 2 and 2 * w2 * 3 * 8 * n_bins <= HC.SMEM_MAX
-    assert HC.level_grid(l_eff, n_bins, c_pad, True) == \
+    win8, nw8, g8, rows8 = HC.level_grid(l_eff, n_bins, c_pad, True)
+    assert (win8, nw8, rows8) == HC.hist_grid(l_eff, n_bins, 4)
+    assert g8 in HC.GROUPS and g8 <= c_pad
+    assert g8 * win8 * 3 * 4 * n_bins <= HC.I8_FUSED_BUDGET
+    assert g8 == c_pad or \
+        2 * g8 * win8 * 3 * 4 * n_bins > HC.I8_FUSED_BUDGET
+    assert HC.level_grid(l_eff, n_bins, c_pad, True, 1) == \
         HC.hist_grid(l_eff, n_bins, 4)[:2] + (1,) + \
         HC.hist_grid(l_eff, n_bins, 4)[2:]
     with pytest.raises(ValueError, match="group"):
         HC.level_grid(l_eff, n_bins, c_pad, False, c_pad + 1)
+    with pytest.raises(ValueError, match="group"):
+        HC.level_grid(l_eff, n_bins, c_pad, True, 3)
+    codes, heap, stats, base = _codes_heap_stats(90, L=1, b_val=64)
     with pytest.raises(ValueError, match="one column per block"):
-        HC.level_grid(l_eff, n_bins, c_pad, True, 2)
+        HC.sbh_hist_dense(torch.from_numpy(codes), torch.from_numpy(heap),
+                          torch.from_numpy(_i8_stats(stats)), base=base, L=1,
+                          n_bins=128, int8=True, group=2)
 
 
 @pytest.mark.parametrize("fused", [None, False])
@@ -427,3 +440,142 @@ def test_scale_is_ignored_by_the_plain_versions(fused):
     d1 = HC.sbh_hist(args[0], args[1], args[4], base=3, L=4, n_bins=n_bins,
                      scale=HC.hist_scale(args[4]))
     assert torch.equal(d0, d1)
+
+
+# ---------------------------------------------------------------------------
+# The shallow-window kernel's f32 form sums in the same fixed point, with
+# the scale grow() hands it; its launch layout (column group, window copies,
+# threads, row chunks) must fit shared memory at every HIGGS level.
+def _radix_case(kind, seed, L, n_pad=4096, c_pad=16, b_val=255):
+    """Inputs of one shallow-window case: "plain" (NA codes, frozen rows),
+    "nonfinite" (a NaN grad and a +-inf hess in rows of the window), or
+    "one_bin" (every row in the first slot and every code in one bin)."""
+    codes, heap, stats, base = _codes_heap_stats(seed, n_pad=n_pad,
+                                                 c_pad=c_pad, b_val=b_val,
+                                                 L=L)
+    if kind == "nonfinite":
+        stats[1, 10], stats[2, 21], stats[2, 40] = np.nan, np.inf, -np.inf
+        heap[[10, 21, 40]] = base
+    elif kind == "one_bin":
+        codes[:] = 7
+        heap[:] = base
+    return codes, heap, stats, base
+
+
+@pytest.mark.parametrize("kind,L,half", [
+    ("plain", 1, False), ("plain", 1, True), ("plain", 2, False),
+    ("plain", 2, True), ("nonfinite", 1, False), ("nonfinite", 2, True),
+    ("one_bin", 1, False), ("one_bin", 2, True)])
+def test_hist_radix_with_scale_matches_jax(kind, L, half):
+    """sbh_hist_radix handed hist_scale(stats), as grow() hands it, equals
+    the JAX package's histogram (its XLA path on the CPU): finite bins
+    within HIST_RTOL of each stat row's largest finite magnitude, bins a
+    NaN or +-inf stat reached NaN or +-inf alike."""
+    n_bins = 256
+    codes, heap, stats, base = _radix_case(kind, 100 + L, L)
+    want = np.asarray(HP.sbh_hist_xla(
+        jnp.asarray(codes), jnp.asarray(heap), jnp.asarray(stats),
+        base=base, L=L, n_bins=n_bins, half=half))
+    st = torch.from_numpy(stats)
+    got = HC.sbh_hist_radix(torch.from_numpy(codes), torch.from_numpy(heap),
+                            st, base=base, L=L, n_bins=n_bins, half=half,
+                            scale=HC.hist_scale(st)).numpy()
+    assert got.shape == want.shape == (HC.hist_layout(L, half)[0],
+                                       codes.shape[0], 4, n_bins)
+    fin = np.isfinite(want)
+    assert (kind == "nonfinite") == (not fin.all())
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[~fin], want[~fin])
+    assert _hist_rel_err(np.where(fin, got, 0.0),
+                         np.where(fin, want, 0.0)) <= HIST_RTOL
+    if kind == "one_bin":
+        assert np.count_nonzero(want[:, :, 0]) == codes.shape[0]
+
+
+def test_sbh_hist_hands_its_scale_to_the_radix_kernel(monkeypatch):
+    seen = []
+    real = HC.sbh_hist_radix
+
+    def recording(*args, **kw):
+        seen.append(kw.get("scale"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(HC, "sbh_hist_radix", recording)
+    codes, heap, stats, base = _codes_heap_stats(110, L=1, b_val=255)
+    st = torch.from_numpy(stats)
+    scale = HC.hist_scale(st)
+    HC.sbh_hist(torch.from_numpy(codes), torch.from_numpy(heap), st,
+                base=base, L=1, n_bins=256, scale=scale)
+    assert len(seen) == 1 and seen[0] is scale
+
+
+HIGGS_LEVELS = range(8)          # depth 8: levels 0-7, C_pad 32, 256 bins
+
+
+@pytest.mark.parametrize("depth", HIGGS_LEVELS)
+def test_launch_layouts_fit_shared_memory(depth):
+    """At every level of the HIGGS tree (level 0 full, the rest half
+    windows), each layout the shallow-window and int8 fused launches can
+    take fits 232,448 bytes of shared memory per block, with a power-of-two
+    group in [1, C_pad], at most one window copy per warp, and row chunks
+    of whole 4-row steps that tile the rows."""
+    c_pad, n_bins, n_pad = 32, 256, 11_000_448
+    assert HC.SMEM_MAX == 232_448
+    l_eff = HC.hist_layout(1 << depth, depth > 0)[0]
+    if HC._radix_shape_ok(l_eff, n_bins):
+        for int8 in (False, True):
+            acc = 4 if int8 else 8
+            for group in (None,) + HC.RADIX_GROUPS[int8]:
+                if group and group * l_eff * 3 * acc * n_bins > HC.SMEM_MAX:
+                    with pytest.raises(ValueError, match="shared memory"):
+                        HC.radix_grid(l_eff, n_bins, c_pad, int8, group)
+                    continue
+                for threads in (None, 512, 1024):
+                    win, g, ncopy, nt, rows = HC.radix_grid(
+                        l_eff, n_bins, c_pad, int8, group, threads, n_pad)
+                    assert win == l_eff and g in HC.RADIX_GROUPS[int8]
+                    assert g <= c_pad
+                    assert 1 <= ncopy <= nt // 32
+                    assert ncopy * g * win * 3 * acc * n_bins <= HC.SMEM_MAX
+                    assert rows % 4 == 0 and rows >= 4 * nt
+                    assert -(-n_pad // rows) * rows >= n_pad
+            # the default: the widest group that leaves room for its copies
+            win, g, ncopy, _, _ = HC.radix_grid(l_eff, n_bins, c_pad, int8)
+            assert ncopy >= HC.RADIX_MIN_COPIES
+            assert g in (c_pad, HC.RADIX_GROUPS[int8][-1]) or \
+                HC.RADIX_MIN_COPIES * 2 * g * win * 3 * acc * n_bins > \
+                HC.SMEM_MAX
+    if depth > 0:
+        win8 = HC.hist_grid(l_eff, n_bins, 4)[0]
+        for group in (None,) + HC.GROUPS:
+            if group and group * win8 * 3 * 4 * n_bins > HC.SMEM_MAX:
+                with pytest.raises(ValueError, match="shared memory"):
+                    HC.level_grid(l_eff, n_bins, c_pad, True, group)
+                continue
+            win, n_win, g, rows = HC.level_grid(l_eff, n_bins, c_pad, True,
+                                                group)
+            assert g in HC.GROUPS and g <= c_pad
+            assert g * win * 3 * 4 * n_bins <= HC.SMEM_MAX
+            assert win * n_win >= l_eff
+
+
+def test_radix_grid_fills_whole_waves():
+    """Row chunks are sized so that the grid is a whole number of waves of
+    resident blocks (at 11M rows), and a small input gets one 4-row step
+    per thread at least."""
+    n_pad = 11_000_448
+    for int8 in (False, True):
+        for group in HC.RADIX_GROUPS[int8]:
+            win, g, ncopy, nt, rows = HC.radix_grid(1, 256, 32, int8, group,
+                                                    1024, n_pad, sms=132)
+            smem = ncopy * g * 3 * (4 if int8 else 8) * 256
+            per_sm = min(2048 // nt, HC._SMEM_SM // (smem + 1024))
+            blocks = (32 // g) * -(-n_pad // rows)
+            assert blocks % (132 * per_sm) == 0, (int8, group)
+    assert HC.radix_grid(1, 256, 32, False, n_pad=4096)[4] == 4 * 1024
+    with pytest.raises(ValueError, match="threads"):
+        HC.radix_grid(1, 256, 32, False, threads=256)
+    with pytest.raises(ValueError, match="group"):
+        HC.radix_grid(1, 256, 16, True, group=32)
+    with pytest.raises(ValueError, match="group"):
+        HC.radix_grid(1, 256, 32, False, group=32)    # f32: 16 at most
