@@ -9,8 +9,9 @@ Phases, each printing its lines before the last:
      sources at once, with each kernel's registers and the atomic
      instructions it compiled to; the f32 dense, fused and shallow-window
      kernels must show no compare-and-swap shared atomic, and no
-     instantiation of the shallow-window kernel or of the int8 fused
-     kernel's column groups may spill;
+     instantiation of the shallow-window kernel, of the int8 fused or
+     int8 dense kernels' column groups, of the int8 pack kernel or of the
+     non-terminal route kernel's rows per thread may spill;
   2. each kernel against its plain PyTorch version on the card (for f32
      histograms, the plain version in float64; int32 histograms must be
      equal), at small shapes: route with and without the margin update;
@@ -41,7 +42,9 @@ Phases, each printing its lines before the last:
            peak memory;
        (c) (b) with int8_hist=True;
      then a default-configuration run of 10 trees with a stopwatch on each
-     estimator stage and each kernel wrapper;
+     estimator stage and each kernel wrapper, and a run (c) of 10 trees
+     under torch.profiler: the share of the train() window in which the
+     card is busy, and the busiest kernels;
   5. each kernel at the shapes of one tree of those runs: its time from
      CUDA events beside its plain version's, one PyTorch library call's
      where there is one, and its bound (the bytes that tree's data needs,
@@ -53,7 +56,13 @@ Phases, each printing its lines before the last:
      groups of both budgets and one column, 512 and 1024 threads, the
      shallow-window kernel (both forms) at every column group it is built
      for, 512 and 1024 threads (one window copy per warp where they fit),
-     warp aggregation on and off: each layout's result bit-identical.
+     warp aggregation on and off, the int8 dense kernel at levels 6 and 7
+     at each window width with its widest column group (level 7 in one
+     pass or two), 512 and 1024 threads, bank padding on and off and 1, 2
+     and 4 waves of blocks: each layout's result bit-identical; and the
+     non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
+     1024 threads, heap ids identical, with the 32-byte sectors of the
+     code planes its gathers touch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -136,10 +145,12 @@ def phase_card(torch, _build):
             if "registers" in line or "spill" in line or "entry function" \
                     in line:
                 say(f"ptxas {name}: {line.strip()}")
-        # the shallow-window kernel and the int8 fused kernel's column
-        # groups are unrolled at compile time: none of them may spill
+        # the shallow-window kernel, the int8 kernels' column groups and
+        # the route's rows per thread are unrolled at compile time: none
+        # of them may spill
         for fn, spilled in ptxas_spills(log).items():
-            if re.search(r"radix_kernel|fused_i8_kernel", fn):
+            if re.search(r"radix_kernel|fused_i8_kernel|hist_i8_kernel|"
+                         r"pack_i8_kernel|route_rows_kernel", fn):
                 check(not spilled, f"{fn} spills: {spilled} bytes")
     ops = {}
     for name in logs:
@@ -648,6 +659,7 @@ def phase_higgs(torch, h2o, HC):
         f"{aucs['c']:.6f}")
     del valid
     breakdown(torch, h2o, HC, fr)
+    busy_share(torch, h2o, fr)
     return out
 
 
@@ -708,6 +720,60 @@ def breakdown(torch, h2o, HC, fr):
     say(f"higgs train breakdown (default configuration): total "
         f"{total:.3f} s; {parts} (find_splits_binned and the kernel "
         "wrappers run inside grow)")
+
+
+def busy_share(torch, h2o, fr):
+    """Run (c)'s configuration for 10 trees (no validation frame) under
+    torch.profiler, and print the share of the train() window in which the
+    card ran a kernel, a copy or a fill (the union of their intervals in
+    the trace), with the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    m = h2o.H2OGradientBoostingEstimator(
+        ntrees=HIGGS_TREES, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
+        distribution="bernoulli", seed=1, int8_hist=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("h2o3_train"):
+            m.train(y="y", training_frame=fr)
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    window = [e for e in events if e.get("name") == "h2o3_train"
+              and e.get("cat") == "user_annotation" and "dur" in e]
+    check(len(window) == 1, f"profiler: {len(window)} train() windows")
+    t0, t1 = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+    dev = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1), e)
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e)
+    if not dev:
+        say("profiler: busy share not measured (the trace holds no device "
+            "activity)")
+        return
+    busy, end = 0.0, t0
+    for a, b, _ in dev:
+        if b > max(a, end):
+            busy += b - max(a, end)
+        end = max(end, b)
+    by_name = {}
+    for a, b, e in dev:
+        if e.get("cat") == "kernel":
+            key = re.sub(r"^void |\(anonymous namespace\)::", "", e["name"])
+            key = re.sub(r"[<(].*", "", key)
+            by_name[key] = by_name.get(key, 0.0) + max(0.0, b - a)
+    ours = sum(v for k, v in by_name.items() if re.search(
+        r"(route|hist|radix|fused|pack)\w*_kernel$", k)
+        and "::" not in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    say(f"profiler, run (c) configuration, {HIGGS_TREES} trees: the card is "
+        f"busy {busy / 1e3:.3f} ms of the {(t1 - t0) / 1e3:.3f} ms train() "
+        f"window: busy share {busy / (t1 - t0):.4f}; the port's kernels "
+        f"{ours / 1e3:.3f} ms; {len(dev)} device events; most device time: "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +868,10 @@ def time_hist(torch, HC, name, args, kw):
         groups = "; " + time_groups(
             torch, HC, lambda g: fn(*args, **kw, group=g), l_eff, c_pad,
             pkw["n_bins"])
+    elif name == "sbh_hist_dense":
+        groups = "; layouts " + time_layouts(
+            torch, lambda **v: fn(*args, **kw, **v),
+            i8_dense_layouts(HC, l_eff, pkw["n_bins"], c_pad, n))
     elif name == "sbh_hist_radix":
         slot = l_eff * 3 * (4 if int8 else 8) * pkw["n_bins"]
         groups = "; layouts " + time_layouts(torch, lambda **v: fn(
@@ -811,11 +881,31 @@ def time_hist(torch, HC, name, args, kw):
              dict(group=g, threads=t, agg=a))
             for g in HC.RADIX_GROUPS[int8] if g <= c_pad and g * slot <= HC.SMEM_MAX
             for t in (512, 1024) for a in (True, False)])
-    say(f"timing {what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {rows_in} "
-        f"rows summed of {l_eff} slots){groups}")
+    level = (pkw["L"] - 1).bit_length()
+    say(f"timing {what} (level {level}): kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({by}, {rows_in} rows summed of {l_eff} slots){groups}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                 bound_by=by, max_abs_err=abs_err)
+
+
+def i8_dense_layouts(HC, l_eff, n_bins, c_pad, n):
+    """(label, layout) of the int8 dense launch at a level of l_eff slots,
+    the default first: each window width (the level in one pass, two or
+    four) with the widest column group it leaves room for, at 512 and
+    1024 threads; the default without the bank padding; and 2 and 4 waves
+    of blocks."""
+    def label(v):
+        win, n_win, g, nt, spad, rows = HC.dense_i8_grid(
+            min(l_eff, HC.I8_BAND), n_bins, c_pad, n_pad=n, **v)
+        return (f"win={win}x{n_win} G={g} T={nt} spad={spad} "
+                f"rows/block={rows}")
+    out = [{}]
+    for win in sorted({l_eff, max(1, l_eff // 2), max(1, l_eff // 4)},
+                      reverse=True):
+        out += [dict(win=win, threads=t) for t in (512, 1024)]
+    out += [dict(spad=0), dict(waves=2), dict(waves=4)]
+    return [(label(v), v) for v in out]
 
 
 def time_groups(torch, HC, run, l_eff, c_pad, n_bins):
@@ -833,19 +923,20 @@ def time_groups(torch, HC, run, l_eff, c_pad, n_bins):
         [(f"G={g}", dict(group=g)) for g in gs])
 
 
-def time_layouts(torch, run, layouts):
+def time_layouts(torch, run, layouts, reps=10, ref=None):
     """Time run(**kw) for each (label, kw) of `layouts`, each result held
-    equal bit for bit to the first's (exact sums do not depend on the
-    layout). Returns the times as text."""
-    ref, parts = None, []
+    equal bit for bit to `ref`, or to the first layout's (exact sums do not
+    depend on the layout). Returns the times as text."""
+    parts, against = [], "the reference" if ref is not None else \
+        layouts[0][0]
     for label, kw in layouts:
         out = run(**kw)
         if ref is None:
             ref = out
-        check(bit_equal(torch, out, ref), f"layout {label}: histogram "
-              f"differs from {layouts[0][0]}")
-        parts.append(f"{label} {time_ms(torch, lambda: run(**kw), 10):.4f} "
-                     "ms")
+        check(bit_equal(torch, out, ref), f"layout {label}: result "
+              f"differs from {against}")
+        parts.append(f"{label} {time_ms(torch, lambda: run(**kw), reps):.4f}"
+                     " ms")
     return ", ".join(parts) + " (bit-identical)"
 
 
@@ -868,11 +959,36 @@ def time_route(torch, HC, args, kw):
     if emit_f:
         nbytes += 8 * n + args[4].numel() * 4
     b_ms, by = _bound_ms(nbytes, (2 if emit_f else 0) * n)
+    sectors = _sectors_touched(torch, codes, heap, tbl, kw["base"], kw["L"])
+    layouts = ""
+    if not emit_f:
+        layouts = "; layouts " + time_layouts(
+            torch, lambda **v: HC.sbh_route(*args, **kw, **v)[0],
+            [(f"rows={r} T={t}", dict(rows=r, threads=t))
+             for r in (4, 8) for t in (256, 512, 1024)], reps=20,
+            ref=h_p)
     say(f"timing route L={kw['L']} emit_f={emit_f} n={n}: kernel "
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-        f"rows routed {moved}; heap identical, F err {ferr:.3g}")
+        f"rows routed {moved}, code sectors touched {sectors} ({sectors * 32} "
+        f"B; with the heap {(8 * n + sectors * 32) / HBM_BYTES_S * 1e3:.4f} "
+        f"ms at {HBM_BYTES_S / 1e12:.2f} TB/s); heap identical, F err "
+        f"{ferr:.3g}{layouts}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=by, max_abs_err=ferr)
+
+
+def _sectors_touched(torch, codes, heap, tbl, base, L):
+    """32-byte sectors of the code planes that a route's gathers touch:
+    distinct (split column, row // 32) over the rows of leaves that
+    split."""
+    n = heap.numel()
+    leaf = heap.long() - base
+    active = (leaf >= 0) & (leaf < L)
+    lc = leaf.clamp(0, L - 1)
+    did = active & (tbl[1, lc] > 0.5)
+    col = tbl[0, lc].long().clamp(0, codes.shape[0] - 1)
+    rows = torch.arange(n, device=heap.device)
+    return int(torch.unique(((col * n + rows) // 32)[did]).numel())
 
 
 def time_fused(torch, HC, args, kw):

@@ -191,6 +191,10 @@ class ModelBase:
                                    domains=self._dinfo.domains,
                                    response_domain=self._dinfo.response_domain)
         t0 = time.time()
+        # max_runtime_secs: a deadline that the trainers test at each chunk
+        # boundary, after the chunk's history entry (Job.budget_exhausted)
+        mrs = float(self.params.get("max_runtime_secs") or 0.0)
+        self._deadline = t0 + mrs if mrs > 0 else None
         # the scoring history scores the validation frame when one is given
         # (ScoreKeeper and early stopping prefer its metrics)
         self._valid_for_scoring = validation_frame
@@ -205,6 +209,11 @@ class ModelBase:
         self._output.run_time_ms = int(1000 * (time.time() - t0))
         DKV.put(self.key, self)
         return self
+
+    def _budget_exhausted(self) -> bool:
+        """True once train()'s max_runtime_secs deadline has passed."""
+        deadline = getattr(self, "_deadline", None)
+        return deadline is not None and time.time() > deadline
 
     def _resolve_predictors(self, frame, x, y):
         if x is None:

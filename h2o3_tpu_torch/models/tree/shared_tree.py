@@ -310,7 +310,9 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         gen.manual_seed(seed if seed >= 0 else 42)
         wsum, wysum = torch.stack([w.sum(), (w * y).sum()]).cpu().tolist()
         ybar = wysum / max(wsum, 1e-30)
-        if dist in ("bernoulli", "quasibinomial"):
+        # quasibinomial starts from the weighted mean itself, as the
+        # reference does; only bernoulli takes its logit
+        if dist == "bernoulli":
             p0 = min(max(ybar, 1e-10), 1 - 1e-10)
             f0 = math.log(p0 / (1 - p0))
         elif dist in ("poisson", "gamma", "tweedie"):
@@ -339,7 +341,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
                 self._valid_advance(self._binned_tree_arrays(ctx, [trees])[0],
                                     lr)
             self._record_history(done, F[:n], y, w, dist)
-            if self._should_stop():
+            if self._should_stop() or self._budget_exhausted():
                 break
 
         self._trees, gainsT = self._binned_tree_arrays(ctx, chunks)

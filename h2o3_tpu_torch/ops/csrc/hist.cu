@@ -63,7 +63,9 @@ __device__ __forceinline__ int route_one(const uint8_t* __restrict__ codes,
 }
 
 // ---------------------------------------------------------------------------
-// Route (replaces hist_pallas.py sbh_route_pallas, both forms).
+// Route (replaces hist_pallas.py sbh_route_pallas, both forms: the terminal
+// pass with the margin update is route_kernel<true>, the others
+// route_rows_kernel below).
 //
 // Bound: bytes. Per row it reads the heap id (4 B) and, for rows of a leaf
 // that split, one code byte of the split column; it writes the new heap id
@@ -94,6 +96,109 @@ route_kernel(const uint8_t* __restrict__ codes,
   if (kEmitF) f_out[r] = f_in[r] + eta * __ldg(&valtab[nh]);
 }
 
+// The non-terminal route, redesigned (route_kernel<false> before it).
+// route_kernel's thread waits on four loads in a chain (heap id, the leaf's
+// split, the code byte, route_f[leaf, code]) for one row, so at 11M rows
+// the card holds few bytes in flight and waits on two HBM round trips per
+// wave. Here a thread takes kRows rows a step (kRows / 4 int4 heap loads,
+// each coalesced across the warp) and issues all their code-byte gathers
+// before it uses any, the grid (one wave of resident blocks) walks the rows
+// grid-stride, and each block first stages the split column of each leaf
+// (-1 where it did not split) in shared memory; route_f[leaf, code] is read
+// through the read-only cache, where the level's table stays. Staging
+// route_f too, as a bitmask of n_leaves x n_bins bits, ran slower at every
+// layout: every block builds the whole table before it routes a row, and
+// at one wave of blocks that build costs more than its lookups save.
+// Bound: bytes, as route_kernel; each gather moves a 32-byte sector of the
+// split column's plane, which the bound does not count (chip_smoke.py
+// prints the sectors a launch touches: about 1.03M at HIGGS levels 6-7,
+// 33 MB beside the heap's 88 MB).
+// Layout, timed at HIGGS levels 6 and 7 (chip_smoke.py phase 5, NVIDIA
+// H100 80GB HBM3, 700 W): 8 rows a thread-step and 512 threads 0.049-0.067
+// ms a launch, 0.055-0.057 ms the mean of run (b)'s two; 4 rows
+// 0.050-0.064; the one-row-a-thread kernel this replaces took 0.070-0.074.
+// One wave of grid-stride blocks leaves no spare blocks to even out a slow
+// SM, so launches vary more than that kernel's did.
+template <int kRows>
+__global__ void __launch_bounds__(kMaxThreads)
+route_rows_kernel(const uint8_t* __restrict__ codes,
+                  const int32_t* __restrict__ heap,
+                  const float* __restrict__ tbl,
+                  const float* __restrict__ route_f,
+                  int32_t* __restrict__ heap_out,
+                  int64_t n_pad, int c_pad, int lp, int n_bins, int base,
+                  int n_leaves) {
+  static_assert(kRows % 4 == 0, "rows come in int4 steps");
+  constexpr int kVec = kRows / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* const s_col = reinterpret_cast<int*>(smem);              // n_leaves
+  for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) {
+    int col = -1;
+    if (__ldg(&tbl[lp + i]) > 0.5f)
+      col = min(max(static_cast<int>(__ldg(&tbl[i])), 0), c_pad - 1);
+    s_col[i] = col;
+  }
+  __syncthreads();
+  // 1 when code c of leaf l goes right
+  const auto right = [&](int l, int c) {
+    return __ldg(&route_f[static_cast<int64_t>(l) * n_bins + c]) > 0.5f ? 1 : 0;
+  };
+
+  const int4* __restrict__ heap4 = reinterpret_cast<const int4*>(heap);
+  int4* __restrict__ out4 = reinterpret_cast<int4*>(heap_out);
+  const int64_t n4 = n_pad >> 2;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kVec * blockDim.x;
+  for (int64_t q0 = static_cast<int64_t>(blockIdx.x) * kVec * blockDim.x + threadIdx.x;
+       q0 < n4; q0 += step) {
+    int h[kRows], leaf[kRows], code[kRows];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      const int64_t q = q0 + static_cast<int64_t>(v) * blockDim.x;
+      const int4 h4 = q < n4 ? heap4[q] : make_int4(-1, -1, -1, -1);
+      h[4 * v] = h4.x;
+      h[4 * v + 1] = h4.y;
+      h[4 * v + 2] = h4.z;
+      h[4 * v + 3] = h4.w;
+    }
+    // every gather first, then the uses
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int64_t r = 4 * (q0 + static_cast<int64_t>(k >> 2) * blockDim.x) + (k & 3);
+      const int l = h[k] - base;
+      const int col = l >= 0 && l < n_leaves ? s_col[l] : -1;
+      leaf[k] = col >= 0 ? l : -1;
+      code[k] = col >= 0 ? codes[static_cast<int64_t>(col) * n_pad + r] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (leaf[k] >= 0) {
+        // codes >= n_bins are outside the contract; clamp as route_one does
+        const int c = min(code[k], n_bins - 1);
+        h[k] = 2 * h[k] + 1 + right(leaf[k], c);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      const int64_t q = q0 + static_cast<int64_t>(v) * blockDim.x;
+      if (q < n4)
+        out4[q] = make_int4(h[4 * v], h[4 * v + 1], h[4 * v + 2], h[4 * v + 3]);
+    }
+  }
+  // the last n_pad % 4 rows, one a thread of block 0
+  const int64_t r = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && r < n_pad) {
+    int nh = heap[r];
+    const int l = nh - base;
+    const int col = l >= 0 && l < n_leaves ? s_col[l] : -1;
+    if (col >= 0) {
+      const int c = min(static_cast<int>(codes[static_cast<int64_t>(col) * n_pad + r]),
+                        n_bins - 1);
+      nh = 2 * nh + 1 + right(l, c);
+    }
+    heap_out[r] = nh;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Shared pieces of the histogram kernels.
 //
@@ -119,13 +224,6 @@ template <typename T> struct Values;
 
 template <> struct Values<int32_t> {
   using Acc = int32_t;
-  // Threads of a dense block, and columns per block: the int32 dense
-  // form takes one column per block, fixed at compile time, so its blocks
-  // keep the registers they had before the f32 forms took column groups
-  // (with a run-time column loop the int32 forms ran slower; the int32
-  // fused form takes its group at compile time, level_pass's kGroup).
-  static constexpr int kThreads = 512;
-  static constexpr bool kOneColumn = true;
   __device__ explicit Values(const double*) {}
   template <int N>
   __device__ unsigned operator()(const int32_t x[kStats][N], const int[N],
@@ -143,10 +241,8 @@ template <> struct Values<float> {
   // The fixed-point adds wait on an atomic's returned word, and a block of
   // 8-byte windows takes most of the SM's shared memory, so one block is
   // all an SM holds: 1024 threads (64 registers each, no spills) hide that
-  // latency, and ran faster than 512 on the card; the int32 forms ran
-  // faster at 512 and keep it.
+  // latency, and ran faster than 512 on the card.
   static constexpr int kThreads = 1024;
-  static constexpr bool kOneColumn = false;
   // scale[s] = s1[s] * s2[s], both powers of two that f32 holds (scale is
   // 2^-98 .. 2^211; s2 is 1 unless scale > 2^127)
   float s1[kStats], s2[kStats];
@@ -453,7 +549,7 @@ __device__ __forceinline__ void level_pass(
                 "the f32 forms take their group at run time");
   extern __shared__ __align__(16) unsigned char smem[];   // group windows
   const int c0 = blockIdx.x * group;
-  const int ncol = Values<T>::kOneColumn && kGroup == 0 ? 1 : min(group, c_pad - c0);
+  const int ncol = min(group, c_pad - c0);
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int w0 = blockIdx.z * win;
   const bool writer = kRoute && blockIdx.x == 0 && blockIdx.z == 0;
@@ -512,8 +608,8 @@ __device__ __forceinline__ void level_pass(
 }
 
 // ---------------------------------------------------------------------------
-// Histogram (replaces hist_pallas.py sbh_hist_pallas / _hist_pallas, and with
-// int32 stats sbh_hist_pallas_i8).
+// Histogram (replaces hist_pallas.py sbh_hist_pallas / _hist_pallas; the
+// int32 form, for sbh_hist_pallas_i8, is hist_i8_kernel below).
 //
 // hist[slot, c, s, b] = sum of stats[s, r] over rows r whose leaf maps to
 // `slot` and whose code in column c is b. Leaf of a row: heap - base, in
@@ -532,19 +628,15 @@ __device__ __forceinline__ void level_pass(
 // column. Each thread takes 4 consecutive rows per step (int4 heap, uchar4
 // codes, 16-byte stats). Float stats sum in 64-bit fixed point (see
 // Values<float>), with native 32-bit atomics in place of an f64 sum's
-// compare-and-swap loops; int32 stats sum in int32. Every window pass
-// reads all the rows, so the float form takes the widest window that 227 KB
-// holds (37 slots at 256 bins: level 6's 32 left children in one pass,
-// level 7's 64 in two), then as many columns of it as fit
-// (hist_cuda.level_grid); chip_smoke.py times narrower windows with two
-// columns per block beside it. The int32 form keeps 96 KB windows and one
-// column per block.
+// compare-and-swap loops. Every window pass reads all the rows, so it takes
+// the widest window that 227 KB holds (37 slots at 256 bins: level 6's 32
+// left children in one pass, level 7's 64 in two), then as many columns of
+// it as fit (hist_cuda.level_grid); chip_smoke.py times narrower windows
+// with two columns per block beside it.
 // The TPU kernel kept a whole window block resident across a sequential row
-// sweep and accumulated one-hot products on the MXU (bf16 panels for f32
-// stats, int8 panels with exact int32 sums for the int8 form); blocks here
-// run in parallel in no order, so the cross-block sum is the atomic flush.
-// Both forms are exact integer sums, so every launch gives the same bits;
-// the int32 form equals the plain version and the JAX twin bit for bit.
+// sweep and accumulated one-hot products on the MXU (bf16 panels); blocks
+// here run in parallel in no order, so the cross-block sum is the atomic
+// flush. The sums are exact integers, so every launch gives the same bits.
 template <typename T>
 __global__ void __launch_bounds__(Values<T>::kThreads)
 hist_kernel(const uint8_t* __restrict__ codes,
@@ -558,6 +650,152 @@ hist_kernel(const uint8_t* __restrict__ codes,
   level_pass<T, false>(codes, heap, nullptr, nullptr, stats, scale, nullptr,
                        hist, side, n_pad, c_pad, 0, n_bins, 0, 0, base, n_leaves,
                        half != 0, win, group, rows_per_block);
+}
+
+// ---------------------------------------------------------------------------
+// int8 histogram (replaces hist_pallas.py sbh_hist_pallas_i8): the same
+// function over int32 stats in [-127, 127] (the int8-quantized stats of
+// int8_hist), summed exactly in int32.
+//
+// Bound: bytes, as hist_kernel. What cost the earlier form (hist_kernel's
+// level_pass with one column per block and 96 KB windows) was re-reading:
+// each of the 32 column blocks of a row chunk loaded every row's heap id
+// and three stats again (16 B a row, 5.6 GB per pass at 11M rows), level
+// 7's 64 left children took two passes, and each of ~3,600 blocks flushed
+// a 96 KB window with global atomics. Design, in two launches:
+//   1. pack_i8_kernel reads each row's heap id and stats once and writes
+//      one word a row: its slot in the histogram (byte 0, relative to a
+//      band of at most 256 slots) and its three stats as int8 (bytes 1-3,
+//      the TPU kernel's own cast); a row outside the band, or with zero
+//      stats, packs to stats 0 and adds nothing. At 11M rows the words
+//      (44 MB) stay in the 50 MB L2 for the second launch, and a block
+//      re-reads 4 B a row where it read 16.
+//   2. hist_i8_kernel<G>: grid (column group, row chunk, leaf window), a
+//      group of G columns fixed at compile time (its column loop unrolls)
+//      and a window of `win` slots, both within 227 KB (hist_cuda
+//      dense_i8_grid: level 6's 32 slots x 2 columns, level 7's 64 slots
+//      x 1 column in one pass); the row chunks are sized so that the grid
+//      fills whole waves of the SMs and each block flushes once. A slot's
+//      window starts `spad` words past the last one's end, so that lanes
+//      of one column in different slots (a constant column puts every row
+//      in one bin) spread over the shared-memory banks.
+// The sums are exact int32, so every layout gives the plain version's
+// bits, and the JAX twin's. 32-column groups spilled at the 64 registers
+// of 1024 threads and are not built (with_group<16>); 28-32 registers up
+// to 16 columns, no spills.
+// Layout, timed at HIGGS levels 6 and 7 of run (c) (11M rows, 32 columns,
+// 256 bins; chip_smoke.py phase 5, NVIDIA H100 80GB HBM3, 700 W), pack
+// launch included; the one-column kernel this replaces took 1.21-1.22 and
+// 1.92 ms on the same card:
+//   * level 6: 32 slots x 2 columns 0.70 ms; 16 x 4 (two passes) 1.14; 8 x
+//     8 (four) 1.97-1.98; level 7: 64 x 1 (one pass) 0.79-0.80; 32 x 2 (two
+//     passes) 1.24-1.25; 16 x 4 2.06-2.08: at a fixed 227 KB, a pass more
+//     costs more than a wider group saves;
+//   * 1024 threads against 512: 0.70 against 1.27 ms (level 6), 0.79-0.80
+//     against 1.41-1.46 (level 7): one block of 192 KB an SM, so 512
+//     threads leave half the warps idle;
+//   * without the slot padding (spad = 0) 2.22 and 2.31-2.32 ms: a slot's
+//     window is 768 words, a multiple of the 32 banks, so a constant
+//     column's lanes in different slots all hit one bank;
+//   * 2 and 4 waves of blocks: 0.73 and 0.76 ms at level 6, 0.83 and
+//     0.87-0.88 at level 7, against one (more flushes).
+constexpr int kPackThreads = 256;
+
+__global__ void __launch_bounds__(kPackThreads)
+pack_i8_kernel(const int32_t* __restrict__ heap, const int32_t* __restrict__ stats,
+               uint32_t* __restrict__ packed, int64_t n_pad, int base, int n_leaves,
+               int half, int b0, int nband) {
+  const int64_t step = 4 * static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t r = 4 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+       r < n_pad; r += step) {
+    int hs[4], x[kStats][4];
+    load_n<4>(heap + r, hs);
+#pragma unroll
+    for (int s = 0; s < kStats; ++s) load_n<4>(stats + s * n_pad + r, x[s]);
+    unsigned p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int slot = window_slot(hs[k], base, n_leaves, half != 0, b0, nband);
+      p[k] = slot < 0 ? 0u
+                      : static_cast<unsigned>(slot) |
+                            (static_cast<unsigned>(x[0][k]) & 0xffu) << 8 |
+                            (static_cast<unsigned>(x[1][k]) & 0xffu) << 16 |
+                            (static_cast<unsigned>(x[2][k])) << 24;
+    }
+    *reinterpret_cast<uint4*>(packed + r) = make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+template <int kGroup>
+__global__ void __launch_bounds__(kMaxThreads)
+hist_i8_kernel(const uint8_t* __restrict__ codes, const uint32_t* __restrict__ packed,
+               int32_t* __restrict__ hist, int64_t n_pad, int c_pad, int n_bins,
+               int b0, int win, int spad, int64_t rows_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];   // kGroup windows
+  int* const sh = reinterpret_cast<int*>(smem);
+  const int c0 = blockIdx.x * kGroup;
+  const int ncol = min(kGroup, c_pad - c0);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  const int w0 = blockIdx.z * win;
+  const int sstride = kStats * n_bins + spad;   // words per slot
+  const int nsh = win * sstride;                // words per column window
+  for (int i = threadIdx.x; i < kGroup * nsh; i += blockDim.x) sh[i] = 0;
+  __syncthreads();
+
+  const int64_t r1 = r0 + rows_per_block < n_pad ? r0 + rows_per_block : n_pad;
+  const uint8_t* __restrict__ cgroup = codes + static_cast<int64_t>(c0) * n_pad;
+  for (int64_t r = r0 + 4 * static_cast<int64_t>(threadIdx.x); r < r1;
+       r += 4 * static_cast<int64_t>(blockDim.x)) {
+    const uint4 p4 = *reinterpret_cast<const uint4*>(packed + r);
+    const unsigned p[4] = {p4.x, p4.y, p4.z, p4.w};
+    int at[4];                         // slot * sstride, or -1
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int s = static_cast<int>(p[k] & 0xffu) - w0;
+      const bool in = (p[k] >> 8) != 0 && s >= 0 && s < win;
+      at[k] = in ? s * sstride : -1;
+      any = any || in;
+    }
+    if (!any) continue;
+    int v[kStats][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[0][k] = static_cast<int8_t>(p[k] >> 8);
+      v[1][k] = static_cast<int8_t>(p[k] >> 16);
+      v[2][k] = static_cast<int8_t>(p[k] >> 24);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j < ncol) {
+        const uchar4 c4 = *reinterpret_cast<const uchar4*>(cgroup + j * n_pad + r);
+        const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
+        int* const wj = sh + j * nsh;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // codes >= n_bins are outside the contract: dropped
+          if (at[k] < 0 || cs[k] >= n_bins) continue;
+          int* const b = wj + at[k] + cs[k];
+          atomicAdd(b, v[0][k]);
+          atomicAdd(b + n_bins, v[1][k]);
+          atomicAdd(b + 2 * n_bins, v[2][k]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // flush the non-zero bins: output slot b0 + w0 + slot, column c0 + j
+  for (int j = 0; j < ncol; ++j) {
+    for (int i = threadIdx.x; i < nsh; i += blockDim.x) {
+      const int v = sh[j * nsh + i];
+      if (v == 0) continue;
+      const int slot = i / sstride, rem = i - slot * sstride;
+      const int s = rem / n_bins, b = rem - s * n_bins;
+      const int64_t o =
+          ((static_cast<int64_t>(b0 + w0 + slot) * c_pad + c0 + j) * 4 + s) * n_bins + b;
+      atomicAdd(hist + o, v);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -838,26 +1076,82 @@ dim3 level_grid(int c_pad, int group, int64_t n_pad, int64_t rows_per_block,
               grid_rows(n_pad, rows_per_block), static_cast<unsigned>(n_windows));
 }
 
-template <typename T>
 int launch_hist(const void* codes, const void* heap, const void* stats,
                 const void* scale, void* hist, void* side, int64_t n_pad,
                 int c_pad, int n_bins, int base, int n_leaves, int half, int win,
                 int n_windows, int group, int64_t rows_per_block, void* stream) {
-  using Acc = typename Values<T>::Acc;
-  // the int32 form takes one column per block
-  if (!std::is_same<T, float>::value && group != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = window_smem<T>(c_pad, n_bins, win, group, 1);
+  const size_t smem = window_smem<float>(c_pad, n_bins, win, group, 1);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(hist_kernel<T>), smem);
+  const cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(hist_kernel<float>), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  hist_kernel<T><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
-                   Values<T>::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  hist_kernel<float><<<level_grid(c_pad, group, n_pad, rows_per_block, n_windows),
+                       Values<float>::kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
-      static_cast<const T*>(stats), static_cast<const double*>(scale),
-      static_cast<Acc*>(hist), static_cast<float*>(side), n_pad, c_pad, n_bins,
+      static_cast<const float*>(stats), static_cast<const double*>(scale),
+      static_cast<Fixed*>(hist), static_cast<float*>(side), n_pad, c_pad, n_bins,
       base, n_leaves, half, win, group, rows_per_block);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 histogram over one band of at most 256 slots: the pack launch,
+// then the histogram's, both on `stream` (see hist_i8_kernel).
+int launch_hist_i8(const void* codes, const void* heap, const void* stats,
+                   void* packed, void* hist, int64_t n_pad, int c_pad, int n_bins,
+                   int base, int n_leaves, int half, int b0, int nband, int win,
+                   int n_windows, int group, int spad, int threads,
+                   int pack_blocks, int64_t rows_per_block, void* stream) {
+  if (win < 1 || nband < 1 || nband > 256 || spad < 0 || n_pad % 4 ||
+      rows_per_block < 4 || rows_per_block % 4 || pack_blocks < 1 ||
+      !threads_ok(threads) || group > c_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(group) * win * (kStats * n_bins + spad) *
+                      sizeof(int32_t);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* pk = static_cast<uint32_t*>(packed);
+  const auto* cd = static_cast<const uint8_t*>(codes);
+  // 32 columns spilled at the 64 registers of 1024 threads
+  return with_group<16>(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    const cudaError_t e = allow_smem(reinterpret_cast<const void*>(hist_i8_kernel<G>), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pack_i8_kernel<<<pack_blocks, kPackThreads, 0, st>>>(
+        static_cast<const int32_t*>(heap), static_cast<const int32_t*>(stats), pk,
+        n_pad, base, n_leaves, half, b0, nband);
+    const cudaError_t ep = cudaGetLastError();
+    if (ep != cudaSuccess) return static_cast<int>(ep);
+    hist_i8_kernel<G><<<level_grid(c_pad, G, n_pad, rows_per_block, n_windows),
+                        threads, smem, st>>>(
+        cd, pk, static_cast<int32_t*>(hist), n_pad, c_pad, n_bins, b0, win, spad,
+        rows_per_block);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The non-terminal route (route_rows_kernel<rows>): `blocks` blocks of
+// `threads` threads, rows 4 or 8 a thread-step.
+int launch_route_rows(const void* codes, const void* heap, const void* tbl,
+                      const void* route_f, void* heap_out, int64_t n_pad, int c_pad,
+                      int lp, int n_bins, int base, int n_leaves, int rows,
+                      int threads, int blocks, void* stream) {
+  if (blocks < 1 || !(threads == 256 || threads_ok(threads)) || n_leaves < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(n_leaves) * sizeof(int);
+  auto go = [&](auto kernel) {
+    const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
+        static_cast<const float*>(tbl), static_cast<const float*>(route_f),
+        static_cast<int32_t*>(heap_out), n_pad, c_pad, lp, n_bins, base, n_leaves);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (rows) {
+    case 4: return go(route_rows_kernel<4>);
+    case 8: return go(route_rows_kernel<8>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -941,42 +1235,41 @@ int h2o3_route(const void* codes, const void* heap, const void* tbl,
                const void* route_f, const void* valtab, const void* f_in,
                void* heap_out, void* f_out, int64_t n_pad, int c_pad, int lp,
                int n_bins, int base, int n_leaves, float eta, int emit_f,
-               void* stream) {
+               int rows, int threads, int blocks, void* stream) {
+  if (!emit_f)
+    return launch_route_rows(codes, heap, tbl, route_f, heap_out, n_pad, c_pad, lp,
+                             n_bins, base, n_leaves, rows, threads, blocks, stream);
   const dim3 grid(static_cast<unsigned>((n_pad + kRouteThreads - 1) / kRouteThreads));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* cd = static_cast<const uint8_t*>(codes);
-  const auto* hp = static_cast<const int32_t*>(heap);
-  const auto* tb = static_cast<const float*>(tbl);
-  const auto* rf = static_cast<const float*>(route_f);
-  const auto* vt = static_cast<const float*>(valtab);
-  const auto* fi = static_cast<const float*>(f_in);
-  auto* ho = static_cast<int32_t*>(heap_out);
-  auto* fo = static_cast<float*>(f_out);
-  if (emit_f) {
-    route_kernel<true><<<grid, kRouteThreads, 0, st>>>(
-        cd, hp, tb, rf, vt, fi, ho, fo, n_pad, c_pad, lp, n_bins, base,
-        n_leaves, eta);
-  } else {
-    route_kernel<false><<<grid, kRouteThreads, 0, st>>>(
-        cd, hp, tb, rf, vt, fi, ho, fo, n_pad, c_pad, lp, n_bins, base,
-        n_leaves, eta);
-  }
+  route_kernel<true><<<grid, kRouteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(heap),
+      static_cast<const float*>(tbl), static_cast<const float*>(route_f),
+      static_cast<const float*>(valtab), static_cast<const float*>(f_in),
+      static_cast<int32_t*>(heap_out), static_cast<float*>(f_out), n_pad, c_pad, lp,
+      n_bins, base, n_leaves, eta);
   return static_cast<int>(cudaGetLastError());
 }
 
-// int8 != 0: stats int32, hist int32 (scale and side unused); else stats
-// f32, hist int64 fixed point by scale, side f32. `group` columns per block.
+// f32 stats, hist int64 fixed point by scale, side f32; `group` columns
+// per block.
 int h2o3_hist(const void* codes, const void* heap, const void* stats,
               const void* scale, void* hist, void* side, int64_t n_pad,
               int c_pad, int n_bins, int base, int n_leaves, int half, int win,
-              int n_windows, int group, int64_t rows_per_block, int int8,
-              void* stream) {
-  return int8 ? launch_hist<int32_t>(codes, heap, stats, scale, hist, side, n_pad,
-                                     c_pad, n_bins, base, n_leaves, half, win,
-                                     n_windows, group, rows_per_block, stream)
-              : launch_hist<float>(codes, heap, stats, scale, hist, side, n_pad,
-                                   c_pad, n_bins, base, n_leaves, half, win,
-                                   n_windows, group, rows_per_block, stream);
+              int n_windows, int group, int64_t rows_per_block, void* stream) {
+  return launch_hist(codes, heap, stats, scale, hist, side, n_pad, c_pad, n_bins,
+                     base, n_leaves, half, win, n_windows, group, rows_per_block,
+                     stream);
+}
+
+// int32 stats in [-127, 127], hist int32, for slots b0 .. b0 + nband of
+// the histogram (nband <= 256); `packed` is n_pad words of scratch.
+int h2o3_hist_i8(const void* codes, const void* heap, const void* stats,
+                 void* packed, void* hist, int64_t n_pad, int c_pad, int n_bins,
+                 int base, int n_leaves, int half, int b0, int nband, int win,
+                 int n_windows, int group, int spad, int threads, int pack_blocks,
+                 int64_t rows_per_block, void* stream) {
+  return launch_hist_i8(codes, heap, stats, packed, hist, n_pad, c_pad, n_bins, base,
+                        n_leaves, half, b0, nband, win, n_windows, group, spad,
+                        threads, pack_blocks, rows_per_block, stream);
 }
 
 // As h2o3_hist, for windows of at most 2 slots: `group` columns (1, 2, 4,

@@ -55,9 +55,9 @@ _SMEM_BUDGET = 96 * 1024
 # KB, less 1 KB that each resident block reserves). A dense or fused block
 # of the f32 forms takes all of it: the widest window of 8-byte
 # accumulators it holds, then as many columns of that window as fit
-# (level_grid). The int8 dense form keeps _SMEM_BUDGET and one column per
-# block; the int8 fused form takes _SMEM_BUDGET windows and as many columns
-# of them as I8_FUSED_BUDGET holds, in a power-of-two group.
+# (level_grid). The int8 fused form takes _SMEM_BUDGET windows and as many
+# columns of them as I8_FUSED_BUDGET holds, in a power-of-two group; the
+# int8 dense form has its own layout (dense_i8_grid).
 SMEM_MAX = 232448
 _SMEM_SM = 233472
 _BLOCK_RESERVED = 1024
@@ -67,6 +67,8 @@ _HIST_ROW_ALIGN = 4
 # shallow-window kernel's f32 form stops at 16 (kRadixMaxGroup).
 GROUPS = (1, 2, 4, 8, 16, 32)
 RADIX_GROUPS = {False: GROUPS[:-1], True: GROUPS}
+# the int8 dense kernel's groups: 32 columns spilled at 1024 threads
+I8_DENSE_GROUPS = GROUPS[:-1]
 # Budget of the int8 fused kernel's column group, and threads of a fused
 # block (chip_smoke.py phase 5 times both budgets and 512 threads).
 I8_FUSED_BUDGET = _SMEM_BUDGET
@@ -77,6 +79,19 @@ FUSED_THREADS = 1024
 RADIX_THREADS = 1024
 RADIX_AGG = True
 RADIX_MIN_COPIES = 2
+# The int8 dense histogram (csrc/hist.cu hist_i8_kernel): threads per
+# block, padding words between the slot windows of a column, the grid's
+# waves of resident blocks, and the slots one packed row word addresses.
+I8_DENSE_THREADS = 1024
+I8_DENSE_SPAD = 1
+I8_DENSE_WAVES = 1
+I8_BAND = 256
+_PACK_THREADS = 256
+# The non-terminal route (csrc/hist.cu route_rows_kernel): rows a thread
+# takes per step and threads per block; the grid is one wave of resident
+# blocks, walked grid-stride.
+ROUTE_ROWS = 8
+ROUTE_THREADS = 512
 _SMS = 132                      # an H100 SXM's SMs, where no card is asked
 # The int8 histogram sums |stat| <= 127 per row in int32: exact while
 # 127 * rows < 2**31, about 16.9M rows.
@@ -152,14 +167,14 @@ def _pow2_floor(x: int) -> int:
 
 def level_grid(l_eff: int, n_bins: int, c_pad: int, int8: bool,
                group=None):
-    """(win, n_windows, group, rows_per_block) of a dense or fused launch.
-    int8: hist_grid's window at 4 bytes within _SMEM_BUDGET, and by default
-    as many columns of it as I8_FUSED_BUDGET holds, rounded down to a power
-    of two (the int32 fused kernel's groups are fixed at compile time: a
-    given `group` must be one of GROUPS; the int32 dense kernel takes 1).
-    f32: within SMEM_MAX, the widest window (fewest passes over the rows),
-    then as many columns as fit; a given `group` narrows the window to fit
-    that many."""
+    """(win, n_windows, group, rows_per_block) of an f32 dense launch or a
+    fused launch (the int8 dense launch: dense_i8_grid). int8: hist_grid's
+    window at 4 bytes within _SMEM_BUDGET, and by default as many columns
+    of it as I8_FUSED_BUDGET holds, rounded down to a power of two (the
+    int32 fused kernel's groups are fixed at compile time: a given `group`
+    must be one of GROUPS). f32: within SMEM_MAX, the widest window (fewest
+    passes over the rows), then as many columns as fit; a given `group`
+    narrows the window to fit that many."""
     if int8:
         win, n_windows, rows = hist_grid(l_eff, n_bins, 4)
         if group is None:
@@ -180,6 +195,77 @@ def level_grid(l_eff: int, n_bins: int, c_pad: int, int8: bool,
     if not 1 <= group <= c_pad:
         raise ValueError(f"group={group} outside [1, {c_pad}]")
     return win, n_windows, int(group), rows
+
+
+def dense_i8_grid(nband: int, n_bins: int, c_pad: int, group=None,
+                  win=None, threads=None, spad=None, waves=None,
+                  n_pad: int = 0, sms: int = _SMS):
+    """(win, n_windows, group, threads, spad, rows_per_block) of one int8
+    dense launch over a band of nband <= I8_BAND slots. A block keeps
+    `group` column windows of `win` slots, each slot 3 x n_bins int32 and
+    `spad` padding words, within SMEM_MAX. By default the window is the
+    widest that one column's 227 KB holds (the band in as few passes over
+    the rows as fit, windows of equal width), then as many columns of it as
+    fit, rounded down to a power of two (the kernel's compile-time groups,
+    I8_DENSE_GROUPS); a given `group` narrows the window to fit, a given
+    `win` takes as many columns as fit. The row chunks are sized so that
+    the grid of column groups x windows x row chunks fills `waves` waves
+    of resident blocks on `sms` SMs (at least one 4-row step per
+    thread)."""
+    if not 1 <= nband <= I8_BAND:
+        raise ValueError(f"nband={nband} outside [1, {I8_BAND}]")
+    threads = I8_DENSE_THREADS if threads is None else int(threads)
+    if threads not in (512, 1024):
+        raise ValueError(f"threads={threads}: 512 or 1024")
+    spad = I8_DENSE_SPAD if spad is None else int(spad)
+    waves = I8_DENSE_WAVES if waves is None else int(waves)
+    if spad < 0 or waves < 1:
+        raise ValueError(f"spad={spad}, waves={waves}")
+    slot_bytes = (3 * n_bins + spad) * 4
+    fit = SMEM_MAX // slot_bytes                  # slot-columns a block holds
+    if group is not None and (group not in I8_DENSE_GROUPS
+                              or group > c_pad):
+        raise ValueError(f"group={group}: one of {I8_DENSE_GROUPS}, at most "
+                         f"{c_pad}")
+    if win is None:
+        per_col = fit // (group or 1)
+        if per_col < 1:
+            raise ValueError(f"group={group} of one-slot windows exceeds "
+                             f"{SMEM_MAX} bytes of shared memory")
+        n_windows = -(-nband // per_col)
+        win = -(-nband // n_windows)
+    else:
+        win = min(int(win), nband)
+        n_windows = -(-nband // win)
+    if group is None:
+        group = min(I8_DENSE_GROUPS[-1], _pow2_floor(max(1, min(
+            c_pad, fit // win))))
+    smem = group * win * slot_bytes
+    if win < 1 or smem > SMEM_MAX:
+        raise ValueError(f"group={group} of {win}-slot windows exceeds "
+                         f"{SMEM_MAX} bytes of shared memory")
+    types = -(-c_pad // group) * n_windows
+    per_sm = max(1, min(2048 // threads,
+                        _SMEM_SM // (smem + _BLOCK_RESERVED)))
+    chunks = max(1, waves * sms * per_sm // types)
+    rows = -(-max(n_pad, 1) // chunks)
+    rows = max(4 * threads, -(-rows // 4) * 4)
+    return win, n_windows, int(group), threads, spad, rows
+
+
+def route_grid(n_pad: int, rows=None, threads=None, sms: int = _SMS):
+    """(rows, threads, blocks) of one non-terminal route launch: `rows`
+    per thread-step (4 or 8), `threads` per block (256, 512 or 1024), and
+    as many blocks as one wave of `sms` SMs holds (2048 threads an SM),
+    fewer where the rows run out."""
+    rows = ROUTE_ROWS if rows is None else int(rows)
+    threads = ROUTE_THREADS if threads is None else int(threads)
+    if rows not in (4, 8):
+        raise ValueError(f"rows={rows}: 4 or 8")
+    if threads not in (256, 512, 1024):
+        raise ValueError(f"threads={threads}: 256, 512 or 1024")
+    need = -(-max(n_pad, 1) // (rows * threads))
+    return rows, threads, max(1, min(need, sms * (2048 // threads)))
 
 
 def _radix_shape_ok(l_eff: int, n_bins: int) -> bool:
@@ -264,11 +350,14 @@ def _lib():
     if not getattr(lib, "_h2o3_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.h2o3_route.argtypes = [vp] * 8 + [i64, i32, i32, i32, i32, i32,
-                                              ctypes.c_float, i32, vp]
+                                              ctypes.c_float] + [i32] * 4 \
+            + [vp]
         lib.h2o3_route.restype = i32
-        lib.h2o3_hist.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, i32,
-                                                                 vp]
+        lib.h2o3_hist.argtypes = [vp] * 6 + [i64] + [i32] * 8 + [i64, vp]
         lib.h2o3_hist.restype = i32
+        lib.h2o3_hist_i8.argtypes = [vp] * 5 + [i64] + [i32] * 13 + [i64,
+                                                                    vp]
+        lib.h2o3_hist_i8.restype = i32
         lib.h2o3_radix.argtypes = [vp] * 6 + [i64] + [i32] * 10 + [i64, i32,
                                                                    vp]
         lib.h2o3_radix.restype = i32
@@ -304,6 +393,10 @@ def _ptr(t):
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _device_kind(t):
@@ -380,14 +473,21 @@ def _ptr_or_null(t):
 
 
 def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
-              eta=0.0, emit_f=False):
+              eta=0.0, emit_f=False, rows=None, threads=None):
     """Route rows of leaves [base, base+L) by their splits.
 
     codes uint8 (C_pad, n_pad); heap int32 (n_pad,); tbl f32 (8, Lp) with
     row 0 = split column and row 1 = did-split; route_f f32 (Lp, n_bins)
     with 1.0 = goes right (numeric thresholds, categorical sets and the NA
     direction alike). With emit_f: valtab f32 (8, nodes_p) and F f32
-    (n_pad,). Returns (newheap, newF), newF is None without emit_f."""
+    (n_pad,). Returns (newheap, newF), newF is None without emit_f.
+    `rows` and `threads` choose the non-terminal kernel's launch layout
+    (route_grid), never the result; the plain version and the emit_f
+    kernel take neither."""
+    if emit_f and (rows is not None or threads is not None):
+        raise ValueError("rows and threads choose the non-terminal route's "
+                         "layout; emit_f takes neither")
+    route_grid(heap.shape[0], rows, threads)    # raises on a bad layout
     if _device_kind(codes) == "cpu":
         return sbh_route_plain(codes, heap, tbl, route_f, valtab, F,
                                base=base, L=L, eta=eta, emit_f=emit_f)
@@ -407,13 +507,15 @@ def sbh_route(codes, heap, tbl, route_f, valtab=None, F=None, *, base, L,
             raise ValueError("valtab narrower than the children of the level")
         newF = torch.empty_like(F)
         vt, fi, fo = _ptr(valtab), _ptr(F), _ptr(newF)
+        nr = nt = nb = 0
     else:
         newF = None
         vt = fi = fo = ctypes.c_void_p(0)
+        nr, nt, nb = route_grid(n_pad, rows, threads, _sm_count(dev))
     rc = _lib().h2o3_route(_ptr(codes), _ptr(heap), _ptr(tbl), _ptr(route_f),
                            vt, fi, _ptr(newheap), fo, n_pad, c_pad, lp,
                            n_bins, base, L, float(eta), int(bool(emit_f)),
-                           _stream(dev))
+                           nr, nt, nb, _stream(dev))
     _raise_on(rc, "route")
     LAUNCHES["route_f" if emit_f else "route"] += 1
     return newheap, newF
@@ -478,38 +580,71 @@ def _wave_rows(n_pad: int, col_blocks: int, smem: int, threads: int,
 
 
 def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
-                   int8=False, scale=None, group=None):
+                   int8=False, scale=None, group=None, win=None,
+                   threads=None, spad=None, waves=None):
     """The dense histogram kernel (every window width). hist[l, c, s, b] =
     sum of stats[s, r] over rows with heap == base + l (half: heap ==
     base + 2l) and codes[c, r] == b, for s in 0..2; row 3 stays zero.
     codes uint8 (C_pad, n_pad); heap int32 (n_pad,); stats f32 (4, n_pad),
-    or int32 with int8. `scale`: the f32 form's fixed-point scale,
+    or with int8 int32 in [-127, 127] (the kernel, like the TPU kernel,
+    sums their int8 casts). `scale`: the f32 form's fixed-point scale,
     hist_scale(stats) (computed here when None). `group`: columns per
-    block, None for the default (the int8 form takes one column per
-    block). Returns (L_pad, C_pad, 4, n_bins), f32 or int32. The plain
-    version takes neither scale nor group."""
+    block (level_grid, or with int8 dense_i8_grid); `win`, `threads`,
+    `spad` and `waves` choose the int8 form's launch layout
+    (dense_i8_grid). None of them changes the result. Returns (L_pad,
+    C_pad, 4, n_bins), f32 or int32. The plain version takes none of
+    them."""
+    if not int8 and any(v is not None for v in (win, threads, spad, waves)):
+        raise ValueError("win, threads, spad and waves choose the int8 "
+                         "form's layout")
+    l_eff, _, _, L_pad = hist_layout(L, half)
+    layout = dict(group=group, win=win, threads=threads, spad=spad,
+                  waves=waves)
     if int8:
-        if group not in (None, 1):
-            raise ValueError(f"group={group}: the int8 dense form takes one "
-                             "column per block")
-        group = 1
         _check_i8_rows(codes.shape[1])
+        # a layout the kernel cannot take raises on every device
+        dense_i8_grid(min(l_eff, I8_BAND), n_bins, codes.shape[0], **layout)
     if _device_kind(codes) == "cpu":
         return sbh_hist_plain(codes, heap, stats, base=base, L=L,
                               n_bins=n_bins, half=half)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
-    l_eff, _, _, L_pad = hist_layout(L, half)
     acc, side, scale = _level_out(L_pad, c_pad, n_bins, int8, stats, scale,
                                   dev)
-    win, n_windows, g, rows = level_grid(l_eff, n_bins, c_pad, int8, group)
-    rc = _lib().h2o3_hist(_ptr(codes), _ptr(heap), _ptr(stats),
-                          _ptr_or_null(scale), _ptr(acc), _ptr_or_null(side),
-                          n_pad, c_pad, n_bins, base, L, int(bool(half)),
-                          win, n_windows, g, rows, int(bool(int8)),
-                          _stream(dev))
-    _raise_on(rc, "hist_i8" if int8 else "hist")
+    if int8:
+        _hist_dense_i8(codes, heap, stats, acc, base=base, L=L, half=half,
+                       n_bins=n_bins, l_eff=l_eff, layout=layout)
+    else:
+        win, n_windows, g, rows = level_grid(l_eff, n_bins, c_pad, False,
+                                             group)
+        rc = _lib().h2o3_hist(_ptr(codes), _ptr(heap), _ptr(stats),
+                              _ptr(scale), _ptr(acc), _ptr(side), n_pad,
+                              c_pad, n_bins, base, L, int(bool(half)), win,
+                              n_windows, g, rows, _stream(dev))
+        _raise_on(rc, "hist")
     LAUNCHES["hist_i8" if int8 else "hist"] += 1
     return _level_result(acc, side, scale)
+
+
+def _hist_dense_i8(codes, heap, stats, acc, *, base, L, half, n_bins, l_eff,
+                   layout):
+    """Launch the int8 dense kernel into acc, one band of at most I8_BAND
+    slots at a time (the pack launch, then the histogram's; one band up
+    to 256 slots, which covers every level of a depth-10 tree)."""
+    dev = codes.device
+    c_pad, n_pad = codes.shape
+    sms = _sm_count(dev)
+    packed = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    pack_blocks = max(1, min(-(-n_pad // (4 * _PACK_THREADS)),
+                             sms * (2048 // _PACK_THREADS)))
+    for b0 in range(0, l_eff, I8_BAND):
+        nband = min(I8_BAND, l_eff - b0)
+        win, n_windows, g, nt, spad, rows = dense_i8_grid(
+            nband, n_bins, c_pad, n_pad=n_pad, sms=sms, **layout)
+        rc = _lib().h2o3_hist_i8(
+            _ptr(codes), _ptr(heap), _ptr(stats), _ptr(packed), _ptr(acc),
+            n_pad, c_pad, n_bins, base, L, int(bool(half)), b0, nband, win,
+            n_windows, g, spad, nt, pack_blocks, rows, _stream(dev))
+        _raise_on(rc, "hist_i8")
 
 
 def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
@@ -536,8 +671,7 @@ def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
     acc, side, scale = _level_out(l_eff, c_pad, n_bins, int8, stats, scale,
                                   dev)
     win, g, ncopy, nt, rows = radix_grid(
-        l_eff, n_bins, c_pad, int8, group, threads, n_pad,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        l_eff, n_bins, c_pad, int8, group, threads, n_pad, _sm_count(dev))
     rc = _lib().h2o3_radix(_ptr(codes), _ptr(heap), _ptr(stats),
                            _ptr_or_null(scale), _ptr(acc), _ptr_or_null(side),
                            n_pad, c_pad, n_bins, base, L, int(bool(half)),

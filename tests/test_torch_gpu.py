@@ -393,3 +393,57 @@ def test_radix_layouts_give_the_same_bits(dev, HC, L, half, int8):
                                         threads=threads, agg=agg, **kw)
                 torch.cuda.synchronize()
                 assert _bit_equal(got, ref), (g, threads, agg)
+
+
+def _i8_layouts(HC, l_eff, c_pad=32, n_bins=256):
+    """The int8 dense layouts chip_smoke.py times at a level of l_eff
+    slots: each window width with its widest group, at 512 and 1024
+    threads, and the default window with and without the bank padding and
+    at 1, 2 and 4 waves."""
+    out = [{}]
+    for win in sorted({l_eff, max(1, l_eff // 2), max(1, l_eff // 4)}):
+        for threads in (512, 1024):
+            try:                # a window wider than 227 KB holds
+                HC.dense_i8_grid(l_eff, n_bins, c_pad, win=win)
+            except ValueError:
+                continue
+            out.append(dict(win=win, threads=threads))
+    out += [dict(spad=0), dict(waves=2), dict(waves=4)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,half", [(64, True), (128, True), (512, False)])
+def test_hist_i8_layouts_give_the_same_bits(dev, HC, L, half):
+    """The int8 dense kernel in every layout chip_smoke.py times (column
+    groups, windows, one pass or two, threads, bank padding, waves) equals
+    the plain version's int32 sums; at L=512 (full) the 512 slots take two
+    bands of 256, each a pack launch and a histogram launch."""
+    (codes, heap, stats), base = _inputs(dev, 70 + L, L=L, int8=True)
+    kw = dict(base=base, L=L, n_bins=256, half=half)
+    want = HC.sbh_hist_plain(codes, heap, stats, **kw)
+    l_eff = HC.hist_layout(L, half)[0]
+    for layout in _i8_layouts(HC, min(l_eff, HC.I8_BAND)):
+        got = HC.sbh_hist_dense(codes, heap, stats, int8=True, **layout, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), layout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 3])
+def test_route_layouts_match_plain(dev, HC, n):
+    """The non-terminal route kernel at 64 leaves in every layout
+    chip_smoke.py times (4 and 8 rows a thread-step; 256, 512, 1024
+    threads): heap ids identical to the plain version's, also for a row
+    count that is not a multiple of 4 (the tail rows)."""
+    L, n_bins = 64, 256
+    (codes, heap, _), base = _inputs(dev, 80, n=n, L=L)
+    tbl, route_f = _tables(dev, 81, L, codes.shape[0], n_bins)
+    want, _ = HC.sbh_route_plain(codes, heap, tbl, route_f, base=base, L=L)
+    assert not torch.equal(want, heap)
+    for rows in (4, 8):
+        for threads in (256, 512, 1024):
+            got, f = HC.sbh_route(codes, heap, tbl, route_f, base=base, L=L,
+                                  rows=rows, threads=threads)
+            torch.cuda.synchronize()
+            assert f is None and torch.equal(got, want), (rows, threads)

@@ -141,7 +141,7 @@ def _i8_stats(stats):
 
 
 @pytest.mark.parametrize("half", [False, True])
-@pytest.mark.parametrize("L", [1, 8, 128])
+@pytest.mark.parametrize("L", [1, 8, 64, 128])
 def test_hist_i8_exact(L, half):
     n_bins, b_val = 128, 64
     codes, heap, stats, base = _codes_heap_stats(30 + L, L=L, b_val=b_val)
@@ -388,10 +388,14 @@ def test_level_result_casts_and_takes_non_finite_bins():
 @pytest.mark.parametrize("l_eff", [1, 2, 4, 8, 16, 32, 64])
 def test_level_grid_fits_shared_memory(l_eff):
     """f32: the widest window the budget holds, then as many columns of it
-    as fit, never past 227 KB; a given group narrows the window. int8:
-    hist_grid's window, and a power-of-two group of as many columns as
-    I8_FUSED_BUDGET holds (the int32 fused kernel's compile-time groups);
-    the int8 dense wrapper takes one column per block."""
+    as fit, never past 227 KB; a given group narrows the window. int8
+    fused: hist_grid's window, and a power-of-two group of as many columns
+    as I8_FUSED_BUDGET holds (the int32 fused kernel's compile-time
+    groups). int8 dense (dense_i8_grid): the widest window that 227 KB
+    holds for one column, in passes of equal width, then a power-of-two
+    group of as many columns of it as fit, never past 227 KB (level 6's 32
+    slots x 2 columns and level 7's 64 slots x 1 column in one pass); the
+    int8 dense wrapper refuses a group the kernel is not built for."""
     n_bins, c_pad = 256, 32
     win, n_win, g, rows = HC.level_grid(l_eff, n_bins, c_pad, False)
     assert win * n_win >= l_eff and win <= l_eff
@@ -414,11 +418,23 @@ def test_level_grid_fits_shared_memory(l_eff):
         HC.level_grid(l_eff, n_bins, c_pad, False, c_pad + 1)
     with pytest.raises(ValueError, match="group"):
         HC.level_grid(l_eff, n_bins, c_pad, True, 3)
+    win, n_win, g, nt, spad, rows = HC.dense_i8_grid(l_eff, n_bins, c_pad)
+    slot = (3 * n_bins + spad) * 4
+    assert (nt, spad) == (HC.I8_DENSE_THREADS, HC.I8_DENSE_SPAD)
+    assert g in HC.GROUPS and g * win * slot <= HC.SMEM_MAX
+    assert g in (c_pad, HC.I8_DENSE_GROUPS[-1]) or \
+        2 * g * win * slot > HC.SMEM_MAX
+    assert win * n_win >= l_eff and (win - 1) * n_win < l_eff
+    assert n_win == -(-l_eff // (HC.SMEM_MAX // slot))
+    assert {32: (32, 1, 2), 64: (64, 1, 1)}.get(l_eff, (win, n_win, g)) \
+        == (win, n_win, g)
     codes, heap, stats, base = _codes_heap_stats(90, L=1, b_val=64)
-    with pytest.raises(ValueError, match="one column per block"):
-        HC.sbh_hist_dense(torch.from_numpy(codes), torch.from_numpy(heap),
-                          torch.from_numpy(_i8_stats(stats)), base=base, L=1,
-                          n_bins=128, int8=True, group=2)
+    for bad in (3, 64):
+        with pytest.raises(ValueError, match="group"):
+            HC.sbh_hist_dense(torch.from_numpy(codes),
+                              torch.from_numpy(heap),
+                              torch.from_numpy(_i8_stats(stats)), base=base,
+                              L=1, n_bins=128, int8=True, group=bad)
 
 
 @pytest.mark.parametrize("fused", [None, False])
@@ -579,3 +595,95 @@ def test_radix_grid_fills_whole_waves():
         HC.radix_grid(1, 256, 16, True, group=32)
     with pytest.raises(ValueError, match="group"):
         HC.radix_grid(1, 256, 32, False, group=32)    # f32: 16 at most
+
+
+@pytest.mark.parametrize("depth", [6, 7])
+def test_dense_i8_layouts_fit_shared_memory(depth):
+    """Every int8 dense layout chip_smoke.py times at the HIGGS levels the
+    kernel runs (6 and 7: 32 and 64 left children, C_pad 32, 256 bins) fits
+    232,448 bytes of shared memory per block or raises, with a compile-time
+    group, windows that cover the level, and row chunks of whole 4-row
+    steps whose grid fills at most `waves` waves of resident blocks and
+    tiles the rows."""
+    c_pad, n_bins, n_pad, sms = 32, 256, 11_000_448, 132
+    l_eff = HC.hist_layout(1 << depth, True)[0]
+    fits = 0
+    for group in (None,) + HC.I8_DENSE_GROUPS:
+        for win in (None, 8, 16, 32, 64):
+            for spad in (0, 1):
+                kw = dict(group=group, win=win, spad=spad)
+                slot = (3 * n_bins + spad) * 4
+                if (group or 1) * min(win or 1, l_eff) * slot > HC.SMEM_MAX:
+                    with pytest.raises(ValueError, match="shared memory"):
+                        HC.dense_i8_grid(l_eff, n_bins, c_pad, **kw)
+                    continue
+                for threads in (512, 1024):
+                    for waves in (1, 2, 4):
+                        win_, n_win, g, nt, sp, rows = HC.dense_i8_grid(
+                            l_eff, n_bins, c_pad, threads=threads,
+                            waves=waves, n_pad=n_pad, sms=sms, **kw)
+                        smem = g * win_ * slot
+                        assert g in HC.I8_DENSE_GROUPS and g <= c_pad
+                        assert (sp, nt) == (spad, threads)
+                        assert smem <= HC.SMEM_MAX
+                        assert win_ * n_win >= l_eff
+                        assert rows % 4 == 0 and rows >= 4 * nt
+                        chunks = -(-n_pad // rows)
+                        assert chunks * rows >= n_pad
+                        per_sm = min(2048 // nt, HC._SMEM_SM // (smem + 1024))
+                        blocks = (c_pad // g) * n_win * chunks
+                        assert blocks <= max(waves * sms * per_sm,
+                                             (c_pad // g) * n_win)
+                        fits += 1
+    assert fits > 50
+    with pytest.raises(ValueError, match="threads"):
+        HC.dense_i8_grid(l_eff, n_bins, c_pad, threads=256)
+    with pytest.raises(ValueError, match="nband"):
+        HC.dense_i8_grid(HC.I8_BAND + 1, n_bins, c_pad)
+    with pytest.raises(ValueError, match="group"):
+        HC.dense_i8_grid(l_eff, n_bins, c_pad, group=32)   # spilled
+
+
+def test_route_grid_is_one_wave():
+    """The non-terminal route's grid: as many blocks as one wave of SMs
+    holds at 2048 threads an SM, fewer for a short input; rows and threads
+    only from the kernel's instantiations."""
+    assert HC.route_grid(11_000_448, sms=132) == (
+        HC.ROUTE_ROWS, HC.ROUTE_THREADS, 132 * 2048 // HC.ROUTE_THREADS)
+    for rows in (4, 8):
+        for threads in (256, 512, 1024):
+            assert HC.route_grid(11_000_448, rows, threads, sms=132) == \
+                (rows, threads, 132 * 2048 // threads)
+    assert HC.route_grid(4096, 8, 512)[2] == 1
+    for bad in (dict(rows=2), dict(rows=16), dict(threads=128)):
+        with pytest.raises(ValueError):
+            HC.route_grid(4096, **bad)
+
+
+def test_route_64_leaves_categorical_matches_jax():
+    """A non-terminal route at 64 leaves (a level-7 route of a depth-8
+    tree) with categorical set splits and NA codes: heap ids identical to
+    the JAX twin's, whatever launch layout the wrapper is handed (the
+    plain version takes none; a layout the kernel cannot take raises)."""
+    L, n_bins, b_val = 64, 256, 255
+    codes, heap, _, base = _codes_heap_stats(61, n_pad=8192, c_pad=32, L=L,
+                                             b_val=b_val)
+    rng = np.random.default_rng(62)
+    tbl, route_cat, _ = (np.array(a) for a in _route_tables(
+        rng, L, n_bins, b_val, codes.shape[0]))
+    h_x, _ = HP.sbh_route_xla(
+        jnp.asarray(codes), jnp.asarray(heap), jnp.asarray(tbl),
+        jnp.asarray(route_cat), None, None, base=base, L=L, any_cat=True,
+        na_code=b_val)
+    args = [torch.from_numpy(a) for a in (codes, heap, tbl, route_cat)]
+    for rows, threads in ((None, None), (4, 256), (8, 1024)):
+        h_t, f_t = HC.sbh_route(*args, base=base, L=L, rows=rows,
+                                threads=threads)
+        assert f_t is None and h_t.dtype == torch.int32
+        np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_x))
+    moved = h_t.numpy() != heap
+    assert moved.sum() > 1000 and (heap[moved] >= base).all()
+    with pytest.raises(ValueError, match="rows"):
+        HC.sbh_route(*args, base=base, L=L, rows=3)
+    with pytest.raises(ValueError, match="emit_f"):
+        HC.sbh_route(*args, base=base, L=L, emit_f=True, rows=8)

@@ -38,6 +38,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 NTREES, DEPTH, NBINS, LR, N = 3, 3, 20, 0.2, 1500
 GBM = dict(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS, learn_rate=LR,
            distribution="bernoulli", seed=7)
+GBM_NO_TREES = {k: v for k, v in GBM.items() if k != "ntrees"}
 
 
 def _write_csv(path, n=N, seed=21):
@@ -302,6 +303,61 @@ def test_early_stopping_stops_training(port_cpu, slice_run):
         **GBM, stopping_rounds=2, stopping_metric="r2")
     with pytest.raises(ValueError, match="regression metric"):
         bad.train(y="label", training_frame=slice_run["tfr"])
+
+
+QUASI = dict(max_depth=DEPTH, nbins=NBINS, learn_rate=LR, seed=7,
+             distribution="quasibinomial", score_tree_interval=5)
+
+
+def _jax_estimator(jfr, **params):
+    """The JAX package's own GBM estimator on `jfr` (its f0 rule, chunk
+    loop and job deadline), as a user would call it."""
+    from h2o3_tpu.models.tree.shared_tree import \
+        H2OGradientBoostingEstimator as JaxGBM
+    m = JaxGBM(**params)
+    m.train(y="label", training_frame=jfr)
+    return m
+
+
+def test_quasibinomial_gbm_matches_jax(slice_run):
+    """quasibinomial starts from the weighted mean of the response, not
+    its logit (only bernoulli takes the logit), and links through the
+    sigmoid: f0 within 1e-6, training logloss within 1e-4 and class-1
+    probabilities within 1e-4 of the JAX estimator's (f32 sums in another
+    order, through 5 trees)."""
+    jm = _jax_estimator(slice_run["jfr"], ntrees=5, **QUASI)
+    tm = h2o3_tpu_torch.H2OGradientBoostingEstimator(ntrees=5, **QUASI)
+    tm.train(y="label", training_frame=slice_run["tfr"])
+    assert tm.summary()["distribution"] == "quasibinomial"
+    assert abs(tm._f0 - jm._f0) < 1e-6
+    assert 0.0 < tm._f0 < 1.0                      # the mean, not a logit
+    assert abs(tm.logloss() - jm.logloss()) < 1e-4
+    assert abs(tm.scoring_history()[-1]["training_logloss"]
+               - jm.scoring_history()[-1]["training_logloss"]) < 1e-4
+    tp = tm.predict(slice_run["tfr"]).to_numpy()
+    jp = jm.predict(slice_run["jfr"]).to_numpy()
+    np.testing.assert_allclose(tp[:, 2], jp[:, 2], atol=1e-4)
+
+
+def test_max_runtime_secs_stops_at_the_chunk_boundary(slice_run):
+    """max_runtime_secs sets a deadline when train() starts; the chunk
+    loop tests it after each chunk's history entry and stops there. With
+    a deadline already past, 8 trees at score_tree_interval 5 build the
+    first chunk only: 5 trees, as the JAX estimator builds."""
+    kw = dict(ntrees=8, max_runtime_secs=1e-9, score_tree_interval=5,
+              **GBM_NO_TREES)
+    jm = _jax_estimator(slice_run["jfr"], **kw)
+    tm = h2o3_tpu_torch.H2OGradientBoostingEstimator(**kw)
+    tm.train(y="label", training_frame=slice_run["tfr"])
+    want = int(jm.summary()["number_of_trees"])
+    assert want == 5
+    assert tm.summary()["number_of_trees"] == want
+    assert [h["number_of_trees"] for h in tm.scoring_history()] == [5]
+    # no deadline: all 8 trees
+    full = h2o3_tpu_torch.H2OGradientBoostingEstimator(
+        **dict(kw, max_runtime_secs=0.0))
+    full.train(y="label", training_frame=slice_run["tfr"])
+    assert full.summary()["number_of_trees"] == 8
 
 
 def test_metrics_match_jax():
