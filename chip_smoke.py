@@ -14,11 +14,14 @@ Phases, each printing its lines before the last:
      non-terminal route kernel's rows per thread may spill;
   2. each kernel against its plain PyTorch version on the card (for f32
      histograms, the plain version in float64; int32 histograms must be
-     equal), at small shapes: route with and without the margin update;
-     the dense histogram, f32 and int8, with half False and True at L = 1,
-     64 and 128; the shallow-window histogram at L = 1 full and L = 2 and
-     4 half, f32 and int8; the fused route+histogram at L_h = 2, 4 and 32,
-     f32 and int8, heap ids identical; then the f32 dense, fused and
+     equal), at small shapes and at C_pad 32 and 56 (Covertype's 54
+     columns: a partial last column group in every kernel): route with
+     and without the margin update at L = 64, 256 and 512; the dense
+     histogram, f32 and int8, with half False and True at L = 1, 64 and
+     128 and half at L = 256 and 512 (levels 8 and 9 of a depth-10 tree);
+     the shallow-window histogram at L = 1 full and L = 2 and 4 half, f32
+     and int8; the fused route+histogram at L_h = 2, 4 and 32, f32 and
+     int8, heap ids identical; then the f32 dense, fused and
      shallow-window kernels on adversarial stats (weights up to 1e4,
      alternating-sign grads, every row in one slot and one bin, one NaN
      and one inf stat: their bins as in float64, every other bin within
@@ -28,8 +31,20 @@ Phases, each printing its lines before the last:
      bernoulli GBM (the default configuration, then int8_hist=True),
      predict and AUC, on the card and on the CPU (plain versions), which
      must agree;
-  4. the main path at full width on a HIGGS-shaped frame (11M rows x 28
-     features, made on the card from a seeded torch.Generator), GBM of
+  4. the multinomial path at Covertype width (581,012 rows x 54 features,
+     7 classes, made on the card from a seeded torch.Generator), each run
+     with its launch counts per tree and its peak memory:
+       (d) GBM distribution="multinomial", depth 8 over 255 bins, 20
+           iterations (140 trees) with a 100,000-row validation frame:
+           probabilities sum to 1, training logloss below the class
+           prior's entropy, the last history entry equal to the final
+           training logloss;
+       (e) (d) as 10 iterations, then a checkpoint restart to 20: its
+           training and validation logloss against (d)'s, its trees that
+           split as (d)'s, and a restart with too few trees refused;
+     and 2 iterations of (d) with a stopwatch on each estimator stage;
+     then the main path at full width on a HIGGS-shaped frame (11M rows x
+     28 features, made on the card from a seeded torch.Generator), GBM of
      depth 8 over 255 bins through the estimator, each run with its launch
      counts per tree checked:
        (a) the sequential route-then-histogram path
@@ -41,11 +56,15 @@ Phases, each printing its lines before the last:
            armed; train and validation AUC, trees built, throughput and
            peak memory;
        (c) (b) with int8_hist=True;
+       (f) a binomial DRF to depth 10 on the same frame, 20 trees,
+           sample_rate 0.632, mtries -1, with the validation frame: OOB
+           and validation AUC, the validation series, predict timed;
      then a default-configuration run of 10 trees with a stopwatch on each
      estimator stage and each kernel wrapper, and a run (c) of 10 trees
      under torch.profiler: the share of the train() window in which the
      card is busy, and the busiest kernels;
-  5. each kernel at the shapes of one tree of those runs: its time from
+  5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
+     8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
      where there is one, and its bound (the bytes that tree's data needs,
      each input read once and each output written once, over 3.35 TB/s,
@@ -72,6 +91,7 @@ exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -104,11 +124,40 @@ HIGGS_DEFAULT = dict(ntrees=50, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
                      score_tree_interval=5, stopping_rounds=3,
                      stopping_metric="logloss", distribution="bernoulli",
                      seed=1)
-# launches per tree of the three HIGGS runs (depth 8)
+# run (f): a binomial forest to depth 10 on the HIGGS frame, mtries -1
+# (5 of 28 columns a node)
+DRF_HIGGS = dict(ntrees=20, max_depth=10, nbins=HIGGS_NBINS, sample_rate=0.632,
+                 mtries=-1, score_tree_interval=5, seed=1)
+# runs (d) and (e): a multinomial GBM at the width of the UCI Covertype set
+# (581,012 rows, 10 numeric fields, 4 + 40 one-hot wilderness and soil
+# fields, 7 classes), depth 8, 20 iterations of 7 class trees
+COV_N, COV_VALID_N, COV_NUM, COV_WILD, COV_SOIL = 581_012, 100_000, 10, 4, 40
+COV_GBM = dict(distribution="multinomial", ntrees=20, max_depth=8,
+               nbins=HIGGS_NBINS, learn_rate=0.1, score_tree_interval=5,
+               seed=1)
+# Covertype's class shares (covtype.data: 211,840, 283,301, 35,754, 2,747,
+# 9,493, 17,367 and 20,510 rows)
+COV_PRIOR = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
+# (d)'s training logloss must fall this far below the entropy of the class
+# prior (where f0 starts): a CPU run of the same generator at 30,000 rows
+# fell 0.66 nats in 20 iterations; a kernel that misbuilds the histograms
+# leaves the model near the prior
+COV_LOGLOSS_MARGIN = 0.25
+# Launches per tree, worked out from the dispatch (ops/hist_cuda.py) before
+# the runs: level 0 takes the shallow-window kernel (one slot, 256 bins);
+# levels 1-5 the fused kernel (at most 16 left children, and the 6 MB cap
+# over 4 * packed_words(C_pad) columns holds: 32 packed columns for HIGGS's
+# C_pad 32, 64 for Covertype's 56); deeper levels the route and the dense
+# histogram; the last level the terminal route.
 PER_TREE = {
     "sequential": {"hist": 8, "route": 7, "route_f": 1},
     "default": {"radix": 1, "fused": 5, "route": 2, "hist": 2, "route_f": 1},
     "int8": {"radix": 1, "fused": 5, "route": 2, "hist_i8": 2, "route_f": 1},
+    # (d), (e): depth 8 at C_pad 56, as the default configuration
+    "multinomial": {"radix": 1, "fused": 5, "route": 2, "hist": 2,
+                    "route_f": 1},
+    # (f): depth 10, levels 6-9 on the route and dense histogram
+    "drf10": {"radix": 1, "fused": 5, "route": 4, "hist": 4, "route_f": 1},
 }
 
 
@@ -117,7 +166,15 @@ def fail(msg):
     sys.exit(1)
 
 
+LOG = []
+# the lines of runs (d)-(f) and of their kernels' timings, printed again
+# just before the result so that the end of the output holds them
+RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
+                   r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\)))")
+
+
 def say(msg):
+    LOG.append(msg)
     print(msg, flush=True)
 
 
@@ -248,42 +305,47 @@ def hist_rel_err(got, want):
     return max(errs)
 
 
-def phase_kernels_small(torch, HC, dev):
-    n, c_pad, n_bins, b_val = 1 << 16, 32, 256, 255
-    for emit_f in (False, True):
-        L = 64
-        codes, heap, _, base = _codes_heap_stats(torch, dev, 1, n=n,
-                                                 c_pad=c_pad, b_val=b_val,
-                                                 L=L)
-        rng = np.random.default_rng(2)
-        tbl = np.zeros((8, L), np.float32)
-        tbl[0] = rng.integers(0, c_pad, L)
-        tbl[1] = rng.random(L) < 0.8
-        route_f = (rng.random((L, n_bins)) < 0.5).astype(np.float32)
-        valtab = np.zeros((8, 256), np.float32)
-        valtab[0] = rng.normal(0, 1, 256)
-        F = rng.normal(0, 1, n).astype(np.float32)
-        args = [codes, heap] + [torch.from_numpy(a).to(dev)
-                                for a in (tbl, route_f, valtab, F)]
-        kw = dict(base=base, L=L, eta=0.1, emit_f=emit_f)
-        h_k, f_k = HC.sbh_route(*args, **kw)
-        h_p, f_p = HC.sbh_route_plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(h_k, h_p), f"route emit_f={emit_f}: heap differs")
-        ferr = (f_k - f_p).abs().max().item() if emit_f else 0.0
-        check(ferr < F_ATOL, f"route emit_f={emit_f}: F err {ferr}")
-        say(f"kernel route emit_f={emit_f} n={n}: heap identical, "
-            f"F max err {ferr:.3g} (tol {F_ATOL})")
-    for L in (1, 64, 128):
-        for half in (False, True):
-            for int8 in (False, True):
-                codes, heap, stats, base = _codes_heap_stats(
-                    torch, dev, 10 + L, n=n, c_pad=c_pad, b_val=b_val, L=L,
-                    int8=int8)
-                kw = dict(base=base, L=L, n_bins=n_bins, half=half)
-                got = HC.sbh_hist_dense(codes, heap, stats, int8=int8, **kw)
-                check_hist(torch, HC, f"hist int8={int8} L={L} half={half} "
-                           f"n={n}", got, codes, heap, stats, kw, int8)
+def phase_kernels_small(torch, HC, dev, c_pad):
+    n, n_bins, b_val = 1 << 16, 256, 255
+    # L = 256 and 512: the levels 8 and 9 of a depth-10 tree (route tables
+    # of 256 and 512 leaves, the dense histograms in passes of 64 slots)
+    for L in (64, 256, 512):
+        for emit_f in (False, True):
+            codes, heap, _, base = _codes_heap_stats(torch, dev, 1, n=n,
+                                                     c_pad=c_pad,
+                                                     b_val=b_val, L=L)
+            rng = np.random.default_rng(2)
+            tbl = np.zeros((8, L), np.float32)
+            tbl[0] = rng.integers(0, c_pad, L)
+            tbl[1] = rng.random(L) < 0.8
+            route_f = (rng.random((L, n_bins)) < 0.5).astype(np.float32)
+            nodes_p = -(-(2 * (base + L) + 1) // 128) * 128
+            valtab = np.zeros((8, nodes_p), np.float32)
+            valtab[0] = rng.normal(0, 1, nodes_p)
+            F = rng.normal(0, 1, n).astype(np.float32)
+            args = [codes, heap] + [torch.from_numpy(a).to(dev)
+                                    for a in (tbl, route_f, valtab, F)]
+            kw = dict(base=base, L=L, eta=0.1, emit_f=emit_f)
+            h_k, f_k = HC.sbh_route(*args, **kw)
+            h_p, f_p = HC.sbh_route_plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(h_k, h_p),
+                  f"route emit_f={emit_f} L={L} C={c_pad}: heap differs")
+            ferr = (f_k - f_p).abs().max().item() if emit_f else 0.0
+            check(ferr < F_ATOL, f"route emit_f={emit_f} L={L} C={c_pad}: "
+                  f"F err {ferr}")
+            say(f"kernel route emit_f={emit_f} L={L} n={n} C={c_pad}: heap "
+                f"identical, F max err {ferr:.3g} (tol {F_ATOL})")
+    for L, half in ((1, False), (1, True), (64, False), (64, True),
+                    (128, False), (128, True), (256, True), (512, True)):
+        for int8 in (False, True):
+            codes, heap, stats, base = _codes_heap_stats(
+                torch, dev, 10 + L, n=n, c_pad=c_pad, b_val=b_val, L=L,
+                int8=int8)
+            kw = dict(base=base, L=L, n_bins=n_bins, half=half)
+            got = HC.sbh_hist_dense(codes, heap, stats, int8=int8, **kw)
+            check_hist(torch, HC, f"hist int8={int8} L={L} half={half} "
+                       f"n={n} C={c_pad}", got, codes, heap, stats, kw, int8)
     for L, half in ((1, False), (2, True), (4, True)):
         for int8 in (False, True):
             codes, heap, stats, base = _codes_heap_stats(
@@ -292,7 +354,7 @@ def phase_kernels_small(torch, HC, dev):
             kw = dict(base=base, L=L, n_bins=n_bins, half=half)
             got = HC.sbh_hist_radix(codes, heap, stats, int8=int8, **kw)
             check_hist(torch, HC, f"radix int8={int8} L={L} half={half} "
-                       f"n={n}", got, codes, heap, stats, kw, int8)
+                       f"n={n} C={c_pad}", got, codes, heap, stats, kw, int8)
     for L_h in (2, 4, 32):
         for int8 in (False, True):
             L_r = L_h // 2
@@ -305,7 +367,8 @@ def phase_kernels_small(torch, HC, dev):
                       n_bins=n_bins)
             h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f,
                                                stats, int8=int8, **kw)
-            check_fused(torch, HC, f"fused int8={int8} L_h={L_h} n={n}",
+            check_fused(torch, HC, f"fused int8={int8} L_h={L_h} n={n} "
+                        f"C={c_pad}",
                         h_k, got, (codes, heap, tbl, route_f, stats), kw, int8)
 
 
@@ -373,11 +436,12 @@ def check_adversarial(torch, what, got, again, want, nonfinite):
     return err
 
 
-def phase_adversarial(torch, HC, dev):
-    n, c_pad, n_bins, b_val = 1 << 16, 32, 256, 255
+def phase_adversarial(torch, HC, dev, c_pad):
+    n, n_bins, b_val = 1 << 16, 256, 255
     cases = (("one slot, one bin", 1, dict(one_bin=True)),
              ("L=64 half", 64, {}),
-             ("L=64 half, NaN and inf", 64, dict(nonfinite=True)))
+             ("L=64 half, NaN and inf", 64, dict(nonfinite=True)),
+             ("L=512 half", 512, {}))
     for what, L, extra in cases:
         codes, heap, stats, base = _adversarial(torch, dev, 60 + L, n=n,
                                                 c_pad=c_pad, b_val=b_val,
@@ -386,8 +450,8 @@ def phase_adversarial(torch, HC, dev):
         got, again = (HC.sbh_hist_dense(codes, heap, stats, **kw)
                       for _ in range(2))
         want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
-        check_adversarial(torch, f"hist adversarial {what} n={n}", got,
-                          again, want, "nonfinite" in extra)
+        check_adversarial(torch, f"hist adversarial {what} n={n} "
+                          f"C={c_pad}", got, again, want, "nonfinite" in extra)
     for what, L_h, extra in (("every row to one slot, one bin", 2,
                               dict(one_bin=True)),
                              ("L_h=32", 32, {}),
@@ -411,8 +475,8 @@ def phase_adversarial(torch, HC, dev):
         torch.cuda.synchronize()
         check(torch.equal(h_k, h_p) and torch.equal(h_k, h_2),
               f"fused adversarial {what}: heap differs")
-        check_adversarial(torch, f"fused adversarial {what} n={n}", got,
-                          again, want, "nonfinite" in extra)
+        check_adversarial(torch, f"fused adversarial {what} n={n} "
+                          f"C={c_pad}", got, again, want, "nonfinite" in extra)
     # the shallow-window kernel: one slot (full warps of one key), and a
     # half window of two slots
     for what, L, extra in (("one slot, one bin", 1, dict(one_bin=True)),
@@ -426,8 +490,8 @@ def phase_adversarial(torch, HC, dev):
         got, again = (HC.sbh_hist_radix(codes, heap, stats, **kw)
                       for _ in range(2))
         want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
-        check_adversarial(torch, f"radix adversarial {what} n={n}", got,
-                          again, want, "nonfinite" in extra)
+        check_adversarial(torch, f"radix adversarial {what} n={n} "
+                          f"C={c_pad}", got, again, want, "nonfinite" in extra)
 
 
 def check_hist(torch, HC, what, got, codes, heap, stats, kw, int8):
@@ -565,11 +629,15 @@ RECORDED = ("sbh_hist_dense", "sbh_route", "sbh_hist_radix",
             "sbh_route_hist_fused")
 
 
-def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
-    """Train one HIGGS model with the launch counts reset just before and
-    read just after; keep the first `keep[name]` calls of each recorded
-    wrapper (one tree's). Returns (model, per-tree launches, train
-    seconds, trees built, {name: calls})."""
+def train_run(torch, h2o, HC, fr, label, expect, keep, valid=None,
+              estimator="H2OGradientBoostingEstimator", prior_trees=0,
+              **params):
+    """Train one model through the estimator with the launch counts reset
+    just before and read just after; keep the first `keep[name]` calls of
+    each recorded wrapper (one tree's). The launches per tree (over the
+    trees this run built: a restart's prior trees are not counted) must
+    equal `expect`. Returns (model, launches, train seconds, trees built,
+    {name: calls})."""
     recs = {name: Recorder(getattr(HC, name), keep.get(name, 0))
             for name in RECORDED}
     saved = {name: getattr(HC, name) for name in RECORDED}
@@ -578,7 +646,8 @@ def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        m = h2o.H2OGradientBoostingEstimator(**params)
+        held = torch.cuda.memory_allocated()
+        m = getattr(h2o, estimator)(**params)
         HC.reset_launches()
         t0 = time.perf_counter()
         m.train(y="y", training_frame=fr, validation_frame=valid)
@@ -588,22 +657,31 @@ def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
     finally:
         for name, fn in saved.items():
             setattr(HC, name, fn)
-    trees = int(m.summary()["number_of_trees"])
+    trees = int(m.summary()["number_of_trees"]) - prior_trees
     per_tree = {k: v / trees for k, v in launches.items() if v}
-    say(f"higgs ({label}): {fr.nrows} rows x {HIGGS_C} features, {trees} "
+    say(f"{label}: {fr.nrows} rows x {len(fr.names) - 1} features, {trees} "
         f"trees depth {params['max_depth']} nbins {params['nbins']}: train "
         f"{t_train:.3f} s ({fr.nrows * trees / t_train:.0f} row*trees/s), "
-        f"train AUC {m.auc():.6f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say(f"higgs ({label}) launches per tree: {per_tree} (expected "
-        f"{expect})")
-    check(per_tree == expect, f"higgs ({label}) launches per tree "
-          f"{per_tree}, expected {expect}")
-    check(m.auc() > 0.7, f"higgs ({label}) train AUC {m.auc()}")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB "
+        "above what was held before train())")
+    say(f"{label} launches per tree: {per_tree} (expected {expect})")
+    check(per_tree == expect, f"{label} launches per tree {per_tree}, "
+          f"expected {expect}")
     for name, r in recs.items():
         check(len(r.calls) == keep.get(name, 0),
-              f"higgs ({label}): {len(r.calls)} calls of {name} recorded")
+              f"{label}: {len(r.calls)} calls of {name} recorded")
     return m, launches, t_train, trees, {n: r.calls for n, r in recs.items()}
+
+
+def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
+    """A HIGGS run (train_run) whose train AUC must pass 0.7."""
+    out = train_run(torch, h2o, HC, fr, f"higgs ({label})", expect, keep,
+                    valid=valid, **params)
+    m = out[0]
+    say(f"higgs ({label}): train AUC {m.auc():.6f}")
+    check(m.auc() > 0.7, f"higgs ({label}) train AUC {m.auc()}")
+    return out
 
 
 def phase_higgs(torch, h2o, HC):
@@ -657,10 +735,282 @@ def phase_higgs(torch, h2o, HC):
         del m
     say(f"higgs train AUC: default {aucs['b']:.6f}, int8_hist "
         f"{aucs['c']:.6f}")
+    out["f"] = drf_run(torch, h2o, HC, fr, valid)
     del valid
-    breakdown(torch, h2o, HC, fr)
+    breakdown(torch, h2o, HC, fr, "higgs (default configuration)",
+              ntrees=HIGGS_TREES, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
+              distribution="bernoulli", seed=1)
     busy_share(torch, h2o, fr)
     return out
+
+
+def drf_run(torch, h2o, HC, fr, valid):
+    """Run (f): a binomial forest to depth 10 on the HIGGS frame with the
+    validation frame; OOB and validation AUC, the validation series, and
+    the predict time of every training row. Keeps one tree's dense
+    histogram and route calls (levels 6-9 and the terminal route)."""
+    m, launches, _, trees, calls = train_run(
+        torch, h2o, HC, fr, "drf (f): binomial forest", PER_TREE["drf10"],
+        {"sbh_hist_dense": 4, "sbh_route": 5}, valid=valid,
+        estimator="H2ORandomForestEstimator", **DRF_HIGGS)
+    summary, last = m.summary(), m.scoring_history()[-1]
+    oob, vauc = m.auc(), m.auc(valid=True)
+    t0 = time.perf_counter()
+    pred = m.predict(fr)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    p1 = pred.vec("p1").data
+    say(f"drf (f): {trees} trees, mtries {summary['mtries']}, OOB (training) "
+        f"AUC {oob:.6f}, validation AUC {vauc:.6f} (last history entry "
+        f"{last['validation_auc']:.6f}), oob_scored {summary['oob_scored']};"
+        f" predict {fr.nrows} rows: {t_pred:.3f} s")
+    check(summary["oob_scored"] is True, "drf (f): not OOB-scored")
+    check(trees == DRF_HIGGS["ntrees"], f"drf (f): {trees} trees")
+    check(oob > 0.7 and vauc > 0.7, f"drf (f) AUC: OOB {oob}, valid {vauc}")
+    check(abs(last["validation_auc"] - vauc) < 1e-4,
+          f"drf (f): history validation AUC {last['validation_auc']} vs "
+          f"final {vauc}")
+    check(pred.nrows == fr.nrows and bool(torch.isfinite(p1).all())
+          and bool(((p1 >= 0) & (p1 <= 1)).all()),
+          "drf (f): predictions not probabilities")
+    return launches, calls
+
+
+def _covtype_frame(torch, dev, n, seed):
+    """Covertype-shaped frame made on the card from a seeded
+    torch.Generator: 10 N(0,1) columns for the numeric fields, 4 one-hot
+    0/1 wilderness and 40 one-hot 0/1 soil columns, and 7 classes, the
+    argmax over classes of log(Covertype's class share) + a fixed score of
+    a few columns + Gumbel noise. Returns (frame, class ids)."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    K = len(COV_PRIOR)
+    Xn = torch.randn((n, COV_NUM), generator=g, device=dev)
+    wild = torch.randint(0, COV_WILD, (n,), generator=g, device=dev)
+    soil = torch.randint(0, COV_SOIL, (n,), generator=g, device=dev)
+    onehot = torch.nn.functional.one_hot
+    B = torch.cat([onehot(wild, COV_WILD), onehot(soil, COV_SOIL)], 1)
+    k = torch.arange(K, device=dev)
+    score = (torch.log(torch.tensor(COV_PRIOR, device=dev))[None, :]
+             + 1.2 * Xn[:, :K] - 0.6 * Xn[:, 7:10].repeat(1, 3)[:, :K]
+             + 0.8 * (wild[:, None] == (k % COV_WILD)[None, :])
+             + 1.0 * ((soil[:, None] % K) == k[None, :]))
+    u = torch.rand((n, K), generator=g, device=dev).clamp(1e-12, 1 - 1e-7)
+    y = torch.argmax(score - torch.log(-torch.log(u)), dim=1)
+    X = torch.cat([Xn, B.float()], 1)
+    names = ([f"n{j}" for j in range(COV_NUM)]
+             + [f"wild{j}" for j in range(COV_WILD)]
+             + [f"soil{j}" for j in range(COV_SOIL)] + ["y"])
+    vecs = [Vec.from_tensor(X[:, j].contiguous()) for j in range(X.shape[1])]
+    vecs.append(Vec.from_tensor(y.float(), type=T_CAT,
+                                domain=[str(c + 1) for c in range(K)]))
+    return Frame(names, vecs), y
+
+
+def _same_splits(torch, a, b, t):
+    """Tree t of two ensembles splits alike node for node (columns,
+    thresholds, NA directions)."""
+    return all(torch.equal(getattr(a, f)[t], getattr(b, f)[t])
+               for f in ("col", "thr", "na_left"))
+
+
+class RestartProbe:
+    """Hooks on the multinomial chunk trainer and the split search for one
+    training run: the margins that the `at`-th chunk (counting from 0)
+    starts from, and the histogram, lam and choice of each of the
+    `searches` split searches that follow (the K class trees' levels of
+    that chunk's first iteration). The copies cost a few milliseconds of
+    the run's train()."""
+
+    def __init__(self, BN, at, searches):
+        self.BN, self.at, self.searches = BN, at, searches
+        self.trainer, self.find = BN.gbm_multi_chunk_trainer, \
+            BN.find_splits_binned
+        self.chunks, self.left, self.F, self.splits = 0, 0, None, []
+
+    def __enter__(self):
+        probe = self
+
+        def trainer(*a, **k):
+            run = probe.trainer(*a, **k)
+
+            def call(codes, y1, w1, F, generator=None):
+                if probe.chunks == probe.at:
+                    probe.F, probe.left = F.clone(), probe.searches
+                probe.chunks += 1
+                return run(codes, y1, w1, F, generator)
+            return call
+
+        def find(hist, *a, **k):
+            s = probe.find(hist, *a, **k)
+            if probe.left:
+                probe.left -= 1
+                probe.splits.append((hist.clone(), k, {
+                    f: s[f].clone() for f in ("did", "col", "bin", "nal",
+                                              "gain")}))
+            return s
+        self.BN.gbm_multi_chunk_trainer = trainer
+        self.BN.find_splits_binned = find
+        return self
+
+    def __exit__(self, *exc):
+        self.BN.gbm_multi_chunk_trainer = self.trainer
+        self.BN.find_splits_binned = self.find
+
+
+def _split_gain(torch, h, col, b, nal, k):
+    """The split search's gain of one numeric split (column, last bin on
+    the left, NA direction) of one leaf's histogram h (C_pad, 4, BP), in
+    float64."""
+    B, lam = k["b_val"], k["lam"]
+    rows = h[col].double()
+    den = rows[2] if k["use_hess"] else rows[0]
+    g = rows[1]
+    gl = g[:b + 1].sum() + (g[B] if nal else 0.0)
+    dl = den[:b + 1].sum() + (den[B] if nal else 0.0)
+    gt, dt = g[:B + 1].sum(), den[:B + 1].sum()
+
+    def score(d_, g_):
+        return float(g_ * g_ / max(float(d_) + lam, 1e-30)) if d_ > 0 \
+            else 0.0
+    return score(dl, gl) + score(dt - dl, gt - gl) - score(dt, gt)
+
+
+def restart_probe_report(torch, n, depth, dp, ep):
+    """The restart's margins against the ones (d) had routed at the same
+    iteration, and the first split of the restart's first iteration that
+    differs from (d)'s: both choices' gains on both runs' histograms."""
+    dF = (ep.F[:n] - dp.F[:n]).abs().max().item()
+    say(f"covtype (e): margins the restart walked from the prior's trees "
+        f"vs (d)'s routed margins after the same iterations: max abs diff "
+        f"{dF:.3g} over {n} rows x {dp.F.shape[1]} classes (max |F| "
+        f"{dp.F[:n].abs().max().item():.3g})")
+    check(dF < 1e-4, f"covtype (e): the restart resumed from other margins "
+          f"(max abs diff {dF})")
+    for i, ((hd, k, sd), (he, _, se)) in enumerate(zip(dp.splits,
+                                                       ep.splits)):
+        diff = (sd["did"] != se["did"]) | (sd["did"] & (
+            (sd["col"] != se["col"]) | (sd["bin"] != se["bin"])
+            | (sd["nal"] != se["nal"])))
+        if not bool(diff.any()):
+            continue
+        c, lev = divmod(i, depth)
+        leaf = int(diff.nonzero()[0, 0])
+        pick = [(int(s["col"][leaf]), int(s["bin"][leaf]),
+                 bool(s["nal"][leaf])) for s in (sd, se)]
+        gains = [[_split_gain(torch, h[leaf], *sp, k) for sp in pick]
+                 for h in (hd, he)]
+        rel = [abs(g[0] - g[1]) / max(abs(g[0]), 1e-300) for g in gains]
+        hrel = ((hd[leaf] - he[leaf]).abs().amax(dim=(0, 2))
+                / hd[leaf].abs().amax(dim=(0, 2)).clamp(min=1e-30))
+        say(f"covtype (e): first split of the restart's first iteration "
+            f"that differs from (d)'s: class {c} level {lev} leaf {leaf} "
+            f"({float(hd[leaf, 0, 0].sum()):.0f} rows); (d) chose column/"
+            f"bin/NA-left {pick[0]} with gain {float(sd['gain'][leaf]):.9g}"
+            f", the restart {pick[1]} with gain {float(se['gain'][leaf]):.9g}"
+            f"; in float64 on (d)'s histogram {gains[0][0]:.9g} vs "
+            f"{gains[0][1]:.9g} (relative gap {rel[0]:.3g}), on the "
+            f"restart's {gains[1][0]:.9g} vs {gains[1][1]:.9g} (relative "
+            f"gap {rel[1]:.3g}); the leaf's histograms differ by at most "
+            f"{hrel[0].item():.3g} / {hrel[1].item():.3g} / "
+            f"{hrel[2].item():.3g} of their largest w / wg / wh bin")
+        return
+    say("covtype (e): every split of the restart's first iteration is "
+        "(d)'s")
+
+
+def phase_covtype(torch, h2o, HC):
+    """Runs (d) and (e): a multinomial GBM at Covertype width, then the
+    same model built as 10 iterations and a checkpoint restart to 20.
+    Returns (d)'s launches and one tree's recorded calls."""
+    from h2o3_tpu_torch.models.tree import binned as BN
+    dev = h2o.init().device
+    fr, y = _covtype_frame(torch, dev, COV_N, 9)
+    valid, _ = _covtype_frame(torch, dev, COV_VALID_N, 10)
+    K = len(COV_PRIOR)
+    prior = torch.bincount(y, minlength=K).double() / COV_N
+    entropy = float(-(prior * prior.clamp(min=1e-300).log()).sum())
+    del y
+    torch.cuda.synchronize()
+    keep = {"sbh_hist_radix": 1, "sbh_route_hist_fused": 5,
+            "sbh_hist_dense": 2, "sbh_route": 3}
+    half = COV_GBM["ntrees"] // 2
+    interval = COV_GBM["score_tree_interval"]
+    searches = K * COV_GBM["max_depth"]
+    # (d)'s margins after `half` iterations, where (e)'s restart starts
+    with RestartProbe(BN, half // interval, searches) as dp:
+        d, launches, _, trees, calls = train_run(
+            torch, h2o, HC, fr, "covtype (d): multinomial GBM",
+            PER_TREE["multinomial"], keep, valid=valid, **COV_GBM)
+    check(trees == COV_GBM["ntrees"] * K, f"covtype (d): {trees} trees")
+    ll, vll = d.logloss(), d.logloss(valid=True)
+    last = d.scoring_history()[-1]
+    t0 = time.perf_counter()
+    pv = d.predict(valid)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    P = torch.stack([pv.vec(f"p{c + 1}").data for c in range(K)], 1)
+    psum_err = (P.double().sum(1) - 1).abs().max().item()
+    say(f"covtype (d): {trees} trees ({COV_GBM['ntrees']} iterations x "
+        f"{K} classes); training logloss {ll:.6f} (last history entry "
+        f"{last['training_logloss']:.6f}, class prior entropy "
+        f"{entropy:.6f}), error {d._output.training_metrics.error:.6f}; "
+        f"validation logloss {vll:.6f}; predict {COV_VALID_N} rows "
+        f"{t_pred:.3f} s, probabilities sum to 1 within {psum_err:.3g}")
+    check(bool(torch.isfinite(P).all()) and psum_err < 1e-5,
+          f"covtype (d): probabilities bad (sum err {psum_err})")
+    check(ll < entropy - COV_LOGLOSS_MARGIN, f"covtype (d): training logloss "
+          f"{ll} not below the prior's entropy {entropy} by "
+          f"{COV_LOGLOSS_MARGIN}")
+    check(abs(last["training_logloss"] - ll) < 1e-4, f"covtype (d): history "
+          f"logloss {last['training_logloss']} vs final {ll}")
+    check(math.isfinite(vll), f"covtype (d): validation logloss {vll}")
+    del pv, P
+
+    # (e) the same model as 10 iterations, then a restart to 20
+    e1, *_ = train_run(
+        torch, h2o, HC, fr, "covtype (e): first 10 iterations",
+        PER_TREE["multinomial"], {}, valid=valid,
+        **dict(COV_GBM, ntrees=half, model_id="covtype_e1"))
+    with RestartProbe(BN, 0, searches) as ep:
+        e2, *_ = train_run(
+            torch, h2o, HC, fr, "covtype (e): restart to 20 iterations",
+            PER_TREE["multinomial"], {}, valid=valid, prior_trees=half * K,
+            **dict(COV_GBM, checkpoint="covtype_e1"))
+    restart_probe_report(torch, COV_N, COV_GBM["max_depth"], dp, ep)
+    del dp, ep
+    same = [sum(_same_splits(torch, a, b, t)
+                for a, b in zip(d._trees_k, e2._trees_k))
+            for t in range(COV_GBM["ntrees"])]
+    dval = [max((a.value[t] - b.value[t]).abs().max().item()
+                for a, b in zip(d._trees_k, e2._trees_k))
+            for t in range(COV_GBM["ntrees"])]
+    dll, dvll = abs(e2.logloss() - ll), abs(e2.logloss(valid=True) - vll)
+    say(f"covtype (e): restart training logloss {e2.logloss():.6f} (d: "
+        f"{ll:.6f}, diff {dll:.3g}), validation logloss "
+        f"{e2.logloss(valid=True):.6f} (d: {vll:.6f}, diff {dvll:.3g}); "
+        f"trees that split as (d)'s node for node: prior {sum(same[:half])} "
+        f"of {half * K} (leaf values max diff {max(dval[:half]):.3g}), "
+        f"restart {sum(same[half:])} of {half * K} (leaf values max diff "
+        f"{max(dval[half:]):.3g})")
+    # the prior is (d)'s first iterations built again: the same bits
+    check(all(c == K for c in same[:half]) and max(dval[:half]) == 0.0,
+          f"covtype (e): the prior's trees differ from (d)'s first {half} "
+          f"iterations: {same[:half]}, values {max(dval[:half])}")
+    check(dll < 1e-3 and dvll < 1e-3, f"covtype (e): restart logloss off by "
+          f"{dll} (training), {dvll} (validation)")
+    try:
+        h2o.H2OGradientBoostingEstimator(
+            **dict(COV_GBM, ntrees=half, checkpoint="covtype_e1")).train(
+            y="y", training_frame=fr)
+        fail("covtype (e): a restart with ntrees not above the prior's ran")
+    except ValueError as e:
+        say(f"covtype (e): a restart to {half} iterations raises ValueError: "
+            f"{e}")
+    breakdown(torch, h2o, HC, fr, "covtype (d) configuration",
+              **dict(COV_GBM, ntrees=2))
+    return launches, calls
 
 
 class Stopwatch:
@@ -680,11 +1030,10 @@ class Stopwatch:
         return out
 
 
-def breakdown(torch, h2o, HC, fr):
-    """A HIGGS training run of the default configuration (10 trees, no
-    validation frame) with a stopwatch on each stage of the estimator and
-    on each kernel wrapper (the syncs make it a little slower than an
-    unperturbed run)."""
+def breakdown(torch, h2o, HC, fr, label, **params):
+    """A GBM training run (no validation frame) with a stopwatch on each
+    stage of the estimator and on each kernel wrapper (the syncs make it a
+    little slower than an unperturbed run)."""
     from h2o3_tpu_torch.models import model as MB
     from h2o3_tpu_torch.models.tree import binned as BN
     from h2o3_tpu_torch.models.tree import shared_tree as ST
@@ -692,6 +1041,7 @@ def breakdown(torch, h2o, HC, fr):
               (ST.SharedTreeEstimator, "_binned_setup"),
               (BN.BinnedGrower, "grow"), (BN, "find_splits_binned"),
               (ST.SharedTreeEstimator, "_record_history"),
+              (ST.SharedTreeEstimator, "_record_history_multi"),
               (MB.ModelBase, "_score_train_valid")]
     stages += [(HC, name) for name in RECORDED]
     saved = [(obj, name, getattr(obj, name)) for obj, name in stages]
@@ -704,9 +1054,7 @@ def breakdown(torch, h2o, HC, fr):
                 setattr(obj, name, lambda *a, _w=w, **k: _w(*a, **k))
             else:
                 setattr(obj, name, watches[name])
-        m = h2o.H2OGradientBoostingEstimator(
-            ntrees=HIGGS_TREES, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
-            distribution="bernoulli", seed=1)
+        m = h2o.H2OGradientBoostingEstimator(**params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m.train(y="y", training_frame=fr)
@@ -717,8 +1065,8 @@ def breakdown(torch, h2o, HC, fr):
             setattr(obj, name, fn)
     parts = ", ".join(f"{n} {w.seconds:.3f} s/{w.calls}"
                       for n, w in watches.items())
-    say(f"higgs train breakdown (default configuration): total "
-        f"{total:.3f} s; {parts} (find_splits_binned and the kernel "
+    say(f"{label} train breakdown, {m.summary()['number_of_trees']} trees: "
+        f"total {total:.3f} s; {parts} (find_splits_binned and the kernel "
         "wrappers run inside grow)")
 
 
@@ -1050,12 +1398,14 @@ def _summary(rs):
 
 
 def phase_timing(torch, HC, runs):
-    """Every kernel at the shapes of one tree of the HIGGS runs. The
-    kernels-JSON entries come from run (b), the default configuration,
-    and for sbh_hist_i8 from run (c); run (a)'s and (c)'s other launches
-    are printed beside them."""
+    """Every kernel at the shapes of one tree of the HIGGS runs and of run
+    (d) (Covertype width, C_pad 56), and the dense histogram and route
+    launches of levels 8 and 9 of a run (f) tree with its terminal route.
+    The kernels-JSON entries come from run (b), the default configuration,
+    and for sbh_hist_i8 from run (c); the other runs' launches are printed
+    beside them."""
     rows = {}
-    for run in ("a", "b", "c"):
+    for run in ("a", "b", "c", "d"):
         launches, calls = runs[run]
         rs = {}
         rs["sbh_hist"] = [time_hist(torch, HC, "sbh_hist_dense", a, k)
@@ -1077,6 +1427,18 @@ def phase_timing(torch, HC, runs):
         say(f"kernel time of one tree, run ({run}): {per_tree:.4f} ms "
             f"({parts})")
         rows[run] = (launches, rs)
+    # run (f): the dense histogram of levels 8 and 9 (256 and 512 leaves,
+    # left children summed), their routes and the terminal route (L 512)
+    _, calls = runs["f"]
+    deep = [time_hist(torch, HC, "sbh_hist_dense", a, k)
+            for a, k in calls["sbh_hist_dense"][2:]]
+    route = [time_route(torch, HC, a, k) for a, k in calls["sbh_route"][2:]]
+    say(f"kernel time of levels 8-9 of one tree, run (f): sbh_hist "
+        f"{sum(r['ms'] for r in deep):.4f} ms/{len(deep)} (bound "
+        f"{sum(r['bound_ms'] for r in deep):.4f}), sbh_route "
+        f"{sum(r['ms'] for r in route[:-1]):.4f} ms/{len(route) - 1} (bound "
+        f"{sum(r['bound_ms'] for r in route[:-1]):.4f}); the terminal route "
+        f"{route[-1]['ms']:.4f} ms (bound {route[-1]['bound_ms']:.4f})")
     counts = {"sbh_route": "route", "sbh_route_emit_f": "route_f",
               "sbh_hist": "hist", "sbh_hist_i8": "hist_i8",
               "sbh_hist_radix": "radix", "sbh_route_hist_fused": "fused"}
@@ -1107,11 +1469,21 @@ def main():
     t_start = time.perf_counter()
     card = phase_card(torch, _build)
     dev = torch.device("cuda", 0)
-    phase_kernels_small(torch, HC, dev)
-    phase_adversarial(torch, HC, dev)
+    # 32 columns: HIGGS's 28 padded; 56: Covertype's 54, a partial last
+    # group in every kernel's column groups
+    for c_pad in (32, 56):
+        phase_kernels_small(torch, HC, dev, c_pad)
+        phase_adversarial(torch, HC, dev, c_pad)
     phase_small_path(torch, h2o, HC)
+    covtype = phase_covtype(torch, h2o, HC)
     runs = phase_higgs(torch, h2o, HC)
+    runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
+    recap = [line for line in LOG if RECAP.match(line)]
+    say(f"recap of runs (d)-(f) and their kernels' timings ({len(recap)} "
+        "lines, as printed above):")
+    for line in recap:
+        print(f"  {line}", flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

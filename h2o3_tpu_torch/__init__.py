@@ -10,13 +10,19 @@ where every kernel wrapper runs its plain PyTorch version.
     m = h2o.H2OGradientBoostingEstimator(ntrees=10, max_depth=8)
     m.train(y="label", training_frame=fr)
     m.predict(fr); m.auc()
+
+GBM takes every single-output distribution of the binned engine and a
+multinomial response, and `checkpoint=` restarts from a binned prior;
+`H2ORandomForestEstimator` trains a binomial or regression forest.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.io.parser import import_file, parse_setup
+from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
 from h2o3_tpu_torch.models.tree.gbm import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
 
-__all__ = ["DKV", "Frame", "H2OGradientBoostingEstimator", "Vec", "cloud",
-           "import_file", "init", "parse_setup", "shutdown"]
+__all__ = ["DKV", "Frame", "H2OGradientBoostingEstimator",
+           "H2ORandomForestEstimator", "Vec", "cloud", "import_file", "init",
+           "parse_setup", "shutdown"]

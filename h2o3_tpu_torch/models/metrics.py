@@ -1,7 +1,8 @@
-"""Model metrics of the port (h2o3_tpu/models/metrics.py): one pass over
-(actual, predicted, weight) tensors on their device into a small state,
-finished on the host exactly as the JAX package finishes it. The AUC is the
-4096-score-bin histogram method (hex/AUC2.java with finer bins).
+"""Model metrics of the port (h2o3_tpu/models/metrics.py): regression,
+binomial and multinomial, each one pass over (actual, predicted, weight)
+tensors on their device into a small state, finished on the host exactly
+as the JAX package finishes it. The AUC is the 4096-score-bin histogram
+method (hex/AUC2.java with finer bins).
 """
 
 from __future__ import annotations
@@ -142,3 +143,65 @@ def binomial_metrics(y, p, w=None, domain=None) -> BinomialMetrics:
         confusion_matrix=np.array([[TN, FP], [FN, TP]]), nobs=int(n),
         domain=domain)
 
+
+
+# ===========================================================================
+# Multinomial (hex/ModelMetricsMultinomial.java)
+@dataclass
+class MultinomialMetrics:
+    logloss: float
+    mse: float
+    rmse: float
+    mean_per_class_error: float
+    error: float                # overall classification error
+    confusion_matrix: np.ndarray
+    hit_ratios: list
+    nobs: int
+    domain: Optional[list] = None
+
+    def to_dict(self):
+        return {"logloss": self.logloss, "MSE": self.mse, "RMSE": self.rmse,
+                "mean_per_class_error": self.mean_per_class_error,
+                "error": self.error,
+                "confusion_matrix": self.confusion_matrix.tolist(),
+                "hit_ratios": self.hit_ratios, "nobs": self.nobs}
+
+
+def _multinomial_pass(y, probs, w):
+    """Weight, logloss, the weighted confusion matrix (actual x argmax),
+    the top-k hit weights for k up to min(10, K), and the squared error
+    over the one-vs-all encoding."""
+    y, w = _wmask(y, w)
+    K = int(probs.shape[1])
+    yi = y.long()
+    py = probs.gather(1, yi[:, None])[:, 0]
+    ll = -(w * torch.log(py.clamp(1e-15, 1.0))).sum()
+    pred = probs.argmax(dim=1)
+    cm = torch.zeros(K * K, dtype=w.dtype, device=w.device) \
+        .index_add_(0, yi * K + pred, w).reshape(K, K)
+    topk = probs.topk(min(10, K), dim=1).indices
+    hit_k = (w[:, None] * (topk == yi[:, None]).to(w.dtype).cumsum(1)).sum(0)
+    onehot = torch.nn.functional.one_hot(yi, K).to(probs.dtype)
+    sse = (w[:, None] * (onehot - probs) ** 2).sum()
+    n, ll, sse = torch.stack([w.sum(), ll, sse]).cpu().tolist()
+    return n, ll, sse, cm.cpu().double().numpy(), \
+        hit_k.cpu().double().numpy()
+
+
+def multinomial_metrics(y, probs, w=None, domain=None) -> MultinomialMetrics:
+    w = torch.ones_like(y) if w is None else w
+    n, ll, sse, cm, hit_k = _multinomial_pass(y, probs, w)
+    row_tot = cm.sum(axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        per_class_err = np.where(row_tot > 0, 1.0 - np.diag(cm) / row_tot, 0.0)
+    seen = row_tot > 0
+    mpce = float(per_class_err[seen].mean()) if seen.any() else math.nan
+    err = 1.0 - np.diag(cm).sum() / n if n else math.nan
+    return MultinomialMetrics(
+        logloss=ll / n if n else math.nan,
+        mse=sse / n if n else math.nan,
+        rmse=math.sqrt(sse / n) if n else math.nan,
+        mean_per_class_error=mpce, error=float(err),
+        confusion_matrix=cm,
+        hit_ratios=[float(h) / n for h in hit_k] if n else [],
+        nobs=int(n), domain=domain)

@@ -150,8 +150,7 @@ class ModelBase:
     # have yet: (name, default, the JAX module that has it)
     _LATER = (("nfolds", 0, "model.py cross-validation"),
               ("fold_column", None, "model.py cross-validation"),
-              ("offset_column", None, "model.py offsets"),
-              ("checkpoint", None, "shared_tree.py checkpoint restart"))
+              ("offset_column", None, "model.py offsets"))
 
     def __init__(self, **params):
         self.params = dict(self._COMMON)
@@ -281,9 +280,8 @@ class ModelBase:
             return M.binomial_metrics(y, out[:, 1], w,
                                       domain=self._dinfo.response_domain)
         if self._is_classifier:
-            raise NotImplementedError(
-                "multinomial metrics are not ported yet "
-                "(h2o3_tpu/models/metrics.py multinomial_metrics)")
+            return M.multinomial_metrics(y, out, w,
+                                         domain=self._dinfo.response_domain)
         return M.regression_metrics(y, out, w)
 
     def _score_train_valid(self, frame, valid):

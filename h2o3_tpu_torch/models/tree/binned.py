@@ -18,8 +18,13 @@ unless False, which forces the dense histogram and the sequential pair.
 The flags choose kernels, never the function: every combination grows
 the same tree.
 
-Differences from the JAX package: the K-tree `lax.scan` is a Python loop
-and there is no mesh (the sharded psum path is a later slice).
+Three trainers grow on it, as in the JAX package: `gbm_chunk_trainer`
+(one tree a step), `gbm_multi_chunk_trainer` (K class trees an iteration)
+and `drf_chunk_trainer` (bagged trees with out-of-bag sums).
+
+Differences from the JAX package: its `lax.scan` over trees and classes
+is a Python loop, the random draws come from a torch.Generator, and there
+is no mesh (the sharded psum path is a later slice).
 """
 
 from __future__ import annotations
@@ -487,10 +492,105 @@ def gbm_chunk_trainer(grower: BinnedGrower, n: int, *, dist: str, eta: float,
                               generator=generator, mtries=mtries,
                               tree_mask=tmask)
             F = out["F"]
-            trees.append((out["col"], out["bin"], out["nal"],
-                          pack_route(out["route"], grower.spec.n_bins,
-                                     grower.spec.b_val),
-                          out["val"], out["gains"], out["cover"]))
+            trees.append(_tree_parts(grower, out))
         return F, tuple(torch.stack(parts) for parts in zip(*trees))
+
+    return run
+
+
+# ===========================================================================
+# Multinomial boosting: K class trees per iteration (SharedTree.java:548-561
+# builds the K trees of an iteration as one layer), each grown through the
+# same kernels as a single-output tree.
+def gbm_multi_chunk_trainer(grower: BinnedGrower, n: int, *, n_classes: int,
+                            eta: float, sample_rate: float, mtries: int,
+                            k_iters: int, clip_val: float = 19.0,
+                            col_rate_tree: float = 1.0):
+    """The K-class step: returns run(codes, y1, w1, F, generator) -> (F,
+    trees). F is (n_pad, K) f32 margins and y1 (n_pad,) class ids as f32;
+    trees are stacked with leading dims (k_iters, K). Per iteration: one
+    softmax, one row sample and one per-tree column mask shared by the K
+    class trees; class k's tree grows on (w, w*res*(K-1)/K, w*|res|(1-|res|))
+    with F = 0 and eta = 1, so the terminal route emits the leaf value of
+    every row, which is the class's margin step."""
+    K = int(n_classes)
+    kscale = (K - 1) / K       # GammaPass multinomial leaf scale (GBM.java)
+
+    def run(codes, y1, w1, F, generator=None):
+        onehot = torch.nn.functional.one_hot(y1.long(), K).to(F.dtype)
+        zero = torch.zeros_like(w1)
+        iters = []
+        for _ in range(k_iters):
+            RK = onehot - torch.softmax(F, dim=1)           # residuals
+            if sample_rate < 1.0:
+                u = torch.rand(w1.shape, generator=generator,
+                               device=w1.device)
+                wt = w1 * (u < sample_rate)
+            else:
+                wt = w1
+            tmask = _tree_col_mask(grower, generator, col_rate_tree)
+            trees, dF = [], []
+            for k in range(K):
+                res = RK[:, k].contiguous()
+                absr = res.abs()
+                stats = torch.stack([wt, wt * res * kscale,
+                                     wt * (absr * (1.0 - absr)), zero])
+                out = grower.grow(codes, stats, zero, eta=1.0,
+                                  clip_val=clip_val, generator=generator,
+                                  mtries=mtries, tree_mask=tmask)
+                trees.append(_tree_parts(grower, out))
+                dF.append(out["F"])
+            F = F + eta * torch.stack(dF, dim=1)
+            iters.append(tuple(torch.stack(p) for p in zip(*trees)))
+        return F, tuple(torch.stack(p) for p in zip(*iters))
+
+    return run
+
+
+def _tree_parts(grower: BinnedGrower, out):
+    """A grown tree as the trainers return it: (col, bin, nal, catbit
+    words, val, gains, cover)."""
+    return (out["col"], out["bin"], out["nal"],
+            pack_route(out["route"], grower.spec.n_bins, grower.spec.b_val),
+            out["val"], out["gains"], out["cover"])
+
+
+# ===========================================================================
+# DRF: independent trees, leaf = in-bag response mean, OOB accumulation
+# (hex/tree/drf/DRF.java:78 doOOBScoring() = true, the reference default).
+def draw_inbag(w1: torch.Tensor, sample_rate: float, generator=None):
+    """One tree's in-bag rows: Bernoulli(sample_rate) per row, a bool
+    tensor like w1 (the one draw of DRF's bagging, kept apart so that a
+    test can hand in masks of its own)."""
+    u = torch.rand(w1.shape, generator=generator, device=w1.device)
+    return u < sample_rate
+
+
+def drf_chunk_trainer(grower: BinnedGrower, n: int, *, sample_rate: float,
+                      mtries: int, k_trees: int, col_rate_tree: float = 1.0):
+    """The DRF step: returns run(codes, y1, w1, oob_sum, oob_cnt,
+    generator) -> (oob_sum, oob_cnt, trees). Per tree: an in-bag mask
+    (`draw_inbag`); stats (w, w*y, w) so that the Newton leaf value wg/wh
+    is the in-bag mean response (the class frequency for a 0/1 response);
+    grow() with F = 0, eta = 1 and no clipping emits each row's leaf value,
+    which is added to (oob_sum, oob_cnt) on rows out of the bag with a
+    positive weight."""
+
+    def run(codes, y1, w1, oob_sum, oob_cnt, generator=None):
+        zero = torch.zeros_like(w1)
+        trees = []
+        for _ in range(k_trees):
+            inbag = draw_inbag(w1, sample_rate, generator)
+            wt = w1 * inbag
+            stats = torch.stack([wt, wt * y1, wt, zero])
+            tmask = _tree_col_mask(grower, generator, col_rate_tree)
+            out = grower.grow(codes, stats, zero, eta=1.0, clip_val=0.0,
+                              generator=generator, mtries=mtries,
+                              tree_mask=tmask)
+            oob = (~inbag) & (w1 > 0)
+            oob_sum = oob_sum + torch.where(oob, out["F"], zero)
+            oob_cnt = oob_cnt + oob.to(oob_cnt.dtype)
+            trees.append(_tree_parts(grower, out))
+        return oob_sum, oob_cnt, tuple(torch.stack(p) for p in zip(*trees))
 
     return run

@@ -11,8 +11,10 @@ history (ScoreKeeper.stopEarly). The estimator's kernel flags mean what
 they mean in the JAX package: `int8_hist` (off unless True) quantizes the
 histogram stats to int8; `radix_shallow` and `fused_level` (on unless
 False) take the shallow-window and level-fused kernels where a level
-qualifies. The adaptive (UniformAdaptive) engine, multinomial GBM and
-checkpoint restart are later slices.
+qualifies. A multinomial response grows K class trees an iteration
+(`binned.gbm_multi_chunk_trainer`); `checkpoint=` resumes boosting from a
+binned prior's trees, its margins rebuilt by walking the training rows
+through them. The adaptive (UniformAdaptive) engine is a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree import binned as BN
@@ -133,21 +136,37 @@ class SharedTreeEstimator(ModelBase):
                     w1=BN.pad_rows(w, n_pad), codes=codes, n=n, C=C,
                     is_cat=is_cat, spec=spec, grower=grower, n_pad=n_pad)
 
-    def _binned_tree_arrays(self, ctx, chunks):
-        """TreeArrays from the trainer's chunk outputs, and the summed
-        per-column gains."""
+    def _binned_tree_arrays(self, ctx, chunks, prev=None, lead=None):
+        """TreeArrays from the trainer's chunk outputs, with a checkpoint
+        prior's trees in front when `prev` is given, and the summed
+        per-column gains of the new trees. `lead` picks one ensemble out of
+        chunks with extra leading dims (class k of the multinomial
+        trainer's (iters, K, ...) chunks)."""
         spec, C = ctx["spec"], ctx["C"]
-        colT = torch.cat([c[0] for c in chunks])
-        binT = torch.cat([c[1] for c in chunks])
-        nalT = torch.cat([c[2] for c in chunks])
-        wordsT = torch.cat([c[3] for c in chunks])
-        valT = torch.cat([c[4] for c in chunks])
-        gainsT = torch.cat([c[5] for c in chunks]).sum(0)
-        coverT = torch.cat([c[6] for c in chunks])
+        sel = (lambda a: a) if lead is None else lead  # noqa: E731
+
+        def cat(i):
+            return torch.cat([sel(c[i]) for c in chunks])
+        colT, binT, nalT, wordsT, valT = (cat(i) for i in range(5))
+        gainsT = cat(5).sum(0)
+        coverT = cat(6)
         edges = torch.as_tensor(spec.edges, device=colT.device)
         thrT = edges[colT.long().clamp(0, C - 1),
                      binT.long().clamp(0, spec.edges.shape[1] - 1)]
         any_cat = bool(ctx["is_cat"].any())
+        if prev is not None:
+            prev = prev.to(colT.device)
+            colT = torch.cat([prev.col, colT])
+            thrT = torch.cat([prev.thr, thrT])
+            nalT = torch.cat([prev.na_left, nalT])
+            valT = torch.cat([prev.value, valT])
+            coverT = torch.cat([prev.cover if prev.cover is not None
+                                else torch.zeros_like(prev.value), coverT])
+            if any_cat:
+                pw = prev.catbits if prev.catbits is not None else \
+                    torch.zeros((prev.ntrees,) + tuple(wordsT.shape[1:]),
+                                dtype=wordsT.dtype, device=wordsT.device)
+                wordsT = torch.cat([pw, wordsT])
         ta = E.TreeArrays(
             col=colT, thr=thrT, na_left=nalT, value=valT,
             depth=ctx["grower"].D, cover=coverT,
@@ -168,6 +187,13 @@ class SharedTreeEstimator(ModelBase):
             h = {"number_of_trees": ntrees, "training_rmse": m.rmse,
                  "training_mae": m.mae, "training_r2": m.r2}
         h.update(self._valid_history_entry(dist))
+        self._output.scoring_history.append(h)
+
+    def _record_history_multi(self, ntrees, F, y, w):
+        m = M.multinomial_metrics(y, torch.softmax(F, dim=1), w)
+        h = {"number_of_trees": ntrees, "training_logloss": m.logloss,
+             "training_classification_error": m.error}
+        h.update(self._valid_history_entry())
         self._output.scoring_history.append(h)
 
     # ---- incremental validation scoring (ScoreKeeper valid series) ---------
@@ -191,6 +217,8 @@ class SharedTreeEstimator(ModelBase):
     def _valid_advance(self, new_trees, lr):
         """Add a just-trained chunk of trees to the validation margins (one
         batched walk over the validation rows)."""
+        if self._vstate is None or new_trees.ntrees == 0:
+            return
         self._vstate["F"] = self._vstate["F"] + \
             lr * E.predict_ensemble(self._vstate["X"], new_trees)
 
@@ -206,6 +234,22 @@ class SharedTreeEstimator(ModelBase):
             if v is not None:
                 out[f"validation_{k}"] = v
         return out
+
+    def _train_chunks(self, done, step):
+        """The chunk loop of every binned path: `step(k, done)` grows k
+        more trees (iterations of K class trees for multinomial), records
+        the scoring history at `done` trees and returns the chunk's trees.
+        The loop ends at ntrees, on early stopping or past the deadline."""
+        ntrees = int(self.params["ntrees"])
+        interval = max(1, int(self.params.get("score_tree_interval") or 5))
+        chunks = []
+        while done < ntrees:
+            k = min(interval, ntrees - done)
+            done += k
+            chunks.append(step(k, done))
+            if self._should_stop() or self._budget_exhausted():
+                break
+        return chunks
 
     def _should_stop(self) -> bool:
         """ScoreKeeper.stopEarly: stop when the chosen stopping_metric has
@@ -284,17 +328,51 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             raise NotImplementedError(
                 f"GBM distribution={dist!r}, histogram_type="
                 f"{self.params.get('histogram_type')!r}, max_depth="
-                f"{self.params['max_depth']} needs the adaptive tree engine "
-                "or multinomial boosting, which are not ported yet "
+                f"{self.params['max_depth']}, checkpoint="
+                f"{self.params.get('checkpoint')!r} needs the adaptive tree "
+                "engine, which is not ported yet "
                 "(h2o3_tpu/models/tree/engine.py TreeGrower)")
+        if dist == "multinomial":
+            return self._fit_binned_multinomial(frame)
         return self._fit_binned(frame, dist)
 
     def _binned_ok(self, dist) -> bool:
+        """The JAX package's gate of its binned engine; what fails it goes
+        to the adaptive engine there. A checkpoint restart needs a binned
+        prior (array-stacked trees)."""
         ht = str(self.params.get("histogram_type") or "AUTO").lower()
-        return (ht in ("auto", "quantilesglobal", "binned")
+        if not (ht in ("auto", "quantilesglobal", "binned")
                 and dist in ("gaussian", "bernoulli", "quasibinomial",
-                             "poisson", "gamma", "tweedie", "laplace")
-                and int(self.params["max_depth"]) <= 10)
+                             "poisson", "gamma", "tweedie", "laplace",
+                             "multinomial")
+                and int(self.params["max_depth"]) <= 10):
+            return False
+        ckpt = self.params.get("checkpoint")
+        if ckpt:
+            summary = self._resolve_checkpoint(ckpt).summary() or {}
+            return summary.get("engine") in BINNED_ENGINES
+        return True
+
+    def _resolve_checkpoint(self, ckpt):
+        """The prior model, by DKV key or as the model itself."""
+        prev = DKV.get(ckpt) if isinstance(ckpt, str) else ckpt
+        if prev is None or getattr(prev, "algo", None) != self.algo:
+            # the reference asserts
+            raise AssertionError(f"checkpoint {ckpt} not found or wrong algo")
+        return prev
+
+    def _restart_checks(self, prev_trees, ntrees, grower, per=""):
+        """The reference's checks of a restart: the prior's depth, and
+        more trees than it has."""
+        done = prev_trees.ntrees
+        if prev_trees.depth != grower.D:
+            raise AssertionError(
+                "checkpoint restart requires identical max_depth")
+        if done >= ntrees:
+            raise ValueError(
+                f"checkpoint model already has {done} trees{per}; ntrees "
+                f"({ntrees}) must exceed it to continue training "
+                "(ModelBuilder checkpoint validation)")
 
     def _fit_binned(self, frame: Frame, dist: str):
         p = self.params
@@ -305,9 +383,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         dev = y.device
         ntrees = int(p["ntrees"])
         lr = float(p["learn_rate"])
-        seed = int(p.get("seed") or -1)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed if seed >= 0 else 42)
+        gen = _generator(p, dev)
         wsum, wysum = torch.stack([w.sum(), (w * y).sum()]).cpu().tolist()
         ybar = wysum / max(wsum, 1e-30)
         # quasibinomial starts from the weighted mean itself, as the
@@ -319,32 +395,43 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             f0 = math.log(max(ybar, 1e-10))
         else:
             f0 = ybar
+        prev = None
+        if p.get("checkpoint"):
+            # binned restart (SharedTree.java:132): the prior's f0, and the
+            # margins of its ensemble walked over the training rows
+            prev_model = self._resolve_checkpoint(p["checkpoint"])
+            prev = prev_model._trees.to(dev)
+            self._restart_checks(prev, ntrees, grower)
+            f0 = prev_model._f0
+            F = BN.pad_rows(f0 + lr * E.predict_ensemble(ctx["X"], prev),
+                            n_pad)
+        else:
+            # margins: f0 on the real rows, 0 on the padding rows
+            F = torch.where(torch.arange(n_pad, device=dev) < n, f0, 0.0) \
+                .to(torch.float32)
         self._f0 = f0
-        # margins: f0 on the real rows, 0 on the padding rows
-        F = torch.where(torch.arange(n_pad, device=dev) < n, f0, 0.0) \
-            .to(torch.float32)
-        interval = max(1, int(p.get("score_tree_interval") or 5))
         self._valid_setup(f0)
-        chunks = []
-        done = 0
-        while done < ntrees:
-            k = min(interval, ntrees - done)
+        if prev is not None:
+            # the validation margins include the prior's trees too
+            self._valid_advance(prev, lr)
+
+        def step(k, done):
+            nonlocal F
             trainer = BN.gbm_chunk_trainer(
                 grower, n, dist=dist, eta=lr,
                 sample_rate=float(p["sample_rate"]),
                 mtries=self._per_level_mtries(C), k_trees=k,
                 col_rate_tree=float(p.get("col_sample_rate_per_tree") or 1.0))
             F, trees = trainer(ctx["codes"], y1, w1, F, gen)
-            chunks.append(trees)
-            done += k
             if self._vstate is not None:
                 self._valid_advance(self._binned_tree_arrays(ctx, [trees])[0],
                                     lr)
             self._record_history(done, F[:n], y, w, dist)
-            if self._should_stop() or self._budget_exhausted():
-                break
+            return trees
+        chunks = self._train_chunks(prev.ntrees if prev is not None else 0,
+                                    step)
 
-        self._trees, gainsT = self._binned_tree_arrays(ctx, chunks)
+        self._trees, gainsT = self._binned_tree_arrays(ctx, chunks, prev=prev)
         self._bin_spec = ctx["spec"]
         self._varimp_from_gains(gainsT[:C].double().cpu().numpy())
         self._output.model_summary = {
@@ -354,10 +441,98 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             "nbins_effective": ctx["spec"].b_val,
         }
 
+    def _fit_binned_multinomial(self, frame: Frame):
+        """K class trees an iteration (the SharedTree.java:548-561 K-tree
+        layer). As in the JAX package, no validation series is recorded;
+        the validation metrics come at the end of train()."""
+        self._vstate = None
+        p = self.params
+        ctx = self._binned_setup(frame)
+        grower = ctx["grower"]
+        y, w, y1, w1 = ctx["y"], ctx["w"], ctx["y1"], ctx["w1"]
+        n, C, n_pad = ctx["n"], ctx["C"], ctx["n_pad"]
+        dev = y.device
+        K = self.nclasses
+        ntrees = int(p["ntrees"])
+        lr = float(p["learn_rate"])
+        gen = _generator(p, dev)
+        # f0[c] = log of the weighted class prior, summed in f64
+        wn = w.double()
+        prior = torch.zeros(K, dtype=torch.float64, device=dev) \
+            .index_add_(0, y.long(), wn) / wn.sum().clamp(min=1e-30)
+        f0 = np.log(np.maximum(prior.cpu().numpy(), 1e-10)) \
+            .astype(np.float32)
+        prevs = None
+        if p.get("checkpoint"):
+            prev_model = self._resolve_checkpoint(p["checkpoint"])
+            prevs = [t.to(dev) for t in prev_model._trees_k]
+            self._restart_checks(prevs[0], ntrees, grower, per=" per class")
+            f0 = np.asarray(prev_model._f0, np.float32)
+            Fc = torch.stack(
+                [float(f0[c]) + lr * E.predict_ensemble(ctx["X"], prevs[c])
+                 for c in range(K)], dim=1)
+            F = torch.zeros((n_pad, K), dtype=torch.float32, device=dev)
+            F[:n] = Fc
+        else:
+            F = torch.where((torch.arange(n_pad, device=dev) < n)[:, None],
+                            torch.as_tensor(f0, device=dev)[None, :], 0.0) \
+                .to(torch.float32)
+        self._f0 = f0
+
+        def step(k, done):
+            nonlocal F
+            trainer = BN.gbm_multi_chunk_trainer(
+                grower, n, n_classes=K, eta=lr,
+                sample_rate=float(p["sample_rate"]),
+                mtries=self._per_level_mtries(C), k_iters=k,
+                col_rate_tree=float(p.get("col_sample_rate_per_tree") or 1.0))
+            F, trees = trainer(ctx["codes"], y1, w1, F, gen)
+            self._record_history_multi(done, F[:n], y, w)
+            return trees
+        chunks = self._train_chunks(
+            prevs[0].ntrees if prevs is not None else 0, step)
+
+        # chunks hold (iters, K, ...) tensors: one ensemble per class
+        self._trees_k, gains = [], 0.0
+        for c in range(K):
+            ta, g = self._binned_tree_arrays(
+                ctx, chunks, prev=prevs[c] if prevs is not None else None,
+                lead=lambda a, c=c: a[:, c])
+            self._trees_k.append(ta)
+            gains = gains + g
+        self._bin_spec = ctx["spec"]
+        self._varimp_from_gains(gains[:C].double().cpu().numpy())
+        self._output.model_summary = {
+            "number_of_trees": sum(t.ntrees for t in self._trees_k),
+            "max_depth": grower.D, "distribution": "multinomial",
+            "learn_rate": lr, "engine": "binned_cuda",
+            "nbins_effective": ctx["spec"].b_val,
+        }
+
     def _score_matrix(self, X):
         lr = float(self.params["learn_rate"])
+        if self._dist == "multinomial":
+            F = torch.stack(
+                [float(self._f0[c])
+                 + lr * E.predict_ensemble(X, ta.to(X.device))
+                 for c, ta in enumerate(self._trees_k)], dim=1)
+            return torch.softmax(F, dim=1)
         F = self._f0 + lr * E.predict_ensemble(X, self._trees.to(X.device))
         return _link_inv_dist(self._dist, F)
+
+
+# Engines whose trees a binned checkpoint restart takes: the port's, and
+# the JAX package's binned engine (a model carried across by convert.py).
+BINNED_ENGINES = ("binned_cuda", "binned_pallas")
+
+
+def _generator(params, device):
+    """The trainers' random draws: a torch.Generator seeded from `seed`
+    (42 when unset)."""
+    seed = int(params.get("seed") or -1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed if seed >= 0 else 42)
+    return gen
 
 
 def _link_inv_dist(dist, F):

@@ -447,3 +447,144 @@ def test_route_layouts_match_plain(dev, HC, n):
                                   rows=rows, threads=threads)
             torch.cuda.synchronize()
             assert f is None and torch.equal(got, want), (rows, threads)
+
+
+# ---------------------------------------------------------------------------
+# Covertype's width (54 columns, C_pad 56: a partial last column group in
+# every kernel) and the levels 8 and 9 of a depth-10 tree (L 256 and 512).
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "radix", "fused"])
+def test_kernels_at_56_columns(dev, HC, kind, int8):
+    """Each histogram kernel at C_pad 56, both forms, against the plain
+    version (f32 within 1e-4 of each stat row's scale in float64, int32
+    equal), the fused kernel's heap ids identical."""
+    c_pad = 56
+    if kind == "fused":
+        L_h = 32
+        (codes, heap, stats), base_r = _inputs(dev, 90, c_pad=c_pad,
+                                               L=L_h // 2, int8=int8)
+        tbl, route_f = _tables(dev, 91, L_h // 2, c_pad)
+        kw = dict(base_r=base_r, L_r=L_h // 2, base_h=L_h - 1, L_h=L_h,
+                  n_bins=256)
+        h_k, got = HC.sbh_route_hist_fused(codes, heap, tbl, route_f, stats,
+                                           int8=int8, **kw)
+        h_p, want = HC.sbh_route_hist_plain(
+            codes, heap, tbl, route_f, stats if int8 else stats.double(),
+            **kw)
+        assert torch.equal(h_k, h_p)
+    else:
+        L, half = (64, True) if kind == "dense" else (2, True)
+        (codes, heap, stats), base = _inputs(dev, 92, c_pad=c_pad, L=L,
+                                             int8=int8)
+        kw = dict(base=base, L=L, n_bins=256, half=half)
+        fn = HC.sbh_hist_dense if kind == "dense" else HC.sbh_hist_radix
+        got = fn(codes, heap, stats, int8=int8, **kw)
+        want = HC.sbh_hist_plain(codes, heap,
+                                 stats if int8 else stats.double(), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.shape[1] == c_pad
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_err(got, want) <= HIST_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_pad", [32, 56])
+@pytest.mark.parametrize("L", [256, 512])
+def test_depth_10_levels_match_plain(dev, HC, L, c_pad):
+    """The dense histogram, f32 and int8, of the left children of 256 and
+    512 leaves, and the route (both forms) of 256 and 512 leaves: against
+    the plain version as above, heap ids identical, the margin within
+    1e-5."""
+    (codes, heap, stats), base = _inputs(dev, 100 + L, c_pad=c_pad, L=L)
+    kw = dict(base=base, L=L, n_bins=256, half=True)
+    got = HC.sbh_hist_dense(codes, heap, stats, **kw)
+    want = HC.sbh_hist_plain(codes, heap, stats.double(), **kw)
+    assert got.shape == want.shape == (L // 2, c_pad, 4, 256)
+    assert _rel_err(got, want) <= HIST_RTOL
+    s8 = torch.clamp(torch.round(stats * 40.0), -127, 127).to(torch.int32)
+    assert torch.equal(HC.sbh_hist_dense(codes, heap, s8, int8=True, **kw),
+                       HC.sbh_hist_plain(codes, heap, s8, **kw))
+    tbl, route_f = _tables(dev, 101 + L, L, c_pad)
+    nodes_p = -(-(2 * (base + L) + 1) // 128) * 128
+    rng = np.random.default_rng(102)
+    valtab = torch.zeros((8, nodes_p), device=dev)
+    valtab[0] = torch.from_numpy(rng.normal(0, 1, nodes_p).astype(
+        np.float32)).to(dev)
+    F = torch.from_numpy(rng.normal(0, 1, heap.numel()).astype(
+        np.float32)).to(dev)
+    for emit_f in (False, True):
+        rk = dict(base=base, L=L, eta=0.1, emit_f=emit_f)
+        h_k, f_k = HC.sbh_route(codes, heap, tbl, route_f, valtab, F, **rk)
+        h_p, f_p = HC.sbh_route_plain(codes, heap, tbl, route_f, valtab, F,
+                                      **rk)
+        torch.cuda.synchronize()
+        assert torch.equal(h_k, h_p) and (h_k != heap).any()
+        if emit_f:
+            assert (f_k - f_p).abs().max().item() < F_ATOL
+
+
+def _train_on(device, cls, fr_cols, y, dom, **params):
+    """Train on `device` ("cuda" or "cpu") from the same numpy columns;
+    returns the predicted probabilities."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    h2o.init(device=device)
+    fr = Frame([f"x{j}" for j in range(fr_cols.shape[1])] + ["y"],
+               [Vec.from_numpy(fr_cols[:, j]) for j in range(fr_cols.shape[1])]
+               + [Vec.from_numpy(y, type=T_CAT, domain=dom)])
+    m = getattr(h2o, cls)(**params)
+    m.train(y="y", training_frame=fr)
+    return m, m.predict(fr).to_numpy()[:, 1:]
+
+
+@pytest.mark.gpu
+def test_multinomial_gbm_on_the_card_matches_the_cpu(dev, HC):
+    """A 4-class GBM at 54 columns (C_pad 56), depth 5: probabilities
+    within 1e-4 of the same run on the CPU; per tree the shallow-window
+    kernel, 4 fused levels and the terminal route. The depth and min_rows
+    keep the leaves large: deeper, the f32 sums of the CPU's plain
+    histograms and the kernels' exact sums pick different near-tie splits
+    (a CPU run with the plain histograms summed in float64 in place of the
+    kernels took another split in 2 of 4 seeds at depth 6, in none of 6 at
+    depth 5)."""
+    rng = np.random.default_rng(110)
+    X = rng.normal(size=(20000, 54)).astype(np.float32)
+    y = np.argmax(2 * X[:, :4] + rng.gumbel(size=(20000, 4)), 1) \
+        .astype(float)
+    kw = dict(ntrees=3, max_depth=5, nbins=64, learn_rate=0.2, min_rows=100,
+              seed=3)
+    _, cpu = _train_on("cpu", "H2OGradientBoostingEstimator", X, y,
+                       list("abcd"), **kw)
+    HC.reset_launches()
+    m, card = _train_on("cuda", "H2OGradientBoostingEstimator", X, y,
+                        list("abcd"), **kw)
+    assert m.summary()["number_of_trees"] == 12
+    assert HC.LAUNCHES == {"hist": 0, "hist_i8": 0, "radix": 12,
+                           "fused": 48, "route": 0, "route_f": 12}
+    assert np.abs(card - cpu).max() < 1e-4
+    np.testing.assert_allclose(card.sum(1), 1.0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_drf_on_the_card_matches_the_cpu(dev, HC):
+    """A binomial forest with every row in every bag (sample_rate=1) and
+    every column at every node, depth 10: class-1 probabilities within
+    1e-4 of the same run on the CPU; per tree the shallow-window kernel,
+    5 fused levels, 4 route + dense histogram pairs and the terminal
+    route. The stats (w, w*y, w) are 0/1 here, so the CPU's f32 sums are
+    exact too and both build the same trees."""
+    rng = np.random.default_rng(111)
+    X = rng.normal(size=(30000, 8)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + rng.normal(0, 1, 30000) > 0).astype(float)
+    kw = dict(ntrees=3, max_depth=10, sample_rate=1.0, mtries=-2, seed=3)
+    _, cpu = _train_on("cpu", "H2ORandomForestEstimator", X, y, ["0", "1"],
+                       **kw)
+    HC.reset_launches()
+    m, card = _train_on("cuda", "H2ORandomForestEstimator", X, y,
+                        ["0", "1"], **kw)
+    assert HC.LAUNCHES == {"hist": 12, "hist_i8": 0, "radix": 3,
+                           "fused": 15, "route": 12, "route_f": 3}
+    assert np.abs(card - cpu).max() < 1e-4

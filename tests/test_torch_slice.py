@@ -438,13 +438,30 @@ def test_sampling_and_monotone_options(port_cpu):
 
 
 def test_unported_options_raise(port_cpu, slice_run):
-    """What is still unported raises rather than being ignored: checkpoint
-    restart, cross-validation (folds or a fold column) and multinomial
-    GBM (a four-level response)."""
-    cases = [({"checkpoint": "gbm_0"}, "label"), ({"nfolds": 3}, "label"),
-             ({"fold_column": "a"}, "label"), ({}, "color")]
-    for extra, y in cases:
-        m = h2o3_tpu_torch.H2OGradientBoostingEstimator(**GBM, **extra)
+    """What is still unported raises rather than being ignored: cross-
+    validation (folds or a fold column), a forest at DRF's default depth
+    of 20 and a multinomial forest (the JAX package grows both on its
+    adaptive engine), and a checkpoint restart from a prior that engine
+    grew (here a carried model whose caller named no engine: the
+    converter cannot tell which engine grew the arrays)."""
+    tm = slice_run["tm"]
+    ta = tm._trees
+    adaptive = convert.gbm_from_arrays(
+        col=ta.col.numpy(), thr=ta.thr.numpy(), na_left=ta.na_left.numpy(),
+        value=ta.value.numpy(), depth=ta.depth, f0=tm._f0,
+        distribution="bernoulli", learn_rate=LR,
+        predictors=tm._dinfo.predictors, domains=tm._dinfo.domains,
+        response_name="label", response_domain=tm._dinfo.response_domain)
+    gbm = h2o3_tpu_torch.H2OGradientBoostingEstimator
+    drf = h2o3_tpu_torch.H2ORandomForestEstimator
+    cases = [(gbm, {**GBM, "nfolds": 3}, "label"),
+             (gbm, {**GBM, "fold_column": "a"}, "label"),
+             (drf, {"ntrees": 2}, "label"),
+             (drf, {"ntrees": 2, "max_depth": 4}, "color"),
+             (gbm, {**GBM, "ntrees": NTREES + 2, "checkpoint": adaptive},
+              "label")]
+    for cls, params, y in cases:
+        m = cls(**params)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             m.train(y=y, training_frame=slice_run["tfr"])
 
