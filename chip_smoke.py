@@ -30,7 +30,10 @@ Phases, each printing its lines before the last:
   3. the main path at small size: a seeded CSV through import_file, a
      bernoulli GBM (the default configuration, then int8_hist=True),
      predict and AUC, on the card and on the CPU (plain versions), which
-     must agree;
+     must agree; then on the same CSV XGBoost, a UniformAdaptive GBM and an
+     isolation forest (the same draws on both) on the adaptive engine,
+     card against CPU: AUC (the forest's score AUC against the label)
+     within 1e-3, no kernel launch;
   4. the multinomial path at Covertype width (581,012 rows x 54 features,
      7 classes, made on the card from a seeded torch.Generator), each run
      with its launch counts per tree and its peak memory:
@@ -43,6 +46,9 @@ Phases, each printing its lines before the last:
            training and validation logloss against (d)'s, its trees that
            split as (d)'s, and a restart with too few trees refused;
      and 2 iterations of (d) with a stopwatch on each estimator stage;
+       (i) a multinomial DRF at DRF's defaults (depth 20) on the same
+           frame, 3 iterations of 7 class trees: training logloss at
+           least 0.25 below the class prior's entropy;
      then the main path at full width on a HIGGS-shaped frame (11M rows x
      28 features, made on the card from a seeded torch.Generator), GBM of
      depth 8 over 255 bins through the estimator, each run with its launch
@@ -62,7 +68,23 @@ Phases, each printing its lines before the last:
      then a default-configuration run of 10 trees with a stopwatch on each
      estimator stage and each kernel wrapper, and a run (c) of 10 trees
      under torch.profiler: the share of the train() window in which the
-     card is busy, and the busiest kernels;
+     card is busy, and the busiest kernels; then on the adaptive engine
+     (plain PyTorch: no kernel launch may count), each run with the
+     seconds a tree, the deepest level and its peak memory:
+       (g) XGBoost at its defaults (depth 6, eta 0.3, 256 bins), 20 trees
+           with the validation frame: train and validation AUC > 0.7, the
+           history's validation AUC equal to the final one, a second
+           training's trees equal bit for bit; TreeSHAP of 10,000 rows
+           summing to the margin within 1e-4;
+       (h) DRF at H2O's defaults (depth 20, 20 bins, mtries -1, sample
+           rate 0.632, min_rows 1), 10 trees: OOB AUC > 0.7;
+     with one tree of (g) and one of (h) under a stopwatch on each stage
+     of the adaptive engine (select, ranges, binning, histogram, split
+     search, route, gamma_pass, covers), each beside its bound;
+     and (j) an isolation forest at H2O's defaults (50 trees, depth 8,
+     256-row samples) at the width of the credit-card fraud set (284,807
+     rows x 30 columns, 492 planted anomalies): the score's AUC against the
+     planted labels above a bar set from a CPU run;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -82,7 +104,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The line before the last is the kernels' JSON record; the last line is
+The lines of runs (d)-(j) are printed again just before the two JSON
+lines. The line before the last is the kernels' JSON record (the adaptive
+engine adds no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -161,6 +185,40 @@ PER_TREE = {
 }
 
 
+# runs (g)-(j), the adaptive engine (no kernel of ops/csrc on its path):
+# (g) XGBoost at its own defaults as the estimator sets them (depth 6,
+# eta 0.3, 256 bins, reg_lambda 1, min_child_weight 1), 20 trees on the
+# HIGGS frame with its validation frame
+XGB_HIGGS = dict(ntrees=20, max_depth=6, nbins=256, seed=1,
+                 score_tree_interval=5)
+XGB_SHAP_ROWS = 10_000
+# (h) DRF at H2O's defaults on the HIGGS frame (mtries -1: 5 of 28), 10
+# trees
+DRF_DEEP = dict(ntrees=10, max_depth=20, nbins=20, mtries=-1,
+                sample_rate=0.632, min_rows=1, seed=1, score_tree_interval=5)
+# (i) multinomial DRF at DRF's defaults (depth 20) on the Covertype frame,
+# 3 iterations of 7 class trees
+COV_DRF = dict(ntrees=3, max_depth=20, nbins=20, seed=1)
+# (j) an isolation forest at H2O's defaults at the width of the Kaggle
+# credit-card fraud set (Dal Pozzolo et al. 2015: 284,807 rows x 30
+# columns, 492 frauds): N(0,1) inliers, and 492 planted anomalies shifted
+# by ISO_SHIFT in ISO_SHIFT_COLS seeded columns
+CC_N, CC_C, CC_ANOM = 284_807, 30, 492
+ISO_SHIFT, ISO_SHIFT_COLS = 2.5, 6
+ISO = dict(ntrees=50, max_depth=8, sample_size=256, nbins=20, seed=1)
+# the score's AUC against the planted labels must pass this: a CPU run of
+# the same generator (torch's CPU generator, seed 11) at this size, through
+# the port on the CPU, gave ISO_AUC_CPU; the card's generator draws other
+# numbers, and an isolation forest that splits at random scores 0.5
+ISO_AUC_CPU = 0.855526
+ISO_AUC_BAR = 0.80
+# the adaptive engine's stages, as its functions (engine.py)
+STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
+          ("binning", "bin_rows"), ("histogram", "build_histograms"),
+          ("split search", "find_best_splits"), ("route", "route_rows"),
+          ("gamma_pass", "gamma_pass"), ("covers", "node_covers"))
+
+
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -170,7 +228,9 @@ LOG = []
 # the lines of runs (d)-(f) and of their kernels' timings, printed again
 # just before the result so that the end of the output holds them
 RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
-                   r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\)))")
+                   r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\))|"
+                   r"xgboost \(g\)|drf \(h\)|isolation forest \(j\)|"
+                   r"adaptive)")
 
 
 def say(msg):
@@ -736,7 +796,15 @@ def phase_higgs(torch, h2o, HC):
     say(f"higgs train AUC: default {aucs['b']:.6f}, int8_hist "
         f"{aucs['c']:.6f}")
     out["f"] = drf_run(torch, h2o, HC, fr, valid)
+    # (g) and (h): the adaptive engine at HIGGS width
+    xgboost_run(torch, h2o, HC, fr, valid)
     del valid
+    adaptive_stage_table(torch, h2o, fr, "run (g)", "H2OXGBoostEstimator",
+                         **XGB_HIGGS)
+    time_range_forms(torch, fr)
+    deep_drf_run(torch, h2o, HC, fr)
+    adaptive_stage_table(torch, h2o, fr, "run (h)",
+                         "H2ORandomForestEstimator", **DRF_DEEP)
     breakdown(torch, h2o, HC, fr, "higgs (default configuration)",
               ntrees=HIGGS_TREES, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS,
               distribution="bernoulli", seed=1)
@@ -1010,6 +1078,8 @@ def phase_covtype(torch, h2o, HC):
             f"{e}")
     breakdown(torch, h2o, HC, fr, "covtype (d) configuration",
               **dict(COV_GBM, ntrees=2))
+    del d, e1, e2, valid
+    covtype_drf_run(torch, h2o, HC, fr, entropy)
     return launches, calls
 
 
@@ -1122,6 +1192,294 @@ def busy_share(torch, h2o, fr):
         f"window: busy share {busy / (t1 - t0):.4f}; the port's kernels "
         f"{ours / 1e3:.3f} ms; {len(dev)} device events; most device time: "
         + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+
+
+# ---------------------------------------------------------------------------
+# Runs (g)-(j): the adaptive engine (models/tree/engine.py TreeGrower). It
+# is plain PyTorch: no wrapper of ops/hist_cuda.py may count a launch.
+def _sub_frame(fr, n):
+    """The first n rows of a frame, as a frame on the same device."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    return Frame(fr.names, [Vec.from_tensor(v.data[:n].contiguous(),
+                                            type=v.type, domain=v.domain)
+                            for v in fr.vecs])
+
+
+def _deepest_level(trees):
+    """The depth of the deepest leaf: one below the deepest split node."""
+    split = (trees.col >= 0).nonzero()
+    if split.numel() == 0:
+        return 0
+    return int(math.log2(int(split[:, 1].max()) + 1)) + 1
+
+
+def _stage_bytes(fn, args, out):
+    """The bytes one call of an adaptive stage must move: every input read
+    once and every output written once, as the port holds them."""
+    def nb(t):
+        return t.numel() * t.element_size() if hasattr(t, "numel") else 0
+    outs = out if isinstance(out, tuple) else (out,)
+    if fn == "route_rows":
+        # one f32 of the split column per row, the row state in and out,
+        # the per-leaf tables
+        X, leaf, heap, active = args[:4]
+        return (4 * leaf.numel() + 2 * (nb(leaf) + nb(heap) + nb(active))
+                + sum(nb(t) for t in args[4:8]))
+    if fn == "in_sample_rows":
+        args = args[:3]
+    return sum(nb(a) for a in args) + sum(nb(o) for o in outs)
+
+
+class StageWatch(Stopwatch):
+    """A Stopwatch on one stage function of the adaptive engine that also
+    adds up the bytes its calls must move (the stage table's bound)."""
+
+    def __init__(self, torch, fn, name):
+        super().__init__(torch, fn)
+        self.name, self.nbytes = name, 0
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        self.nbytes += _stage_bytes(self.name, args, out)
+        return out
+
+
+def adaptive_stage_table(torch, h2o, fr, label, estimator, **params):
+    """One tree of a run with a StageWatch on each stage function of the
+    adaptive engine (module globals, so the level step reaches them);
+    prints each stage's time beside its bound (bytes over 3.35 TB/s)."""
+    from h2o3_tpu_torch.models.tree import engine as E
+    m = getattr(h2o, estimator)(**dict(params, ntrees=1))
+    watches = {key: StageWatch(torch, getattr(E, fn), fn)
+               for key, fn in STAGES}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for key, fn in STAGES:
+            setattr(E, fn, watches[key])
+        m.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+    finally:
+        for key, fn in STAGES:
+            setattr(E, fn, watches[key].fn)
+    total = time.perf_counter() - t0
+    say(f"adaptive stages, one tree of {label}: train {total:.3f} s; "
+        + ", ".join(f"{k} {1e3 * w.seconds:.3f} ms/{w.calls} (bound "
+                    f"{1e3 * w.nbytes / HBM_BYTES_S:.4f})"
+                    for k, w in watches.items()))
+
+
+def time_range_forms(torch, fr):
+    """The two forms of the adaptive engine's per-(leaf, column) ranges at
+    run (g)'s rows (11M x 28 of the HIGGS frame), over seeded random
+    leaves: rows sorted by leaf and reduced a leaf at a time, against a
+    scatter min/max (engine.SORTED_RANGE_LEAVES picks
+    between them by the level's leaves). Both give the same bits."""
+    from h2o3_tpu_torch.models.tree import engine as E
+    X = torch.stack([v.data for v in fr.vecs[:HIGGS_C]], 1)
+    g = torch.Generator(device=X.device)
+    g.manual_seed(3)
+    saved, parts = E.SORTED_RANGE_LEAVES, []
+    try:
+        for L in (2, 32, 128, 512, 4096):
+            ls = torch.randint(0, L, (X.shape[0],), generator=g,
+                               device=X.device)
+            res = {}
+            for form, limit in (("sorted", 1 << 30), ("scatter", 0)):
+                E.SORTED_RANGE_LEAVES = limit
+                res[form] = (time_ms(torch, lambda: E._ranges(X, ls, L), 3),
+                             E._ranges(X, ls, L))
+            same = all(torch.equal(a, b) for a, b in
+                       zip(res["sorted"][1], res["scatter"][1]))
+            check(same, f"range forms differ at L {L}")
+            parts.append(f"L {L}: sorted {res['sorted'][0]:.3f} ms, "
+                         f"scatter {res['scatter'][0]:.3f} ms")
+    finally:
+        E.SORTED_RANGE_LEAVES = saved
+    say(f"adaptive ranges, {X.shape[0]} rows x {X.shape[1]} columns, the "
+        f"two forms (bit-identical): " + "; ".join(parts))
+
+
+def adaptive_run(torch, h2o, HC, fr, label, valid=None, **params):
+    """An adaptive-engine run through train_run: no kernel launch, the
+    deepest level reached and the seconds a tree."""
+    m, launches, t_train, trees, _ = train_run(
+        torch, h2o, HC, fr, label, {}, {}, valid=valid, **params)
+    check(not any(launches.values()), f"{label}: kernel launches "
+          f"{launches} on the adaptive engine")
+    ens = m._trees_k if getattr(m, "_trees_k", None) is not None \
+        else [m._trees]
+    deepest = max(_deepest_level(t) for t in ens)
+    grown = sum(t.ntrees for t in ens)
+    say(f"{label}: {grown} trees grown, {t_train / max(grown, 1):.3f} s a "
+        f"tree, deepest level reached {deepest} of {params['max_depth']}")
+    return m, t_train, trees, deepest
+
+
+def xgboost_run(torch, h2o, HC, fr, valid):
+    """Run (g): XGBoost at its defaults, 20 trees, on the HIGGS frame with
+    its validation frame; then TreeSHAP over 10,000 of its rows."""
+    m, *_ = adaptive_run(torch, h2o, HC, fr, "xgboost (g): HIGGS",
+                         valid=valid, estimator="H2OXGBoostEstimator",
+                         **XGB_HIGGS)
+    auc, vauc = m.auc(), m.auc(valid=True)
+    last = m.scoring_history()[-1]
+    say(f"xgboost (g): train AUC {auc:.6f}, validation AUC {vauc:.6f} (last "
+        f"history entry {last['validation_auc']:.6f})")
+    check(auc > 0.7 and vauc > 0.7, f"xgboost (g) AUC {auc}, valid {vauc}")
+    check(abs(last["validation_auc"] - vauc) < 1e-4, f"xgboost (g): history "
+          f"validation AUC {last['validation_auc']} vs final {vauc}")
+    # the histogram sums in exact fixed point: a second training builds the
+    # same trees bit for bit (an f32 scatter-add's order would not)
+    again = h2o.H2OXGBoostEstimator(**XGB_HIGGS)
+    again.train(y="y", training_frame=fr)
+    same = all(torch.equal(getattr(m._trees, k), getattr(again._trees, k))
+               for k in ("col", "thr", "na_left", "value"))
+    say(f"xgboost (g): trained again, the same trees bit for bit: {same} "
+        f"(train AUC {again.auc():.6f})")
+    check(same, "xgboost (g): a second training built other trees")
+    del again
+    sub = _sub_frame(fr, XGB_SHAP_ROWS)
+    from h2o3_tpu_torch.models.tree import engine as E
+    X = m._dinfo.matrix(sub)
+    margin = (m._f0 + float(m.params["learn_rate"])
+              * E.predict_ensemble(X, m._trees)).double().cpu().numpy()
+    t0 = time.perf_counter()
+    phi = m.predict_contributions(sub).to_numpy()
+    t_shap = time.perf_counter() - t0
+    err = float(np.abs(phi.sum(1) - margin).max())
+    say(f"xgboost (g): TreeSHAP of {XGB_SHAP_ROWS} rows x {X.shape[1]} "
+        f"features over {m._trees.ntrees} trees in {t_shap:.3f} s (host "
+        f"C++); rows sum to the margin within {err:.3g}")
+    check(phi.shape == (XGB_SHAP_ROWS, X.shape[1] + 1) and err < 1e-4,
+          f"xgboost (g): SHAP rows off the margin by {err}")
+    del m
+
+
+def deep_drf_run(torch, h2o, HC, fr):
+    """Run (h): DRF at H2O's defaults (depth 20) on the HIGGS frame."""
+    m, t_train, trees, deepest = adaptive_run(
+        torch, h2o, HC, fr, "drf (h): HIGGS at H2O's defaults",
+        estimator="H2ORandomForestEstimator", **DRF_DEEP)
+    oob = m.auc()
+    say(f"drf (h): OOB AUC {oob:.6f}, mtries {m.summary()['mtries']}, "
+        f"engine {m.summary()['engine']}")
+    check(oob > 0.7, f"drf (h) OOB AUC {oob}")
+    check(trees == DRF_DEEP["ntrees"], f"drf (h): {trees} trees")
+    del m
+
+
+def covtype_drf_run(torch, h2o, HC, fr, entropy):
+    """Run (i): a multinomial DRF at DRF's defaults (depth 20) on the
+    Covertype frame, 3 iterations of 7 class trees."""
+    K = len(COV_PRIOR)
+    m, t_train, trees, deepest = adaptive_run(
+        torch, h2o, HC, fr, "covtype (i): multinomial DRF",
+        estimator="H2ORandomForestEstimator", **COV_DRF)
+    ll = m.logloss()
+    say(f"covtype (i): training logloss {ll:.6f} (class prior entropy "
+        f"{entropy:.6f}), {m.summary()['number_of_trees']} iterations of "
+        f"{K} class trees")
+    check(trees == COV_DRF["ntrees"],
+          f"covtype (i): {trees} iterations built")
+    check(ll < entropy - COV_LOGLOSS_MARGIN, f"covtype (i): training "
+          f"logloss {ll} not below the prior's entropy {entropy} by "
+          f"{COV_LOGLOSS_MARGIN}")
+    del m
+
+
+def _cc_frame(torch, dev, seed=11):
+    """The credit-card-width frame: CC_N rows x CC_C N(0,1) columns made
+    from a seeded torch.Generator on `dev`, CC_ANOM anomalies at seeded
+    rows shifted by ISO_SHIFT in ISO_SHIFT_COLS seeded columns, and their
+    0/1 labels as column "y" (which the isolation forest leaves out as
+    the response)."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = torch.randn((CC_N, CC_C), generator=g, device=dev)
+    rows = torch.randperm(CC_N, generator=g, device=dev)[:CC_ANOM]
+    cols = torch.randperm(CC_C, generator=g, device=dev)[:ISO_SHIFT_COLS]
+    X[rows[:, None], cols[None, :]] += ISO_SHIFT
+    y = torch.zeros(CC_N, device=dev)
+    y[rows] = 1.0
+    names = [f"v{j}" for j in range(CC_C)] + ["y"]
+    vecs = [Vec.from_tensor(X[:, j].contiguous()) for j in range(CC_C)]
+    vecs.append(Vec.from_tensor(y, type=T_CAT, domain=["0", "1"]))
+    return Frame(names, vecs), y
+
+
+def iso_auc(torch, m, fr, y):
+    from h2o3_tpu_torch.models import metrics as M
+    score = torch.as_tensor(m.predict(fr).to_numpy()[:, 0],
+                            dtype=torch.float32)
+    return M.binomial_metrics(y.cpu(), score).auc
+
+
+def phase_isofor(torch, h2o, HC):
+    """Run (j): an isolation forest at H2O's defaults at the width of the
+    credit-card fraud set; the AUC of its score against the planted
+    labels."""
+    dev = h2o.init().device
+    fr, y = _cc_frame(torch, dev)
+    m, t_train, trees, deepest = adaptive_run(
+        torch, h2o, HC, fr, "isolation forest (j): credit-card width",
+        estimator="H2OIsolationForestEstimator", **ISO)
+    t0 = time.perf_counter()
+    auc = iso_auc(torch, m, fr, y)
+    t_pred = time.perf_counter() - t0
+    say(f"isolation forest (j): {CC_N} rows x {CC_C} columns, {CC_ANOM} "
+        f"planted anomalies: score AUC {auc:.6f} (bar {ISO_AUC_BAR}; a CPU "
+        f"run of the same generator: {ISO_AUC_CPU}); sample size "
+        f"{m._psi}; predict {t_pred:.3f} s")
+    check(auc > ISO_AUC_BAR, f"isolation forest (j) AUC {auc}")
+
+
+def phase_small_adaptive(torch, h2o, HC):
+    """The CSV of phase 3 on the card against the CPU: XGBoost and a
+    UniformAdaptive GBM (AUC within 1e-3), and an isolation forest with
+    the same draws (the CPU generator's, moved to the card) whose score
+    AUC against the label must agree within 1e-3. No kernel launches."""
+    from h2o3_tpu_torch.models.tree import engine as E
+    from h2o3_tpu_torch.models.tree import shared_tree as ST
+    runs = (("xgboost", "H2OXGBoostEstimator",
+             dict(ntrees=5, max_depth=4, seed=5)),
+            ("gbm UniformAdaptive", "H2OGradientBoostingEstimator",
+             dict(ntrees=5, max_depth=5, seed=5,
+                  histogram_type="UniformAdaptive")),
+            ("isolation forest", "H2OIsolationForestEstimator",
+             dict(ntrees=20, max_depth=6, sample_size=128, seed=5)))
+    saved = ST.SharedTreeEstimator._draws
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            csv = os.path.join(tmp, "train.csv")
+            _write_csv(csv)
+            for label, est, params in runs:
+                res = {}
+                for where in ("cpu", "cuda"):
+                    h2o.init(device="cpu") if where == "cpu" else h2o.init()
+                    ST.SharedTreeEstimator._draws = (
+                        lambda self, device: E.Draws(
+                            torch.Generator().manual_seed(5), device))
+                    fr = h2o.import_file(csv)
+                    HC.reset_launches()
+                    m = getattr(h2o, est)(**params)
+                    m.train(y="label", training_frame=fr)
+                    launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+                    y = fr.vec("label").data.cpu()
+                    res[where] = (iso_auc(torch, m, fr, y)
+                                  if est == "H2OIsolationForestEstimator"
+                                  else m.auc(), launches,
+                                  fr.matrix().device.type)
+                (ca, _, _), (ga, gl, gd) = res["cpu"], res["cuda"]
+                say(f"small path adaptive {label}: AUC card {ga:.6f} cpu "
+                    f"{ca:.6f} (diff {abs(ga - ca):.3g}); launches {gl}")
+                check(gd == "cuda" and not gl, f"small path {label}: "
+                      f"device {gd}, launches {gl}")
+                check(abs(ga - ca) < 1e-3, f"small path {label}: card AUC "
+                      f"{ga} vs cpu {ca}")
+    finally:
+        ST.SharedTreeEstimator._draws = saved
 
 
 # ---------------------------------------------------------------------------
@@ -1475,13 +1833,15 @@ def main():
         phase_kernels_small(torch, HC, dev, c_pad)
         phase_adversarial(torch, HC, dev, c_pad)
     phase_small_path(torch, h2o, HC)
+    phase_small_adaptive(torch, h2o, HC)
     covtype = phase_covtype(torch, h2o, HC)
     runs = phase_higgs(torch, h2o, HC)
+    phase_isofor(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
-    say(f"recap of runs (d)-(f) and their kernels' timings ({len(recap)} "
-        "lines, as printed above):")
+    say(f"recap of runs (d)-(j) and the (d)-(f) kernels' timings "
+        f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)
     say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")

@@ -12,8 +12,13 @@ where every kernel wrapper runs its plain PyTorch version.
     m.predict(fr); m.auc()
 
 GBM takes every single-output distribution of the binned engine and a
-multinomial response, and `checkpoint=` restarts from a binned prior;
-`H2ORandomForestEstimator` trains a binomial or regression forest.
+multinomial response, and `checkpoint=` restarts from a prior of either
+engine; histogram_type="UniformAdaptive" or max_depth above 10 grows it on
+the adaptive engine. `H2ORandomForestEstimator` trains a binomial,
+regression or multinomial forest at any depth (20 by default),
+`H2OXGBoostEstimator` XGBoost's hist booster (gbtree and DART) and
+`H2OIsolationForestEstimator` an isolation forest. `predict_contributions`
+gives TreeSHAP contributions of a single-output tree model.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
@@ -21,8 +26,11 @@ from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.io.parser import import_file, parse_setup
 from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
 from h2o3_tpu_torch.models.tree.gbm import H2OGradientBoostingEstimator
+from h2o3_tpu_torch.models.tree.isofor import H2OIsolationForestEstimator
+from h2o3_tpu_torch.models.tree.xgboost import H2OXGBoostEstimator
 from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
 
 __all__ = ["DKV", "Frame", "H2OGradientBoostingEstimator",
-           "H2ORandomForestEstimator", "Vec", "cloud", "import_file", "init",
+           "H2OIsolationForestEstimator", "H2ORandomForestEstimator",
+           "H2OXGBoostEstimator", "Vec", "cloud", "import_file", "init",
            "parse_setup", "shutdown"]

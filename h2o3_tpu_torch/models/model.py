@@ -285,6 +285,8 @@ class ModelBase:
         return M.regression_metrics(y, out, w)
 
     def _score_train_valid(self, frame, valid):
+        if not self.supervised:     # an unsupervised model has no metrics
+            return
         self._output.training_metrics = self._compute_metrics(frame)
         if valid is not None:
             self._output.validation_metrics = self._compute_metrics(valid)

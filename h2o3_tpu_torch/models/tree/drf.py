@@ -11,8 +11,12 @@ training metrics and scoring history come from those held-out rows.
 
 Binomial and regression forests up to depth 10 run on the binned engine
 (`binned.drf_chunk_trainer`), through the same CUDA kernels as GBM on a
-card. The JAX package sends a multinomial forest, a deeper tree or an
-adaptive histogram_type to its adaptive engine; the port raises there.
+card. A deeper forest (DRF's default depth is 20), an adaptive
+histogram_type and a multinomial response grow on the adaptive engine
+(`engine.TreeGrower`), one tree at a time: a multinomial forest grows K
+class trees an iteration on one-hot 0/1 targets, with no out-of-bag
+series (as in the JAX package), and predicts each class's mean vote,
+normalized to sum to 1.
 """
 
 from __future__ import annotations
@@ -50,18 +54,90 @@ class H2ORandomForestEstimator(SharedTreeEstimator):
     def _fit(self, frame: Frame):
         if self.params.get("checkpoint"):
             raise NotImplementedError(
-                "drf: checkpoint restart is not ported (the JAX package's "
-                "DRF has none: h2o3_tpu/models/tree/drf.py)")
+                "drf: checkpoint restart is not ported yet (the JAX "
+                "package's DRF has none: h2o3_tpu/models/tree/drf.py)")
         ht = str(self.params.get("histogram_type") or "AUTO").lower()
-        if not (self.nclasses <= 2 and int(self.params["max_depth"]) <= 10
+        if (self.nclasses <= 2 and int(self.params["max_depth"]) <= 10
                 and ht in ("auto", "quantilesglobal", "binned")):
-            raise NotImplementedError(
-                f"drf: {self.nclasses} classes, max_depth="
-                f"{self.params['max_depth']}, histogram_type="
-                f"{self.params.get('histogram_type')!r} needs the adaptive "
-                "tree engine, which is not ported yet "
-                "(h2o3_tpu/models/tree/engine.py TreeGrower)")
-        return self._fit_binned_drf(frame)
+            return self._fit_binned_drf(frame)
+        return self._fit_adaptive_drf(frame)
+
+    def _fit_adaptive_drf(self, frame: Frame):
+        p = self.params
+        X, y, w = self._prep(frame)
+        dev = X.device
+        C = X.shape[1]
+        K = self.nclasses
+        ntrees = int(p["ntrees"])
+        draws = self._draws(dev)
+        grower = self._grower()
+        mtries = self._resolve_mtries(C, K)
+        sample_rate = float(p["sample_rate"])
+        gains_tot = torch.zeros(C, dtype=torch.float32, device=dev)
+        self._oob_metrics = None
+        if K > 2:
+            if int(p.get("stopping_rounds") or 0) > 0:
+                raise NotImplementedError(
+                    "stopping_rounds for multinomial DRF is not supported "
+                    "yet (no per-class OOB vote series); set "
+                    "stopping_rounds=0 or use binomial/regression DRF")
+            self._vstate = None
+            onehot = torch.nn.functional.one_hot(y.long(), K) \
+                .to(torch.float32)
+            trees_k = [[] for _ in range(K)]
+            for t in range(ntrees):
+                wt = self._sample_weights(w, draws, sample_rate)
+                for c in range(K):
+                    col, thr, nal, val, heap, g = grower.grow(
+                        X, wt, onehot[:, c], draw=draws.levels(),
+                        mtries=mtries)
+                    gains_tot += g
+                    trees_k[c].append((col, thr, nal, val,
+                                       E.node_covers(heap, wt,
+                                                     nodes=grower.nodes,
+                                                     D=grower.D)))
+                if self._budget_exhausted():
+                    break
+            self._trees_k = [E.stack_trees(tl, grower.D) for tl in trees_k]
+            built = len(trees_k[0])
+        else:
+            interval = max(1, int(p.get("score_tree_interval") or 5))
+            self._valid_setup(0.0)
+            oob_sum = torch.zeros(X.shape[0], dtype=torch.float32,
+                                  device=dev)
+            oob_cnt = torch.zeros_like(oob_sum)
+            trees, scored = [], 0
+            for t in range(ntrees):
+                inbag = draws.rows(X.shape[0]) < sample_rate
+                wt = w * inbag
+                col, thr, nal, val, heap, g = grower.grow(
+                    X, wt, y, draw=draws.levels(), mtries=mtries)
+                gains_tot += g
+                # rows out of this tree's bag vote with its prediction
+                oob = ~inbag & (w > 0)
+                oob_sum = oob_sum + torch.where(oob, val[heap], 0.0)
+                oob_cnt = oob_cnt + oob.to(torch.float32)
+                trees.append((col, thr, nal, val,
+                              E.node_covers(heap, wt, nodes=grower.nodes,
+                                            D=grower.D)))
+                if (t + 1) % interval == 0 or t + 1 == ntrees:
+                    if self._vstate is not None:
+                        self._valid_advance(
+                            E.stack_trees(trees[scored:], grower.D), 1.0)
+                    scored = len(trees)
+                    self._record_history_drf(t + 1, oob_sum, oob_cnt, y, w)
+                    if self._should_stop() or self._budget_exhausted():
+                        break
+            self._trees = E.stack_trees(trees, grower.D)
+            self._oob_metrics = self._metrics_from_oob(oob_sum, oob_cnt,
+                                                       y, w)
+            built = self._trees.ntrees
+        self._varimp_from_gains(gains_tot.double().cpu().numpy())
+        self._output.model_summary = {
+            "number_of_trees": built, "max_depth": grower.D,
+            "mtries": mtries, "sample_rate": sample_rate,
+            "engine": "adaptive", "oob_scored": K <= 2,
+        }
 
     def _fit_binned_drf(self, frame: Frame):
         p = self.params
@@ -150,7 +226,17 @@ class H2ORandomForestEstimator(SharedTreeEstimator):
             # doOOBScoring() = true: the training metrics are the OOB ones
             self._output.training_metrics = self._oob_metrics
 
+    def _contrib_scale_bias(self):
+        # the forest predicts the mean of its trees (a probability for a
+        # binomial forest)
+        return 1.0 / self._trees.ntrees, 0.0
+
     def _score_matrix(self, X):
+        if self.nclasses > 2:
+            P = torch.stack([E.predict_ensemble(X, ta.to(X.device))
+                             / ta.ntrees for ta in self._trees_k],
+                            dim=1).clamp(0.0, 1.0)
+            return P / P.sum(dim=1, keepdim=True).clamp(min=1e-10)
         mean = E.predict_ensemble(X, self._trees.to(X.device)) \
             / self._trees.ntrees
         if self._is_classifier:

@@ -1,8 +1,8 @@
 """SharedTree driver of the port (h2o3_tpu/models/tree/shared_tree.py):
-the GBM estimator on the binned tree engine.
+GBM on the binned and on the adaptive tree engine.
 
-The frame is quantized once into a uint8 code plane on its device; trees
-grow in chunks of `score_tree_interval` through
+On the binned engine the frame is quantized once into a uint8 code plane
+on its device; trees grow in chunks of `score_tree_interval` through
 `binned.gbm_chunk_trainer`, which runs the CUDA route and histogram
 kernels for tensors on a card. After each chunk the training margins are
 scored into the scoring history, and so is a validation frame when one is
@@ -14,7 +14,15 @@ False) take the shallow-window and level-fused kernels where a level
 qualifies. A multinomial response grows K class trees an iteration
 (`binned.gbm_multi_chunk_trainer`); `checkpoint=` resumes boosting from a
 binned prior's trees, its margins rebuilt by walking the training rows
-through them. The adaptive (UniformAdaptive) engine is a later slice.
+through them.
+
+What the JAX package's gate (`_binned_ok`) turns away grows on the
+adaptive engine (`engine.TreeGrower`), one tree at a time:
+histogram_type other than AUTO, QuantilesGlobal or Binned, max_depth
+above 10, and a checkpoint whose prior that engine grew. Its trees take
+the Newton leaf refit (`engine.gamma_pass`) for every distribution but
+gaussian, and record their node covers, from which
+`predict_contributions` computes TreeSHAP.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.model import ModelBase
@@ -96,6 +104,56 @@ class SharedTreeEstimator(ModelBase):
         if rate >= 1.0:
             return 0
         return max(1, int(round(rate * C)))
+
+    # ---- the adaptive engine's plumbing -------------------------------------
+    def _grower(self):
+        p = self.params
+        return E.TreeGrower(nbins=int(p["nbins"]),
+                            max_depth=int(p["max_depth"]),
+                            min_rows=float(p["min_rows"]),
+                            min_split_improvement=float(
+                                p["min_split_improvement"]))
+
+    def _draws(self, device):
+        """The random draws of adaptive growth, from a torch.Generator on
+        the rows' device seeded from `seed` (42 when unset)."""
+        return E.Draws(_generator(self.params, device))
+
+    def _sample_weights(self, w, draws, rate):
+        """A tree's row sample: weights of the rows drawn in, 0 elsewhere."""
+        if rate >= 1.0:
+            return w
+        return w * (draws.rows(w.shape[0]) < rate)
+
+    def _col_mask(self, C, draws):
+        """A tree's column sample (col_sample_rate_per_tree), or None."""
+        rate = float(self.params.get("col_sample_rate_per_tree") or 1.0)
+        if rate >= 1.0:
+            return None
+        k = max(1, int(round(rate * C)))
+        r = draws.cols(C)
+        return r <= torch.sort(r).values[k - 1]
+
+    # ---- SHAP contributions (Model.PredictContributions) --------------------
+    def predict_contributions(self, test_data: Frame) -> Frame:
+        """Per-row TreeSHAP feature contributions and a BiasTerm, in margin
+        space: each row sums to its margin prediction."""
+        from h2o3_tpu_torch.models.tree import contrib
+        if getattr(self, "_trees", None) is None:
+            # the reference asserts
+            raise AssertionError("contributions supported for "
+                                 "regression/binomial tree models")
+        X = self._dinfo.matrix(test_data).double().cpu().numpy()
+        phi = contrib.ensemble_shap(self._trees, X)
+        scale, bias0 = self._contrib_scale_bias()
+        phi *= scale
+        phi[:, -1] += bias0
+        names = list(self._dinfo.feature_names) + ["BiasTerm"]
+        return Frame(names, [Vec.from_numpy(phi[:, j])
+                             for j in range(phi.shape[1])])
+
+    def _contrib_scale_bias(self):
+        return 1.0, 0.0
 
     def _binned_setup(self, frame: Frame):
         """Quantize the frame once and build the grower. Returns the context
@@ -324,17 +382,18 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
     def _fit(self, frame: Frame):
         dist = self._resolve_dist()
         self._dist = dist
-        if not self._binned_ok(dist):
+        if dist == "custom":
             raise NotImplementedError(
-                f"GBM distribution={dist!r}, histogram_type="
-                f"{self.params.get('histogram_type')!r}, max_depth="
-                f"{self.params['max_depth']}, checkpoint="
-                f"{self.params.get('checkpoint')!r} needs the adaptive tree "
-                "engine, which is not ported yet "
-                "(h2o3_tpu/models/tree/engine.py TreeGrower)")
+                "gbm: distribution='custom' is not ported yet (it needs the "
+                "UDF module, h2o3_tpu/udf)")
+        if self._binned_ok(dist):
+            if dist == "multinomial":
+                return self._fit_binned_multinomial(frame)
+            return self._fit_binned(frame, dist)
+        X, y, w = self._prep(frame)
         if dist == "multinomial":
-            return self._fit_binned_multinomial(frame)
-        return self._fit_binned(frame, dist)
+            return self._fit_multinomial(X, y, w)
+        return self._fit_adaptive(X, y, w, dist)
 
     def _binned_ok(self, dist) -> bool:
         """The JAX package's gate of its binned engine; what fails it goes
@@ -384,17 +443,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         ntrees = int(p["ntrees"])
         lr = float(p["learn_rate"])
         gen = _generator(p, dev)
-        wsum, wysum = torch.stack([w.sum(), (w * y).sum()]).cpu().tolist()
-        ybar = wysum / max(wsum, 1e-30)
-        # quasibinomial starts from the weighted mean itself, as the
-        # reference does; only bernoulli takes its logit
-        if dist == "bernoulli":
-            p0 = min(max(ybar, 1e-10), 1 - 1e-10)
-            f0 = math.log(p0 / (1 - p0))
-        elif dist in ("poisson", "gamma", "tweedie"):
-            f0 = math.log(max(ybar, 1e-10))
-        else:
-            f0 = ybar
+        f0 = _initial_f0(dist, y, w)
         prev = None
         if p.get("checkpoint"):
             # binned restart (SharedTree.java:132): the prior's f0, and the
@@ -456,12 +505,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         ntrees = int(p["ntrees"])
         lr = float(p["learn_rate"])
         gen = _generator(p, dev)
-        # f0[c] = log of the weighted class prior, summed in f64
-        wn = w.double()
-        prior = torch.zeros(K, dtype=torch.float64, device=dev) \
-            .index_add_(0, y.long(), wn) / wn.sum().clamp(min=1e-30)
-        f0 = np.log(np.maximum(prior.cpu().numpy(), 1e-10)) \
-            .astype(np.float32)
+        f0 = _class_prior_f0(y, w, K)
         prevs = None
         if p.get("checkpoint"):
             prev_model = self._resolve_checkpoint(p["checkpoint"])
@@ -509,6 +553,137 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             "nbins_effective": ctx["spec"].b_val,
         }
 
+    # ---- the adaptive engine (UniformAdaptive, deep trees) -----------------
+    def _fit_adaptive(self, X, y, w, dist):
+        """One tree at a time on the adaptive engine: pseudo-residuals,
+        a tree grown on them, the Newton leaf refit (not for gaussian), the
+        margins advanced by lr · value[heap]. A checkpoint restart takes
+        the prior's trees, f0 and covers (rebuilt from the training rows
+        when the prior has none) and resumes from their margins."""
+        p = self.params
+        ntrees = int(p["ntrees"])
+        lr = float(p["learn_rate"])
+        dev = X.device
+        draws = self._draws(dev)
+        grower = self._grower()
+        f0 = _initial_f0(dist, y, w)
+        F = torch.full((X.shape[0],), f0, dtype=torch.float32, device=dev)
+        sample_rate = float(p["sample_rate"])
+        trees = []
+        if p.get("checkpoint"):
+            prev = self._resolve_checkpoint(p["checkpoint"])
+            pt = prev._trees.to(dev)
+            if pt.depth != grower.D:
+                raise AssertionError(
+                    "checkpoint restart requires identical max_depth")
+            if pt.cover is not None:
+                pcov = pt.cover
+            else:
+                # a prior without covers: route the training rows through
+                # its trees (TreeSHAP then still sums to the margin)
+                heaps, _ = E.predict_leaf_ids(X, pt)
+                pcov = [E.node_covers(heaps[i], w, nodes=grower.nodes,
+                                      D=grower.D) for i in range(pt.ntrees)]
+            trees = [(pt.col[i], pt.thr[i], pt.na_left[i], pt.value[i],
+                      pcov[i]) for i in range(pt.ntrees)]
+            f0 = prev._f0
+            F = f0 + lr * E.predict_ensemble(X, pt)
+        self._f0 = f0
+        gains_tot = torch.zeros(X.shape[1], dtype=torch.float32, device=dev)
+        interval = max(1, int(p.get("score_tree_interval") or 5))
+        mtries = self._per_level_mtries(X.shape[1])
+        self._valid_setup(f0)
+        if trees:   # the prior's trees score the validation frame too
+            self._valid_advance(E.stack_trees(trees, grower.D), lr)
+        scored = len(trees)
+        for t in range(len(trees), ntrees):
+            res, hess = _grad_hess(dist, F, y)
+            wt = self._sample_weights(w, draws, sample_rate)
+            cmask = self._col_mask(X.shape[1], draws)
+            col, thr, nal, val, heap, g = grower.grow(
+                X, wt, res, col_mask=cmask, draw=draws.levels(),
+                mtries=mtries)
+            gains_tot += g
+            if dist != "gaussian":
+                val = E.gamma_pass(heap, wt, res, hess, val,
+                                   nodes=grower.nodes)
+            trees.append((col, thr, nal, val,
+                          E.node_covers(heap, wt, nodes=grower.nodes,
+                                        D=grower.D)))
+            F = F + lr * val[heap]
+            if (t + 1) % interval == 0 or t == ntrees - 1:
+                if self._vstate is not None and len(trees) > scored:
+                    self._valid_advance(
+                        E.stack_trees(trees[scored:], grower.D), lr)
+                    scored = len(trees)
+                self._record_history(t + 1, F, y, w, dist)
+                if self._should_stop() or self._budget_exhausted():
+                    break
+        self._trees = E.stack_trees(trees, grower.D)
+        self._varimp_from_gains(gains_tot.double().cpu().numpy())
+        self._output.model_summary = {
+            "number_of_trees": self._trees.ntrees, "max_depth": grower.D,
+            "distribution": dist, "learn_rate": lr, "init_f": f0,
+            "engine": "adaptive",
+        }
+
+    def _fit_multinomial(self, X, y, w):
+        """K class trees an iteration on the adaptive engine, Newton leaves
+        scaled by (K-1)/K; no validation series, as in the JAX package."""
+        self._vstate = None
+        p = self.params
+        if p.get("checkpoint"):
+            raise NotImplementedError(
+                "gbm: a multinomial checkpoint restart from a prior the "
+                "adaptive engine grew is not supported (the JAX package's "
+                "adaptive multinomial path has no restart)")
+        K = self.nclasses
+        ntrees = int(p["ntrees"])
+        lr = float(p["learn_rate"])
+        dev = X.device
+        draws = self._draws(dev)
+        grower = self._grower()
+        f0 = _class_prior_f0(y, w, K)
+        self._f0 = f0
+        F = torch.as_tensor(f0, device=dev)[None, :].repeat(X.shape[0], 1)
+        trees_k = [[] for _ in range(K)]
+        gains_tot = torch.zeros(X.shape[1], dtype=torch.float32, device=dev)
+        interval = max(1, int(p.get("score_tree_interval") or 5))
+        onehot = torch.nn.functional.one_hot(y.long(), K).to(torch.float32)
+        sample_rate = float(p["sample_rate"])
+        mtries = self._per_level_mtries(X.shape[1])
+        for t in range(ntrees):
+            R = onehot - torch.softmax(F, dim=1)
+            wt = self._sample_weights(w, draws, sample_rate)
+            cmask = self._col_mask(X.shape[1], draws)
+            newF = []
+            for c in range(K):
+                res = R[:, c]
+                col, thr, nal, val, heap, g = grower.grow(
+                    X, wt, res, col_mask=cmask, draw=draws.levels(),
+                    mtries=mtries)
+                gains_tot += g
+                absr = res.abs()
+                val = E.gamma_pass(heap, wt, res, absr * (1 - absr), val,
+                                   nodes=grower.nodes, scale=(K - 1) / K)
+                trees_k[c].append((col, thr, nal, val,
+                                   E.node_covers(heap, wt,
+                                                 nodes=grower.nodes,
+                                                 D=grower.D)))
+                newF.append(F[:, c] + lr * val[heap])
+            F = torch.stack(newF, dim=1)
+            if (t + 1) % interval == 0 or t == ntrees - 1:
+                self._record_history_multi(t + 1, F, y, w)
+                if self._should_stop() or self._budget_exhausted():
+                    break
+        self._trees_k = [E.stack_trees(tl, grower.D) for tl in trees_k]
+        self._varimp_from_gains(gains_tot.double().cpu().numpy())
+        self._output.model_summary = {
+            "number_of_trees": sum(t.ntrees for t in self._trees_k),
+            "max_depth": grower.D, "distribution": "multinomial",
+            "learn_rate": lr, "engine": "adaptive",
+        }
+
     def _score_matrix(self, X):
         lr = float(self.params["learn_rate"])
         if self._dist == "multinomial":
@@ -519,6 +694,9 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             return torch.softmax(F, dim=1)
         F = self._f0 + lr * E.predict_ensemble(X, self._trees.to(X.device))
         return _link_inv_dist(self._dist, F)
+
+    def _contrib_scale_bias(self):
+        return float(self.params["learn_rate"]), float(self._f0)
 
 
 # Engines whose trees a binned checkpoint restart takes: the port's, and
@@ -533,6 +711,51 @@ def _generator(params, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed if seed >= 0 else 42)
     return gen
+
+
+def _initial_f0(dist, y, w) -> float:
+    """The initial margin from the weighted response mean: its logit for
+    bernoulli, its log for poisson, gamma and tweedie, the mean itself
+    otherwise (quasibinomial and laplace included, as in the reference)."""
+    wsum, wysum = torch.stack([w.sum(), (w * y).sum()]).cpu().tolist()
+    ybar = wysum / max(wsum, 1e-30)
+    if dist == "bernoulli":
+        p0 = min(max(ybar, 1e-10), 1 - 1e-10)
+        return math.log(p0 / (1 - p0))
+    if dist in ("poisson", "gamma", "tweedie"):
+        return math.log(max(ybar, 1e-10))
+    return ybar
+
+
+def _class_prior_f0(y, w, K) -> np.ndarray:
+    """f0[c] = log of the weighted class prior, summed in f64."""
+    wn = w.double()
+    prior = torch.zeros(K, dtype=torch.float64, device=w.device) \
+        .index_add_(0, y.long(), wn) / wn.sum().clamp(min=1e-30)
+    return np.log(np.maximum(prior.cpu().numpy(), 1e-10)).astype(np.float32)
+
+
+def _grad_hess(dist, F, y):
+    """ComputePredAndRes (GBM.java:981): per-row pseudo-residual and
+    hessian. Huber and quantile are in no engine of the JAX package."""
+    if dist == "gaussian":
+        return y - F, torch.ones_like(F)
+    if dist in ("bernoulli", "quasibinomial"):
+        p = torch.sigmoid(F)
+        return y - p, p * (1 - p)
+    if dist == "poisson":
+        mu = torch.exp(F)
+        return y - mu, mu
+    if dist == "gamma":
+        mu = torch.exp(F)
+        return y / mu - 1.0, y / mu
+    if dist == "tweedie":
+        mu = torch.exp(F)
+        return y * torch.pow(mu, -0.5) - torch.pow(mu, 0.5), \
+            0.5 * (y * torch.pow(mu, -0.5) + torch.pow(mu, 0.5))
+    if dist == "laplace":
+        return torch.sign(y - F), torch.ones_like(F)
+    raise NotImplementedError(f"GBM distribution {dist}")
 
 
 def _link_inv_dist(dist, F):

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, and the repository's host C++
+sources with the host compiler, and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `ops/build/lib<name>-<hash>.so` (git-ignored), for sm_90a:
@@ -6,9 +7,16 @@ use into `ops/build/lib<name>-<hash>.so` (git-ignored), for sm_90a:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
+`load_host(name)` builds `native/<name>.cpp` (TreeSHAP) the same way with
+`native/Makefile`'s flags:
+
+    c++ -O3 -fPIC -std=c++17 -Wall -shared -o build/lib<name>-<hash>.so \
+        native/<name>.cpp
+
 The file name carries a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs when the
-module is imported; the CPU tests never reach it.
+is rebuilt and a stale library is never loaded. A failed build raises
+BuildError. Nothing here runs when the module is imported; the CPU tests
+reach only the host build.
 """
 
 from __future__ import annotations
@@ -23,13 +31,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
+NATIVE = Path(__file__).resolve().parents[2] / "native"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 
 
 class BuildError(RuntimeError):
-    """nvcc failed or is missing."""
+    """A compiler failed or is missing."""
 
 
 def nvcc_path() -> str:
@@ -50,24 +60,37 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu builds to (the name hashes source and flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _target(name: str, src: Path, flags) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one source; returns (target, process or None)."""
-    out = library_path(name)
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu builds to (the name hashes source and flags)."""
+    return _target(name, CSRC / f"{name}.cu", NVCC_FLAGS)
+
+
+def _spawn(out: Path, cmd_head, src: Path):
+    """Start one compile into a temporary beside `out`; returns (target,
+    (process, temporary)), or (target, None) when it is built already."""
     if out.exists():
         return out, None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    try:
+        proc = subprocess.Popen([*cmd_head, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise BuildError(f"cannot run {cmd_head[0]}: {e}") from e
     return out, (proc, tmp)
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (target, process or None)."""
+    return _spawn(library_path(name), [nvcc_path(), *NVCC_FLAGS],
+                  CSRC / f"{name}.cu")
 
 
 def _finish(name: str, out: Path, pending) -> str:
@@ -77,7 +100,7 @@ def _finish(name: str, out: Path, pending) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed for {name}.cu:\n{log}")
+        raise BuildError(f"build of {name} failed:\n{log}")
     os.replace(tmp, out)         # atomic: concurrent builders never see half
     return log
 
@@ -108,4 +131,25 @@ def load(name: str) -> ctypes.CDLL:
             out, pending = _start(name)
             BUILD_LOGS[name] = _finish(name, out, pending)
             lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for native/<name>.cpp, built first if needed with
+    the host C++ compiler ($CXX, else c++) and native/Makefile's flags."""
+    key = f"host:{name}"
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is None:
+            src = NATIVE / f"{name}.cpp"
+            if not src.is_file():
+                raise BuildError(f"{src} not found")
+            out, pending = _spawn(_target(name, src, HOST_FLAGS),
+                                  [os.environ.get("CXX") or "c++",
+                                   *HOST_FLAGS], src)
+            BUILD_LOGS[key] = _finish(name, out, pending)
+            lib = _LIBS[key] = ctypes.CDLL(str(out))
     return lib

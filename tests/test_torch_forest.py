@@ -443,7 +443,7 @@ def test_drf_mtries_rule_matches_jax(mtries):
             assert tm._resolve_mtries(C, K) == jm._resolve_mtries(C, K)
 
 
-@pytest.mark.parametrize("algo", ["gbm", "drf"])
+@pytest.mark.parametrize("algo", ["gbm", "drf", "xgboost", "isolationforest"])
 def test_estimator_parameters_match_jax(algo):
     """The parameters of each estimator and their defaults against the JAX
     package's: equal, but for the ones the port does not take yet (queue 1
@@ -452,7 +452,12 @@ def test_estimator_parameters_match_jax(algo):
         "gbm": (JMODELS.H2OGradientBoostingEstimator,
                 h2o3_tpu_torch.H2OGradientBoostingEstimator),
         "drf": (JMODELS.H2ORandomForestEstimator,
-                h2o3_tpu_torch.H2ORandomForestEstimator)}[algo]
+                h2o3_tpu_torch.H2ORandomForestEstimator),
+        "xgboost": (JMODELS.H2OXGBoostEstimator,
+                    h2o3_tpu_torch.H2OXGBoostEstimator),
+        "isolationforest": (JMODELS.H2OIsolationForestEstimator,
+                            h2o3_tpu_torch.H2OIsolationForestEstimator),
+    }[algo]
     jp, tp = jcls().params, tcls().params
     later = {"build_tree_one_node", "calibrate_model",
              "custom_distribution_func", "custom_metric_func",

@@ -588,3 +588,98 @@ def test_drf_on_the_card_matches_the_cpu(dev, HC):
     assert HC.LAUNCHES == {"hist": 12, "hist_i8": 0, "radix": 3,
                            "fused": 15, "route": 12, "route_f": 3}
     assert np.abs(card - cpu).max() < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The adaptive engine (plain PyTorch, no kernel of ops/csrc): the card
+# against the CPU. Ranges, bins, routes and the fixed-point histogram sums
+# are exact on both; models on 0/1 stats build the same trees, and models
+# on real-valued stats (whose exp and sigmoid differ in the last bit
+# between the card and the CPU) agree in AUC within 1e-3.
+@pytest.mark.gpu
+def test_adaptive_building_blocks_on_the_card_match_the_cpu(dev):
+    """Ranges, bins and the histogram of 200,000 rows over 64 leaves equal
+    on the card and the CPU (the histogram sums in exact fixed point)."""
+    from h2o3_tpu_torch.models.tree import engine as E
+    rng = np.random.default_rng(120)
+    n, C, L, B = 200_000, 12, 64, 20
+    X = rng.normal(size=(n, C)).astype(np.float32)
+    X[rng.random((n, C)) < 0.03] = np.nan
+    lv = rng.integers(0, L, n)
+    stats = rng.normal(size=(n, 3)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        t = [torch.from_numpy(a).to(d) for a in (X, lv, stats)]
+        mn, mx = E._ranges(t[0], t[1], L)
+        bins = E.bin_rows(t[0], t[1], mn, mx, B)
+        hist = E.build_histograms(bins, t[1], t[2], L, B)
+        out[str(d)] = [a.cpu() for a in (mn, mx, bins, hist)]
+    cpu, card = out["cpu"], out[str(dev)]
+    for k in range(4):
+        assert torch.equal(card[k], cpu[k])
+
+
+def _csv_cols(n=20000, seed=121):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    X[rng.random((n, 6)) < 0.03] = np.nan
+    Xz = np.nan_to_num(X)
+    y = (1.2 * Xz[:, 0] - 0.8 * Xz[:, 1] + 0.5 * Xz[:, 2] * Xz[:, 3]
+         + rng.logistic(size=n) > 0).astype(float)
+    return X, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls,params", [
+    ("H2OXGBoostEstimator", dict(ntrees=5, max_depth=6, seed=3)),
+    ("H2OGradientBoostingEstimator",
+     dict(ntrees=5, max_depth=5, min_rows=100, seed=3,
+          histogram_type="UniformAdaptive")),
+    ("H2ORandomForestEstimator", dict(ntrees=3, sample_rate=1.0, seed=3)),
+])
+def test_adaptive_models_on_the_card_match_the_cpu(dev, HC, cls, params):
+    """XGBoost (depth 6), a UniformAdaptive GBM and a DRF at its default
+    depth 20, on the card and on the CPU from the same columns: no kernel
+    launch; for the boosters the training AUC within 1e-3 (the card's exp
+    and sigmoid differ from the CPU's in the last bit, and a deeper tree
+    flips near ties: at depth 12, min_rows 10, with f32 histogram sums, the
+    GBM's AUC moved 1.1e-3);
+    the forest, with every row in every bag (so no out-of-bag AUC) and
+    every column at every node, grows on exact 0/1 sums: probabilities
+    within 1e-5."""
+    X, y = _csv_cols()
+    m_cpu, cpu = _train_on("cpu", cls, X, y, ["0", "1"], **params)
+    HC.reset_launches()
+    m, card = _train_on("cuda", cls, X, y, ["0", "1"], **params)
+    assert not any(HC.LAUNCHES.values())
+    if cls == "H2ORandomForestEstimator":
+        assert m.summary()["max_depth"] == 20
+        assert np.abs(card - cpu).max() < 1e-5
+    else:
+        assert abs(m.auc() - m_cpu.auc()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_isolation_forest_on_the_card_matches_the_cpu(dev, HC):
+    """An isolation forest with the same draws (a CPU generator's, moved
+    to the card): the same trees (col and thr bit for bit: exact ranges,
+    the same fused multiply-add; an empty leaf's threshold is NaN on
+    both), scores within 1e-5."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    from h2o3_tpu_torch.models.tree import engine as E
+    X, _ = _csv_cols(n=30000)
+    res = {}
+    for d in ("cpu", "cuda"):
+        h2o.init(device=d)
+        fr = Frame([f"x{j}" for j in range(6)],
+                   [Vec.from_numpy(X[:, j]) for j in range(6)])
+        m = h2o.H2OIsolationForestEstimator(ntrees=10, max_depth=8, seed=3)
+        m._draws = lambda device: E.Draws(torch.Generator().manual_seed(3),
+                                          device)
+        m.train(training_frame=fr)
+        res[d] = (m._trees.to("cpu"), m.predict(fr).to_numpy())
+    (tc, pc), (tg, pg) = res["cpu"], res["cuda"]
+    assert torch.equal(tg.col, tc.col)
+    assert torch.allclose(tg.thr, tc.thr, rtol=0, atol=0, equal_nan=True)
+    assert np.abs(pg - pc).max() < 1e-5
