@@ -85,6 +85,39 @@ Phases, each printing its lines before the last:
      256-row samples) at the width of the credit-card fraud set (284,807
      rows x 30 columns, 492 planted anomalies): the score's AUC against the
      planted labels above a bar set from a CPU run;
+     then GLM, cross-validation and the custom distribution (phase 3 also
+     fits the CSV's GLM binomial and gaussian on the card and the CPU:
+     the coefficients its one-hot design determines within 1e-4,
+     predictions within 1e-5, each widened to 8 f32 ulps of the largest
+     coefficient where a singular design let them drift), with the TF32
+     setting printed (it must be off):
+       (k) GLM binomial IRLSM at lambda 0 on the HIGGS frame, standardised,
+           with p-values, 5-fold CV and a torch custom-metric logloss: train
+           and validation AUC > 0.7, the custom metric within 1e-6 of the
+           logloss, CV AUC within 0.01 of the training AUC, the f32 Gram
+           within 1e-5 of a float64 Gram of the same X (relative to its
+           largest entry), a 200,000-row slice fitted on the card and on
+           the CPU (coefficients within 1e-4, AUC within 1e-5); the CV
+           split and fold fits timed apart; then one fit under a stopwatch
+           on each IRLS stage (eta pass, working weights, Gram pass, host
+           copy, float64 solve), each beside its bound;
+       (l) elastic net (alpha 0.5) down a 30-step lambda path: 30 lambdas,
+           no active predictor at the first, more at the last, whose AUC
+           is within 0.002 of (k)'s;
+       (m) GLM multinomial IRLSM on the Covertype frame with its 4 + 40
+           indicator fields as two categorical columns, which the one-hot
+           design expands back: its 54 feature names, training logloss
+           below the class prior's entropy, the per-class Gram timed;
+       (n) (m) by L-BFGS: logloss within 1e-3 of (m)'s;
+       (o) GBM with a gaussian custom distribution (a torch UDF) against
+           distribution="gaussian", 10 UniformAdaptive trees of depth 6 on
+           the HIGGS frame's 0/1 response as a number: the same splits bit
+           for bit, the last level's leaves equal, predictions within 1e-6,
+           no kernel launch;
+       (p) a binned bernoulli GBM, 10 trees of depth 8, 3 stratified
+           folds: launches per tree over every tree built as in (b), CV
+           AUC within 0.01 of the training AUC, fold sizes within 1% of a
+           third;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -104,9 +137,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(j) are printed again just before the two JSON
+The lines of runs (d)-(p) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine adds no kernel to it); the last line is
+engine and GLM add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -185,6 +218,27 @@ PER_TREE = {
 }
 
 
+# runs (k)-(p): GLM, cross-validation and the custom distribution
+# (k) binomial IRLSM at lambda 0 on the HIGGS frame, cross-validated
+GLM_K = dict(family="binomial", solver="IRLSM", lambda_=0.0,
+             standardize=True, compute_p_values=True, nfolds=5, seed=42)
+# (l) elastic net down a 30-step lambda path
+GLM_L = dict(family="binomial", alpha=0.5, lambda_search=True, nlambdas=30)
+# (k)'s card-vs-CPU slice, and the f32 Gram's limit against float64
+GLM_SLICE_N = 200_000
+GLM_GRAM_RTOL = 1e-5
+# (m), (n): multinomial GLM on the Covertype frame's one-hot design
+COV_GLM = dict(family="multinomial", solver="IRLSM", lambda_=0.0)
+# (o) a gaussian custom distribution against distribution="gaussian"
+CUSTOM_GBM = dict(ntrees=10, max_depth=6, histogram_type="UniformAdaptive",
+                  seed=1)
+# (p) a binned bernoulli GBM cross-validated over 3 stratified folds
+CV_GBM = dict(ntrees=10, max_depth=HIGGS_DEPTH, nbins=HIGGS_NBINS, nfolds=3,
+              fold_assignment="Stratified",
+              keep_cross_validation_fold_assignment=True,
+              distribution="bernoulli", seed=1)
+
+
 # runs (g)-(j), the adaptive engine (no kernel of ops/csrc on its path):
 # (g) XGBoost at its own defaults as the estimator sets them (depth 6,
 # eta 0.3, 256 bins, reg_lambda 1, min_child_weight 1), 20 trees on the
@@ -230,7 +284,7 @@ LOG = []
 RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\))|"
                    r"xgboost \(g\)|drf \(h\)|isolation forest \(j\)|"
-                   r"adaptive)")
+                   r"adaptive|glm|gbm (custom|cv))")
 
 
 def say(msg):
@@ -1100,6 +1154,16 @@ class Stopwatch:
         return out
 
 
+def _watch(obj, name, torch):
+    """Put a Stopwatch on obj.name (a module function or a class's
+    method); returns (watch, restore)."""
+    fn = getattr(obj, name)
+    w = Stopwatch(torch, fn)
+    setattr(obj, name, (lambda *a, _w=w, **k: _w(*a, **k))
+            if isinstance(obj, type) else w)
+    return w, lambda: setattr(obj, name, fn)
+
+
 def breakdown(torch, h2o, HC, fr, label, **params):
     """A GBM training run (no validation frame) with a stopwatch on each
     stage of the estimator and on each kernel wrapper (the syncs make it a
@@ -1114,16 +1178,11 @@ def breakdown(torch, h2o, HC, fr, label, **params):
               (ST.SharedTreeEstimator, "_record_history_multi"),
               (MB.ModelBase, "_score_train_valid")]
     stages += [(HC, name) for name in RECORDED]
-    saved = [(obj, name, getattr(obj, name)) for obj, name in stages]
-    watches = {}
+    watches, restores = {}, []
     try:
-        for obj, name, fn in saved:
-            watches[name] = Stopwatch(torch, fn)
-            if isinstance(obj, type):
-                w = watches[name]
-                setattr(obj, name, lambda *a, _w=w, **k: _w(*a, **k))
-            else:
-                setattr(obj, name, watches[name])
+        for obj, name in stages:
+            watches[name], r = _watch(obj, name, torch)
+            restores.append(r)
         m = h2o.H2OGradientBoostingEstimator(**params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1131,8 +1190,8 @@ def breakdown(torch, h2o, HC, fr, label, **params):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+        for r in restores:
+            r()
     parts = ", ".join(f"{n} {w.seconds:.3f} s/{w.calls}"
                       for n, w in watches.items())
     say(f"{label} train breakdown, {m.summary()['number_of_trees']} trees: "
@@ -1480,6 +1539,505 @@ def phase_small_adaptive(torch, h2o, HC):
                       f"{ga} vs cpu {ca}")
     finally:
         ST.SharedTreeEstimator._draws = saved
+
+
+# ---------------------------------------------------------------------------
+# Runs (k)-(p): GLM on the one-hot design matrix, cross-validation and the
+# custom GBM distribution. GLM's passes over the rows are PyTorch on the
+# card (its Gram one cuBLAS f32 matrix product, TF32 off) and its solves
+# float64 numpy on the host, as in the JAX package: no kernel of ops/csrc
+# is on its path. Only (p), cross-validation of a binned GBM, launches
+# them.
+def _glm_tf32(torch):
+    on = bool(torch.backends.cuda.matmul.allow_tf32)
+    say(f"glm: TF32 for float32 matmuls: allow_tf32 {on}, float32 matmul "
+        f"precision {torch.get_float32_matmul_precision()!r} (the port "
+        "never turns TF32 on)")
+    check(not on and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the GLM Gram would lose 13 mantissa bits a product")
+
+
+def _logloss_udf(torch):
+    """A custom metric: the binomial logloss as the metrics compute it,
+    per-row components folded by the model's map-reduce."""
+    from h2o3_tpu_torch import udf
+
+    class Logloss(udf.CustomMetric):
+        name = "logloss"
+
+        def map(self, pred, y, w):
+            p = pred[:, 1].clamp(1e-15, 1 - 1e-15)
+            return (-w * (y * torch.log(p) + (1 - y) * torch.log(1 - p)), w)
+
+        def metric(self, agg):
+            return float(agg[0] / agg[1])
+    return Logloss()
+
+
+def _gaussian_udf(torch):
+    """A custom distribution that is gaussian: y - F, ones, identity."""
+    from h2o3_tpu_torch import udf
+
+    class Gaussian(udf.CustomDistribution):
+        def grad_hess(self, F, y):
+            return y - F, torch.ones_like(F)
+    return Gaussian()
+
+
+def _glm_stage_bounds(n, p1):
+    """Bounds (ms) of one IRLS iteration's device stages at n rows and p1
+    columns: each input read once and each output written once over
+    3.35 TB/s, or the f32 operations over 67 TFLOP/s, whichever is
+    larger."""
+    return {
+        "_eta_pass": _bound_ms(4 * (n * p1 + p1 + n), 2 * n * p1),
+        "_irls_weights": _bound_ms(4 * 5 * n, 10 * n),
+        "_gram_pass": _bound_ms(4 * (n * p1 + 2 * n + p1 * p1 + p1),
+                                2 * n * p1 * p1 + 3 * n * p1),
+    }
+
+
+def glm_stage_table(torch, h2o, fr, label, **params):
+    """One GLM fit with a stopwatch (synchronising each call) on each stage
+    of an IRLS iteration: the passes over the rows on the card, then the
+    copy of G and q to the host and the float64 solve (or COD)."""
+    from h2o3_tpu_torch.models import glm as GLM
+    names = (("eta pass", "_eta_pass"),
+             ("working weights and response", "_irls_weights"),
+             ("Gram pass", "_gram_pass"), ("host copy of G, q", "_host_gram"),
+             ("f64 solve / COD", "_irls_solve"))
+    watches, restores = {}, []
+    for _, fn in names:
+        watches[fn], r = _watch(GLM, fn, torch)
+        restores.append(r)
+    fit, r = _watch(GLM.H2OGeneralizedLinearEstimator, "_fit_irls", torch)
+    restores.append(r)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = h2o.H2OGeneralizedLinearEstimator(**params)
+        m.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for r in restores:
+            r()
+    n, p1 = fr.nrows, m._dinfo.n_features + 1
+    bounds = _glm_stage_bounds(n, p1)
+    its = m._iterations
+    say(f"glm stage table, {label}: {n} rows x {p1} columns (intercept "
+        f"included), {its} IRLS iterations (+1 null-model Gram); ms a call "
+        "(bound):")
+    per_it = 0.0
+    for title, fn in names:
+        w = watches[fn]
+        ms = 1000 * w.seconds / max(w.calls, 1)
+        per_it += ms
+        b = bounds.get(fn)
+        say(f"glm stage {title} ({fn}): {ms:.3f} ms x {w.calls} calls "
+            f"(bound {'%.3f ms, by %s' % b if b is not None else '-'})")
+    say(f"glm stage one IRLS iteration: {per_it:.3f} ms (bound "
+        f"{sum(b for b, _ in bounds.values()):.3f} ms); _fit_irls {fit.seconds:.3f} s; "
+        f"whole train() {total:.3f} s; host syncs an iteration: 1 copy of "
+        "G and q (plus the intercept start's two sums once)")
+
+
+def glm_gram_check(torch, m, fr):
+    """The card's f32 Gram of (k)'s design at its final coefficients
+    against the float64 Gram of the same X, w and z on the card."""
+    from h2o3_tpu_torch.models import glm as GLM
+    di = m._dinfo
+    X = di.matrix(fr)
+    Xi = torch.cat([X, torch.ones((X.shape[0], 1), device=X.device)], 1)
+    del X
+    y, w = di.response(fr), di.weights(fr)
+    beta = torch.as_tensor(m._state.beta, dtype=torch.float32,
+                           device=Xi.device)
+    wi, z = GLM._irls_weights("binomial", "logit", GLM._eta_pass(Xi, beta),
+                              y, w)
+    G, q = GLM._gram_pass(Xi, wi, z)
+    G64, q64 = GLM._gram_pass(Xi.double(), wi.double(), z.double())
+    rg = ((G.double() - G64).abs().max() / G64.abs().max()).item()
+    rq = ((q.double() - q64).abs().max() / q64.abs().max()).item()
+    say(f"glm (k): f32 Gram on the card vs float64 Gram of the same X: max "
+        f"abs diff {rg:.3g} of the largest |G| entry, q {rq:.3g} (limit "
+        f"{GLM_GRAM_RTOL})")
+    check(rg <= GLM_GRAM_RTOL and rq <= GLM_GRAM_RTOL,
+          f"glm (k): f32 Gram off the float64 one by {rg} (q {rq})")
+
+
+def glm_slice_card_vs_cpu(torch, h2o, fr):
+    """(k)'s fit without cross-validation on the frame's first 200,000
+    rows, on the card and on the CPU."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    params = {k: v for k, v in GLM_K.items() if k not in ("nfolds", "seed")}
+    sl = _sub_frame(fr, GLM_SLICE_N)
+    card = h2o.H2OGeneralizedLinearEstimator(**params)
+    card.train(y="y", training_frame=sl)
+    h2o.init(device="cpu")
+    try:
+        cf = Frame(sl.names, [Vec.from_tensor(v.data.cpu(), type=v.type,
+                                              domain=v.domain)
+                              for v in sl.vecs])
+        cpu = h2o.H2OGeneralizedLinearEstimator(**params)
+        cpu.train(y="y", training_frame=cf)
+    finally:
+        h2o.init()
+    db = float(np.abs(card._state.beta - cpu._state.beta).max()
+               / np.abs(cpu._state.beta).max())
+    da = abs(card.auc() - cpu.auc())
+    say(f"glm (k) slice: {GLM_SLICE_N} rows, card vs CPU: coefficients max "
+        f"diff {db:.3g} of the largest, AUC {card.auc():.6f} vs "
+        f"{cpu.auc():.6f} (diff {da:.3g})")
+    check(db <= 1e-4 and da <= 1e-5, f"glm (k) slice: card and CPU differ: "
+          f"coefficients {db}, AUC {da}")
+
+
+def glm_higgs_runs(torch, h2o, HC, fr, valid):
+    """Runs (k) and (l) on the HIGGS frame."""
+    from h2o3_tpu_torch import udf
+    from h2o3_tpu_torch.models import model as MB
+    ref = udf.register_udf("chip_logloss", _logloss_udf(torch))
+    # the p-values import scipy.stats at their first use, once a process
+    # (as the JAX package does): timed here, apart from (k)'s fits
+    t0 = time.perf_counter()
+    try:
+        from scipy import stats  # noqa: F401
+        say(f"glm: scipy.stats imported in {time.perf_counter() - t0:.3f} s "
+            "(the first p-values' one-time cost, kept out of (k)'s fits)")
+    except ImportError:
+        say("glm: no scipy; p-values by math.erf")
+    cv, r1 = _watch(MB.ModelBase, "_run_cross_validation", torch)
+    split, r2 = _watch(MB, "_subframe", torch)
+    # where a fit's time goes, over the five fold fits and the final one
+    fit_stages = {name: _watch(MB.ModelBase, name, torch)
+                  for name in ("_resolve_predictors", "_make_data_info",
+                               "_score_train_valid")}
+    fit_stages["_fit"] = _watch(h2o.H2OGeneralizedLinearEstimator, "_fit",
+                                torch)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        HC.reset_launches()
+        t0 = time.perf_counter()
+        m = h2o.H2OGeneralizedLinearEstimator(custom_metric_func=ref,
+                                              **GLM_K)
+        m.train(y="y", training_frame=fr, validation_frame=valid)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+    finally:
+        r1()
+        r2()
+        for _, r in fit_stages.values():
+            r()
+    peak = torch.cuda.max_memory_allocated()
+    tm = m._output.training_metrics
+    cvm = m._output.cross_validation_metrics
+    custom = tm.custom_metric["value"]
+    folds = [f._iterations for f in m._cv_models]
+    say(f"glm (k): binomial IRLSM lambda 0, standardize, p-values, "
+        f"nfolds 5: {fr.nrows} rows x {len(fr.names) - 1} features: train() "
+        f"{t_train:.3f} s (cross-validation {cv.seconds:.3f} s: the split "
+        f"{split.seconds:.3f} s in {split.calls} subsets on the card, the "
+        f"five fold fits and their holdout scoring "
+        f"{cv.seconds - split.seconds:.3f} s); IRLS iterations {m._iterations}"
+        f" (folds {folds}); peak memory {peak / 2**30:.2f} GiB "
+        f"({(peak - held) / 2**30:.2f} GiB above what was held)")
+    say("glm (k): the six fits' stages (five folds and the final model): "
+        + ", ".join(f"{n} {w.seconds:.3f} s/{w.calls}"
+                    for n, (w, _) in fit_stages.items())
+        + " (_resolve_predictors rolls up every column of a new frame; "
+        "_score_train_valid scores the training (and validation) rows with "
+        "the custom metric)")
+    say(f"glm (k): train AUC {m.auc():.6f}, validation AUC "
+        f"{m.auc(valid=True):.6f}, CV AUC {cvm.auc:.6f}; logloss "
+        f"{m.logloss():.9f}, custom metric {custom:.9f} (diff "
+        f"{abs(custom - m.logloss()):.3g}); p-values of x0, x1: "
+        f"{m._p_values[0]:.3g}, {m._p_values[1]:.3g}; launches {launches}")
+    check(not launches, f"glm (k): kernel launches {launches}")
+    check(m.auc() > 0.7 and m.auc(valid=True) > 0.7,
+          f"glm (k) AUC: train {m.auc()}, validation {m.auc(valid=True)}")
+    check(abs(custom - m.logloss()) <= 1e-6,
+          f"glm (k): custom metric {custom} vs logloss {m.logloss()}")
+    check(abs(cvm.auc - m.auc()) < 0.01,
+          f"glm (k): CV AUC {cvm.auc} vs train AUC {m.auc()}")
+    check(np.isfinite(m._p_values).all(), "glm (k): p-values not finite")
+    glm_gram_check(torch, m, fr)
+    k_auc = m.auc()
+    del m
+    glm_slice_card_vs_cpu(torch, h2o, fr)
+    glm_stage_table(torch, h2o, fr, "run (k) without cross-validation",
+                    **{k: v for k, v in GLM_K.items() if k != "nfolds"})
+
+    # (l) elastic net down a 30-step lambda path (COD on the Gram)
+    t0 = time.perf_counter()
+    m = h2o.H2OGeneralizedLinearEstimator(**GLM_L)
+    m.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t_l = time.perf_counter() - t0
+    path = m._lambda_path
+    active = [int((np.abs(b[:-1]) > 1e-10).sum()) for _, b in path]
+    say(f"glm (l): elastic net alpha 0.5, lambda search: {len(path)} "
+        f"lambdas from {path[0][0]:.4g} to {path[-1][0]:.4g}, active "
+        f"predictors {active}; {m._iterations} IRLS iterations in "
+        f"{t_l:.3f} s; last lambda's AUC {m.auc():.6f} ((k): {k_auc:.6f})")
+    check(len(path) == GLM_L["nlambdas"], f"glm (l): {len(path)} lambdas")
+    check(active[0] == 0 and active[-1] > active[0],
+          f"glm (l): active predictors {active}")
+    check(abs(m.auc() - k_auc) < 0.002,
+          f"glm (l): last AUC {m.auc()} vs (k) {k_auc}")
+
+
+def _covtype_categorical(torch, fr):
+    """(d)'s Covertype frame with its 4 wilderness and 40 soil indicator
+    columns folded back into two categorical columns of 4 and 40 levels."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    wild = fr.matrix([f"wild{j}" for j in range(COV_WILD)]).argmax(1)
+    soil = fr.matrix([f"soil{j}" for j in range(COV_SOIL)]).argmax(1)
+    num = [f"n{j}" for j in range(COV_NUM)]
+    return Frame(num + ["wilderness", "soil", "y"],
+                 [fr.vec(c) for c in num]
+                 + [Vec.from_tensor(wild.float(), type=T_CAT,
+                                    domain=[f"w{i}" for i in range(COV_WILD)]),
+                    Vec.from_tensor(soil.float(), type=T_CAT,
+                                    domain=[f"s{i:02d}"
+                                            for i in range(COV_SOIL)]),
+                    fr.vec("y")])
+
+
+def glm_covtype_runs(torch, h2o, HC):
+    """Runs (m) and (n): multinomial GLM at Covertype width on the one-hot
+    design, by IRLSM and by L-BFGS."""
+    from h2o3_tpu_torch.models import glm as GLM
+    dev = h2o.init().device
+    base, y = _covtype_frame(torch, dev, COV_N, 9)
+    fr = _covtype_categorical(torch, base)
+    K = len(COV_PRIOR)
+    prior = torch.bincount(y, minlength=K).double() / COV_N
+    entropy = float(-(prior * prior.clamp(min=1e-300).log()).sum())
+    del y
+    want = ([f"wilderness.w{i}" for i in range(COV_WILD)]
+            + [f"soil.s{i:02d}" for i in range(COV_SOIL)]
+            + [f"n{j}" for j in range(COV_NUM)])
+    gram, restore = _watch(GLM, "_class_gram", torch)
+    try:
+        HC.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = h2o.H2OGeneralizedLinearEstimator(**COV_GLM)
+        m.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        t_m = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+    p1 = m._dinfo.n_features + 1
+    b, by = _bound_ms(4 * (COV_N * (p1 + 2) + K * p1 + p1 * p1 + p1),
+                      2 * COV_N * p1 * (K + p1) + 12 * COV_N * K)
+    say(f"glm (m): multinomial IRLSM on the one-hot design, {COV_N} rows, "
+        f"{m._dinfo.n_features} features + intercept, {K} classes: "
+        f"{m._iterations} sweeps in {t_m:.3f} s; per-class Gram "
+        f"{1000 * gram.seconds / max(gram.calls, 1):.3f} ms x {gram.calls} "
+        f"(bound {b:.3f} ms, by {by}); training logloss {m.logloss():.6f} (class "
+        f"prior entropy {entropy:.6f}); launches {launches}")
+    check(m._dinfo.feature_names == want,
+          f"glm (m): feature names {m._dinfo.feature_names}")
+    check(m.logloss() < entropy, f"glm (m): logloss {m.logloss()} not below "
+          f"the prior's entropy {entropy}")
+    check(not launches, f"glm (m): kernel launches {launches}")
+    ll_m = m.logloss()
+    del m
+    t0 = time.perf_counter()
+    n = h2o.H2OGeneralizedLinearEstimator(
+        **dict(COV_GLM, solver="L_BFGS"))
+    n.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t_n = time.perf_counter() - t0
+    say(f"glm (n): multinomial L-BFGS on (m)'s frame: {t_n:.3f} s; training "
+        f"logloss {n.logloss():.6f} ((m): {ll_m:.6f}, diff "
+        f"{abs(n.logloss() - ll_m):.3g})")
+    check(abs(n.logloss() - ll_m) < 1e-3,
+          f"glm (n): logloss {n.logloss()} vs (m) {ll_m}")
+
+
+def custom_gbm_run(torch, h2o, HC, fr):
+    """Run (o): GBM with a gaussian custom distribution against
+    distribution="gaussian", both on the adaptive engine, on the HIGGS
+    frame's 0/1 response as a number, and no kernel launch. The trees
+    split alike, bit for bit, and their last level's leaves are equal; a
+    leaf that stops above the last level takes a Newton refit from exact
+    sums in the custom path (the JAX package's GammaPass for every
+    distribution but gaussian) and its histogram's f32 sum under
+    gaussian, so it may differ in its last bits (within 1e-6 relative);
+    predictions within 1e-6. Whether all of it came out bit for bit is
+    printed."""
+    from h2o3_tpu_torch import udf
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    num = Frame(fr.names, fr.vecs[:-1] + [Vec.from_tensor(fr.vec("y").data)])
+    ref = udf.register_udf("chip_gaussian", _gaussian_udf(torch))
+    models = {}
+    for dist in ("custom", "gaussian"):
+        HC.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = h2o.H2OGradientBoostingEstimator(
+            distribution=dist, custom_distribution_func=ref, **CUSTOM_GBM)
+        m.train(y="y", training_frame=num)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+        models[dist] = (m, time.perf_counter() - t0, launches)
+    (c, tc, lc), (g, tg, lg) = models["custom"], models["gaussian"]
+    ct, gt = c._trees, g._trees
+    splits = all(torch.equal(getattr(ct, f), getattr(gt, f))
+                 for f in ("col", "thr", "na_left"))
+    # a leaf above the last level: the custom path refits it from exact
+    # sums (GammaPass), gaussian keeps the f32 sum of its histogram bins
+    D = CUSTOM_GBM["max_depth"]
+    early = (torch.arange(ct.value.shape[1], device=ct.value.device)
+             < 2 ** D - 1)[None, :] & (ct.col < 0)
+    dv = (ct.value - gt.value).abs()
+    rel = (dv / gt.value.abs().clamp(min=1e-30))[early]
+    X = c._dinfo.matrix(num)
+    pc, pg = c._score_matrix(X), g._score_matrix(X)
+    bits = splits and torch.equal(ct.value, gt.value) and torch.equal(pc, pg)
+    say(f"gbm custom (o): {CUSTOM_GBM['ntrees']} trees depth {D} "
+        f"UniformAdaptive on {fr.nrows} rows: custom {tc:.3f} s "
+        f"({c.summary()['engine']}), gaussian {tg:.3f} s; same splits: "
+        f"{splits}; trees and predictions bit for bit: {bits}; leaves above "
+        f"the last level: {int(early.sum())}, their values within "
+        f"{(rel.max().item() if rel.numel() else 0.0):.3g} relative; the "
+        f"last level's leaves equal: "
+        f"{torch.equal(ct.value[:, 2 ** D - 1:], gt.value[:, 2 ** D - 1:])}"
+        f"; predictions max diff {(pc - pg).abs().max().item():.3g}; rmse "
+        f"{c.rmse():.6f} / {g.rmse():.6f}; launches {lc} / {lg}")
+    check(c.summary()["engine"] == "adaptive", "gbm custom (o): not on the "
+          "adaptive engine")
+    check(splits and torch.equal(ct.value[:, 2 ** D - 1:],
+                                 gt.value[:, 2 ** D - 1:])
+          and (rel.numel() == 0 or rel.max().item() <= 1e-6)
+          and (pc - pg).abs().max().item() <= 1e-6,
+          "gbm custom (o): custom gaussian and gaussian differ")
+    check(not lc and not lg, f"gbm custom (o): kernel launches {lc} {lg}")
+
+
+def cv_gbm_run(torch, h2o, HC, fr):
+    """Run (p): a bernoulli GBM with 3 stratified folds over the binned
+    kernels: launches per tree over every tree built (fold models and the
+    final model) as in (b), CV AUC near the training AUC, fold sizes."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.models import model as MB
+    cv, r1 = _watch(MB.ModelBase, "_run_cross_validation", torch)
+    split, r2 = _watch(MB, "_subframe", torch)
+    try:
+        HC.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = h2o.H2OGradientBoostingEstimator(**CV_GBM)
+        m.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = dict(HC.LAUNCHES)
+    finally:
+        r1()
+        r2()
+    trees = sum(int(x.summary()["number_of_trees"])
+                for x in [m] + m._cv_models)
+    per_tree = {k: v / trees for k, v in launches.items() if v}
+    cv_auc = m._output.cross_validation_metrics.auc
+    fa = DKV.get(m._output.cv_fold_assignment_key).vec("C1").data
+    sizes = torch.bincount(fa.long(), minlength=3).tolist()
+    off = max(abs(s - fr.nrows / 3) for s in sizes) / (fr.nrows / 3)
+    say(f"gbm cv (p): bernoulli, 3 stratified folds, {trees} trees of depth "
+        f"{CV_GBM['max_depth']} (folds + final): train() {t_train:.3f} s "
+        f"(cross-validation {cv.seconds:.3f} s, split {split.seconds:.3f} s);"
+        f" train AUC {m.auc():.6f}, CV AUC {cv_auc:.6f}; fold sizes {sizes} "
+        f"(max off a third {off:.3g}); launches per tree {per_tree} "
+        f"(expected {PER_TREE['default']})")
+    check(per_tree == PER_TREE["default"],
+          f"gbm cv (p): launches per tree {per_tree}")
+    check(abs(cv_auc - m.auc()) < 0.01,
+          f"gbm cv (p): CV AUC {cv_auc} vs train AUC {m.auc()}")
+    check(off < 0.01, f"gbm cv (p): fold sizes {sizes}")
+
+
+def phase_glm_cv(torch, h2o, HC):
+    """Runs (k)-(p) at full width."""
+    _glm_tf32(torch)
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    glm_higgs_runs(torch, h2o, HC, fr, valid)
+    del valid
+    custom_gbm_run(torch, h2o, HC, fr)
+    cv_gbm_run(torch, h2o, HC, fr)
+    del fr
+    glm_covtype_runs(torch, h2o, HC)
+
+
+def _identifiable(m):
+    """A GLM's coefficients that its design determines: the numeric ones
+    and, per categorical column, each level's coefficient less the first
+    level's. The JAX package's one-hot design keeps every level beside
+    the intercept, so a categorical without NAs makes the Gram singular:
+    the levels and the intercept move together along its null direction,
+    by an amount the Gram's f32 rounding alone decides (ROADMAP.md §3)."""
+    di, b = m._dinfo, m._state.beta
+    out, j = [], 0
+    for c in di.cat_cols:
+        k = di.cardinalities[c]
+        out += list(b[j + 1:j + k] - b[j])
+        j += k
+    return np.asarray(out + list(b[j:-1]))
+
+
+def phase_small_glm(torch, h2o, HC):
+    """The CSV of phase 3 on the card against the CPU: GLM binomial (on
+    the label) and gaussian (on column a, whose NA rows drop out), both on
+    the one-hot design of its color column, which has no NA: the
+    coefficients the design determines (`_identifiable`) within 1e-4 of
+    the largest, and predictions within 1e-5, each widened to 8 f32 ulps
+    of the largest coefficient where the null direction has carried the
+    coefficients far (the f32 resolution at which eta is computed); no
+    kernel launch."""
+    fits = (("binomial", "label", None),
+            ("gaussian", "a", ["b", "c", "d", "color"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "train.csv")
+        _write_csv(csv)
+        for fam, y, x in fits:
+            res = {}
+            for where in ("cpu", "cuda"):
+                h2o.init(device="cpu") if where == "cpu" else h2o.init()
+                fr = h2o.import_file(csv)
+                HC.reset_launches()
+                m = h2o.H2OGeneralizedLinearEstimator(family=fam,
+                                                      lambda_=0.0)
+                m.train(x=x, y=y, training_frame=fr)
+                launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+                pred = m.predict(fr)
+                res[where] = (m, launches, pred.vecs[-1].data.device.type,
+                              pred.vecs[-1].data.cpu().numpy())
+            (cm, _, _, cp), (gm, gl, gd, gp) = res["cpu"], res["cuda"]
+            cb, gb = _identifiable(cm), _identifiable(gm)
+            big = max(np.abs(cm._state.beta).max(),
+                      np.abs(gm._state.beta).max())
+            ulps = 8 * 2.0 ** -23 * big
+            tol_b = max(1e-4, ulps / np.abs(cb).max())
+            tol_p = max(1e-5, ulps)
+            db = float(np.abs(gb - cb).max() / np.abs(cb).max())
+            dp = float(np.nanmax(np.abs(gp - cp)))
+            say(f"small path glm {fam}: IRLS iterations cpu "
+                f"{cm._iterations} card {gm._iterations}, largest |coef| "
+                f"{big:.6g}; {len(cb)} identifiable coefficients, card vs "
+                f"cpu max diff {db:.3g} of the largest (limit {tol_b:.3g}); "
+                f"predictions max diff {dp:.3g} (limit {tol_p:.3g}); "
+                f"launches {gl}")
+            check(gd == "cuda" and not gl, f"small path glm {fam}: device "
+                  f"{gd}, launches {gl}")
+            check(db <= tol_b and dp <= tol_p, f"small path glm {fam}: "
+                  f"coefficients differ by {db}, predictions by {dp}")
 
 
 # ---------------------------------------------------------------------------
@@ -1834,13 +2392,15 @@ def main():
         phase_adversarial(torch, HC, dev, c_pad)
     phase_small_path(torch, h2o, HC)
     phase_small_adaptive(torch, h2o, HC)
+    phase_small_glm(torch, h2o, HC)
     covtype = phase_covtype(torch, h2o, HC)
     runs = phase_higgs(torch, h2o, HC)
     phase_isofor(torch, h2o, HC)
+    phase_glm_cv(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
-    say(f"recap of runs (d)-(j) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(p) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -5,9 +5,11 @@ fields, one set per class for a multinomial model, the initial margin or
 margins, the distribution, the learning rate, the predictors and their
 domains, and the bin spec of a binned-engine model), `drf_from_arrays` a
 forest's (one set per class for a multinomial forest),
-`xgboost_from_arrays` a booster's and `isofor_from_arrays` an isolation
-forest's (with its sample size and its observed path-length range); each
-returns a port model that scores the same rows to the same values. A
+`xgboost_from_arrays` a booster's, `isofor_from_arrays` an isolation
+forest's (with its sample size and its observed path-length range) and
+`glm_from_arrays` a GLM's (its coefficients and its one-hot codec's
+statistics); each returns a port model that scores the same rows to the
+same values. A
 carried GBM is a binned prior for a checkpoint restart only when the
 caller names the JAX model's binned engine; any other is a prior of the
 adaptive engine. Nothing here imports the JAX package: the caller pulls
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.kvstore import DKV
+from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator, _GLMState
 from h2o3_tpu_torch.models.model import DataInfo, ModelOutput
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
@@ -51,12 +54,12 @@ def _tree_arrays(dev, col, thr, na_left, value, depth, cover, catbits,
 
 def _finish(model, *, algo, predictors, domains, response_name,
             response_domain, edges, is_cat, b_val, n_bins, c_pad, model_id,
-            summary):
-    """The data codec, the bin spec, the output and the DKV entry of a
-    carried model."""
+            summary, dinfo=None):
+    """The data codec (label mode unless `dinfo` is given), the bin spec,
+    the output and the DKV entry of a carried model."""
     cats = [c for c in predictors if c in domains]
-    model._dinfo = DataInfo(predictors, cats, domains, response_name,
-                            response_domain)
+    model._dinfo = dinfo or DataInfo(predictors, cats, domains,
+                                     response_name, response_domain)
     if edges is not None:
         model._bin_spec = BN.BinSpec(
             edges=np.asarray(edges, np.float32),
@@ -225,3 +228,40 @@ def _set_trees(model, dev, multi, f0, col, thr, na_left, value, depth,
     if f0 is not None:
         model._f0 = float(f0)
     return model._trees.ntrees, None if f0 is None else model._f0
+
+
+def glm_from_arrays(*, beta, family: str, link: str,
+                    predictors: Sequence[str], domains: dict,
+                    response_name: str,
+                    response_domain: Optional[Sequence[str]] = None,
+                    means: dict, sigmas: dict, standardize: bool,
+                    interactions: Optional[Sequence[str]] = None,
+                    ord_beta=None, ord_thr=None,
+                    tweedie_link_power: float = 1.0,
+                    model_id: Optional[str] = None
+                    ) -> H2OGeneralizedLinearEstimator:
+    """A port GLM from a JAX GLM's arrays: `beta` its `_state.beta` ((p+1,)
+    with the intercept last, (K, p+1) for multinomial), its family and
+    link, the ordinal `_ord_beta` and `_ord_thr`, and its one-hot
+    `DataInfo`'s predictors, domains, means, sigmas (numeric and
+    interaction columns), standardize flag and interactions."""
+    model = H2OGeneralizedLinearEstimator(
+        family=family, link=link, standardize=bool(standardize),
+        interactions=list(interactions) if interactions else None,
+        tweedie_link_power=float(tweedie_link_power), model_id=model_id)
+    cats = [c for c in predictors if c in domains]
+    dinfo = DataInfo(predictors, cats, domains, response_name,
+                     response_domain, cat_mode="onehot",
+                     standardize=bool(standardize), means=means,
+                     sigmas=sigmas, interactions=interactions)
+    model._family, model._link = family, link
+    model._state = _GLMState(beta=np.asarray(beta, np.float64), link=link,
+                             family=family)
+    if ord_beta is not None:
+        model._ord_beta = np.asarray(ord_beta, np.float64)
+        model._ord_thr = np.asarray(ord_thr, np.float64)
+    return _finish(model, algo="glm", predictors=predictors, domains=domains,
+                   response_name=response_name,
+                   response_domain=response_domain, edges=None, is_cat=None,
+                   b_val=None, n_bins=None, c_pad=None, model_id=model_id,
+                   summary={"family": family, "link": link}, dinfo=dinfo)

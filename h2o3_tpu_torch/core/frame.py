@@ -146,6 +146,13 @@ class Vec:
         return Rollups(mn if cnt else math.nan, mx if cnt else math.nan,
                        mean, sigma, int(nas), int(zeros), frac == 0.0)
 
+    def mean(self) -> float:
+        return self.rollups().mean
+
+    def sigma(self) -> float:
+        """Sample standard deviation (n - 1), as RollupStats."""
+        return self.rollups().sigma
+
     def is_const(self) -> bool:
         """No NA and one distinct value (the JAX "const" codec with no NAs),
         the test behind `ignore_const_cols`."""

@@ -26,6 +26,10 @@ class _DKV:
         with self._mutex:
             return self._store.get(key, default)
 
+    def keys(self) -> list[str]:
+        with self._mutex:
+            return sorted(self._store.keys())
+
     def remove(self, key: str):
         with self._mutex:
             self._store.pop(key, None)

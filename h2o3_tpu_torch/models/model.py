@@ -1,14 +1,17 @@
 """Model framework of the port (h2o3_tpu/models/model.py): the design-matrix
-codec `DataInfo` (label mode, as the tree models use it), `ModelOutput`,
-and the estimator surface `ModelBase` (train, predict, metrics).
+codec `DataInfo` (label mode for the trees, one-hot mode for GLM),
+`ModelOutput`, and the estimator surface `ModelBase`: train through a
+`Job`, cross-validation, predict, metrics and the custom-metric hook.
 
-Training runs synchronously in the caller's thread. Cross-validation,
-jobs, model monitoring and the serving cache are later slices; a parameter
-that selects them raises NotImplementedError rather than being ignored.
+Model monitoring and the serving cache are later slices. A parameter the
+JAX package accepts and ignores although it would change the result
+(`offset_column`, `export_checkpoints_dir`) raises NotImplementedError
+here rather than being ignored.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from dataclasses import dataclass, field
@@ -17,22 +20,45 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Frame, Vec, T_CAT
+from h2o3_tpu_torch.core.frame import Frame, Vec, T_CAT, T_STR
+from h2o3_tpu_torch.core.jobs import Job
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models import metrics as M
+from h2o3_tpu_torch.udf import resolve_udf
 
 
 # ===========================================================================
 class DataInfo:
-    """Design-matrix codec (hex/DataInfo.java) in "label" mode: categorical
-    columns stay one numeric column of level ids, which the tree engine
-    bins natively. The one-hot mode of the JAX package is a later slice."""
+    """Design-matrix codec (hex/DataInfo.java).
+
+    cat_mode:
+      * "label": a categorical column stays one numeric column of level
+        ids, which the tree engines bin natively;
+      * "onehot": each categorical column expands to one indicator column
+        a level (GLM), numeric columns are standardised with the training
+        frame's mean and sample sigma and NAs imputed, and `interactions`
+        add pairwise columns: num x num their product (standardised with
+        its own training statistics), cat x cat an indicator block over
+        the cross of the levels (at most 10,000 columns), cat x num one
+        column a level holding the number in the row's level slot.
+
+    The statistics come in as `means` and `sigmas` (by column or
+    interaction name); `from_frame` computes them from the training frame.
+    """
 
     def __init__(self, predictors: Sequence[str], cat_cols: Sequence[str],
                  domains: dict, response_name: Optional[str],
                  response_domain: Optional[list] = None,
-                 weights_name: Optional[str] = None):
-        self.cat_mode = "label"
+                 weights_name: Optional[str] = None, *,
+                 cat_mode: str = "label", standardize: bool = False,
+                 impute_missing: bool = True,
+                 offset_name: Optional[str] = None,
+                 means: Optional[dict] = None,
+                 sigmas: Optional[dict] = None,
+                 interactions: Optional[Sequence[str]] = None):
+        self.cat_mode = cat_mode
+        self.standardize = standardize
+        self.impute_missing = impute_missing
         self.predictors = list(predictors)
         self.cat_cols = [c for c in self.predictors if c in set(cat_cols)]
         self.num_cols = [c for c in self.predictors if c not in self.cat_cols]
@@ -42,22 +68,171 @@ class DataInfo:
         self.response_domain = (list(response_domain)
                                 if response_domain is not None else None)
         self.weights_name = weights_name
-        self.feature_names = list(self.predictors)
+        self.offset_name = offset_name
+        self.means = dict(means or {})
+        self.sigmas = dict(sigmas or {})
+        self.inter_pairs: list = []      # (num_a, num_b, name)
+        self.inter_catcat: list = []     # (cat_a, cat_b, name)
+        self.inter_catnum: list = []     # (cat_a, num_b, name)
+        if interactions:
+            self._set_interactions(interactions)
+        # expanded feature names, categoricals first as in H2O
+        self.feature_names: list[str] = []
+        if cat_mode == "onehot":
+            for c in self.cat_cols:
+                self.feature_names += [f"{c}.{lvl}" for lvl in self.domains[c]]
+            self.feature_names += self.num_cols
+            self.feature_names += [n for _, _, n in self.inter_pairs]
+            for a, b, name in self.inter_catcat:
+                self.feature_names += [
+                    f"{name}.{la}_{lb}" for la in self.domains[a]
+                    for lb in self.domains[b]]
+            for a, b, name in self.inter_catnum:
+                self.feature_names += [f"{a}.{la}:{b}"
+                                       for la in self.domains[a]]
+        else:
+            self.feature_names = list(self.predictors)
+
+    def _set_interactions(self, interactions):
+        if self.cat_mode != "onehot":
+            raise ValueError(
+                "interactions are only supported with the one-hot "
+                "design matrix (GLM-family models)")
+        # dedupe, keeping order: a repeated entry would pair with itself
+        interactions = list(dict.fromkeys(interactions))
+        unknown = [c for c in interactions if c not in self.predictors]
+        if unknown:
+            raise ValueError(
+                f"interactions reference unknown predictors: {unknown} "
+                "(GLM interaction-column validation)")
+        for a, b in itertools.combinations(interactions, 2):
+            a_cat, b_cat = a in self.cat_cols, b in self.cat_cols
+            if a_cat and b_cat:
+                cross = self.cardinalities[a] * self.cardinalities[b]
+                if cross > 10_000:
+                    raise ValueError(
+                        f"categorical interaction {a}x{b} expands to "
+                        f"{cross} indicator columns (cap 10000)")
+                self.inter_catcat.append((a, b, f"{a}_{b}"))
+            elif a_cat or b_cat:
+                ca, nb = (a, b) if a_cat else (b, a)
+                self.inter_catnum.append((ca, nb, f"{ca}:{nb}"))
+            else:
+                self.inter_pairs.append((a, b, f"{a}:{b}"))
 
     @staticmethod
     def from_frame(frame: Frame, x: Sequence[str], y: Optional[str],
-                   weights: Optional[str] = None) -> "DataInfo":
+                   weights: Optional[str] = None, *, cat_mode: str = "label",
+                   standardize: bool = False, offset: Optional[str] = None,
+                   interactions: Optional[Sequence[str]] = None
+                   ) -> "DataInfo":
+        """The codec of a training frame: its domains, and the mean and
+        sample sigma (n-1) of each numeric column from its rollups, summed
+        in float64 (0 sigma taken as 1)."""
         preds = [c for c in x if c != y and frame.vec(c).type != "str"]
         cats = [c for c in preds if frame.vec(c).type == T_CAT]
+        nums = [c for c in preds if c not in cats]
         rdom = None
         if y is not None and frame.vec(y).type == T_CAT:
             rdom = list(frame.vec(y).domain)
-        return DataInfo(preds, cats, {c: frame.vec(c).domain for c in cats},
-                        y, rdom, weights)
+        means = {c: frame.vec(c).mean() for c in nums}
+        sigmas = {c: frame.vec(c).sigma() or 1.0 for c in nums}
+        di = DataInfo(preds, cats, {c: frame.vec(c).domain for c in cats},
+                      y, rdom, weights, cat_mode=cat_mode,
+                      standardize=standardize, offset_name=offset,
+                      means=means, sigmas=sigmas, interactions=interactions)
+        for a, b, name in di.inter_pairs:
+            # the statistics of the f32 product, in float64
+            prod = (frame.vec(a).as_f32() * frame.vec(b).as_f32()).double()
+            ok = prod[~torch.isnan(prod)]
+            k = int(ok.numel())
+            di.means[name] = float(ok.mean()) if k else 0.0
+            di.sigmas[name] = (float(ok.std(correction=1)) or 1.0) \
+                if k > 1 else 1.0
+        return di
+
+    @property
+    def n_features(self) -> int:
+        return len(self.feature_names)
+
+    # ---- the design matrix ----------------------------------------------
+    def raw_columns(self) -> list:
+        """The columns of the raw matrix `assemble_design` takes: the
+        predictors in label mode; categorical codes first, then the
+        numeric columns, in one-hot mode."""
+        if self.cat_mode == "label":
+            return list(self.predictors)
+        return self.cat_cols + self.num_cols
+
+    def _assemble(self, raw_cat, raw_num):
+        """Raw columns (f32, NaN for NA) into the one-hot design matrix:
+        indicators, standardisation, imputation and interactions. An NA or
+        unseen level gives an all-zero indicator row, and so does an NA in
+        either factor of a cat x cat interaction."""
+        ref = raw_cat if raw_cat is not None else raw_num
+        dev = ref.device
+
+        def f32(vals):
+            return torch.tensor(np.asarray(vals, np.float32), device=dev)
+
+        def sig(name):
+            return max(self.sigmas[name], 1e-10)
+
+        def fix(x, mean, sigma):
+            if self.standardize:
+                x = (x - mean) / sigma
+            if self.impute_missing:
+                x = torch.where(torch.isnan(x),
+                                torch.zeros_like(mean)
+                                if self.standardize else mean, x)
+            return x
+
+        parts = []
+        for j, c in enumerate(self.cat_cols):
+            parts.append(_one_hot(raw_cat[:, j], self.cardinalities[c]))
+        if self.num_cols:
+            parts.append(fix(raw_num,
+                             f32([self.means[c] for c in self.num_cols]),
+                             f32([sig(c) for c in self.num_cols])))
+        for a, b, name in self.inter_pairs:
+            p = raw_num[:, self.num_cols.index(a)] \
+                * raw_num[:, self.num_cols.index(b)]          # raw product
+            parts.append(fix(p, f32(self.means[name]),
+                             f32(sig(name)))[:, None])
+        for a, b, _ in self.inter_catcat:
+            ca = raw_cat[:, self.cat_cols.index(a)]
+            cb = raw_cat[:, self.cat_cols.index(b)]
+            kb = self.cardinalities[b]
+            code = torch.where(torch.isnan(ca) | torch.isnan(cb),
+                               torch.full_like(ca, -1.0),
+                               torch.nan_to_num(ca) * kb
+                               + torch.nan_to_num(cb))
+            parts.append(_one_hot(code, self.cardinalities[a] * kb))
+        for a, b, _ in self.inter_catnum:
+            x = fix(raw_num[:, self.num_cols.index(b)], f32(self.means[b]),
+                    f32(sig(b)))
+            parts.append(_one_hot(raw_cat[:, self.cat_cols.index(a)],
+                                  self.cardinalities[a]) * x[:, None])
+        return torch.cat(parts, dim=1)
+
+    def assemble_design(self, raw: torch.Tensor) -> torch.Tensor:
+        """raw (rows, len(raw_columns())) f32, NaN for NA, to the design
+        matrix."""
+        if self.cat_mode == "label":
+            return raw
+        ncat = len(self.cat_cols)
+        return self._assemble(raw[:, :ncat] if ncat else None,
+                              raw[:, ncat:] if self.num_cols else None)
 
     def matrix(self, frame: Frame) -> torch.Tensor:
-        """(nrows, n_features) f32 on the frame's device, NaN for NA."""
-        return self.adapt(frame).matrix(self.predictors)
+        """(nrows, n_features) f32 on the frame's device: in label mode NaN
+        for NA, in one-hot mode imputed."""
+        frame = self.adapt(frame)
+        if self.cat_mode == "label":
+            return frame.matrix(self.predictors)
+        return self._assemble(
+            frame.matrix(self.cat_cols) if self.cat_cols else None,
+            frame.matrix(self.num_cols) if self.num_cols else None)
 
     def response(self, frame: Frame) -> torch.Tensor:
         """(nrows,) f32 response; class index for a categorical one."""
@@ -70,6 +245,14 @@ class DataInfo:
             return torch.where(torch.isnan(w), 0.0, w)
         return torch.ones(frame.nrows, dtype=torch.float32,
                           device=frame.vecs[0].device)
+
+    def offset(self, frame: Frame) -> Optional[torch.Tensor]:
+        """(nrows,) f32 offsets, 0 where NA; None without an offset column
+        (no model of either package reads it yet)."""
+        if not self.offset_name:
+            return None
+        o = frame.matrix([self.offset_name])[:, 0]
+        return torch.where(torch.isnan(o), 0.0, o)
 
     def adapt(self, frame: Frame) -> Frame:
         """Model.adaptTestForTrain: remap categorical level ids to the
@@ -105,6 +288,38 @@ class DataInfo:
         return f
 
 
+def _one_hot(code: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) f32 indicators of f32 level ids; a NaN, negative or
+    out-of-range id gives a row of zeros (as jax.nn.one_hot does;
+    torch.nn.functional.one_hot raises on them)."""
+    valid = ~torch.isnan(code) & (code >= 0) & (code < k)
+    idx = torch.where(valid, code, 0.0).long()
+    out = torch.zeros((code.shape[0], k), dtype=torch.float32,
+                      device=code.device)
+    return out.scatter_(1, idx[:, None], valid.to(torch.float32)[:, None])
+
+
+def _fold_custom_metric(udf, mapped):
+    """The CMetricFunc contract (water/udf): `map` gave per-row components,
+    folded down pairwise with the associative `reduce` (the JAX package's
+    order of halving); scalars already reduced pass through."""
+    tup = mapped if isinstance(mapped, tuple) else (mapped,)
+    if torch.as_tensor(tup[0]).dim() == 0:
+        return mapped
+    comps = tuple(torch.atleast_1d(torch.as_tensor(c)) for c in tup)
+    while comps[0].shape[0] > 1:
+        n = comps[0].shape[0]
+        even = n - (n % 2)
+        red = udf.reduce(tuple(c[0:even:2] for c in comps),
+                         tuple(c[1:even:2] for c in comps))
+        red = tuple(torch.atleast_1d(torch.as_tensor(a)) for a in red)
+        if n % 2:
+            red = tuple(torch.cat([a, c[-1:]]) for a, c in zip(red, comps))
+        comps = red
+    agg = tuple(c[0] for c in comps)
+    return agg if isinstance(mapped, tuple) else agg[0]
+
+
 def _remap_domain(v: Vec, want: list) -> Vec:
     lookup = {lvl: i for i, lvl in enumerate(want)}
     src = v.to_numpy()
@@ -126,10 +341,13 @@ class ModelOutput:
     response_domain: Optional[list] = None
     training_metrics: Optional[object] = None
     validation_metrics: Optional[object] = None
+    cross_validation_metrics: Optional[object] = None
     scoring_history: list = field(default_factory=list)
     model_summary: dict = field(default_factory=dict)
     variable_importances: Optional[list] = None
     run_time_ms: int = 0
+    cv_predictions_key: Optional[str] = None
+    cv_fold_assignment_key: Optional[str] = None
 
 
 class ModelBase:
@@ -141,16 +359,24 @@ class ModelBase:
     _COMMON = {
         "model_id": None, "seed": -1, "nfolds": 0, "weights_column": None,
         "offset_column": None, "fold_assignment": "AUTO", "fold_column": None,
+        "keep_cross_validation_predictions": False,
+        "keep_cross_validation_fold_assignment": False,
         "ignored_columns": None, "ignore_const_cols": True,
         "max_runtime_secs": 0.0, "standardize": True,
         "categorical_encoding": "AUTO", "distribution": "AUTO",
-        "checkpoint": None,
+        "checkpoint": None, "export_checkpoints_dir": None,
+        "custom_metric_func": None, "custom_distribution_func": None,
     }
-    # parameters whose non-default values select code the port does not
-    # have yet: (name, default, the JAX module that has it)
-    _LATER = (("nfolds", 0, "model.py cross-validation"),
-              ("fold_column", None, "model.py cross-validation"),
-              ("offset_column", None, "model.py offsets"))
+    # parameters the JAX package accepts and never reads, although a set
+    # value would change the result: the port takes them at their default
+    # and raises when one is set, (name, default, why)
+    _IGNORED_IN_JAX = (
+        ("offset_column", None,
+         "no model of the JAX package reads its offset "
+         "(h2o3_tpu/models/model.py:273, DataInfo.offset has no caller)"),
+        ("export_checkpoints_dir", None,
+         "the JAX package accepts it and writes no checkpoint "
+         "(h2o3_tpu/models/model.py:394)"))
 
     def __init__(self, **params):
         self.params = dict(self._COMMON)
@@ -162,14 +388,15 @@ class ModelBase:
         self.params.update(params)
         self._output: Optional[ModelOutput] = None
         self._dinfo: Optional[DataInfo] = None
+        self._job: Optional[Job] = None
         self.key: Optional[str] = None
 
     def _check_ported(self):
-        for name, default, where in self._LATER:
+        for name, default, why in self._IGNORED_IN_JAX:
             if (self.params.get(name) or default) != default:
                 raise NotImplementedError(
                     f"{self.algo}: {name}={self.params[name]!r} is not "
-                    f"ported yet (h2o3_tpu/models/{where})")
+                    f"supported: {why}")
 
     # ---- public training entry point (H2OEstimator.train) ----------------
     def train(self, x=None, y=None, training_frame=None,
@@ -182,37 +409,54 @@ class ModelBase:
             raise ValueError(f"{self.algo} requires a response column y")
         self._check_ported()
         x = self._resolve_predictors(frame, x, y)
-        self._dinfo = DataInfo.from_frame(
-            frame, x, y, weights=self.params.get("weights_column"))
+        self._dinfo = self._make_data_info(frame, x, y)
         self.key = self.params.get("model_id") or DKV.make_key(self.algo)
         self._output = ModelOutput(model_id=self.key, algo=self.algo,
                                    names=list(x),
                                    domains=self._dinfo.domains,
                                    response_domain=self._dinfo.response_domain)
+        job = Job(description=f"{self.algo} on {frame.key}", dest=self.key)
         t0 = time.time()
-        # max_runtime_secs: a deadline that the trainers test at each chunk
-        # boundary, after the chunk's history entry (Job.budget_exhausted)
+        # max_runtime_secs: the job's deadline, which the trainers test at
+        # each chunk boundary, after the chunk's history entry
         mrs = float(self.params.get("max_runtime_secs") or 0.0)
-        self._deadline = t0 + mrs if mrs > 0 else None
+        if mrs > 0:
+            job.deadline = t0 + mrs
+        self._job = job
         # the scoring history scores the validation frame when one is given
         # (ScoreKeeper and early stopping prefer its metrics)
         self._valid_for_scoring = validation_frame
-        try:
-            self._fit(frame)
-            self._score_train_valid(frame, validation_frame)
-        finally:
-            # release the validation scoring state: its margins and matrix
-            # would otherwise pin device memory for the model's lifetime
-            self._vstate = None
-            self._valid_for_scoring = None
-        self._output.run_time_ms = int(1000 * (time.time() - t0))
+
+        def work(job: Job):
+            try:
+                if int(self.params["nfolds"] or 0) > 1 \
+                        or self.params.get("fold_column"):
+                    self._run_cross_validation(frame, x, y, job)
+                self._fit(frame)
+                self._score_train_valid(frame, validation_frame)
+            finally:
+                # release the validation scoring state: its margins and
+                # matrix would otherwise pin device memory for the model's
+                # lifetime
+                self._vstate = None
+                self._valid_for_scoring = None
+            self._output.run_time_ms = int(1000 * (time.time() - t0))
+            return self
+
+        job.start(work, background=False)
+        job.join()
         DKV.put(self.key, self)
         return self
 
     def _budget_exhausted(self) -> bool:
-        """True once train()'s max_runtime_secs deadline has passed."""
-        deadline = getattr(self, "_deadline", None)
-        return deadline is not None and time.time() > deadline
+        """The job's budget_exhausted, tested now: True once train()'s
+        max_runtime_secs deadline has passed (a stop asked of the job
+        raises JobCancelled here)."""
+        job = self._job
+        if job is None:
+            return False
+        job.update(job.progress)
+        return job.budget_exhausted
 
     def _resolve_predictors(self, frame, x, y):
         if x is None:
@@ -226,6 +470,17 @@ class ModelBase:
         if self.params.get("ignore_const_cols"):
             x = [c for c in x if not frame.vec(c).is_const()]
         return x
+
+    def _make_data_info(self, frame, x, y) -> DataInfo:
+        return DataInfo.from_frame(
+            frame, x, y, weights=self.params.get("weights_column"),
+            cat_mode=self._cat_mode(),
+            standardize=bool(self.params.get("standardize")),
+            offset=self.params.get("offset_column"),
+            interactions=self.params.get("interactions"))
+
+    def _cat_mode(self) -> str:
+        return "onehot"
 
     # ---- algorithm hooks ---------------------------------------------------
     def _fit(self, frame: Frame):
@@ -273,7 +528,19 @@ class ModelBase:
         w = di.weights(frame)
         w = torch.where(torch.isnan(y), 0.0, w)
         out = self._score_matrix(di.matrix(frame))
-        return self._metrics_from_preds(y, out, w)
+        m = self._metrics_from_preds(y, out, w)
+        cmf = self.params.get("custom_metric_func")
+        if cmf and m is not None:
+            # the CMetricFunc contract on the card: rows with w = 0 (a
+            # missing response) must not poison the aggregate, so their
+            # y is neutralised (0 * NaN would propagate)
+            udf = resolve_udf(cmf)
+            ysafe = torch.where(w > 0, torch.nan_to_num(y), 0.0)
+            agg = _fold_custom_metric(udf, udf.map(torch.nan_to_num(out),
+                                                   ysafe, w))
+            m.custom_metric = {"name": udf.name,
+                               "value": float(udf.metric(agg))}
+        return m
 
     def _metrics_from_preds(self, y, out, w):
         if self._is_classifier and self.nclasses == 2:
@@ -290,6 +557,82 @@ class ModelBase:
         self._output.training_metrics = self._compute_metrics(frame)
         if valid is not None:
             self._output.validation_metrics = self._compute_metrics(valid)
+
+    # ---- cross-validation (ModelBuilder.computeCrossValidation) -----------
+    def _fold_ids(self, frame: Frame, y) -> tuple[np.ndarray, list]:
+        """Each row's fold, and the folds, as the JAX package assigns them.
+        The draws come from numpy's default_rng(seed) on the host, in the
+        JAX package's order of calls, and not from a torch generator: the
+        folds must be that package's folds row for row."""
+        nfolds = int(self.params["nfolds"] or 0)
+        fold_col = self.params.get("fold_column")
+        n = frame.nrows
+        if fold_col:
+            fa = frame.vec(fold_col).to_numpy().astype(int)
+            return fa, sorted(set(fa.tolist()))
+        seed = int(self.params.get("seed") or -1)
+        rng = np.random.default_rng(seed if seed > 0 else None)
+        how = self.params.get("fold_assignment") or "AUTO"
+        if how in ("AUTO", "Random"):
+            fa = rng.integers(0, nfolds, size=n)
+        elif how == "Modulo":
+            fa = np.arange(n) % nfolds
+        else:       # Stratified: per-class modulo over a shuffled order
+            yv = frame.vec(y).to_numpy()
+            fa = np.zeros(n, int)
+            for cls in np.unique(yv[~np.isnan(yv)]):
+                idx = np.where(yv == cls)[0]
+                rng.shuffle(idx)
+                fa[idx] = np.arange(len(idx)) % nfolds
+        return fa, list(range(nfolds))
+
+    def _run_cross_validation(self, frame: Frame, x, y, job: Job):
+        """One model a fold on the other folds' rows (row subsets taken on
+        the frame's device), scored on its fold; the holdout predictions of
+        all folds make `cross_validation_metrics`. Every fold model gets
+        what remains of the job's deadline."""
+        fa, folds = self._fold_ids(frame, y)
+        n = frame.nrows
+        dev = frame.vecs[0].device
+        holdout = None
+        cv_models = []
+        for fi, f in enumerate(folds):
+            te_np = fa == f
+            tr = _subframe(frame, torch.from_numpy(
+                np.flatnonzero(~te_np)).to(dev))
+            te_idx = torch.from_numpy(np.flatnonzero(te_np)).to(dev)
+            te = _subframe(frame, te_idx)
+            mb = self.__class__(**{k: v for k, v in self.params.items()
+                                   if k not in ("nfolds", "model_id",
+                                                "fold_column")})
+            mb.params["nfolds"] = 0
+            if job.deadline is not None:
+                mb.params["max_runtime_secs"] = max(
+                    1.0, job.deadline - time.time())
+            mb.train(x=x, y=y, training_frame=tr)
+            cv_models.append(mb)
+            out = mb._score_matrix(mb._dinfo.matrix(te)).to(torch.float32)
+            if holdout is None:
+                holdout = torch.full((n,) + tuple(out.shape[1:]), math.nan,
+                                     dtype=torch.float32, device=dev)
+            holdout[te_idx] = out
+            for k in (tr.key, te.key):
+                DKV.remove(k)
+            job.update(0.5 * (fi + 1) / len(folds), f"CV fold {fi + 1}")
+        di = self._dinfo
+        self._output.cross_validation_metrics = self._metrics_from_preds(
+            di.response(frame), holdout, di.weights(frame))
+        self._cv_models = cv_models
+        if self.params.get("keep_cross_validation_predictions"):
+            cols = holdout if holdout.dim() == 2 else holdout[:, None]
+            cvp = Frame([f"C{j + 1}" for j in range(cols.shape[1])],
+                        [Vec.from_tensor(cols[:, j])
+                         for j in range(cols.shape[1])])
+            self._output.cv_predictions_key = cvp.key
+        if self.params.get("keep_cross_validation_fold_assignment"):
+            cvf = Frame(["C1"], [Vec.from_tensor(
+                torch.from_numpy(fa.astype(np.float32)).to(dev))])
+            self._output.cv_fold_assignment_key = cvf.key
 
     # ---- introspection -------------------------------------------------------
     def _metric(self, name, valid):
@@ -314,3 +657,19 @@ class ModelBase:
 
     def varimp(self):
         return self._output.variable_importances if self._output else None
+
+
+def _subframe(frame: Frame, idx: torch.Tensor) -> Frame:
+    """Rows `idx` (int64, on the frame's device) of every column, in that
+    order, with the columns' types and domains (CV fold splitting; the JAX
+    package takes the rows on the host)."""
+    vecs = []
+    for c in frame.names:
+        v = frame.vec(c)
+        if v.type == T_STR:
+            vecs.append(Vec(None, idx.numel(), T_STR,
+                            host_data=v.host_data[idx.cpu().numpy()]))
+        else:
+            vecs.append(Vec(v.data.index_select(0, idx), idx.numel(), v.type,
+                            v.domain))
+    return Frame(list(frame.names), vecs)

@@ -38,6 +38,7 @@ from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
+from h2o3_tpu_torch.udf import resolve_udf
 
 class SharedTreeEstimator(ModelBase):
     """Common driver of the tree estimators."""
@@ -49,13 +50,27 @@ class SharedTreeEstimator(ModelBase):
         "min_split_improvement": 1e-5, "mtries": -2,
         "score_tree_interval": 5, "stopping_rounds": 0,
         "stopping_metric": "AUTO", "stopping_tolerance": 1e-3,
-        "histogram_type": "AUTO", "balance_classes": False,
+        "build_tree_one_node": False, "histogram_type": "AUTO",
+        "calibrate_model": False, "balance_classes": False,
         "monotone_constraints": None, "nbins_top_level": None,
         # kernel flags (None = the JAX package's default: int8 off, radix
         # and fused on wherever the level qualifies; False forces the dense
         # histogram / the sequential route-then-histogram pair)
         "int8_hist": None, "radix_shallow": None, "fused_level": None,
     }
+    # build_tree_one_node is a placement hint, meaningless on one card, and
+    # taken; calibrate_model would add calibrated columns, which the JAX
+    # package never computes
+    _IGNORED_IN_JAX = ModelBase._IGNORED_IN_JAX + (
+        ("calibrate_model", False,
+         "the JAX package accepts it and never calibrates "
+         "(h2o3_tpu/models/tree/shared_tree.py:57)"),)
+
+    # a custom distribution's UDF, resolved by GBM's _fit
+    _udf_dist = None
+
+    def _cat_mode(self) -> str:
+        return "label"
 
     def _validate_early_stopping(self):
         """Fail fast on an unusable stopping_metric (H2O validates at
@@ -234,7 +249,7 @@ class SharedTreeEstimator(ModelBase):
         return ta, gainsT
 
     def _record_history(self, ntrees, F, y, w, dist):
-        mu = _link_inv_dist(dist, F)
+        mu = _link_inv_dist(dist, F, udf=self._udf_dist)
         if self._is_classifier:
             m = M.binomial_metrics(y, mu[:, 1], w)
             h = {"number_of_trees": ntrees, "training_logloss": m.logloss,
@@ -284,7 +299,8 @@ class SharedTreeEstimator(ModelBase):
         if getattr(self, "_vstate", None) is None:
             return {}
         vs = self._vstate
-        mu = _link_inv_dist(dist, vs["F"])
+        mu = _link_inv_dist(dist, vs["F"],
+                            udf=self._udf_dist)
         vm = self._metrics_from_preds(vs["y"], mu, vs["w"])
         out = {}
         for k in ("logloss", "auc", "pr_auc", "rmse", "mae", "r2"):
@@ -382,10 +398,12 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
     def _fit(self, frame: Frame):
         dist = self._resolve_dist()
         self._dist = dist
+        # a custom distribution UDF (water/udf CDistributionFunc); the
+        # binned gate turns it away, so it grows on the adaptive engine
+        self._udf_dist = None
         if dist == "custom":
-            raise NotImplementedError(
-                "gbm: distribution='custom' is not ported yet (it needs the "
-                "UDF module, h2o3_tpu/udf)")
+            self._udf_dist = resolve_udf(
+                self.params.get("custom_distribution_func"))
         if self._binned_ok(dist):
             if dist == "multinomial":
                 return self._fit_binned_multinomial(frame)
@@ -566,7 +584,8 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         dev = X.device
         draws = self._draws(dev)
         grower = self._grower()
-        f0 = _initial_f0(dist, y, w)
+        udf = self._udf_dist
+        f0 = _initial_f0(dist, y, w, udf=udf)
         F = torch.full((X.shape[0],), f0, dtype=torch.float32, device=dev)
         sample_rate = float(p["sample_rate"])
         trees = []
@@ -597,7 +616,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             self._valid_advance(E.stack_trees(trees, grower.D), lr)
         scored = len(trees)
         for t in range(len(trees), ntrees):
-            res, hess = _grad_hess(dist, F, y)
+            res, hess = _grad_hess(dist, F, y, udf=udf)
             wt = self._sample_weights(w, draws, sample_rate)
             cmask = self._col_mask(X.shape[1], draws)
             col, thr, nal, val, heap, g = grower.grow(
@@ -693,7 +712,8 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
                  for c, ta in enumerate(self._trees_k)], dim=1)
             return torch.softmax(F, dim=1)
         F = self._f0 + lr * E.predict_ensemble(X, self._trees.to(X.device))
-        return _link_inv_dist(self._dist, F)
+        return _link_inv_dist(self._dist, F,
+                              udf=self._udf_dist)
 
     def _contrib_scale_bias(self):
         return float(self.params["learn_rate"]), float(self._f0)
@@ -713,12 +733,15 @@ def _generator(params, device):
     return gen
 
 
-def _initial_f0(dist, y, w) -> float:
-    """The initial margin from the weighted response mean: its logit for
-    bernoulli, its log for poisson, gamma and tweedie, the mean itself
-    otherwise (quasibinomial and laplace included, as in the reference)."""
+def _initial_f0(dist, y, w, udf=None) -> float:
+    """The initial margin from the weighted response mean: a custom
+    distribution's init_f0 of it, its logit for bernoulli, its log for
+    poisson, gamma and tweedie, the mean itself otherwise (quasibinomial
+    and laplace included, as in the reference)."""
     wsum, wysum = torch.stack([w.sum(), (w * y).sum()]).cpu().tolist()
     ybar = wysum / max(wsum, 1e-30)
+    if udf is not None:
+        return float(udf.init_f0(ybar))
     if dist == "bernoulli":
         p0 = min(max(ybar, 1e-10), 1 - 1e-10)
         return math.log(p0 / (1 - p0))
@@ -735,9 +758,12 @@ def _class_prior_f0(y, w, K) -> np.ndarray:
     return np.log(np.maximum(prior.cpu().numpy(), 1e-10)).astype(np.float32)
 
 
-def _grad_hess(dist, F, y):
+def _grad_hess(dist, F, y, udf=None):
     """ComputePredAndRes (GBM.java:981): per-row pseudo-residual and
-    hessian. Huber and quantile are in no engine of the JAX package."""
+    hessian, a custom distribution's own when one is given. Huber and
+    quantile are in no engine of the JAX package."""
+    if udf is not None:
+        return udf.grad_hess(F, y)
     if dist == "gaussian":
         return y - F, torch.ones_like(F)
     if dist in ("bernoulli", "quasibinomial"):
@@ -758,7 +784,9 @@ def _grad_hess(dist, F, y):
     raise NotImplementedError(f"GBM distribution {dist}")
 
 
-def _link_inv_dist(dist, F):
+def _link_inv_dist(dist, F, udf=None):
+    if udf is not None:
+        return udf.link_inv(F)
     if dist in ("bernoulli", "quasibinomial"):
         p = torch.sigmoid(F)
         return torch.stack([1 - p, p], dim=1)

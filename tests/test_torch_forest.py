@@ -443,11 +443,12 @@ def test_drf_mtries_rule_matches_jax(mtries):
             assert tm._resolve_mtries(C, K) == jm._resolve_mtries(C, K)
 
 
-@pytest.mark.parametrize("algo", ["gbm", "drf", "xgboost", "isolationforest"])
+@pytest.mark.parametrize("algo", ["gbm", "drf", "xgboost", "isolationforest",
+                                  "glm"])
 def test_estimator_parameters_match_jax(algo):
-    """The parameters of each estimator and their defaults against the JAX
-    package's: equal, but for the ones the port does not take yet (queue 1
-    item 5 of ROADMAP.md), which it refuses as unknown."""
+    """The parameters of each estimator and their defaults equal the JAX
+    package's, the cross-validation, UDF and checkpoint-directory ones
+    included; an unknown one is refused."""
     jcls, tcls = {
         "gbm": (JMODELS.H2OGradientBoostingEstimator,
                 h2o3_tpu_torch.H2OGradientBoostingEstimator),
@@ -457,13 +458,16 @@ def test_estimator_parameters_match_jax(algo):
                     h2o3_tpu_torch.H2OXGBoostEstimator),
         "isolationforest": (JMODELS.H2OIsolationForestEstimator,
                             h2o3_tpu_torch.H2OIsolationForestEstimator),
+        "glm": (JMODELS.H2OGeneralizedLinearEstimator,
+                h2o3_tpu_torch.H2OGeneralizedLinearEstimator),
     }[algo]
     jp, tp = jcls().params, tcls().params
-    later = {"build_tree_one_node", "calibrate_model",
-             "custom_distribution_func", "custom_metric_func",
-             "export_checkpoints_dir", "keep_cross_validation_fold_assignment",
-             "keep_cross_validation_predictions"}
-    assert set(jp) - set(tp) == later and set(tp) <= set(jp)
-    assert {k: tp[k] for k in tp} == {k: jp[k] for k in tp}
+    assert set(tp) == set(jp)
+    assert tp == jp
+    for name in ("keep_cross_validation_predictions",
+                 "keep_cross_validation_fold_assignment",
+                 "export_checkpoints_dir", "custom_metric_func",
+                 "custom_distribution_func"):
+        assert name in tp
     with pytest.raises(ValueError, match="unknown parameters"):
-        tcls(calibrate_model=False)
+        tcls(no_such_parameter=1)

@@ -683,3 +683,60 @@ def test_isolation_forest_on_the_card_matches_the_cpu(dev, HC):
     assert torch.equal(tg.col, tc.col)
     assert torch.allclose(tg.thr, tc.thr, rtol=0, atol=0, equal_nan=True)
     assert np.abs(pg - pc).max() < 1e-5
+
+
+@pytest.mark.gpu
+def test_glm_gram_in_f32_against_f64_on_the_card(dev):
+    """The IRLS Gram (`glm._gram_pass`) on the card in f32, TF32 off as
+    the port leaves it: G and q within 1e-5 of their largest entry of the
+    same Gram in float64 on the card, at 200,000 rows x 29 columns."""
+    from h2o3_tpu_torch.models import glm
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn((200_000, 28), generator=g, device=dev)
+    Xi = torch.cat([X, torch.ones((X.shape[0], 1), device=dev)], 1)
+    w = torch.rand(X.shape[0], generator=g, device=dev) * 0.25
+    z = torch.randn(X.shape[0], generator=g, device=dev)
+    G, q = glm._gram_pass(Xi, w, z)
+    G64, q64 = glm._gram_pass(Xi.double(), w.double(), z.double())
+    assert (G.double() - G64).abs().max() <= 1e-5 * G64.abs().max()
+    assert (q.double() - q64).abs().max() <= 1e-5 * q64.abs().max()
+
+
+@pytest.mark.gpu
+def test_one_hot_design_on_the_card_matches_the_cpu(dev):
+    """The one-hot design matrix (NA and unseen levels, standardised,
+    imputed, all three kinds of interaction) built on the card with the
+    CPU codec's statistics equals the CPU's bit for bit (the same f32
+    elementwise operations); the card's own statistics (float64 sums in
+    another order) within 1e-12 of the CPU's."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    from h2o3_tpu_torch.models.model import DataInfo
+    rng = np.random.default_rng(8)
+    n = 5000
+    a, b = rng.normal(size=(2, n))
+    a[rng.random(n) < 0.05] = np.nan
+    color = np.array(rng.choice(["r", "g", "b", "t"], n), object)
+    color[rng.random(n) < 0.05] = None
+    shade = np.array(rng.choice(["d", "l"], n), object)
+    test_color = color.copy()
+    test_color[::7] = "unseen"
+    names = ["a", "b", "color", "shade"]
+    out, infos = {}, {}
+    for d in ("cpu", "cuda"):
+        h2o.init(device=d)
+        tr = Frame(names, [Vec.from_numpy(a), Vec.from_numpy(b),
+                           Vec.from_numpy(color), Vec.from_numpy(shade)])
+        te = Frame(names, [Vec.from_numpy(a), Vec.from_numpy(b),
+                           Vec.from_numpy(test_color), Vec.from_numpy(shade)])
+        infos[d] = DataInfo.from_frame(tr, names, None, cat_mode="onehot",
+                                       standardize=True, interactions=names)
+        di = infos["cpu"]
+        out[d] = (di.matrix(tr).cpu(), di.matrix(te).cpu())
+    for cpu, card in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(cpu, card)
+    for k, v in infos["cpu"].means.items():
+        assert abs(infos["cuda"].means[k] - v) <= 1e-12 * max(abs(v), 1.0)
+        assert abs(infos["cuda"].sigmas[k] - infos["cpu"].sigmas[k]) \
+            <= 1e-12 * infos["cpu"].sigmas[k]

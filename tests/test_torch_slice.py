@@ -438,22 +438,27 @@ def test_sampling_and_monotone_options(port_cpu):
 
 
 def test_unported_options_raise(port_cpu, slice_run):
-    """What is still unported raises rather than being ignored:
-    cross-validation (folds or a fold column), an offset column, a custom
-    GBM distribution (the UDF module) and a DRF checkpoint restart (the
-    JAX package's DRF has none)."""
+    """What the JAX package accepts and ignores although it would change
+    the result raises rather than being ignored: an offset column (no JAX
+    model reads it), `export_checkpoints_dir` (it writes nothing),
+    `calibrate_model` (it never calibrates) and a DRF checkpoint restart
+    (the JAX package's DRF has none). Cross-validation and a custom
+    distribution are ported: tests/test_torch_cv.py, test_torch_udf.py."""
     tm = slice_run["tm"]
     gbm = h2o3_tpu_torch.H2OGradientBoostingEstimator
     drf = h2o3_tpu_torch.H2ORandomForestEstimator
-    cases = [(gbm, {**GBM, "nfolds": 3}, "label"),
-             (gbm, {**GBM, "fold_column": "a"}, "label"),
-             (gbm, {**GBM, "offset_column": "a"}, "label"),
-             (gbm, {**GBM, "distribution": "custom"}, "a"),
+    cases = [(gbm, {**GBM, "offset_column": "a"}, "label"),
+             (gbm, {**GBM, "export_checkpoints_dir": "ckpt"}, "label"),
+             (gbm, {**GBM, "calibrate_model": True}, "label"),
              (drf, {"ntrees": 2, "max_depth": 4, "checkpoint": tm}, "label")]
     for cls, params, y in cases:
         m = cls(**params)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(NotImplementedError,
+                           match="not ported yet|not supported"):
             m.train(y=y, training_frame=slice_run["tfr"])
+    # a placement hint, meaningless on one card: taken
+    gbm(**GBM, build_tree_one_node=True).train(
+        y="label", training_frame=slice_run["tfr"])
 
 
 def test_init_device_rule(monkeypatch):
@@ -480,6 +485,8 @@ def test_port_imports_no_jax():
                    if "build" not in f.relative_to(pkg).parts)
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    assert {pkg / "core" / "jobs.py", pkg / "udf.py",
+            pkg / "models" / "glm.py"} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
