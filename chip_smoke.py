@@ -118,6 +118,41 @@ Phases, each printing its lines before the last:
            folds: launches per tree over every tree built as in (b), CV
            AUC within 0.01 of the training AUC, fold sizes within 1% of a
            third;
+     then DeepLearning and the unsupervised family (plain PyTorch, TF32
+     off; no kernel launch may count), each with its train() seconds and
+     peak memory:
+       (q) DL binomial at H2O's defaults (hidden [200, 200], Rectifier,
+           ADADELTA, mini-batch 256) on the HIGGS frame with its
+           validation frame, 0.1 epochs: train AUC > 0.7, validation AUC
+           within 0.01 of it; a stage table of a step (forward,
+           backward, optimizer, each beside its bound); a torch.profiler
+           busy share, launches a step and host time by op over 0.02
+           epochs, trained again with the same seed (the largest weight
+           difference, and the first op that differs if it is not 0); a
+           20,000-row slice card vs CPU with the CPU's draws
+           (probabilities within 1e-3);
+       (r) DL multinomial on (m)'s Covertype frame, 1 epoch: training
+           logloss below the class prior's entropy;
+       (s) a Tanh DL autoencoder on (j)'s credit-card frame, 1 epoch:
+           anomaly()'s AUC against the planted labels above a bar set from
+           a CPU run;
+       (t) KMeans k 10 (Furthest, standardised, 10 iterations) on 10
+           Gaussian blobs at HIGGS shape: tot_withinss never rising,
+           totss and tot_withinss within 1e-5 of float64 sums, sizes
+           summing to nobs, each planted centre recovered, a second
+           training bit-identical, a 200,000-row slice card vs CPU
+           (centroids within 1e-4), a stage table of the Lloyd step;
+       (u) PCA k 5 STANDARDIZE on a rank-5 frame at HIGGS shape (+ N(0,
+           0.1²) noise): eigenvalues within 1e-5 of a float64 Gram of the
+           same X, the cumulative proportion at 5 PCs as planted (1e-3),
+           principal angles to the planted loadings below 0.01 rad;
+       (v) SVD nv 5 with keep_u on the same frame: d within 1e-5 of
+           float64, UᵀU within 1e-4 of I, U·diag(d)·Vᵀ leaving the noise
+           outside 5 dimensions (within 5%);
+       (w) GLRM k 5 on the same frame with 5% NA: the objective never
+           rising, reconstruct()'s RMSE on the held-out entries within 5%
+           of what the noise leaves, a stage table of step_A, step_B and
+           the objective;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -137,9 +172,10 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(p) are printed again just before the two JSON
+The lines of runs (d)-(w) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine and GLM add no kernel to it); the last line is
+engine, GLM, DeepLearning and the unsupervised family add no kernel to
+it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -266,6 +302,38 @@ ISO = dict(ntrees=50, max_depth=8, sample_size=256, nbins=20, seed=1)
 # numbers, and an isolation forest that splits at random scores 0.5
 ISO_AUC_CPU = 0.855526
 ISO_AUC_BAR = 0.80
+# runs (q)-(w): DeepLearning and the unsupervised family (plain PyTorch;
+# no kernel of ops/csrc on their paths)
+# (q) DL binomial at H2O's defaults (hidden [200, 200], Rectifier,
+# ADADELTA rho 0.99 eps 1e-8, mini-batch 256) on the HIGGS frame with its
+# validation frame, 0.1 epochs (of 10)
+DL_HIGGS = dict(epochs=0.1, seed=1)
+# (q)'s card-vs-CPU slice, 1 epoch, and its limit on the probabilities:
+# f32 sums in another order over 78 steps
+DL_SLICE_N, DL_SLICE_TOL = 20_000, 1e-3
+# (q)'s configuration under torch.profiler: 859 steps
+DL_PROFILE_EPOCHS = 0.02
+# (r) DL multinomial on the Covertype frame of (m), 1 epoch (of 10)
+DL_COV = dict(epochs=1.0, seed=1)
+# (s) a Tanh autoencoder (the activation of H2O's anomaly examples) at
+# the default width [200, 200] on the credit-card frame of (j), 1 epoch
+# (of 10); the reconstruction MSE's AUC against the planted labels must
+# pass DL_AE_AUC_BAR: a CPU run of the same generator (torch's CPU
+# generator, seed 11) through the port on the CPU gave DL_AE_AUC_CPU
+DL_AE = dict(autoencoder=True, activation="Tanh", epochs=1.0, seed=1)
+DL_AE_AUC_CPU = 0.977605
+DL_AE_AUC_BAR = 0.95
+# (t) KMeans at H2O's defaults (Furthest, standardize, 10 iterations) with
+# k 10 on BLOB_K blobs at HIGGS shape (centres N(0, BLOB_SPREAD²), unit
+# noise); each planted centre must lie within BLOB_RECOVER standardised
+# units of its own centroid; a KM_SLICE_N-row slice card vs CPU
+BLOB_K, BLOB_SPREAD, BLOB_RECOVER = 10, 5.0, 0.02
+KM_BLOBS = dict(k=BLOB_K, init="Furthest", standardize=True,
+                max_iterations=10, seed=1)
+KM_SLICE_N = 200_000
+# (u)-(w): a rank-RANK signal plus N(0, RANK_NOISE²) noise at HIGGS
+# shape; NA_SHARE of its entries NA for GLRM
+RANK, RANK_NOISE, NA_SHARE = 5, 0.1, 0.05
 # the adaptive engine's stages, as its functions (engine.py)
 STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
           ("binning", "bin_rows"), ("histogram", "build_histograms"),
@@ -284,7 +352,8 @@ LOG = []
 RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\))|"
                    r"xgboost \(g\)|drf \(h\)|isolation forest \(j\)|"
-                   r"adaptive|glm|gbm (custom|cv))")
+                   r"adaptive|glm|gbm (custom|cv)|deeplearning|kmeans|"
+                   r"pca \(|svd \(|glrm \()")
 
 
 def say(msg):
@@ -1214,28 +1283,12 @@ def busy_share(torch, h2o, fr):
         with record_function("h2o3_train"):
             m.train(y="y", training_frame=fr)
             torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    window = [e for e in events if e.get("name") == "h2o3_train"
-              and e.get("cat") == "user_annotation" and "dur" in e]
-    check(len(window) == 1, f"profiler: {len(window)} train() windows")
-    t0, t1 = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
-    dev = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1), e)
-                 for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                 and "dur" in e)
+    t0, t1, dev = _trace_window(prof, "h2o3_train")
     if not dev:
         say("profiler: busy share not measured (the trace holds no device "
             "activity)")
         return
-    busy, end = 0.0, t0
-    for a, b, _ in dev:
-        if b > max(a, end):
-            busy += b - max(a, end)
-        end = max(end, b)
+    busy = _busy(t0, dev)
     by_name = {}
     for a, b, e in dev:
         if e.get("cat") == "kernel":
@@ -1669,20 +1722,15 @@ def glm_gram_check(torch, m, fr):
 def glm_slice_card_vs_cpu(torch, h2o, fr):
     """(k)'s fit without cross-validation on the frame's first 200,000
     rows, on the card and on the CPU."""
-    from h2o3_tpu_torch.core.frame import Frame, Vec
     params = {k: v for k, v in GLM_K.items() if k not in ("nfolds", "seed")}
     sl = _sub_frame(fr, GLM_SLICE_N)
-    card = h2o.H2OGeneralizedLinearEstimator(**params)
-    card.train(y="y", training_frame=sl)
-    h2o.init(device="cpu")
-    try:
-        cf = Frame(sl.names, [Vec.from_tensor(v.data.cpu(), type=v.type,
-                                              domain=v.domain)
-                              for v in sl.vecs])
-        cpu = h2o.H2OGeneralizedLinearEstimator(**params)
-        cpu.train(y="y", training_frame=cf)
-    finally:
-        h2o.init()
+
+    def fit(frame):
+        m = h2o.H2OGeneralizedLinearEstimator(**params)
+        m.train(y="y", training_frame=frame)
+        return m
+    card = fit(sl)
+    cpu = _on_cpu(h2o, lambda: fit(_cpu_frame(sl)))
     db = float(np.abs(card._state.beta - cpu._state.beta).max()
                / np.abs(cpu._state.beta).max())
     da = abs(card.auc() - cpu.auc())
@@ -2038,6 +2086,660 @@ def phase_small_glm(torch, h2o, HC):
                   f"{gd}, launches {gl}")
             check(db <= tol_b and dp <= tol_p, f"small path glm {fam}: "
                   f"coefficients differ by {db}, predictions by {dp}")
+
+
+# ---------------------------------------------------------------------------
+# Runs (q)-(w): DeepLearning and the unsupervised family. The JAX package
+# computes them in XLA without a Pallas call, so they are plain PyTorch on
+# the card (their products cuBLAS f32 matmuls, TF32 off): no kernel of
+# ops/csrc is on their paths, and none may count a launch.
+def _cpu_frame(fr):
+    """A frame's columns copied to the CPU (the card-vs-CPU slices)."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    return Frame(fr.names, [Vec.from_tensor(v.data.cpu(), type=v.type,
+                                            domain=v.domain)
+                            for v in fr.vecs])
+
+
+def _on_cpu(h2o, fn):
+    """fn() with the cloud on the CPU; the card's cloud again after."""
+    h2o.init(device="cpu")
+    try:
+        return fn()
+    finally:
+        h2o.init()
+
+
+def _peak_gib(torch, held):
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak memory {peak / 2**30:.2f} GiB "
+            f"({(peak - held) / 2**30:.2f} GiB above what was held before "
+            "train())")
+
+
+def timed_train(torch, HC, label, make, **train_kw):
+    """make() an estimator and train it with the launch counts reset just
+    before and read just after (none may count); returns (model, train
+    seconds, peak memory text)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m = make()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    m.train(**train_kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+    check(not launches, f"{label}: kernel launches {launches}")
+    return m, t, _peak_gib(torch, held)
+
+
+def _dl_step_bounds(mb, dims, params):
+    """Bounds (ms, by) of one step's stages at mini-batch mb through
+    layers of `dims`: forward (the batch gathered, weights read,
+    activations written), backward (activations and weights read, their
+    gradients written; two products a layer) and ADADELTA (each parameter,
+    its gradient and two accumulators read, three written)."""
+    mac = sum(a * b for a, b in zip(dims, dims[1:]))
+    acts = sum(dims[1:])
+    return {
+        "forward": _bound_ms(4 * (mb * dims[0] + params + mb * acts + 2 * mb),
+                             2 * mb * mac),
+        "backward": _bound_ms(4 * (2 * mb * acts + 2 * params), 4 * mb * mac),
+        "optimizer": _bound_ms(4 * 7 * params, 10 * params),
+    }
+
+
+def dl_stage_table(torch, m, fr, label, steps=200):
+    """`steps` ADADELTA steps of (a copy of) m's net on random batches of
+    fr, synchronising between the stages: batch gather + forward + loss,
+    backward, optimizer, each beside its bound."""
+    import copy
+    net = copy.deepcopy(m._net).requires_grad_(True)
+    opt = torch.optim.Adadelta(net.parameters(), lr=1.0,
+                               rho=float(m.params["rho"]),
+                               eps=float(m.params["epsilon"]))
+    di = m._dinfo
+    X = di.matrix(fr)
+    Xz = torch.where(torch.isnan(X), 0.0, X)
+    y = di.response(fr).long()
+    w = di.weights(fr)
+    n, mb = Xz.shape[0], 256
+    g = torch.Generator(device=Xz.device)
+    g.manual_seed(2)
+    idx = torch.randint(0, n, (steps, mb), generator=g, device=Xz.device)
+    secs = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+
+    def forward(i):
+        out = net(Xz.index_select(0, i))
+        ll = torch.nn.functional.cross_entropy(out, y.index_select(0, i),
+                                               reduction="none")
+        wb = w.index_select(0, i)
+        return (wb * ll).sum() / torch.clamp(wb.sum(), min=1e-8)
+
+    def backward(loss):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+
+    def step(i):
+        backward(forward(i))
+        opt.step()
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = forward(idx[s])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        backward(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if s >= 10:                       # the first steps warm up
+            secs["forward"] += t1 - t0
+            secs["backward"] += t2 - t1
+            secs["optimizer"] += t3 - t2
+    # the same steps unsynchronised, as train() runs them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        step(idx[s])
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / steps
+    dims = [int(W.shape[0]) for W in net.W] + [int(net.W[-1].shape[1])]
+    params = sum(p.numel() for p in net.parameters())
+    bounds = _dl_step_bounds(mb, dims, params)
+    timed = steps - 10
+    say(f"{label} stage table, a step of {mb} rows through {dims} "
+        f"({params} parameters), {timed} steps synchronised between stages; "
+        "ms a step (bound, by): "
+        + ", ".join(f"{k} {1e3 * v / timed:.4f} ({bounds[k][0]:.5f}, "
+                    f"{bounds[k][1]})" for k, v in secs.items())
+        + f"; sum {1e3 * sum(secs.values()) / timed:.4f} ms (bound "
+        f"{sum(b for b, _ in bounds.values()):.5f}); the same {steps} steps "
+        f"unsynchronised: {loop_ms:.4f} ms a step")
+
+
+def _trace_window(prof, name):
+    """The (t0, t1) of the user annotation `name` in a profiler trace, and
+    the device events (copies, fills, kernels) clipped to it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    window = [e for e in events if e.get("name") == name
+              and e.get("cat") == "user_annotation" and "dur" in e]
+    check(len(window) == 1, f"profiler: {len(window)} {name} windows")
+    t0, t1 = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+    dev = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1), e)
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e and e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    return t0, t1, dev
+
+
+def _busy(t0, dev):
+    busy, end = 0.0, t0
+    for a, b, _ in dev:
+        if b > max(a, end):
+            busy += b - max(a, end)
+        end = max(end, b)
+    return busy
+
+
+def dl_busy_share(torch, h2o, fr, epochs):
+    """(q)'s configuration for `epochs` under torch.profiler: the share of
+    the train() window in which the card ran a kernel, a copy or a fill,
+    the kernels and host-to-device copies a step, the host's time by op.
+    Returns the model."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    m = h2o.H2ODeepLearningEstimator(**dict(DL_HIGGS, epochs=epochs))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("h2o3_train"):
+            m.train(y="y", training_frame=fr)
+            torch.cuda.synchronize()
+    t0, t1, dev = _trace_window(prof, "h2o3_train")
+    if not dev:
+        say("deeplearning (q) profiler: busy share not measured (the trace "
+            "holds no device activity)")
+        return m
+    steps = int(epochs * fr.nrows / 256)
+    kernels = [e for _, _, e in dev if e.get("cat") == "kernel"]
+    h2d = [e for _, _, e in dev if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    busy = _busy(t0, dev)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    say("deeplearning (q) profiler: host time a step by op (self): "
+        + ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3 / steps:.4f} ms"
+                    f" x {a.count / steps:.1f}" for a in host[:8]))
+    say(f"deeplearning (q) profiler, {steps} steps of (q)'s configuration "
+        f"(epochs {epochs}): the card is busy {busy / 1e3:.3f} ms of the "
+        f"{(t1 - t0) / 1e3:.3f} ms train() window: busy share "
+        f"{busy / (t1 - t0):.4f}; {len(kernels) / steps:.1f} kernel "
+        f"launches a step ({len(kernels)} in all); {len(h2d)} host-to-device "
+        f"copies ({sum(e['dur'] for e in h2d) / 1e3:.3f} ms)")
+    return m
+
+
+def _dl_net_diff(a, b):
+    """The largest difference of two nets' parameters (b's moved to a's
+    device)."""
+    return max(float((p - q.to(p.device)).abs().max())
+               for p, q in zip(a._net.parameters(), b._net.parameters()))
+
+
+def dl_twice(torch, h2o, fr, m, epochs):
+    """m, (q)'s configuration at `epochs`, trained again with the same
+    seed: the largest weight difference from the first training; if it is
+    not 0, one step run twice from the same state names the first stage
+    whose output differs."""
+    m2 = h2o.H2ODeepLearningEstimator(**dict(DL_HIGGS, epochs=epochs))
+    m2.train(y="y", training_frame=fr)
+    diff = _dl_net_diff(m, m2)
+    where = "-"
+    if diff:
+        import copy
+        X = m._dinfo.matrix(fr)[:256]
+        y = m._dinfo.response(fr)[:256].long()
+        outs = []
+        for _ in range(2):
+            net = copy.deepcopy(m._net).requires_grad_(True)
+            opt = torch.optim.Adadelta(net.parameters(), lr=1.0, rho=0.99,
+                                       eps=1e-8)
+            out = net(X)
+            loss = torch.nn.functional.cross_entropy(out, y)
+            loss.backward()
+            grads = [p.grad.clone() for p in net.parameters()]
+            opt.step()
+            outs.append((out, loss, grads, list(net.parameters())))
+        (o1, l1, g1, p1), (o2, l2, g2, p2) = outs
+        where = ("forward (addmm/relu)" if not torch.equal(o1, o2) else
+                 "loss (cross_entropy)" if not torch.equal(l1, l2) else
+                 "backward (autograd)" if any(not torch.equal(a, b)
+                                              for a, b in zip(g1, g2)) else
+                 "optimizer (Adadelta)" if any(not torch.equal(a, b)
+                                               for a, b in zip(p1, p2)) else
+                 "none in one step: the difference builds over steps")
+    say(f"deeplearning (q): {epochs} epochs ({int(epochs * fr.nrows / 256)}"
+        f" steps) trained twice with seed {DL_HIGGS['seed']}, the first "
+        f"under the profiler: largest weight difference {diff:.3g}; first op "
+        f"that differs: {where}")
+    return diff
+
+
+def dl_slice_card_vs_cpu(torch, h2o, fr):
+    """(q)'s configuration on the frame's first DL_SLICE_N rows for one
+    epoch, on the card and on the CPU, with the same draws (made on the
+    CPU, moved to the card): the probabilities within DL_SLICE_TOL."""
+    from h2o3_tpu_torch.models import deeplearning as DL
+    params = dict(DL_HIGGS, epochs=1.0)
+    sl = _sub_frame(fr, DL_SLICE_N)
+
+    def fit(frame):
+        m = h2o.H2ODeepLearningEstimator(**params)
+        m._draws = lambda device: DL.Draws(
+            torch.Generator().manual_seed(DL_HIGGS["seed"]), device)
+        m.train(y="y", training_frame=frame)
+        return m, m._score_matrix(m._dinfo.matrix(frame))[:, 1].cpu()
+    card, pc = fit(sl)
+    cpu, pp = _on_cpu(h2o, lambda: fit(_cpu_frame(sl)))
+    dp = float((pc - pp).abs().max())
+    dw = _dl_net_diff(card, cpu)
+    say(f"deeplearning (q) slice: {DL_SLICE_N} rows, 1 epoch "
+        f"({len(card.scoring_history())} history entries), card vs CPU "
+        f"with the CPU's draws: probabilities max diff {dp:.3g} (limit "
+        f"{DL_SLICE_TOL}), weights max diff {dw:.3g}; AUC card "
+        f"{card.auc():.6f} cpu {cpu.auc():.6f}")
+    check(dp <= DL_SLICE_TOL, f"deeplearning (q) slice: card and CPU "
+          f"probabilities differ by {dp}")
+
+
+def dl_higgs_run(torch, h2o, HC, fr, valid):
+    """Run (q): DL binomial at H2O's defaults on the HIGGS frame with its
+    validation frame."""
+    m, t, peak = timed_train(
+        torch, HC, "deeplearning (q)",
+        lambda: h2o.H2ODeepLearningEstimator(**DL_HIGGS), y="y",
+        training_frame=fr, validation_frame=valid)
+    steps = int(DL_HIGGS["epochs"] * fr.nrows / 256)
+    say(f"deeplearning (q): binomial, hidden {m.summary()['hidden']} "
+        f"Rectifier, ADADELTA, mini-batch 256, epochs {DL_HIGGS['epochs']}: "
+        f"{fr.nrows} rows x {len(fr.names) - 1} features, {steps} steps: "
+        f"train() {t:.3f} s ({1e3 * t / steps:.4f} ms a step, scoring the "
+        f"training and validation frames included); {peak}; train AUC "
+        f"{m.auc():.6f}, validation AUC {m.auc(valid=True):.6f}; last "
+        f"training loss {m.scoring_history()[-1]['training_loss']:.6f}")
+    check(m.auc() > 0.7 and abs(m.auc(valid=True) - m.auc()) < 0.01,
+          f"deeplearning (q) AUC: train {m.auc()}, validation "
+          f"{m.auc(valid=True)}")
+    dl_stage_table(torch, m, fr, "deeplearning (q)")
+    del m
+    m = dl_busy_share(torch, h2o, fr, DL_PROFILE_EPOCHS)
+    dl_twice(torch, h2o, fr, m, DL_PROFILE_EPOCHS)
+    dl_slice_card_vs_cpu(torch, h2o, fr)
+
+
+def dl_covtype_run(torch, h2o, HC):
+    """Run (r): DL multinomial on (m)'s Covertype frame (two categorical
+    columns, expanded back to 54 one-hot features), 1 epoch."""
+    dev = h2o.init().device
+    base, y = _covtype_frame(torch, dev, COV_N, 9)
+    fr = _covtype_categorical(torch, base)
+    K = len(COV_PRIOR)
+    prior = torch.bincount(y, minlength=K).double() / COV_N
+    entropy = float(-(prior * prior.clamp(min=1e-300).log()).sum())
+    m, t, peak = timed_train(
+        torch, HC, "deeplearning (r)",
+        lambda: h2o.H2ODeepLearningEstimator(**DL_COV), y="y",
+        training_frame=fr)
+    steps = int(DL_COV["epochs"] * COV_N / 256)
+    say(f"deeplearning (r): multinomial on Covertype's one-hot design "
+        f"({m._dinfo.n_features} features, {K} classes), epochs "
+        f"{DL_COV['epochs']}, {steps} steps: train() {t:.3f} s "
+        f"({1e3 * t / steps:.4f} ms a step); {peak}; training logloss "
+        f"{m.logloss():.6f} (class prior's entropy {entropy:.6f})")
+    check(m._dinfo.n_features == COV_NUM + COV_WILD + COV_SOIL,
+          f"deeplearning (r): {m._dinfo.n_features} features")
+    check(m.logloss() < entropy, f"deeplearning (r): logloss "
+          f"{m.logloss()} not below the prior's entropy {entropy}")
+
+
+def dl_autoencoder_run(torch, h2o, HC):
+    """Run (s): a DL autoencoder at credit-card width, anomaly()'s AUC
+    against the planted labels."""
+    from h2o3_tpu_torch.models import metrics as M
+    dev = h2o.init().device
+    fr, y = _cc_frame(torch, dev)
+    xs = [f"v{j}" for j in range(CC_C)]
+    m, t, peak = timed_train(
+        torch, HC, "deeplearning (s)",
+        lambda: h2o.H2ODeepLearningEstimator(**DL_AE), x=xs,
+        training_frame=fr)
+    t0 = time.perf_counter()
+    mse = m.anomaly(fr).vecs[0].data
+    torch.cuda.synchronize()
+    t_an = time.perf_counter() - t0
+    auc = M.binomial_metrics(y, mse).auc
+    steps = int(DL_AE["epochs"] * CC_N / 256)
+    say(f"deeplearning (s): autoencoder {DL_AE['activation']} hidden "
+        f"{m.summary()['hidden']}, {CC_N} rows x {CC_C} columns, epochs "
+        f"{DL_AE['epochs']}, {steps} steps: train() {t:.3f} s; {peak}; "
+        f"anomaly() {t_an:.3f} s; reconstruction-MSE AUC against the "
+        f"{CC_ANOM} planted anomalies {auc:.6f} (bar {DL_AE_AUC_BAR}; a CPU "
+        f"run of the same generator: {DL_AE_AUC_CPU})")
+    check(auc > DL_AE_AUC_BAR, f"deeplearning (s) AUC {auc}")
+
+
+def _blob_frame(torch, dev, n, seed):
+    """The KMeans frame at HIGGS shape, made on `dev` from a seeded
+    generator: BLOB_K centres of HIGGS_C coordinates N(0, BLOB_SPREAD²),
+    each row one of them (uniformly) plus N(0, 1) noise. Returns (frame,
+    centres)."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centres = BLOB_SPREAD * torch.randn((BLOB_K, HIGGS_C), generator=g,
+                                        device=dev)
+    lab = torch.randint(0, BLOB_K, (n,), generator=g, device=dev)
+    X = centres[lab] + torch.randn((n, HIGGS_C), generator=g, device=dev)
+    return Frame([f"x{j}" for j in range(HIGGS_C)],
+                 [Vec.from_tensor(X[:, j].contiguous())
+                  for j in range(HIGGS_C)]), centres
+
+
+def kmeans_stage_table(torch, m, fr):
+    """One Lloyd step at (t)'s shape, and its parts, by CUDA events, each
+    beside its bound."""
+    from h2o3_tpu_torch.models import kmeans as KM
+    from h2o3_tpu_torch.models.tree import engine as E
+    X = m._dinfo.matrix(fr)
+    w = m._dinfo.weights(fr)
+    C = m._centroids
+    n, p = X.shape
+    k = C.shape[0]
+    best, assign = torch.min(KM._distances(X, C), dim=1)
+    vals = torch.cat([w[:, None] * X, w[:, None], (w * best)[:, None]], 1)
+    parts = {
+        "one Lloyd step": (lambda: KM._lloyd_step(X, C, w),
+                           _bound_ms(4 * n * (p + 1) + 4 * k * p,
+                                     2 * n * k * p + 3 * n * k)),
+        "distances X·Cᵀ + argmin": (
+            lambda: torch.min(KM._distances(X, C), dim=1),
+            _bound_ms(4 * n * p + 12 * n, 2 * n * k * p)),
+        "fixed-point segment sum": (
+            lambda: E.segment_sum(assign, vals, k),
+            _bound_ms(4 * n * (p + 2) + 8 * n, n * (p + 2))),
+    }
+    out = []
+    for name, (fn, (b, by)) in parts.items():
+        ms = time_ms(torch, fn, 5)
+        out.append(f"{name} {ms:.3f} ms (bound {b:.3f}, {by})")
+    say(f"kmeans (t) stage table, {n} rows x {p} columns, k {k}: "
+        + "; ".join(out))
+
+
+def kmeans_blob_run(torch, h2o, HC):
+    """Run (t): KMeans on the blob frame, trained twice; a slice card vs
+    CPU."""
+    dev = h2o.init().device
+    fr, centres = _blob_frame(torch, dev, HIGGS_N, 12)
+    m, t, peak = timed_train(torch, HC, "kmeans (t)",
+                             lambda: h2o.H2OKMeansEstimator(**KM_BLOBS),
+                             training_frame=fr)
+    cm = m.centroid_stats()
+    hist = [h["tot_withinss"] for h in m.scoring_history()]
+    say(f"kmeans (t): {HIGGS_N} rows x {HIGGS_C} columns, {BLOB_K} planted "
+        f"blobs, k {KM_BLOBS['k']} Furthest, standardize: train() {t:.3f} "
+        f"s, {len(hist)} iterations + the final step; {peak}; "
+        f"tot_withinss by iteration {[round(v, 1) for v in hist]}; final "
+        f"{cm.tot_withinss:.6g}, totss {cm.totss:.6g}, betweenss "
+        f"{cm.betweenss:.6g}, sizes {[int(s) for s in cm.size]}")
+    check(all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
+          f"kmeans (t): tot_withinss rose: {hist}")
+    check(abs(cm.betweenss + cm.tot_withinss - cm.totss)
+          <= 1e-5 * cm.totss, "kmeans (t): betweenss + tot_withinss != "
+          "totss")
+    check(sum(cm.size) == cm.nobs == HIGGS_N,
+          f"kmeans (t): sizes sum to {sum(cm.size)}, nobs {cm.nobs}")
+    # totss and tot_withinss against float64 sums of the same X
+    X = m._dinfo.matrix(fr).double()
+    Xc = X - X.mean(0)
+    tot64 = float((Xc * Xc).sum())
+    del Xc
+    C64 = m._centroids.double()
+    d = ((X * X).sum(1, keepdim=True) + (C64 * C64).sum(1)[None]
+         - 2 * X @ C64.T).min(1).values.clamp(min=0)
+    wss64 = float(d.sum())
+    del X, d
+    rt, rw = abs(cm.totss - tot64) / tot64, abs(cm.tot_withinss - wss64) \
+        / wss64
+    # the planted centres in the model's (standardised) space
+    di = m._dinfo
+    mu = torch.tensor([di.means[c] for c in di.num_cols], device=dev)
+    sd = torch.tensor([di.sigmas[c] for c in di.num_cols], device=dev)
+    planted = (centres - mu) / sd
+    dist = torch.cdist(planted, m._centroids)
+    near = dist.min(1)
+    one_to_one = len(set(near.indices.tolist())) == BLOB_K
+    say(f"kmeans (t): totss vs float64 {rt:.3g} relative, tot_withinss vs "
+        f"float64 at the final centroids {rw:.3g} (limit 1e-5); planted "
+        f"centres recovered: largest distance to the nearest centroid "
+        f"{float(near.values.max()):.4g} standardised units (limit "
+        f"{BLOB_RECOVER}), one centroid a centre: {one_to_one}")
+    check(rt <= 1e-5 and rw <= 1e-5, f"kmeans (t): f32 sums off float64: "
+          f"totss {rt}, tot_withinss {rw}")
+    check(one_to_one and float(near.values.max()) < BLOB_RECOVER,
+          "kmeans (t): planted centres not recovered")
+    # a second training: the same centroids bit for bit
+    m2 = h2o.H2OKMeansEstimator(**KM_BLOBS)
+    m2.train(training_frame=fr)
+    same = torch.equal(m._centroids, m2._centroids)
+    say(f"kmeans (t): trained twice: centroids bit-identical {same} (max "
+        f"diff {float((m._centroids - m2._centroids).abs().max()):.3g})")
+    check(same, "kmeans (t): a second training gave other centroids")
+    del m2
+    kmeans_stage_table(torch, m, fr)
+    # the first KM_SLICE_N rows on the card and on the CPU
+    sl = _sub_frame(fr, KM_SLICE_N)
+    card = h2o.H2OKMeansEstimator(**KM_BLOBS)
+    card.train(training_frame=sl)
+
+    def cpu_fit():
+        c = h2o.H2OKMeansEstimator(**KM_BLOBS)
+        c.train(training_frame=_cpu_frame(sl))
+        return c
+    cpu = _on_cpu(h2o, cpu_fit)
+    dc = float((card._centroids.cpu() - cpu._centroids).abs().max())
+    say(f"kmeans (t) slice: {KM_SLICE_N} rows, card vs CPU: centroids max "
+        f"diff {dc:.3g} (limit 1e-4), iterations card "
+        f"{len(card.scoring_history())} cpu {len(cpu.scoring_history())}")
+    check(dc <= 1e-4, f"kmeans (t) slice: centroids differ by {dc}")
+
+
+def _rank_frame(torch, dev, n, seed):
+    """The PCA/SVD/GLRM frame at HIGGS shape, made on `dev`: a rank-RANK
+    signal Z·L (Z (n, RANK) and L (RANK, HIGGS_C) N(0, 1)) plus N(0,
+    RANK_NOISE²) noise; and a copy with NA_SHARE of its entries NA.
+    Returns (frame, frame with NAs, X, L, NA mask)."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    L = torch.randn((RANK, HIGGS_C), generator=g, device=dev)
+    X = torch.randn((n, RANK), generator=g, device=dev) @ L \
+        + RANK_NOISE * torch.randn((n, HIGGS_C), generator=g, device=dev)
+    na = torch.rand((n, HIGGS_C), generator=g, device=dev) < NA_SHARE
+    names = [f"x{j}" for j in range(HIGGS_C)]
+    full = Frame(names, [Vec.from_tensor(X[:, j].contiguous())
+                         for j in range(HIGGS_C)])
+    Xna = torch.where(na, float("nan"), X)
+    holed = Frame(names, [Vec.from_tensor(Xna[:, j].contiguous())
+                          for j in range(HIGGS_C)])
+    return full, holed, X, L, na
+
+
+def _gram_bound(n, p):
+    return _bound_ms(4 * n * (p + 1) + 4 * p * p, 2 * n * p * p)
+
+
+def pca_run(torch, h2o, HC, fr, X, L):
+    """Run (u): PCA k RANK, STANDARDIZE, GramSVD on the rank frame."""
+    from h2o3_tpu_torch.models import pca as PCA
+    gram, restore = _watch(PCA, "_gram", torch)
+    try:
+        m, t, peak = timed_train(
+            torch, HC, "pca (u)",
+            lambda: h2o.H2OPrincipalComponentAnalysisEstimator(
+                k=RANK, transform="STANDARDIZE", pca_method="GramSVD"),
+            training_frame=fr)
+    finally:
+        restore()
+    n, p = X.shape
+    sdev = np.asarray(m.summary()["std_deviation"])
+    cum = m.summary()["cumulative_proportion"][-1]
+    # float64 Gram of the same standardised X on the card
+    Xs = (X - torch.as_tensor(m._mean, device=X.device)) \
+        / torch.as_tensor(m._sd, device=X.device)
+    G64 = (Xs.double().T @ Xs.double()).cpu().numpy() / (n - 1)
+    del Xs
+    ev64 = np.sort(np.linalg.eigvalsh(G64))[::-1][:RANK]
+    rel = float(np.abs(sdev ** 2 - ev64).max() / ev64.max())
+    # the planted population: standardised (LᵀL + noise² I)
+    Ld = L.double().cpu().numpy()
+    S = Ld.T @ Ld + RANK_NOISE ** 2 * np.eye(p)
+    dinv = 1 / np.sqrt(np.diag(S))
+    ev, evec = np.linalg.eigh(S * dinv[:, None] * dinv[None, :])
+    planted_cum = float(ev[::-1][:RANK].sum() / p)
+    cosines = np.linalg.svd(evec[:, ::-1][:, :RANK].T @ m.rotation(),
+                            compute_uv=False)
+    angle = float(np.arccos(np.clip(cosines.min(), -1, 1)))
+    b, by = _gram_bound(n, p)
+    say(f"pca (u): {n} rows x {p} columns, rank-{RANK} signal + N(0, "
+        f"{RANK_NOISE}²) noise, k {RANK} STANDARDIZE GramSVD: train() "
+        f"{t:.3f} s; {peak}; Gram pass {1e3 * gram.seconds:.3f} ms (bound "
+        f"{b:.3f}, {by}); eigenvalues {np.round(sdev ** 2, 4).tolist()}, vs "
+        f"a float64 Gram of the same X: {rel:.3g} relative (limit 1e-5); "
+        f"cumulative proportion at {RANK} PCs {cum:.6f} (planted "
+        f"{planted_cum:.6f}); largest principal angle to the planted "
+        f"loadings {angle:.3g} rad")
+    check(rel <= 1e-5, f"pca (u): eigenvalues off float64 by {rel}")
+    check(abs(cum - planted_cum) < 1e-3,
+          f"pca (u): cumulative proportion {cum} vs planted {planted_cum}")
+    check(angle < 0.01, f"pca (u): principal angle {angle}")
+
+
+def svd_run(torch, h2o, HC, fr, X):
+    """Run (v): SVD nv RANK with keep_u on the rank frame."""
+    from h2o3_tpu_torch.models import svd as SVD
+    gram, restore = _watch(SVD, "_gram_xtx", torch)
+    try:
+        m, t, peak = timed_train(
+            torch, HC, "svd (v)",
+            lambda: h2o.H2OSingularValueDecompositionEstimator(
+                nv=RANK, keep_u=True), training_frame=fr)
+    finally:
+        restore()
+    n, p = X.shape
+    d = m.d()
+    Xd = X.double()
+    d64 = np.sqrt(np.sort(np.linalg.eigvalsh(
+        (Xd.T @ Xd).cpu().numpy()))[::-1][:RANK])
+    rel = float(np.abs(d - d64).max() / d64.max())
+    U = m.u().matrix().double()
+    orth = float((U.T @ U - torch.eye(RANK, device=U.device,
+                                      dtype=torch.float64)).abs().max())
+    V = torch.as_tensor(m.v(), device=U.device)
+    R = Xd - (U * torch.as_tensor(d, device=U.device)) @ V.T
+    rms = float(R.pow(2).mean().sqrt())
+    del Xd, R, U
+    want = RANK_NOISE * math.sqrt((p - RANK) / p)
+    b, by = _gram_bound(n, p)
+    say(f"svd (v): {n} rows x {p} columns, nv {RANK}, keep_u: train() "
+        f"{t:.3f} s; {peak}; Gram pass {1e3 * gram.seconds:.3f} ms (bound "
+        f"{b:.3f}, {by}); d {np.round(d, 3).tolist()}, vs float64 "
+        f"{rel:.3g} relative (limit 1e-5); |UᵀU - I| {orth:.3g} (limit "
+        f"1e-4); RMS of X - U·diag(d)·Vᵀ {rms:.6f} (the noise left outside "
+        f"{RANK} dimensions: {want:.6f})")
+    check(rel <= 1e-5, f"svd (v): d off float64 by {rel}")
+    check(orth <= 1e-4, f"svd (v): UᵀU off I by {orth}")
+    check(abs(rms - want) < 0.05 * want, f"svd (v): reconstruction RMS "
+          f"{rms} vs noise {want}")
+
+
+def glrm_run(torch, h2o, HC, fr, X, na):
+    """Run (w): GLRM k RANK on the rank frame with NA_SHARE of it NA; the
+    reconstruction's RMSE on the held-out entries."""
+    from h2o3_tpu_torch.models import glrm as GL
+    watches, restores = {}, []
+    for name in ("step_A", "step_B", "objective"):
+        watches[name], r = _watch(GL, name, torch)
+        restores.append(r)
+    try:
+        m, t, peak = timed_train(
+            torch, HC, "glrm (w)",
+            lambda: h2o.H2OGeneralizedLowRankEstimator(k=RANK, seed=3),
+            training_frame=fr)
+    finally:
+        for r in restores:
+            r()
+    obj = [h["objective"] for h in m.scoring_history()]
+    R = m.reconstruct(fr).matrix()
+    rmse = float((R - X)[na].pow(2).mean().sqrt())
+    del R
+    n, p = X.shape
+    k = RANK
+    # a held-out entry's error: the noise, and the error of the row's
+    # coefficients fitted on its m = p(1 - NA_SHARE) observed entries,
+    # k / (m - k - 1) of the noise's variance for Gaussian loadings (the
+    # mean of an inverse Wishart)
+    m_obs = p * (1 - NA_SHARE)
+    want = RANK_NOISE * math.sqrt(1 + k / (m_obs - k - 1))
+    rows = 4 * n * (2 * p + k)          # X and the mask read, A written
+    bounds = {
+        "step_A": _bound_ms(rows + 4 * k * p,
+                            2 * n * p * k * k + 2 * n * p * k
+                            + n * (2 * k ** 3 // 3 + 2 * k * k)),
+        "step_B": _bound_ms(rows + 4 * k * p,
+                            2 * n * p * k * k + 2 * n * p * k),
+        "objective": _bound_ms(rows, 2 * n * p * k + 4 * n * p),
+    }
+    say(f"glrm (w): {n} rows x {p} columns, {NA_SHARE:.0%} NA, k {k}: "
+        f"train() {t:.3f} s, {len(obj)} iterations; {peak}; objective "
+        f"{obj[0]:.6g} -> {obj[-1]:.6g}; reconstruct() RMSE on the "
+        f"{int(na.sum())} held-out entries {rmse:.6f} (what the noise "
+        f"leaves: {want:.6f}); stage table, ms a call (bound, by): "
+        + ", ".join(f"{name} {1e3 * w.seconds / max(w.calls, 1):.3f} "
+                    f"x {w.calls} ({bounds[name][0]:.3f}, "
+                    f"{bounds[name][1]})" for name, w in watches.items()))
+    check(all(b <= a * (1 + 1e-6) for a, b in zip(obj, obj[1:])),
+          f"glrm (w): the objective rose: {obj}")
+    check(abs(rmse - want) < 0.05 * want,
+          f"glrm (w): held-out RMSE {rmse} vs {want}")
+
+
+def phase_dl_unsupervised(torch, h2o, HC):
+    """Runs (q)-(w) at full width."""
+    t0 = time.perf_counter()
+    _glm_tf32(torch)
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    dl_higgs_run(torch, h2o, HC, fr, valid)
+    del fr, valid
+    dl_covtype_run(torch, h2o, HC)
+    dl_autoencoder_run(torch, h2o, HC)
+    kmeans_blob_run(torch, h2o, HC)
+    full, holed, X, L, na = _rank_frame(torch, dev, HIGGS_N, 13)
+    pca_run(torch, h2o, HC, full, X, L)
+    svd_run(torch, h2o, HC, full, X)
+    del full
+    glrm_run(torch, h2o, HC, holed, X, na)
+    say(f"deeplearning and unsupervised runs (q)-(w): "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2397,10 +3099,11 @@ def main():
     runs = phase_higgs(torch, h2o, HC)
     phase_isofor(torch, h2o, HC)
     phase_glm_cv(torch, h2o, HC)
+    phase_dl_unsupervised(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
-    say(f"recap of runs (d)-(p) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(w) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -21,7 +21,13 @@ regression or multinomial forest at any depth (20 by default),
 gives TreeSHAP contributions of a single-output tree model.
 `H2OGeneralizedLinearEstimator` fits a GLM of every family of the JAX
 package (IRLSM with lambda search, elastic net and bounds, L-BFGS,
-multinomial, ordinal) on the one-hot design matrix. Every estimator takes
+multinomial, ordinal) on the one-hot design matrix.
+`H2ODeepLearningEstimator` trains a multilayer perceptron (classifier,
+regression or autoencoder with `anomaly()`) by mini-batch ADADELTA or
+SGD; the unsupervised family is `H2OKMeansEstimator`,
+`H2OPrincipalComponentAnalysisEstimator`,
+`H2OSingularValueDecompositionEstimator` and
+`H2OGeneralizedLowRankEstimator` (train without `y`). Every estimator takes
 `nfolds` or `fold_column` for cross-validation and `custom_metric_func`;
 GBM takes `distribution="custom"` with `custom_distribution_func` (torch
 UDFs registered by `h2o3_tpu_torch.udf.register_udf`).
@@ -30,15 +36,18 @@ UDFs registered by `h2o3_tpu_torch.udf.register_udf`).
 from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.io.parser import import_file, parse_setup
-from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator
-from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
-from h2o3_tpu_torch.models.tree.gbm import H2OGradientBoostingEstimator
-from h2o3_tpu_torch.models.tree.isofor import H2OIsolationForestEstimator
-from h2o3_tpu_torch.models.tree.xgboost import H2OXGBoostEstimator
+from h2o3_tpu_torch.models import (
+    H2ODeepLearningEstimator, H2OGeneralizedLinearEstimator,
+    H2OGeneralizedLowRankEstimator, H2OGradientBoostingEstimator,
+    H2OIsolationForestEstimator, H2OKMeansEstimator,
+    H2OPrincipalComponentAnalysisEstimator, H2ORandomForestEstimator,
+    H2OSingularValueDecompositionEstimator, H2OXGBoostEstimator)
 from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
 
-__all__ = ["DKV", "Frame", "H2OGeneralizedLinearEstimator",
-           "H2OGradientBoostingEstimator",
-           "H2OIsolationForestEstimator", "H2ORandomForestEstimator",
-           "H2OXGBoostEstimator", "Vec", "cloud", "import_file", "init",
-           "parse_setup", "shutdown"]
+__all__ = ["DKV", "Frame", "H2ODeepLearningEstimator",
+           "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
+           "H2OGradientBoostingEstimator", "H2OIsolationForestEstimator",
+           "H2OKMeansEstimator", "H2OPrincipalComponentAnalysisEstimator",
+           "H2ORandomForestEstimator",
+           "H2OSingularValueDecompositionEstimator", "H2OXGBoostEstimator",
+           "Vec", "cloud", "import_file", "init", "parse_setup", "shutdown"]

@@ -8,8 +8,12 @@ forest's (one set per class for a multinomial forest),
 `xgboost_from_arrays` a booster's, `isofor_from_arrays` an isolation
 forest's (with its sample size and its observed path-length range) and
 `glm_from_arrays` a GLM's (its coefficients and its one-hot codec's
-statistics); each returns a port model that scores the same rows to the
-same values. A
+statistics), `deeplearning_from_arrays` a net's ((W, b) a layer and its
+activation), `kmeans_from_arrays` the centroids, `pca_from_arrays` the
+rotation and the transform's statistics, `svd_from_arrays` V, d and
+theirs, and `glrm_from_arrays` the archetypes (each of these with its
+one-hot codec's statistics); each returns a port model that scores the
+same rows to the same values. A
 carried GBM is a binned prior for a checkpoint restart only when the
 caller names the JAX model's binned engine; any other is a prior of the
 adaptive engine. Nothing here imports the JAX package: the caller pulls
@@ -24,8 +28,13 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.kvstore import DKV
+from h2o3_tpu_torch.models.deeplearning import MLP, H2ODeepLearningEstimator
 from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator, _GLMState
+from h2o3_tpu_torch.models.glrm import H2OGeneralizedLowRankEstimator
+from h2o3_tpu_torch.models.kmeans import H2OKMeansEstimator
 from h2o3_tpu_torch.models.model import DataInfo, ModelOutput
+from h2o3_tpu_torch.models.pca import H2OPrincipalComponentAnalysisEstimator
+from h2o3_tpu_torch.models.svd import H2OSingularValueDecompositionEstimator
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
 from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
@@ -53,8 +62,8 @@ def _tree_arrays(dev, col, thr, na_left, value, depth, cover, catbits,
 
 
 def _finish(model, *, algo, predictors, domains, response_name,
-            response_domain, edges, is_cat, b_val, n_bins, c_pad, model_id,
-            summary, dinfo=None):
+            response_domain, model_id, summary, edges=None, is_cat=None,
+            b_val=None, n_bins=None, c_pad=None, dinfo=None):
     """The data codec (label mode unless `dinfo` is given), the bin spec,
     the output and the DKV entry of a carried model."""
     cats = [c for c in predictors if c in domains]
@@ -265,3 +274,133 @@ def glm_from_arrays(*, beta, family: str, link: str,
                    response_domain=response_domain, edges=None, is_cat=None,
                    b_val=None, n_bins=None, c_pad=None, model_id=model_id,
                    summary={"family": family, "link": link}, dinfo=dinfo)
+
+
+def _onehot_info(predictors, domains, means, sigmas, *, standardize,
+                 impute_missing=True, response_name=None,
+                 response_domain=None) -> DataInfo:
+    """The one-hot codec of a carried model, from its JAX DataInfo's
+    predictors, domains, means and sigmas."""
+    cats = [c for c in predictors if c in domains]
+    return DataInfo(predictors, cats, domains, response_name,
+                    response_domain, cat_mode="onehot",
+                    standardize=bool(standardize),
+                    impute_missing=impute_missing, means=means,
+                    sigmas=sigmas)
+
+
+def _f32(a, dev):
+    return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+
+def deeplearning_from_arrays(*, weights, activation: str,
+                             predictors: Sequence[str], domains: dict,
+                             means: dict, sigmas: dict,
+                             standardize: bool = True,
+                             response_name: Optional[str] = None,
+                             response_domain: Optional[Sequence[str]] = None,
+                             autoencoder: bool = False,
+                             model_id: Optional[str] = None,
+                             device=None) -> H2ODeepLearningEstimator:
+    """A port net from a JAX DeepLearning model's `_params_net` ((W, b) a
+    layer, W of shape (fan_in, fan_out)), its activation, and its one-hot
+    DataInfo's statistics (`response_name` None for an autoencoder)."""
+    dev = _device(device)
+    model = H2ODeepLearningEstimator(
+        activation=activation, autoencoder=bool(autoencoder),
+        standardize=bool(standardize), model_id=model_id,
+        hidden=[int(np.asarray(b).shape[0]) for _, b in weights[:-1]])
+    model.supervised = not autoencoder
+    layers = [(_f32(W, dev), _f32(b, dev)) for W, b in weights]
+    model._net = MLP(layers, activation).requires_grad_(False)
+    dinfo = _onehot_info(predictors, domains, means, sigmas,
+                         standardize=standardize,
+                         response_name=None if autoencoder else response_name,
+                         response_domain=response_domain)
+    return _finish(model, algo="deeplearning", predictors=predictors,
+                   domains=domains, response_name=dinfo.response_name,
+                   response_domain=dinfo.response_domain, model_id=model_id,
+                   summary={"activation": activation,
+                            "weights": [list(W.shape) for W, _ in layers]},
+                   dinfo=dinfo)
+
+
+def kmeans_from_arrays(*, centroids, predictors: Sequence[str],
+                       domains: dict, means: dict, sigmas: dict,
+                       standardize: bool = True,
+                       model_id: Optional[str] = None,
+                       device=None) -> H2OKMeansEstimator:
+    """A port KMeans from a JAX model's `_centroids` (in its model space)
+    and its one-hot DataInfo's statistics."""
+    C = _f32(centroids, _device(device))
+    model = H2OKMeansEstimator(k=int(C.shape[0]),
+                               standardize=bool(standardize),
+                               model_id=model_id)
+    model._centroids = C
+    return _finish(model, algo="kmeans", predictors=predictors,
+                   domains=domains, response_name=None, response_domain=None,
+                   model_id=model_id, summary={"k": int(C.shape[0])},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=standardize))
+
+
+def pca_from_arrays(*, rotation, mean, sd, transform: str,
+                    predictors: Sequence[str], domains: dict, means: dict,
+                    sigmas: dict, model_id: Optional[str] = None
+                    ) -> H2OPrincipalComponentAnalysisEstimator:
+    """A port PCA from a JAX model's `_rotation`, `_mean`, `_sd` and
+    `_transform`, and its (raw, mean-imputing) DataInfo's statistics."""
+    rotation = np.asarray(rotation, np.float64)
+    model = H2OPrincipalComponentAnalysisEstimator(
+        k=int(rotation.shape[1]), transform=transform, model_id=model_id)
+    model._rotation = rotation
+    model._mean = np.asarray(mean, np.float32)
+    model._sd = np.asarray(sd, np.float32)
+    model._transform = transform.upper()
+    return _finish(model, algo="pca", predictors=predictors, domains=domains,
+                   response_name=None, response_domain=None,
+                   model_id=model_id, summary={"k": int(rotation.shape[1])},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=False))
+
+
+def svd_from_arrays(*, v, d, mean, sd, transform: str,
+                    predictors: Sequence[str], domains: dict, means: dict,
+                    sigmas: dict, model_id: Optional[str] = None
+                    ) -> H2OSingularValueDecompositionEstimator:
+    """A port SVD from a JAX model's `_v`, `_d`, `_mean`, `_sd` and
+    `_transform` (no U: `u()` is the trained model's), and its DataInfo's
+    statistics."""
+    v = np.asarray(v, np.float64)
+    model = H2OSingularValueDecompositionEstimator(
+        nv=int(v.shape[1]), transform=transform, keep_u=False,
+        model_id=model_id)
+    model._v, model._d = v, np.asarray(d, np.float64)
+    model._mean = np.asarray(mean, np.float32)
+    model._sd = np.asarray(sd, np.float32)
+    model._transform = transform.upper()
+    return _finish(model, algo="svd", predictors=predictors, domains=domains,
+                   response_name=None, response_domain=None,
+                   model_id=model_id,
+                   summary={"nv": int(v.shape[1]), "d": model._d.tolist()},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=False))
+
+
+def glrm_from_arrays(*, archetypes, predictors: Sequence[str], domains: dict,
+                     means: dict, sigmas: dict, gamma_x: float = 0.0,
+                     model_id: Optional[str] = None
+                     ) -> H2OGeneralizedLowRankEstimator:
+    """A port GLRM from a JAX model's archetypes (`_B`, (k, p)) and
+    gamma_x, which scores rows by the same masked ridge, and its
+    DataInfo's statistics (its design imputes nothing)."""
+    B = np.array(archetypes, np.float32)
+    model = H2OGeneralizedLowRankEstimator(
+        k=int(B.shape[0]), gamma_x=float(gamma_x), model_id=model_id)
+    model._B = B
+    return _finish(model, algo="glrm", predictors=predictors, domains=domains,
+                   response_name=None, response_domain=None,
+                   model_id=model_id, summary={"k": int(B.shape[0])},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=False,
+                                      impute_missing=False))

@@ -2,7 +2,8 @@
 binomial and multinomial, each one pass over (actual, predicted, weight)
 tensors on their device into a small state, finished on the host exactly
 as the JAX package finishes it. The AUC is the 4096-score-bin histogram
-method (hex/AUC2.java with finer bins).
+method (hex/AUC2.java with finer bins). `ClusteringMetrics` holds what
+KMeans computes itself.
 """
 
 from __future__ import annotations
@@ -205,3 +206,20 @@ def multinomial_metrics(y, probs, w=None, domain=None) -> MultinomialMetrics:
         confusion_matrix=cm,
         hit_ratios=[float(h) / n for h in hit_k] if n else [],
         nobs=int(n), domain=domain)
+
+
+# ===========================================================================
+# Clustering (hex/ModelMetricsClustering.java)
+@dataclass
+class ClusteringMetrics:
+    tot_withinss: float
+    totss: float
+    betweenss: float
+    size: list
+    withinss: list
+    nobs: int
+
+    def to_dict(self):
+        return {"tot_withinss": self.tot_withinss, "totss": self.totss,
+                "betweenss": self.betweenss, "size": self.size,
+                "withinss": self.withinss, "nobs": self.nobs}

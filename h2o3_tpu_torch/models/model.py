@@ -1,7 +1,10 @@
 """Model framework of the port (h2o3_tpu/models/model.py): the design-matrix
 codec `DataInfo` (label mode for the trees, one-hot mode for GLM),
 `ModelOutput`, and the estimator surface `ModelBase`: train through a
-`Job`, cross-validation, predict, metrics and the custom-metric hook.
+`Job`, cross-validation, predict, metrics and the custom-metric hook. An
+unsupervised model (`supervised = False`: KMeans, PCA, SVD, GLRM, the
+DeepLearning autoencoder) trains without a response and computes no
+supervised metrics; it builds its own output frames (`_matrix_frame`).
 
 Model monitoring and the serving cache are later slices. A parameter the
 JAX package accepts and ignores although it would change the result
@@ -123,7 +126,8 @@ class DataInfo:
     @staticmethod
     def from_frame(frame: Frame, x: Sequence[str], y: Optional[str],
                    weights: Optional[str] = None, *, cat_mode: str = "label",
-                   standardize: bool = False, offset: Optional[str] = None,
+                   standardize: bool = False, impute_missing: bool = True,
+                   offset: Optional[str] = None,
                    interactions: Optional[Sequence[str]] = None
                    ) -> "DataInfo":
         """The codec of a training frame: its domains, and the mean and
@@ -139,7 +143,8 @@ class DataInfo:
         sigmas = {c: frame.vec(c).sigma() or 1.0 for c in nums}
         di = DataInfo(preds, cats, {c: frame.vec(c).domain for c in cats},
                       y, rdom, weights, cat_mode=cat_mode,
-                      standardize=standardize, offset_name=offset,
+                      standardize=standardize, impute_missing=impute_missing,
+                      offset_name=offset,
                       means=means, sigmas=sigmas, interactions=interactions)
         for a, b, name in di.inter_pairs:
             # the statistics of the f32 product, in float64
@@ -369,7 +374,8 @@ class ModelBase:
     }
     # parameters the JAX package accepts and never reads, although a set
     # value would change the result: the port takes them at their default
-    # and raises when one is set, (name, default, why)
+    # (or at any value of a tuple of values that give the JAX package's
+    # result) and raises when another is set, (name, default, why)
     _IGNORED_IN_JAX = (
         ("offset_column", None,
          "no model of the JAX package reads its offset "
@@ -393,7 +399,9 @@ class ModelBase:
 
     def _check_ported(self):
         for name, default, why in self._IGNORED_IN_JAX:
-            if (self.params.get(name) or default) != default:
+            value = self.params.get(name)
+            taken = default if isinstance(default, tuple) else (default,)
+            if value is not None and value not in taken:
                 raise NotImplementedError(
                     f"{self.algo}: {name}={self.params[name]!r} is not "
                     f"supported: {why}")
@@ -543,6 +551,8 @@ class ModelBase:
         return m
 
     def _metrics_from_preds(self, y, out, w):
+        if not self.supervised:
+            return None
         if self._is_classifier and self.nclasses == 2:
             return M.binomial_metrics(y, out[:, 1], w,
                                       domain=self._dinfo.response_domain)
@@ -657,6 +667,14 @@ class ModelBase:
 
     def varimp(self):
         return self._output.variable_importances if self._output else None
+
+
+def _matrix_frame(names: Sequence[str], M: torch.Tensor) -> Frame:
+    """A frame of the columns of an (n, len(names)) device tensor, left on
+    its device (the unsupervised models' projections, assignments and
+    reconstructions; the JAX package builds them on the host)."""
+    return Frame(list(names), [Vec.from_tensor(M[:, j])
+                               for j in range(M.shape[1])])
 
 
 def _subframe(frame: Frame, idx: torch.Tensor) -> Frame:

@@ -221,13 +221,13 @@ def bin_rows(X, lv, mn, mx, B):
 def _to_fixed(values, n_rows):
     """values (m, k) f32 in 64-bit fixed point at a power-of-two scale per
     column that no sum of n_rows of them can overflow
-    (`hist_cuda.hist_scale`, as the binned kernels sum). Returns (int64
+    (`hist_cuda.fixed_point_scale`, the binned kernels' rule). Returns (int64
     (m, k), scale (k,) f64, the non-finite values (f32, 0 elsewhere) or
     None when every value is finite)."""
     if values.shape[0] == 0:
         return values.long(), torch.ones(values.shape[1], dtype=torch.float64,
                                          device=values.device), None
-    scale = HC.hist_scale(values.t(), n_rows)
+    scale = HC.fixed_point_scale(values.t(), n_rows)
     finite = torch.isfinite(values)
     fixed = torch.round(torch.where(finite, values, 0.0).double() * scale)
     rest = None if bool(finite.all()) else torch.where(finite, 0.0, values)

@@ -140,8 +140,16 @@ def hist_scale(stats, n_rows=None):
     |stats[s]| (non-finite values are left out; scale 1 where M_s is 0).
     n_rows defaults to the stats' row count. Device ops only: nothing waits
     for the card. Exact in f64 for n_rows < 2**29."""
-    n = stats.shape[1] if n_rows is None else int(n_rows)
-    a = stats[:3].abs()
+    return fixed_point_scale(stats[:3],
+                             stats.shape[1] if n_rows is None else n_rows)
+
+
+def fixed_point_scale(rows, n_rows):
+    """hist_scale's rule for every row of `rows` (s, m): f64 (s,), 2**e
+    with e the largest integer such that n_rows * M * 2**e <= 2**62 for
+    the row's largest finite magnitude M (1 where M is 0)."""
+    n = int(n_rows)
+    a = rows.abs()
     m = torch.where(a < float("inf"), a, torch.zeros_like(a)).amax(dim=1)
     t = m.to(torch.float64) * n
     mant, ex = torch.frexp(t)

@@ -444,7 +444,8 @@ def test_drf_mtries_rule_matches_jax(mtries):
 
 
 @pytest.mark.parametrize("algo", ["gbm", "drf", "xgboost", "isolationforest",
-                                  "glm"])
+                                  "glm", "deeplearning", "kmeans", "pca",
+                                  "svd", "glrm"])
 def test_estimator_parameters_match_jax(algo):
     """The parameters of each estimator and their defaults equal the JAX
     package's, the cross-validation, UDF and checkpoint-directory ones
@@ -460,6 +461,16 @@ def test_estimator_parameters_match_jax(algo):
                             h2o3_tpu_torch.H2OIsolationForestEstimator),
         "glm": (JMODELS.H2OGeneralizedLinearEstimator,
                 h2o3_tpu_torch.H2OGeneralizedLinearEstimator),
+        "deeplearning": (JMODELS.H2ODeepLearningEstimator,
+                         h2o3_tpu_torch.H2ODeepLearningEstimator),
+        "kmeans": (JMODELS.H2OKMeansEstimator,
+                   h2o3_tpu_torch.H2OKMeansEstimator),
+        "pca": (JMODELS.H2OPrincipalComponentAnalysisEstimator,
+                h2o3_tpu_torch.H2OPrincipalComponentAnalysisEstimator),
+        "svd": (JMODELS.H2OSingularValueDecompositionEstimator,
+                h2o3_tpu_torch.H2OSingularValueDecompositionEstimator),
+        "glrm": (JMODELS.H2OGeneralizedLowRankEstimator,
+                 h2o3_tpu_torch.H2OGeneralizedLowRankEstimator),
     }[algo]
     jp, tp = jcls().params, tcls().params
     assert set(tp) == set(jp)

@@ -13,7 +13,9 @@ sum in exact 64-bit fixed point and cast once; bins that a NaN or inf stat
 reaches as in float64, and results bit-identical from launch to launch and
 across launch layouts (column groups, window copies, threads, warp
 aggregation); histograms of int32 stats (the int8 path) equal to the plain
-version (`torch.equal`: integer sums are exact) in every layout.
+version (`torch.equal`: integer sums are exact) in every layout. The
+models without kernels (GLM, DeepLearning, KMeans, PCA, SVD, GLRM) are
+held on the card against their CPU runs, each tolerance in its test.
 """
 
 import numpy as np
@@ -740,3 +742,90 @@ def test_one_hot_design_on_the_card_matches_the_cpu(dev):
         assert abs(infos["cuda"].means[k] - v) <= 1e-12 * max(abs(v), 1.0)
         assert abs(infos["cuda"].sigmas[k] - infos["cpu"].sigmas[k]) \
             <= 1e-12 * infos["cpu"].sigmas[k]
+
+
+def _unsup_frame(h2o, d, n=20_000, seed=9):
+    """A seeded frame on device `d`: 6 numeric columns around 4 centres,
+    3% NA, a 0/1 label from the first two."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    h2o.init(device=d)
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0, 3, (4, 6))[rng.integers(0, 4, n)] \
+        + rng.normal(size=(n, 6))
+    y = (X[:, 0] - X[:, 1] + rng.logistic(size=n) > 0).astype(float)
+    X[rng.random(X.shape) < 0.03] = np.nan
+    names = [f"x{j}" for j in range(6)]
+    return Frame(names + ["y"], [Vec.from_numpy(X[:, j]) for j in range(6)]
+                 + [Vec.from_numpy(y.astype(int).astype(str))]), names
+
+
+@pytest.mark.gpu
+def test_deeplearning_on_the_card_matches_the_cpu(dev):
+    """DL binomial (hidden [64, 64], 2 epochs) with the same draws (made
+    on the CPU, moved to the card): probabilities within 1e-3 of the
+    CPU's (f32 sums in another order over 156 steps); a second training
+    on the card gives the same weights bit for bit."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.models import deeplearning as DL
+    out = {}
+    for d in ("cpu", "cuda", "cuda"):
+        fr, xs = _unsup_frame(h2o, d)
+        m = h2o.H2ODeepLearningEstimator(hidden=[64, 64], epochs=2.0, seed=4)
+        m._draws = lambda device: DL.Draws(torch.Generator().manual_seed(4),
+                                           device)
+        m.train(x=xs, y="y", training_frame=fr)
+        p = m._score_matrix(m._dinfo.matrix(fr))[:, 1].cpu()
+        out.setdefault(d, []).append((p, [t.cpu() for t in
+                                          m._net.parameters()]))
+    (pc, _), = out["cpu"]
+    (p1, w1), (p2, w2) = out["cuda"]
+    assert (p1 - pc).abs().max() <= 1e-3
+    assert torch.equal(p1, p2)
+    assert all(torch.equal(a, b) for a, b in zip(w1, w2))
+
+
+@pytest.mark.gpu
+def test_kmeans_on_the_card_matches_the_cpu(dev):
+    """KMeans k 4 (Furthest, standardised): centroids within 1e-4 of the
+    CPU's; a second training on the card bit for bit (fixed-point
+    sums)."""
+    import h2o3_tpu_torch as h2o
+    cents = {}
+    for d in ("cpu", "cuda", "cuda"):
+        fr, xs = _unsup_frame(h2o, d)
+        m = h2o.H2OKMeansEstimator(k=4, seed=2)
+        m.train(x=xs, training_frame=fr)
+        cents.setdefault(d, []).append(m._centroids.cpu())
+    (c,), (g1, g2) = cents["cpu"], cents["cuda"]
+    assert (g1 - c).abs().max() <= 1e-4
+    assert torch.equal(g1, g2)
+
+
+@pytest.mark.gpu
+def test_pca_svd_glrm_on_the_card_match_the_cpu(dev):
+    """PCA (STANDARDIZE) eigenvalues and SVD's d within 1e-5 relative of
+    the CPU's (f32 Grams summed in another order, TF32 off), their
+    rotations within 1e-4 up to sign; GLRM k 3 objectives within 1e-4
+    relative, iteration for iteration."""
+    import h2o3_tpu_torch as h2o
+    assert not torch.backends.cuda.matmul.allow_tf32
+    res = {}
+    for d in ("cpu", "cuda"):
+        fr, xs = _unsup_frame(h2o, d)
+        pca = h2o.H2OPrincipalComponentAnalysisEstimator(
+            k=3, transform="STANDARDIZE")
+        pca.train(x=xs, training_frame=fr)
+        svd = h2o.H2OSingularValueDecompositionEstimator(nv=3)
+        svd.train(x=xs, training_frame=fr)
+        glrm = h2o.H2OGeneralizedLowRankEstimator(k=3, seed=1)
+        glrm.train(x=xs, training_frame=fr)
+        res[d] = (np.asarray(pca.summary()["std_deviation"]), pca.rotation(),
+                  svd.d(), svd.v(),
+                  np.asarray([h["objective"]
+                              for h in glrm.scoring_history()]))
+    (ps, pr, sd, sv, go), (qs, qr, td, tv, ho) = res["cpu"], res["cuda"]
+    assert np.abs(ps - qs).max() <= 1e-5 * ps.max()
+    assert np.abs(sd - td).max() <= 1e-5 * sd.max()
+    assert np.abs(pr - qr).max() <= 1e-4
+    assert np.abs(sv - tv * np.sign((sv * tv).sum(0))).max() <= 1e-4
+    assert len(go) == len(ho) and np.abs(go - ho).max() <= 1e-4 * go.max()

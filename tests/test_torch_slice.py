@@ -487,6 +487,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     assert {pkg / "core" / "jobs.py", pkg / "udf.py",
             pkg / "models" / "glm.py"} <= set(files)
+    assert {pkg / "models" / f"{m}.py" for m in (
+        "deeplearning", "kmeans", "pca", "svd", "glrm")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
