@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port (h2o3_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --psvm-cpu-reference
+
+The second form only runs run (ac)'s PSVM on the host's CPU, on (ac)'s
+frame made on the card and copied to the host, and prints the AUC that
+PSVM_AUC_BAR is set from; it prints no result line.
 
 Phases, each printing its lines before the last:
   1. the card (nvidia-smi name and power limit, torch's device name) and
@@ -60,7 +65,9 @@ Phases, each printing its lines before the last:
            fused kernel at levels 1-5, route + dense histogram at 6-7),
            50 trees with a 1M-row validation frame and early stopping
            armed; train and validation AUC, trees built, throughput and
-           peak memory;
+           peak memory; model_performance(valid) equal to train()'s
+           validation metrics within 1e-7 (AUC, logloss), and to_dict()
+           through json.dumps;
        (c) (b) with int8_hist=True;
        (f) a binomial DRF to depth 10 on the same frame, 20 trees,
            sample_rate 0.632, mtries -1, with the validation frame: OOB
@@ -97,7 +104,10 @@ Phases, each printing its lines before the last:
            logloss, CV AUC within 0.01 of the training AUC, the f32 Gram
            within 1e-5 of a float64 Gram of the same X (relative to its
            largest entry), a 200,000-row slice fitted on the card and on
-           the CPU (coefficients within 1e-4, AUC within 1e-5); the CV
+           the CPU (coefficients within 1e-4, AUC within 1e-5);
+           model_performance(valid) equal to the validation metrics
+           within 1e-7 (AUC, logloss) and to_dict() through json.dumps,
+           as for (b); the CV
            split and fold fits timed apart; then one fit under a stopwatch
            on each IRLS stage (eta pass, working weights, Gram pass, host
            copy, float64 solve), each beside its bound;
@@ -106,8 +116,12 @@ Phases, each printing its lines before the last:
            is within 0.002 of (k)'s;
        (m) GLM multinomial IRLSM on the Covertype frame with its 4 + 40
            indicator fields as two categorical columns, which the one-hot
-           design expands back: its 54 feature names, training logloss
-           below the class prior's entropy, the per-class Gram timed;
+           design expands back, less each column's first level (neither
+           has an NA): its 52 feature names, training logloss below the
+           class prior's entropy, the per-class Gram timed; and the same
+           fit on every level's design (the JAX package's, before the
+           repair): its IRLS sweeps and logloss beside (m)'s, which may
+           not be higher by more than 1e-4;
        (n) (m) by L-BFGS: logloss within 1e-3 of (m)'s;
        (o) GBM with a gaussian custom distribution (a torch UDF) against
            distribution="gaussian", 10 UniformAdaptive trees of depth 6 on
@@ -153,6 +167,47 @@ Phases, each printing its lines before the last:
            rising, reconstruct()'s RMSE on the held-out entries within 5%
            of what the noise leaves, a stage table of step_A, step_B and
            the objective;
+     then the model framework and the standalone models, each with its
+     seconds:
+       (x) a Cartesian grid of GBMs on the HIGGS frame (max_depth 6, 8 x
+           learn_rate 0.1, 0.3, 5 trees) with its validation frame:
+           get_grid("auc") sorted, each model's validation AUC equal bit
+           for bit to the same parameters trained alone, the grid with
+           parallelism 2 the same models, a RandomDiscrete walk
+           (max_models 2, seed 42) picking the CPU's combinations, every
+           binned kernel launched;
+       (y) a stacked ensemble of a GBM (depth 8, 10 trees) and a binomial
+           GLM, both 5-fold on the same folds, AUTO metalearner: its
+           validation AUC at least the best base model's less 0.001,
+           non-negative metalearner coefficients, the level-one set-up
+           and the metalearner timed apart;
+       (z) train_segments: a multinomial GBM (depth 8, 3 iterations) on
+           each wilderness area of (m)'s frame: every segment SUCCEEDED,
+           the rows summing to 581,012, each model's training logloss
+           equal bit for bit to the same GBM trained alone on its
+           subframe;
+       (aa) Naive Bayes binomial on the HIGGS frame (AUC above a bar set
+           from a CPU run) and multinomial with laplace 1 on (m)'s frame
+           (logloss below the prior's entropy), a 20,000-row slice card vs
+           CPU (probabilities within 1e-5);
+       (ab) CoxPH, Efron ties and 4 strata, on a planted survival frame
+           (1M rows x 10 covariates, times in whole days, about 30%
+           censored): each beta within 4 SE of its plant, the
+           log-likelihood within 1e-6 of a float64 numpy Efron evaluation,
+           concordance above 0.5, a Newton iteration beside its bound;
+       (ac) PSVM at its defaults on the HIGGS frame: AUC above a bar set
+           from CPU fits of the same frame (halfway between the
+           converged fit's and one stalled after its first step), the
+           float64 gradient at the fit below 1e-3 of its norm at zero (a
+           fit stalled at its first step, also run, must fail both), peak
+           memory, an iteration's
+           and a line-search evaluation's ms, a 20,000-row slice card vs
+           CPU (final objective within 1e-5 relative);
+       (ad) the quantiles of the HIGGS frame's 28 columns at H2O's default
+           probabilities, unweighted and with integer weights 1-3: the
+           exact ranks equal to the sorted order statistics, the
+           interpolated values within 1 f32 ulp, ms a column beside its
+           bound;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -172,10 +227,10 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(w) are printed again just before the two JSON
+The lines of runs (d)-(ad) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning and the unsupervised family add no kernel to
-it); the last line is
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ad)
+add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -334,6 +389,44 @@ KM_SLICE_N = 200_000
 # (u)-(w): a rank-RANK signal plus N(0, RANK_NOISE²) noise at HIGGS
 # shape; NA_SHARE of its entries NA for GLRM
 RANK, RANK_NOISE, NA_SHARE = 5, 0.1, 0.05
+# runs (x)-(ad): the model framework and the standalone models
+# (x) a Cartesian grid of binned GBMs on the HIGGS frame with its
+# validation frame: max_depth x learn_rate, 5 trees each (of the 10 asked:
+# with its models trained alone, from two threads and the RandomDiscrete
+# walk, 14 trains of 10 trees took 15.3 s)
+GRID_HYPER = {"max_depth": [6, 8], "learn_rate": [0.1, 0.3]}
+GRID_GBM = dict(ntrees=5, nbins=HIGGS_NBINS, distribution="bernoulli",
+                seed=1)
+# (y) a stacked ensemble of a GBM and a binomial GLM on 5 shared folds;
+# the GBM 10 trees (of the 20 asked: its 6 fits of 20 took 9.7 s)
+ENS_GBM = dict(ntrees=10, max_depth=8, nbins=HIGGS_NBINS,
+               distribution="bernoulli")
+# (z) one multinomial GBM a wilderness area of (m)'s Covertype frame, 3
+# iterations (of the 10 asked: 4 segments and 4 models trained alone of 70
+# trees each took 21 s, of 35 trees 14.5-16.1 s, host-bound)
+SEG_GBM = dict(distribution="multinomial", ntrees=3, max_depth=8,
+               nbins=HIGGS_NBINS, seed=1)
+# (aa) Naive Bayes at its defaults; its AUC on the HIGGS frame must pass
+# NB_AUC_BAR: a CPU run of the same generator (torch's CPU generator,
+# seed 7) at 1M rows, through the port on the CPU, gave NB_AUC_CPU
+NB_AUC_CPU, NB_AUC_BAR, NB_SLICE_N = 0.793065, 0.78, 20_000
+# (ab) CoxPH on a planted survival frame: COX_N rows (a churn table's
+# size), COX_P N(0,1) covariates and a COX_STRATA-level stratum (H2O's
+# CoxPH usage: a handful of covariates and strata)
+COX_N, COX_P, COX_STRATA = 1_000_000, 10, 4
+COX_BETA = (0.5, -0.4, 0.3, -0.2, 0.15, -0.1, 0.05, 0.0, 0.25, -0.3)
+# (ac) PSVM at its defaults (gaussian kernel, 256 Fourier features, C 1,
+# up to 200 iterations), seed 1. `--psvm-cpu-reference` fits it on the
+# host's CPU on this run's frame: AUC PSVM_AUC_CPU (7 iterations, until
+# two f32 objectives are equal), and PSVM_AUC_STALLED for a fit stopped
+# after its first step, whose direction is the gradient at zero. The bar
+# is halfway between them (random scores give 0.5). A fit stalled a step
+# or two later is closer still in AUC, so the fit's float64 gradient must
+# also fall below PSVM_GRAD_RATIO of its norm at zero: 4.9e-6 on the CPU,
+# 0.035 for the fit of one step
+PSVM_AUC_CPU, PSVM_AUC_STALLED = 0.739178, 0.738383
+PSVM_AUC_BAR = (PSVM_AUC_CPU + PSVM_AUC_STALLED) / 2
+PSVM_SLICE_N, PSVM_GRAD_RATIO = 20_000, 1e-3
 # the adaptive engine's stages, as its functions (engine.py)
 STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
           ("binning", "bin_rows"), ("histogram", "build_histograms"),
@@ -353,7 +446,9 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"\(d\)|levels 8-9)|timing .*(C=56|\(level [89]\))|"
                    r"xgboost \(g\)|drf \(h\)|isolation forest \(j\)|"
                    r"adaptive|glm|gbm (custom|cv)|deeplearning|kmeans|"
-                   r"pca \(|svd \(|glrm \()")
+                   r"pca \(|svd \(|glrm \(|grid \(x\)|ensemble \(y\)|"
+                   r"segments \(z\)|naive bayes|coxph|psvm|quantiles|"
+                   r"framework and standalone|model_performance)")
 
 
 def say(msg):
@@ -857,6 +952,24 @@ def train_run(torch, h2o, HC, fr, label, expect, keep, valid=None,
     return m, launches, t_train, trees, {n: r.calls for n, r in recs.items()}
 
 
+def performance_check(label, m, valid):
+    """model_performance(valid) scores the validation frame anew: its AUC
+    and logloss equal train()'s validation metrics within 1e-7, and the
+    model's to_dict() goes through json.dumps."""
+    t0 = time.perf_counter()
+    perf = m.model_performance(valid)
+    t_perf = time.perf_counter() - t0
+    d_auc = abs(perf.auc - m.auc(valid=True))
+    d_ll = abs(perf.logloss - m.logloss(valid=True))
+    text = json.dumps(m.to_dict())
+    say(f"{label}: model_performance(valid) in {t_perf:.3f} s: AUC "
+        f"{perf.auc!r}, logloss {perf.logloss!r} (train()'s validation "
+        f"metrics differ by {d_auc:.3g}, {d_ll:.3g}); to_dict() "
+        f"{len(text)} bytes of JSON")
+    check(d_auc <= 1e-7 and d_ll <= 1e-7, f"{label}: model_performance "
+          f"differs from the validation metrics by {d_auc}, {d_ll}")
+
+
 def higgs_run(torch, h2o, HC, fr, label, expect, keep, valid=None, **params):
     """A HIGGS run (train_run) whose train AUC must pass 0.7."""
     out = train_run(torch, h2o, HC, fr, f"higgs ({label})", expect, keep,
@@ -915,6 +1028,8 @@ def phase_higgs(torch, h2o, HC):
               f"{last['validation_auc']} vs final {vauc}")
         aucs[label[0]] = m.auc()
         out[label[0]] = (launches, calls)
+        if label[0] == "b":
+            performance_check("higgs (b)", m, valid)
         del m
     say(f"higgs train AUC: default {aucs['b']:.6f}, int8_hist "
         f"{aucs['c']:.6f}")
@@ -1812,6 +1927,7 @@ def glm_higgs_runs(torch, h2o, HC, fr, valid):
     check(abs(cvm.auc - m.auc()) < 0.01,
           f"glm (k): CV AUC {cvm.auc} vs train AUC {m.auc()}")
     check(np.isfinite(m._p_values).all(), "glm (k): p-values not finite")
+    performance_check("glm (k)", m, valid)
     glm_gram_check(torch, m, fr)
     k_auc = m.auc()
     del m
@@ -1866,9 +1982,25 @@ def glm_covtype_runs(torch, h2o, HC):
     prior = torch.bincount(y, minlength=K).double() / COV_N
     entropy = float(-(prior * prior.clamp(min=1e-300).log()).sum())
     del y
-    want = ([f"wilderness.w{i}" for i in range(COV_WILD)]
-            + [f"soil.s{i:02d}" for i in range(COV_SOIL)]
+    # the reduced design: neither categorical has an NA, so each loses
+    # its first level beside the intercept
+    want = ([f"wilderness.w{i}" for i in range(1, COV_WILD)]
+            + [f"soil.s{i:02d}" for i in range(1, COV_SOIL)]
             + [f"n{j}" for j in range(COV_NUM)])
+
+    class AllLevels(h2o.H2OGeneralizedLinearEstimator):
+        """(m) on the design before the repair: every level beside the
+        intercept (the JAX package's), a singular Gram."""
+
+        def _reduced_design(self):
+            return False
+    t0 = time.perf_counter()
+    before = AllLevels(**COV_GLM)
+    before.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t_before = time.perf_counter() - t0
+    it_before, ll_before = before._iterations, before.logloss()
+    del before
     gram, restore = _watch(GLM, "_class_gram", torch)
     try:
         HC.reset_launches()
@@ -1890,6 +2022,12 @@ def glm_covtype_runs(torch, h2o, HC):
         f"{1000 * gram.seconds / max(gram.calls, 1):.3f} ms x {gram.calls} "
         f"(bound {b:.3f} ms, by {by}); training logloss {m.logloss():.6f} (class "
         f"prior entropy {entropy:.6f}); launches {launches}")
+    say(f"glm (m): the repair: {it_before} IRLS sweeps and training "
+        f"logloss {ll_before!r} on every level's design ({t_before:.3f} s), "
+        f"{m._iterations} sweeps and logloss {m.logloss()!r} on the "
+        f"reduced design (diff {m.logloss() - ll_before:.3g}, limit 1e-4)")
+    check(m.logloss() <= ll_before + 1e-4, f"glm (m): the reduced design's "
+          f"logloss {m.logloss()} vs {ll_before} on every level's")
     check(m._dinfo.feature_names == want,
           f"glm (m): feature names {m._dinfo.feature_names}")
     check(m.logloss() < entropy, f"glm (m): logloss {m.logloss()} not below "
@@ -2027,16 +2165,22 @@ def phase_glm_cv(torch, h2o, HC):
 def _identifiable(m):
     """A GLM's coefficients that its design determines: the numeric ones
     and, per categorical column, each level's coefficient less the first
-    level's. The JAX package's one-hot design keeps every level beside
-    the intercept, so a categorical without NAs makes the Gram singular:
-    the levels and the intercept move together along its null direction,
-    by an amount the Gram's f32 rounding alone decides (ROADMAP.md §3)."""
+    level's. A design that keeps every level of a categorical without NAs
+    beside the intercept (the JAX package's) makes the Gram singular: the
+    levels and the intercept move together along its null direction, by
+    an amount the Gram's f32 rounding alone decides (ROADMAP.md §3). The
+    port's reduced design drops the first level there, so its columns
+    are already those differences."""
     di, b = m._dinfo, m._state.beta
     out, j = [], 0
     for c in di.cat_cols:
         k = di.cardinalities[c]
-        out += list(b[j + 1:j + k] - b[j])
-        j += k
+        if c in di.drop_first:
+            out += list(b[j:j + k - 1])
+            j += k - 1
+        else:
+            out += list(b[j + 1:j + k] - b[j])
+            j += k
     return np.asarray(out + list(b[j:-1]))
 
 
@@ -2743,6 +2887,539 @@ def phase_dl_unsupervised(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+# Runs (x)-(ad): the model framework and the standalone models. Grid
+# search, the stacked ensemble and segments train binned GBMs, so they
+# launch the kernels of ops/csrc; Naive Bayes, CoxPH, PSVM and the
+# quantiles are plain PyTorch (the JAX package computes them in XLA
+# without a Pallas call), and none may count a launch.
+def _kernel_launches(HC):
+    return {k: v for k, v in HC.LAUNCHES.items() if v}
+
+
+def grid_run(torch, h2o, HC, fr, valid):
+    """Run (x): a Cartesian GBM grid on the HIGGS frame, each model against
+    the same parameters trained alone, the same grid from two threads, and
+    a RandomDiscrete walk against the CPU's numpy draws."""
+    from h2o3_tpu_torch.models import grid as G
+    base = dict(GRID_GBM)
+    torch.cuda.synchronize()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    g = h2o.H2OGridSearch(h2o.H2OGradientBoostingEstimator, GRID_HYPER,
+                          grid_id="grid_x")
+    g.train(y="y", training_frame=fr, validation_frame=valid, **base)
+    torch.cuda.synchronize()
+    t_grid = time.perf_counter() - t0
+    launches = _kernel_launches(HC)
+    check(not g.failures and len(g) == 4, f"grid (x): {len(g)} models, "
+          f"failures {g.failures}")
+    models = {m.key: m for m in g.models}
+    ranked = g.get_grid("auc")
+    vaucs = [m.auc(valid=True) for m in ranked]
+    check(vaucs == sorted(vaucs, reverse=True),
+          f"grid (x): get_grid('auc') not sorted: {vaucs}")
+    secs = []
+    for key in sorted(models):
+        m = models[key]
+        combo = {k: m.params[k] for k in GRID_HYPER}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = h2o.H2OGradientBoostingEstimator(**base, **combo)
+        alone.train(y="y", training_frame=fr, validation_frame=valid)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        say(f"grid (x) {key} {combo}: validation AUC {m.auc(valid=True)!r}"
+            f" (trained alone {alone.auc(valid=True)!r}, {secs[-1]:.3f} s)")
+        check(m.auc(valid=True) == alone.auc(valid=True),
+              f"grid (x) {key}: validation AUC {m.auc(valid=True)} vs "
+              f"{alone.auc(valid=True)} trained alone")
+        del alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g2 = h2o.H2OGridSearch(h2o.H2OGradientBoostingEstimator, GRID_HYPER,
+                           grid_id="grid_x2", parallelism=2)
+    g2.train(y="y", training_frame=fr, validation_frame=valid, **base)
+    torch.cuda.synchronize()
+    t_par = time.perf_counter() - t0
+    par = {m.key.replace("grid_x2", "grid_x"): m.auc(valid=True)
+           for m in g2.models}
+    check(par == {k: m.auc(valid=True) for k, m in models.items()},
+          f"grid (x): parallelism 2 gave {par}")
+    crit = {"strategy": "RandomDiscrete", "max_models": 2, "seed": 42}
+    cpu = _on_cpu(h2o, lambda: G.H2OGridSearch(
+        h2o.H2OGradientBoostingEstimator, GRID_HYPER,
+        search_criteria=crit)._combos())
+    rd = h2o.H2OGridSearch(h2o.H2OGradientBoostingEstimator, GRID_HYPER,
+                           grid_id="grid_xr", search_criteria=crit)
+    rd.train(y="y", training_frame=fr, validation_frame=valid, **base)
+    picked = [{k: m.params[k] for k in GRID_HYPER}
+              for m in sorted(rd.models, key=lambda m: m.key)]
+    check(picked == cpu, f"grid (x): RandomDiscrete picked {picked}, the "
+          f"CPU's walk {cpu}")
+    alone = ", ".join(f"{s:.3f}" for s in secs)
+    say(f"grid (x): GBM {base['ntrees']} trees, {GRID_HYPER} on {fr.nrows} "
+        f"rows x {len(fr.names) - 1} features: grid {t_grid:.3f} s "
+        f"({t_grid / 4:.3f} s a model; each alone {alone} s), parallelism "
+        f"2 {t_par:.3f} s (one walk for every parallelism, models bit "
+        f"for bit the same); RandomDiscrete "
+        f"max_models 2 seed 42 picked {picked} as the CPU's numpy walk; "
+        f"launches over the grid {launches}")
+    for name in ("radix", "fused", "route", "hist", "route_f"):
+        check(launches.get(name, 0) > 0, f"grid (x): {name} never launched")
+    return launches
+
+
+def ensemble_run(torch, h2o, HC, fr, valid):
+    """Run (y): a stacked ensemble of a GBM and a GLM cross-validated on
+    the same 5 folds, with the AUTO metalearner."""
+    from h2o3_tpu_torch.models import ensemble as EN
+    cv = dict(nfolds=5, fold_assignment="Modulo", seed=5,
+              keep_cross_validation_predictions=True)
+    torch.cuda.synchronize()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    gbm = h2o.H2OGradientBoostingEstimator(**ENS_GBM, **cv)
+    gbm.train(y="y", training_frame=fr, validation_frame=valid)
+    torch.cuda.synchronize()
+    t_gbm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    glm = h2o.H2OGeneralizedLinearEstimator(family="binomial", lambda_=0.0,
+                                            **cv)
+    glm.train(y="y", training_frame=fr, validation_frame=valid)
+    torch.cuda.synchronize()
+    t_glm = time.perf_counter() - t0
+    meta, restore = _watch(h2o.H2OGeneralizedLinearEstimator, "train",
+                           torch)
+    fit, restore2 = _watch(EN.H2OStackedEnsembleEstimator, "_fit", torch)
+    try:
+        t0 = time.perf_counter()
+        se = h2o.H2OStackedEnsembleEstimator(base_models=[gbm, glm])
+        se.train(y="y", training_frame=fr, validation_frame=valid)
+        torch.cuda.synchronize()
+        t_se = time.perf_counter() - t0
+    finally:
+        restore()
+        restore2()
+    launches = _kernel_launches(HC)
+    beta = se._meta._state.beta
+    coefs = dict(zip(se._meta._dinfo.feature_names + ["Intercept"],
+                     np.round(beta, 6).tolist()))
+    best = max(gbm.auc(valid=True), glm.auc(valid=True))
+    say(f"ensemble (y): GBM depth {ENS_GBM['max_depth']} "
+        f"{ENS_GBM['ntrees']} trees 5-fold CV {t_gbm:.3f} s, GLM 5-fold CV "
+        f"{t_glm:.3f} s; the ensemble's train() {t_se:.3f} s: level-one "
+        f"set-up {fit.seconds - meta.seconds:.3f} s, the metalearner's "
+        f"train() {meta.seconds:.3f} s, the ensemble's training and "
+        f"validation scoring {t_se - fit.seconds:.3f} s; validation AUC GBM "
+        f"{gbm.auc(valid=True):.6f}, GLM {glm.auc(valid=True):.6f}, "
+        f"ensemble {se.auc(valid=True):.6f}; metalearner coefficients "
+        f"{coefs}; launches {launches}")
+    check(se.auc(valid=True) >= best - 0.001,
+          f"ensemble (y): validation AUC {se.auc(valid=True)} below the best "
+          f"base model's {best} - 0.001")
+    check((beta[:-1] >= 0).all(), f"ensemble (y): metalearner {beta}")
+    check(launches.get("fused", 0) > 0, "ensemble (y): no kernel launched")
+    return launches
+
+
+def segments_run(torch, h2o, HC, fr):
+    """Run (z): one multinomial GBM a wilderness area of (m)'s frame, each
+    against the same GBM trained alone on its subframe."""
+    from h2o3_tpu_torch.models import model as MB
+    torch.cuda.synchronize()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    res = h2o.train_segments(h2o.H2OGradientBoostingEstimator, SEG_GBM,
+                             "wilderness", y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t_seg = time.perf_counter() - t0
+    launches = _kernel_launches(HC)
+    rows = res.as_list()
+    wild = fr.vec("wilderness").data
+    for r in rows:
+        check(r["status"] == "SUCCEEDED", f"segments (z): {r}")
+        m = h2o.get_model(r["model"])
+        code = fr.vec("wilderness").levels().index(r["segment"]["wilderness"])
+        sub = MB._subframe(fr, torch.nonzero(wild == code)[:, 0])
+        alone = h2o.H2OGradientBoostingEstimator(**SEG_GBM)
+        alone.train(y="y", training_frame=sub)
+        say(f"segments (z) {r['segment']}: {r['status']}, {r['nrows']} rows, "
+            f"training logloss {m.logloss()!r} (alone {alone.logloss()!r})")
+        check(m.logloss() == alone.logloss(), f"segments (z) {r['segment']}"
+              f": logloss {m.logloss()} vs {alone.logloss()} alone")
+        h2o.remove(sub.key)
+    total = sum(r["nrows"] for r in rows)
+    say(f"segments (z): {len(rows)} segments of a multinomial GBM depth "
+        f"{SEG_GBM['max_depth']}, {SEG_GBM['ntrees']} iterations: "
+        f"{t_seg:.3f} s; rows {total}; launches {launches}")
+    check(len(rows) == COV_WILD and total == fr.nrows,
+          f"segments (z): {len(rows)} segments, {total} rows")
+    check(launches.get("fused", 0) > 0, "segments (z): no kernel launched")
+    return launches
+
+
+def naive_bayes_runs(torch, h2o, HC, fr, cov, entropy):
+    """Run (aa): Naive Bayes binomial at HIGGS width and multinomial at
+    Covertype width, and a slice card vs CPU."""
+    m, t, peak = timed_train(torch, HC, "naive bayes (aa)",
+                             lambda: h2o.H2ONaiveBayesEstimator(),
+                             y="y", training_frame=fr)
+    say(f"naive bayes (aa): binomial on {fr.nrows} rows x "
+        f"{len(fr.names) - 1} features: train() {t:.3f} s, {peak}; train "
+        f"AUC {m.auc():.6f} (bar {NB_AUC_BAR}; a CPU run of the generator "
+        f"at 1M rows: {NB_AUC_CPU})")
+    check(m.auc() > NB_AUC_BAR, f"naive bayes (aa): AUC {m.auc()}")
+    c, t, peak = timed_train(torch, HC, "naive bayes (aa)",
+                             lambda: h2o.H2ONaiveBayesEstimator(laplace=1),
+                             y="y", training_frame=cov)
+    say(f"naive bayes (aa): multinomial on {cov.nrows} rows (two "
+        f"categoricals, 7 classes), laplace 1: train() {t:.3f} s, {peak}; "
+        f"training logloss {c.logloss():.6f} (class prior entropy "
+        f"{entropy:.6f})")
+    check(c.logloss() < entropy, f"naive bayes (aa): logloss {c.logloss()}")
+    sl = _sub_frame(fr, NB_SLICE_N)
+    card = h2o.H2ONaiveBayesEstimator().train(y="y", training_frame=sl)
+    pc = card.predict(sl).vecs[-1].data.cpu().numpy()
+
+    def cpu_fit():
+        f = _cpu_frame(sl)
+        m = h2o.H2ONaiveBayesEstimator().train(y="y", training_frame=f)
+        return m.predict(f).vecs[-1].data.numpy()
+    pp = _on_cpu(h2o, cpu_fit)
+    d = float(np.abs(pc - pp).max())
+    say(f"naive bayes (aa): {NB_SLICE_N}-row slice card vs CPU: "
+        f"probabilities max diff {d:.3g} (limit 1e-5)")
+    check(d < 1e-5, f"naive bayes (aa): card vs CPU {d}")
+
+
+def _survival_frame(torch, dev, n, seed):
+    """A planted survival frame made on the card: COX_P N(0,1) covariates,
+    a COX_STRATA-level stratum with its own baseline (median 400-1000
+    days), exponential event times with hazard exp(x·COX_BETA), exponential
+    censoring at 0.45 of the stratum's baseline rate (about 30%
+    censored), the observed time rounded up to whole days."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = torch.randn((n, COX_P), generator=g, device=dev)
+    s = torch.randint(0, COX_STRATA, (n,), generator=g, device=dev)
+    lam = math.log(2) / torch.tensor([400.0, 600.0, 800.0, 1000.0],
+                                     device=dev)[s]
+    rate = lam * torch.exp(X @ torch.tensor(COX_BETA, device=dev))
+
+    def draw(r):
+        u = torch.rand(n, generator=g, device=dev).clamp(min=1e-12)
+        return -torch.log(u) / r
+    T, C = draw(rate), draw(0.45 * lam)
+    t = torch.ceil(torch.minimum(T, C))
+    vecs = [Vec.from_tensor(X[:, j].contiguous()) for j in range(COX_P)]
+    vecs += [Vec.from_tensor(s.float(), type=T_CAT,
+                             domain=[f"s{i}" for i in range(COX_STRATA)]),
+             Vec.from_tensor(t), Vec.from_tensor((T <= C).float())]
+    return Frame([f"z{j}" for j in range(COX_P)]
+                 + ["stratum", "time", "event"], vecs)
+
+
+def _numpy_efron_loglik(X, t, ev, strat, beta):
+    """The Efron partial log-likelihood with strata, float64 numpy, from
+    host arrays."""
+    order = np.lexsort((-t, strat))
+    X, t, ev, strat = X[order], t[order], ev[order], strat[order]
+    n = len(t)
+    eta = X @ beta
+    r = np.exp(eta)
+    new_g = np.r_[True, (strat[1:] != strat[:-1]) | (t[1:] != t[:-1])]
+    gid = np.cumsum(new_g) - 1
+    last = np.r_[np.flatnonzero(new_g)[1:], n] - 1
+    new_s = np.r_[True, strat[1:] != strat[:-1]]
+    sid = np.cumsum(new_s) - 1
+    first = np.flatnonzero(new_s)
+    csum = np.cumsum(r)
+    before = np.where(first > 0, csum[np.maximum(first - 1, 0)], 0.0)
+    risk = csum[last][gid] - before[sid]
+    e = ev > 0
+    tie = np.bincount(gid, weights=r * e)[gid]
+    d = np.maximum(np.bincount(gid, weights=e.astype(float)), 1.0)[gid]
+    ecum = np.cumsum(e)
+    starts = np.flatnonzero(new_g)
+    prior = np.where(starts > 0, ecum[np.maximum(starts - 1, 0)], 0)[gid]
+    rank = ecum - 1 - prior
+    denom = risk - rank / d * tie
+    return float((eta * e).sum() - np.log(denom[e]).sum())
+
+
+def coxph_run(torch, h2o, HC):
+    """Run (ab): CoxPH with Efron ties and strata on a planted survival
+    frame of 1M rows."""
+    from h2o3_tpu_torch.models import coxph as CX
+    dev = h2o.init().device
+    fr = _survival_frame(torch, dev, COX_N, 14)
+    x = [f"z{j}" for j in range(COX_P)]
+    m, t, peak = timed_train(
+        torch, HC, "coxph (ab)",
+        lambda: h2o.H2OCoxProportionalHazardsEstimator(
+            stop_column="time", stratify_by="stratum", ties="efron",
+            standardize=False),
+        x=x, y="event", training_frame=fr)
+    s = m._output.model_summary
+    ev, tt = fr.vec("event").to_numpy(), fr.vec("time").to_numpy()
+    st = fr.vec("stratum").to_numpy().astype(np.int64)
+    ll = _numpy_efron_loglik(fr.to_numpy(x), tt, ev, st, m._beta)
+    rel = abs(ll - s["loglik"]) / abs(ll)
+    z = (m._beta - np.asarray(COX_BETA)) / m._se
+    # one Newton iteration as train() takes it: the value, the gradient,
+    # the Hessian (autograd's p backward passes) and the value at the new
+    # point, over the rows in (stratum, -time) order
+    order = np.lexsort((-tt, st))
+    f = CX._nll_fn(fr.matrix(x).index_select(
+        0, torch.from_numpy(order).to(dev)), tt[order], ev[order],
+        np.ones(len(ev)), st[order], "efron")
+    b32 = torch.tensor(m._beta, dtype=torch.float32, device=dev)
+
+    def newton_iter():
+        b = b32.clone().requires_grad_(True)
+        torch.autograd.grad(f(b), b)
+        torch.autograd.functional.hessian(f, b32)
+        with torch.no_grad():
+            f(b32)
+    it_ms = time_ms(torch, newton_iter, 1)
+    n = COX_N
+    # bytes: the f32 covariates once and eight 8-byte row vectors (the
+    # group, end, stratum and Efron indices and weights); operations: XᵀDX
+    # and the gradient's and η's products (at the f32 peak; the float64
+    # peak halves it, and the bytes still bound)
+    b_ms, by = _bound_ms(n * (4 * COX_P + 64), 2 * n * COX_P * (COX_P + 2))
+    say(f"coxph (ab): {n} rows x {COX_P} covariates, {COX_STRATA} strata, "
+        f"Efron ties ({len(np.unique(fr.vec('time').to_numpy()))} distinct "
+        f"days), {1 - ev.mean():.3f} censored: train() {t:.3f} s, {peak}; "
+        f"{s['iterations']} Newton iterations; a Newton iteration "
+        f"{it_ms:.3f} ms (bound {b_ms:.4f} ms, by {by}); loglik "
+        f"{s['loglik']!r} vs float64 numpy {ll!r} (rel {rel:.3g}); beta "
+        f"{np.round(m._beta, 5).tolist()}, |beta - planted| / SE "
+        f"{np.round(np.abs(z), 3).tolist()}; concordance "
+        f"{s['concordance']:.6f}; launches {_kernel_launches(HC)}")
+    check(np.abs(z).max() < 4, f"coxph (ab): beta off its plant by {z} SE")
+    check(rel < 1e-6, f"coxph (ab): loglik {s['loglik']} vs {ll}")
+    check(s["concordance"] > 0.5, f"coxph (ab): concordance "
+          f"{s['concordance']}")
+    check(not _kernel_launches(HC), "coxph (ab): a kernel launched")
+
+
+def psvm_run(torch, h2o, HC, fr):
+    """Run (ac): PSVM at its defaults on the HIGGS frame, and a slice card
+    vs CPU."""
+    from h2o3_tpu_torch.models import _lbfgs as LB
+    ls, restore = _watch(LB.ZoomLBFGS, "step", torch)
+    fit, restore2 = _watch(h2o.H2OSupportVectorMachineEstimator, "_fit",
+                           torch)
+    try:
+        m, t, peak = timed_train(
+            torch, HC, "psvm (ac)",
+            lambda: h2o.H2OSupportVectorMachineEstimator(seed=1),
+            y="y", training_frame=fr)
+    finally:
+        restore()
+        restore2()
+    s = m._output.model_summary
+    its, lse = s["iterations"], s["linesearch_evaluations"]
+    say(f"psvm (ac): gaussian kernel, {m._beta.numel()} Fourier features, "
+        f"C 1, on {fr.nrows} rows x {len(fr.names) - 1} features: train() "
+        f"{t:.3f} s, {peak}; the fit {fit.seconds:.3f} s over {its} "
+        f"iterations ({1000 * fit.seconds / max(its, 1):.3f} ms an "
+        f"iteration, the feature map's build included); the L-BFGS steps "
+        f"{1000 * ls.seconds:.3f} ms over {lse} line-search evaluations "
+        f"({1000 * ls.seconds / max(lse, 1):.3f} ms an evaluation with the "
+        f"step's direction); final objective {s['final_objective']!r}; train "
+        f"AUC {m.auc():.6f} (bar {PSVM_AUC_BAR:.6f}; the CPU on this frame: "
+        f"{PSVM_AUC_CPU}, stalled after one step {PSVM_AUC_STALLED}); "
+        f"launches {_kernel_launches(HC)}")
+    check(m.auc() > PSVM_AUC_BAR, f"psvm (ac): AUC {m.auc()}")
+    check(not _kernel_launches(HC), "psvm (ac): a kernel launched")
+    ratio = _psvm_grad_ratio(torch, m, fr)
+    del m
+    stalled = h2o.H2OSupportVectorMachineEstimator(
+        seed=1, max_iterations=1).train(y="y", training_frame=fr)
+    s_ratio = _psvm_grad_ratio(torch, stalled, fr)
+    say(f"psvm (ac): float64 gradient at the fit / at zero {ratio:.3e} "
+        f"(limit {PSVM_GRAD_RATIO}); a fit stalled at its first step: "
+        f"{s_ratio:.3e}, train AUC {stalled.auc():.6f}")
+    check(ratio < PSVM_GRAD_RATIO, f"psvm (ac): gradient ratio {ratio}")
+    check(s_ratio > PSVM_GRAD_RATIO and stalled.auc() < PSVM_AUC_BAR,
+          f"psvm (ac): a fit of one step passes the checks ({s_ratio}, AUC "
+          f"{stalled.auc()})")
+    del stalled
+    sl = _sub_frame(fr, PSVM_SLICE_N)
+    card = h2o.H2OSupportVectorMachineEstimator(seed=1).train(
+        y="y", training_frame=sl)
+    oc = card._output.model_summary["final_objective"]
+    oh = _on_cpu(h2o, lambda: h2o.H2OSupportVectorMachineEstimator(
+        seed=1).train(y="y", training_frame=_cpu_frame(sl))
+        ._output.model_summary["final_objective"])
+    rel = abs(oc - oh) / abs(oh)
+    say(f"psvm (ac): {PSVM_SLICE_N}-row slice card vs CPU: final objective "
+        f"{oc!r} vs {oh!r} (rel {rel:.3g}, limit 1e-5)")
+    check(rel < 1e-5, f"psvm (ac): card vs CPU objective {oc} vs {oh}")
+
+
+def _psvm_grad_ratio(torch, m, fr, block=1 << 20):
+    """The norm of the PSVM objective's gradient at the model's (beta, b0)
+    over its norm at zero, in float64 and in row blocks, with the
+    squared hinge's gradient written out by hand (psvm.py takes autograd's
+    of its f32 loss) and the model's Fourier features W and b."""
+    di = m._dinfo
+    X = torch.nan_to_num(di.matrix(fr))
+    y = di.response(fr)
+    ys = torch.where(y > 0.5, 1.0, -1.0).double()
+    w = torch.where(torch.isnan(y), 0.0, di.weights(fr)).double() \
+        * torch.where(ys > 0, float(m.params["positive_weight"]),
+                      float(m.params["negative_weight"]))
+    W, b = (t.double() for t in m._rff)
+    scale = float(m.params["hyper_param"]) / max(float(w.sum()), 1.0)
+
+    def norm(beta, b0):
+        g, g0 = beta.clone(), 0.0
+        for s in range(0, X.shape[0], block):
+            Z = torch.cos(X[s:s + block].double() @ W + b) \
+                * math.sqrt(2.0 / W.shape[1])
+            ysb = ys[s:s + block]
+            h = torch.clamp(1.0 - ysb * (Z @ beta + b0), min=0.0)
+            r = -2.0 * scale * w[s:s + block] * ysb * h
+            g += Z.T @ r
+            g0 += float(r.sum())
+        return math.sqrt(float(g @ g) + g0 * g0)
+
+    zero = torch.zeros(W.shape[1], dtype=torch.float64, device=X.device)
+    return norm(m._beta.double(), float(m._b0)) / norm(zero, 0.0)
+
+
+def psvm_cpu_reference(torch, h2o):
+    """`--psvm-cpu-reference`: run (ac)'s PSVM fits on the host's CPU at
+    the card's size and width, on (ac)'s HIGGS frame (the same generator
+    on the card, seed 7) copied to the host: its AUC, iterations, final
+    objective and gradient ratio, and those of a fit stalled at its first
+    step."""
+    fr = _cpu_frame(_higgs_frame(torch, h2o, h2o.init().device, HIGGS_N, 7))
+    torch.cuda.empty_cache()
+
+    def fits():
+        for cap in (200, 1):
+            t0 = time.perf_counter()
+            m = h2o.H2OSupportVectorMachineEstimator(
+                seed=1, max_iterations=cap).train(y="y", training_frame=fr)
+            t = time.perf_counter() - t0
+            s = m._output.model_summary
+            say(f"psvm (ac) on the CPU, {fr.nrows} rows x "
+                f"{len(fr.names) - 1} features, max_iterations {cap}: "
+                f"train AUC {m.auc()!r}, {s['iterations']} iterations, "
+                f"final objective {s['final_objective']!r}, float64 "
+                f"gradient at the fit / at zero "
+                f"{_psvm_grad_ratio(torch, m, fr):.3e}; train() {t:.1f} s "
+                f"on {torch.get_num_threads()} threads")
+    _on_cpu(h2o, fits)
+
+
+def _order_stat_reference(torch, x, w, probs):
+    """Each quantile from the exact order statistics: the f32 values
+    sorted on the card, the weights' cumulative sum in float64, Type 7 on
+    h = p·(W−1) in float64 numpy."""
+    ok = ~torch.isnan(x)
+    xs, order = torch.sort(x[ok])
+    cw = torch.cumsum(w[ok][order].double(), 0)
+    h = np.asarray(probs) * (float(cw[-1]) - 1.0)
+    ks = torch.tensor(np.concatenate([np.floor(h), np.ceil(h)]),
+                      dtype=torch.float64, device=x.device)
+    vals = xs[torch.searchsorted(cw, ks, right=True)].double().cpu().numpy()
+    lo, hi = vals[:len(h)], vals[len(h):]
+    return lo, hi, lo + (h - np.floor(h)) * (hi - lo)
+
+
+def quantiles_run(torch, h2o, HC, fr):
+    """Run (ad): the quantiles of the HIGGS frame's 28 columns at H2O's
+    default probabilities, unweighted and with integer weights 1-3."""
+    from h2o3_tpu_torch.models import quantile as Q
+    g = torch.Generator(device=fr.vecs[0].device)
+    g.manual_seed(15)
+    wts = torch.randint(1, 4, (fr.nrows,), generator=g,
+                        device=fr.vecs[0].device).float()
+    probs = list(Q.DEFAULT_PROBS)
+    cols = [c for c in fr.names if c != "y"]
+    worst = {}
+    HC.reset_launches()
+    for label, w in (("unweighted", None), ("weighted", wts)):
+        ms, err_exact, err_ulp = [], 0, 0.0
+        for c in cols:
+            x = fr.vec(c).as_f32()
+            lo, hi, want = _order_stat_reference(
+                torch, x, torch.ones_like(x) if w is None else w, probs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = Q.quantile(x, probs, weights=w)
+            ms.append(1000 * (time.perf_counter() - t0))
+            # the exact ranks themselves: the order statistics at
+            # floor(h) and ceil(h)
+            h = np.asarray(probs) * (float(
+                (torch.ones_like(x) if w is None else w).double().sum())
+                - 1.0)
+            ranks = Q._order_stats(
+                x, torch.ones_like(x) if w is None else w,
+                np.concatenate([np.floor(h), np.ceil(h)])).cpu().numpy()
+            err_exact += int((ranks != np.concatenate([lo, hi])).sum())
+            ulp = np.spacing(np.abs(want).astype(np.float32))
+            err_ulp = max(err_ulp, float((np.abs(got - want) / ulp).max()))
+        worst[label] = (err_exact, err_ulp)
+        b_ms, by = _bound_ms(4 * 4 * fr.nrows * (1 if w is None else 2), 0)
+        say(f"quantiles (ad) {label}: {len(cols)} columns x {fr.nrows} rows "
+            f"at {len(probs)} probabilities: {np.mean(ms):.3f} ms a column "
+            f"(bound {b_ms:.4f} ms, by {by}: 4 reads of the column"
+            f"{'' if w is None else ' and its weights'}); exact ranks "
+            f"differing from the sorted order statistics {err_exact}, "
+            f"interpolated values within {err_ulp:.3g} f32 ulp")
+        check(err_exact == 0 and err_ulp <= 1.0,
+              f"quantiles (ad) {label}: {err_exact} ranks differ, "
+              f"{err_ulp} ulp")
+    check(not _kernel_launches(HC), "quantiles (ad): a kernel launched")
+
+
+def phase_framework(torch, h2o, HC):
+    """Runs (x)-(ad) at full width, each timed."""
+    t_all = time.perf_counter()
+    _glm_tf32(torch)
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    launches = {}
+    times = {}
+    for label, fn in (("x", lambda: grid_run(torch, h2o, HC, fr, valid)),
+                      ("y", lambda: ensemble_run(torch, h2o, HC, fr,
+                                                 valid))):
+        t0 = time.perf_counter()
+        launches[label] = fn()
+        times[label] = time.perf_counter() - t0
+    del valid
+    base, y = _covtype_frame(torch, dev, COV_N, 9)
+    cov = _covtype_categorical(torch, base)
+    prior = torch.bincount(y, minlength=len(COV_PRIOR)).double() / COV_N
+    entropy = float(-(prior * prior.clamp(min=1e-300).log()).sum())
+    del base, y
+    for label, fn in (
+            ("z", lambda: segments_run(torch, h2o, HC, cov)),
+            ("aa", lambda: naive_bayes_runs(torch, h2o, HC, fr, cov,
+                                            entropy)),
+            ("ab", lambda: coxph_run(torch, h2o, HC)),
+            ("ac", lambda: psvm_run(torch, h2o, HC, fr)),
+            ("ad", lambda: quantiles_run(torch, h2o, HC, fr))):
+        t0 = time.perf_counter()
+        out = fn()
+        if out is not None:
+            launches[label] = out
+        times[label] = time.perf_counter() - t0
+    say("framework and standalone runs (x)-(ad): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items())
+        + f"; total {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -3084,6 +3761,9 @@ def main():
     # a float32 matmul stays full precision on the card; state it
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--psvm-cpu-reference"]:
+        psvm_cpu_reference(torch, h2o)
+        return
     t_start = time.perf_counter()
     card = phase_card(torch, _build)
     dev = torch.device("cuda", 0)
@@ -3100,10 +3780,13 @@ def main():
     phase_isofor(torch, h2o, HC)
     phase_glm_cv(torch, h2o, HC)
     phase_dl_unsupervised(torch, h2o, HC)
+    framework = phase_framework(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
-    say(f"recap of runs (d)-(w) and the (d)-(f) kernels' timings "
+    say("launches over the grid (x), the ensemble (y) and the segments "
+        "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
+    say(f"recap of runs (d)-(ad) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -31,23 +31,73 @@ SGD; the unsupervised family is `H2OKMeansEstimator`,
 `nfolds` or `fold_column` for cross-validation and `custom_metric_func`;
 GBM takes `distribution="custom"` with `custom_distribution_func` (torch
 UDFs registered by `h2o3_tpu_torch.udf.register_udf`).
+
+Around the estimators: `H2OGridSearch` (Cartesian and RandomDiscrete),
+`H2OStackedEnsembleEstimator` over cross-validated base models, and
+`train_segments`, one model a segment. The standalone models are
+`H2ONaiveBayesEstimator`, `H2OCoxProportionalHazardsEstimator` and
+`H2OSupportVectorMachineEstimator`; `quantile` gives a frame's quantiles.
+Every model has `model_performance`, `mse`, `model_id` and `to_dict`;
+`get_frame`, `get_model`, `remove` and `ls` reach the key-value store.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.io.parser import import_file, parse_setup
 from h2o3_tpu_torch.models import (
-    H2ODeepLearningEstimator, H2OGeneralizedLinearEstimator,
-    H2OGeneralizedLowRankEstimator, H2OGradientBoostingEstimator,
-    H2OIsolationForestEstimator, H2OKMeansEstimator,
+    H2OCoxProportionalHazardsEstimator, H2ODeepLearningEstimator,
+    H2OGeneralizedLinearEstimator, H2OGeneralizedLowRankEstimator,
+    H2OGradientBoostingEstimator, H2OGridSearch, H2OIsolationForestEstimator,
+    H2OKMeansEstimator, H2ONaiveBayesEstimator,
     H2OPrincipalComponentAnalysisEstimator, H2ORandomForestEstimator,
-    H2OSingularValueDecompositionEstimator, H2OXGBoostEstimator)
+    H2OSingularValueDecompositionEstimator, H2OStackedEnsembleEstimator,
+    H2OSupportVectorMachineEstimator, H2OXGBoostEstimator, SegmentModels,
+    train_segments)
 from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
 
-__all__ = ["DKV", "Frame", "H2ODeepLearningEstimator",
-           "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
-           "H2OGradientBoostingEstimator", "H2OIsolationForestEstimator",
-           "H2OKMeansEstimator", "H2OPrincipalComponentAnalysisEstimator",
+
+def get_frame(key):
+    """A Frame by its key (h2o.get_frame)."""
+    return DKV.get(key)
+
+
+def get_model(key):
+    """A model by its key (h2o.get_model)."""
+    return DKV.get(key)
+
+
+def remove(key):
+    """Drop a key from the store (h2o.remove)."""
+    DKV.remove(key)
+
+
+def ls():
+    """Every key in the store (h2o.ls)."""
+    return DKV.keys()
+
+
+def quantile(frame, prob=None, combine_method="interpolate",
+             weights_column=None):
+    """h2o.quantile: a Frame of a Probs column and one column of
+    quantiles for each numeric column."""
+    import numpy as np
+    from h2o3_tpu_torch.models.quantile import frame_quantiles
+    probs, cols = frame_quantiles(frame, prob, weights_column=weights_column,
+                                  combine_method=combine_method)
+    data = [np.asarray(probs, np.float64)] + [cols[c] for c in cols]
+    return Frame(["Probs"] + list(cols),
+                 [Vec.from_numpy(np.asarray(d, np.float64)) for d in data])
+
+
+__all__ = ["DKV", "Frame", "H2OCoxProportionalHazardsEstimator",
+           "H2ODeepLearningEstimator", "H2OGeneralizedLinearEstimator",
+           "H2OGeneralizedLowRankEstimator", "H2OGradientBoostingEstimator",
+           "H2OGridSearch", "H2OIsolationForestEstimator",
+           "H2OKMeansEstimator", "H2ONaiveBayesEstimator",
+           "H2OPrincipalComponentAnalysisEstimator",
            "H2ORandomForestEstimator",
-           "H2OSingularValueDecompositionEstimator", "H2OXGBoostEstimator",
-           "Vec", "cloud", "import_file", "init", "parse_setup", "shutdown"]
+           "H2OSingularValueDecompositionEstimator",
+           "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
+           "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud", "get_frame",
+           "get_model", "import_file", "init", "ls", "parse_setup",
+           "quantile", "remove", "shutdown", "train_segments"]

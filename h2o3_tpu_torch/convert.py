@@ -11,8 +11,10 @@ forest's (with its sample size and its observed path-length range) and
 statistics), `deeplearning_from_arrays` a net's ((W, b) a layer and its
 activation), `kmeans_from_arrays` the centroids, `pca_from_arrays` the
 rotation and the transform's statistics, `svd_from_arrays` V, d and
-theirs, and `glrm_from_arrays` the archetypes (each of these with its
-one-hot codec's statistics); each returns a port model that scores the
+theirs, `glrm_from_arrays` the archetypes, `coxph_from_arrays` β and
+`psvm_from_arrays` β, b0 and the random Fourier features (each of these
+with its one-hot codec's statistics), and `naive_bayes_from_arrays` the
+priors and tables; each returns a port model that scores the
 same rows to the same values. A
 carried GBM is a binned prior for a checkpoint restart only when the
 caller names the JAX model's binned engine; any other is a prior of the
@@ -29,11 +31,14 @@ import torch
 
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models.deeplearning import MLP, H2ODeepLearningEstimator
+from h2o3_tpu_torch.models.coxph import H2OCoxProportionalHazardsEstimator
 from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator, _GLMState
 from h2o3_tpu_torch.models.glrm import H2OGeneralizedLowRankEstimator
 from h2o3_tpu_torch.models.kmeans import H2OKMeansEstimator
 from h2o3_tpu_torch.models.model import DataInfo, ModelOutput
+from h2o3_tpu_torch.models.naive_bayes import H2ONaiveBayesEstimator
 from h2o3_tpu_torch.models.pca import H2OPrincipalComponentAnalysisEstimator
+from h2o3_tpu_torch.models.psvm import H2OSupportVectorMachineEstimator
 from h2o3_tpu_torch.models.svd import H2OSingularValueDecompositionEstimator
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
@@ -404,3 +409,74 @@ def glrm_from_arrays(*, archetypes, predictors: Sequence[str], domains: dict,
                    dinfo=_onehot_info(predictors, domains, means, sigmas,
                                       standardize=False,
                                       impute_missing=False))
+
+
+def naive_bayes_from_arrays(*, priors, cat_probs, num_mean, num_sd,
+                            predictors: Sequence[str], domains: dict,
+                            response_name: str,
+                            response_domain: Sequence[str],
+                            min_prob: float = 1e-3,
+                            model_id: Optional[str] = None
+                            ) -> H2ONaiveBayesEstimator:
+    """A port Naive Bayes from a JAX model's `_priors`, `_cat_probs`,
+    `_num_mean` and `_num_sd` (in the order of its categorical and of its
+    numeric predictors) and its label-mode codec's predictors and
+    domains; it stages the same log tables."""
+    model = H2ONaiveBayesEstimator(min_prob=float(min_prob),
+                                   model_id=model_id)
+    model._priors = np.asarray(priors, np.float64)
+    model._cat_probs = [np.asarray(p, np.float64) for p in cat_probs]
+    model._num_mean = [np.asarray(m, np.float64) for m in num_mean]
+    model._num_sd = [np.asarray(s, np.float64) for s in num_sd]
+    model._cat_idx = [i for i, c in enumerate(predictors) if c in domains]
+    model._num_idx = [i for i, c in enumerate(predictors)
+                      if c not in domains]
+    model._score_tab = None
+    return _finish(model, algo="naivebayes", predictors=predictors,
+                   domains=domains, response_name=response_name,
+                   response_domain=response_domain, model_id=model_id,
+                   summary={"nclasses": len(response_domain)},
+                   dinfo=DataInfo(predictors,
+                                  [c for c in predictors if c in domains],
+                                  domains, response_name, response_domain,
+                                  impute_missing=False))
+
+
+def coxph_from_arrays(*, beta, predictors: Sequence[str], domains: dict,
+                      means: dict, sigmas: dict, standardize: bool = True,
+                      model_id: Optional[str] = None
+                      ) -> H2OCoxProportionalHazardsEstimator:
+    """A port CoxPH from a JAX model's `_beta` and its one-hot DataInfo's
+    predictors, domains and statistics (the JAX design keeps every
+    level); it scores the same linear predictor."""
+    model = H2OCoxProportionalHazardsEstimator(standardize=bool(standardize),
+                                               model_id=model_id)
+    model._beta = np.asarray(beta, np.float64)
+    return _finish(model, algo="coxph", predictors=predictors,
+                   domains=domains, response_name=None, response_domain=None,
+                   model_id=model_id, summary={},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=standardize))
+
+
+def psvm_from_arrays(*, beta, b0, rff, predictors: Sequence[str],
+                     domains: dict, means: dict, sigmas: dict,
+                     response_name: str, response_domain: Sequence[str],
+                     model_id: Optional[str] = None, device=None
+                     ) -> H2OSupportVectorMachineEstimator:
+    """A port PSVM from a JAX model's `_params_svm` (β, b0), its random
+    Fourier features `_rff` (W, b; None for the linear kernel) and its
+    one-hot standardising DataInfo's statistics."""
+    dev = _device(device)
+    model = H2OSupportVectorMachineEstimator(model_id=model_id)
+    model._beta, model._b0 = _f32(beta, dev), _f32(b0, dev)
+    model._rff = None if rff is None else (_f32(rff[0], dev),
+                                           _f32(rff[1], dev))
+    return _finish(model, algo="psvm", predictors=predictors,
+                   domains=domains, response_name=response_name,
+                   response_domain=response_domain, model_id=model_id,
+                   summary={},
+                   dinfo=_onehot_info(predictors, domains, means, sigmas,
+                                      standardize=True,
+                                      response_name=response_name,
+                                      response_domain=response_domain))

@@ -8,7 +8,9 @@ the same values the JAX package's `matrix()` returns for the real rows.
 
 Not in this slice: the dtype codecs, the tier pager, StrVec, UuidVec and
 SparseVec. A string column is kept on the host only (`type == "str"`): the
-tree models skip it like the JAX package does.
+tree models skip it like the JAX package does. `from_pandas`,
+`as_data_frame` and `head` import pandas when they are called, and only
+then.
 """
 
 from __future__ import annotations
@@ -118,6 +120,13 @@ class Vec:
     def levels(self):
         return list(self.domain) if self.domain is not None else None
 
+    @property
+    def cardinality(self) -> int:
+        return len(self.domain) if self.domain is not None else 0
+
+    def __len__(self):
+        return self.nrows
+
     # ---- rollups (lazy, cached) -----------------------------------------
     def rollups(self) -> Rollups:
         if self._rollups is None:
@@ -146,8 +155,20 @@ class Vec:
         return Rollups(mn if cnt else math.nan, mx if cnt else math.nan,
                        mean, sigma, int(nas), int(zeros), frac == 0.0)
 
+    def min(self) -> float:
+        return self.rollups().min
+
+    def max(self) -> float:
+        return self.rollups().max
+
     def mean(self) -> float:
         return self.rollups().mean
+
+    def na_cnt(self) -> int:
+        return self.rollups().nas
+
+    def is_int(self) -> bool:
+        return self.rollups().is_int
 
     def sigma(self) -> float:
         """Sample standard deviation (n - 1), as RollupStats."""
@@ -189,6 +210,21 @@ class Frame:
         return Frame(names, [Vec.from_numpy(mat[:, j])
                              for j in range(mat.shape[1])], key)
 
+    @staticmethod
+    def from_dict(cols: dict, key: Optional[str] = None,
+                  column_types: Optional[dict] = None) -> "Frame":
+        """One column a dict entry, typed as `Vec.from_numpy` types it
+        unless `column_types` names a type."""
+        types = column_types or {}
+        return Frame([str(n) for n in cols],
+                     [Vec.from_numpy(np.asarray(c), type=types.get(n))
+                      for n, c in cols.items()], key)
+
+    @staticmethod
+    def from_pandas(df, key: Optional[str] = None) -> "Frame":
+        return Frame.from_dict({c: df[c].to_numpy() for c in df.columns},
+                               key)
+
     @property
     def nrows(self) -> int:
         return self.vecs[0].nrows if self.vecs else 0
@@ -198,6 +234,10 @@ class Frame:
         return len(self.vecs)
 
     @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
     def types(self) -> dict:
         return {n: v.type for n, v in zip(self.names, self.vecs)}
 
@@ -205,6 +245,41 @@ class Frame:
         if isinstance(name, (int, np.integer)):
             return self.vecs[int(name)]
         return self.vecs[self.names.index(name)]
+
+    def col_idx(self, name: str) -> int:
+        return self.names.index(name)
+
+    # ---- column select and mutation -------------------------------------
+    def __getitem__(self, sel) -> "Frame":
+        """A name, a list of names or a list of positions: a new frame
+        sharing the Vecs."""
+        if isinstance(sel, str):
+            return Frame([sel], [self.vec(sel)])
+        if isinstance(sel, (list, tuple)):
+            names = [s if isinstance(s, str) else self.names[s] for s in sel]
+            return Frame(names, [self.vec(n) for n in names])
+        raise KeyError(sel)
+
+    def __setitem__(self, name: str, value):
+        """Add or replace a column: a Vec, a one-column Frame, or values."""
+        if isinstance(value, Frame):
+            value = value.vecs[0]
+        if not isinstance(value, Vec):
+            value = Vec.from_numpy(np.asarray(value))
+        if self.ncols and value.nrows != self.nrows:
+            raise ValueError(f"column {name!r} has {value.nrows} rows, the "
+                             f"frame {self.nrows}")
+        if name in self.names:
+            self.vecs[self.names.index(name)] = value
+        else:
+            self.names.append(name)
+            self.vecs.append(value)
+        self._matrix_cache.clear()
+
+    def drop(self, names) -> "Frame":
+        if isinstance(names, str):
+            names = [names]
+        return self[[n for n in self.names if n not in names]]
 
     def matrix(self, cols: Optional[Sequence[str]] = None) -> torch.Tensor:
         """(nrows, k) f32 device tensor, NaN for NA. Cached per columns."""
@@ -218,6 +293,37 @@ class Frame:
     def to_numpy(self, cols=None) -> np.ndarray:
         cols = cols if cols is not None else self.names
         return np.column_stack([self.vec(c).to_numpy() for c in cols])
+
+    def as_data_frame(self):
+        """A pandas DataFrame: level names for categorical columns, f32
+        numbers for the others (the JAX package's dtypes)."""
+        import pandas as pd
+        out = {}
+        for n, v in zip(self.names, self.vecs):
+            x = v.to_numpy()
+            if v.type != T_STR:
+                x = x.astype(np.float32)
+            if v.type == T_CAT:
+                x = np.array([None if np.isnan(c) else v.domain[int(c)]
+                              for c in x], dtype=object)
+            out[n] = x
+        return pd.DataFrame(out)
+
+    def head(self, n: int = 10):
+        return self.as_data_frame().head(n)
+
+    def summary(self) -> dict:
+        """Each column's rollups (the REST /3/Frames summary)."""
+        out = {}
+        for n, v in zip(self.names, self.vecs):
+            if v.type == T_STR:
+                out[n] = {"type": v.type}
+                continue
+            r = v.rollups()
+            out[n] = {"type": v.type, "min": r.min, "max": r.max,
+                      "mean": r.mean, "sigma": r.sigma, "missing": r.nas,
+                      "zeros": r.zeros, "cardinality": v.cardinality}
+        return out
 
     def __repr__(self):
         return f"<Frame {self.key} {self.nrows}x{self.ncols} {self.names[:8]}>"

@@ -1,19 +1,30 @@
 """Models of the port (h2o3_tpu/models)."""
 
+from h2o3_tpu_torch.models.coxph import H2OCoxProportionalHazardsEstimator
 from h2o3_tpu_torch.models.deeplearning import H2ODeepLearningEstimator
+from h2o3_tpu_torch.models.ensemble import H2OStackedEnsembleEstimator
 from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator
 from h2o3_tpu_torch.models.glrm import H2OGeneralizedLowRankEstimator
+from h2o3_tpu_torch.models.grid import H2OGridSearch
 from h2o3_tpu_torch.models.kmeans import H2OKMeansEstimator
+from h2o3_tpu_torch.models.naive_bayes import H2ONaiveBayesEstimator
 from h2o3_tpu_torch.models.pca import H2OPrincipalComponentAnalysisEstimator
+from h2o3_tpu_torch.models.psvm import H2OSupportVectorMachineEstimator
+from h2o3_tpu_torch.models.segments import SegmentModels, train_segments
 from h2o3_tpu_torch.models.svd import H2OSingularValueDecompositionEstimator
 from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
 from h2o3_tpu_torch.models.tree.gbm import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.models.tree.isofor import H2OIsolationForestEstimator
 from h2o3_tpu_torch.models.tree.xgboost import H2OXGBoostEstimator
 
-__all__ = ["H2ODeepLearningEstimator", "H2OGeneralizedLinearEstimator",
-           "H2OGeneralizedLowRankEstimator", "H2OGradientBoostingEstimator",
+__all__ = ["H2OCoxProportionalHazardsEstimator", "H2ODeepLearningEstimator",
+           "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
+           "H2OGradientBoostingEstimator", "H2OGridSearch",
            "H2OIsolationForestEstimator", "H2OKMeansEstimator",
+           "H2ONaiveBayesEstimator",
            "H2OPrincipalComponentAnalysisEstimator",
            "H2ORandomForestEstimator",
-           "H2OSingularValueDecompositionEstimator", "H2OXGBoostEstimator"]
+           "H2OSingularValueDecompositionEstimator",
+           "H2OStackedEnsembleEstimator",
+           "H2OSupportVectorMachineEstimator", "H2OXGBoostEstimator",
+           "SegmentModels", "train_segments"]

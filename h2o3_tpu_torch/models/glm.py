@@ -14,6 +14,14 @@ block-coordinate IRLS, one Gram a class a sweep (`_class_gram`). L-BFGS
 negative log-likelihood from one device pass under torch.autograd
 (`_nll_value_grad`, `_ordinal_value_grad`).
 
+The design is reduced where the JAX package's is singular: with an
+intercept (or the ordinal thresholds, which play its part), each
+categorical predictor without NA in the training frame loses its first
+level's column (`DataInfo.drop_first`), as in H2O. The JAX package keeps
+every level beside the intercept, so at its default lambda 0 it solves a
+singular system whose null direction f32 rounding decides; the fitted
+probabilities agree on the levels both know, the coefficients do not.
+
 Not ported: the sparse path of the JAX package (`_sparse_path_ok`,
 `_fit_sparse`, `predict_sparse`), which needs SparseVec, which the port
 does not have yet (queue 1 item 7 of ROADMAP.md), so no frame of the port
@@ -347,6 +355,9 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         # zeros when P is (p_pen, p_pen)
         "quadratic_penalty": None,
     }
+
+    def _reduced_design(self) -> bool:
+        return bool(self.params.get("intercept", True))
 
     def _progress(self, progress, msg):
         if self._job is not None:

@@ -35,6 +35,12 @@ class RegressionMetrics:
     r2: float
     nobs: int
 
+    def to_dict(self):
+        return {"MSE": self.mse, "RMSE": self.rmse, "MAE": self.mae,
+                "RMSLE": self.rmsle,
+                "mean_residual_deviance": self.mean_residual_deviance,
+                "r2": self.r2, "nobs": self.nobs}
+
 
 def regression_metrics(y, p, w=None) -> RegressionMetrics:
     w = torch.ones_like(y) if w is None else w
@@ -80,6 +86,14 @@ class BinomialMetrics:
     confusion_matrix: np.ndarray  # [[tn, fp], [fn, tp]] at the max-F1 threshold
     nobs: int = 0
     domain: Optional[list] = None
+
+    def to_dict(self):
+        d = {k: getattr(self, k) for k in
+             ("auc", "pr_auc", "gini", "logloss", "mse", "rmse",
+              "mean_per_class_error", "f1", "accuracy", "precision", "recall",
+              "mcc", "max_f1_threshold", "nobs")}
+        d["confusion_matrix"] = np.asarray(self.confusion_matrix).tolist()
+        return d
 
 
 def _binomial_pass(y, p, w):

@@ -47,6 +47,16 @@ class DataInfo:
 
     The statistics come in as `means` and `sigmas` (by column or
     interaction name); `from_frame` computes them from the training frame.
+
+    The reduced design (for a model with an intercept or its like): each
+    categorical predictor in `drop_first` loses its first
+    level's column, as H2O drops it beside an intercept. `from_frame`
+    puts there the categoricals with no NA in the training frame (one
+    with NAs keeps every level: its all-zero NA rows keep the design of
+    full rank), so the choice is the training frame's and a test frame
+    is laid out alike; an NA or unseen level scores as the first level.
+    The JAX package keeps every level (its design is singular beside the
+    intercept); a carried JAX model keeps them too.
     """
 
     def __init__(self, predictors: Sequence[str], cat_cols: Sequence[str],
@@ -58,7 +68,8 @@ class DataInfo:
                  offset_name: Optional[str] = None,
                  means: Optional[dict] = None,
                  sigmas: Optional[dict] = None,
-                 interactions: Optional[Sequence[str]] = None):
+                 interactions: Optional[Sequence[str]] = None,
+                 drop_first: Sequence[str] = ()):
         self.cat_mode = cat_mode
         self.standardize = standardize
         self.impute_missing = impute_missing
@@ -67,6 +78,9 @@ class DataInfo:
         self.num_cols = [c for c in self.predictors if c not in self.cat_cols]
         self.domains = {c: list(domains[c]) for c in self.cat_cols}
         self.cardinalities = {c: len(self.domains[c]) for c in self.cat_cols}
+        self.drop_first = [c for c in self.cat_cols if c in set(drop_first)]
+        if self.drop_first and cat_mode != "onehot":
+            raise ValueError("drop_first needs the one-hot design matrix")
         self.response_name = response_name
         self.response_domain = (list(response_domain)
                                 if response_domain is not None else None)
@@ -83,7 +97,8 @@ class DataInfo:
         self.feature_names: list[str] = []
         if cat_mode == "onehot":
             for c in self.cat_cols:
-                self.feature_names += [f"{c}.{lvl}" for lvl in self.domains[c]]
+                levels = self.domains[c][self._first(c):]
+                self.feature_names += [f"{c}.{lvl}" for lvl in levels]
             self.feature_names += self.num_cols
             self.feature_names += [n for _, _, n in self.inter_pairs]
             for a, b, name in self.inter_catcat:
@@ -95,6 +110,10 @@ class DataInfo:
                                        for la in self.domains[a]]
         else:
             self.feature_names = list(self.predictors)
+
+    def _first(self, c) -> int:
+        """The first level of column c that has a design column."""
+        return 1 if c in self.drop_first else 0
 
     def _set_interactions(self, interactions):
         if self.cat_mode != "onehot":
@@ -128,11 +147,12 @@ class DataInfo:
                    weights: Optional[str] = None, *, cat_mode: str = "label",
                    standardize: bool = False, impute_missing: bool = True,
                    offset: Optional[str] = None,
-                   interactions: Optional[Sequence[str]] = None
-                   ) -> "DataInfo":
+                   interactions: Optional[Sequence[str]] = None,
+                   reduced: bool = False) -> "DataInfo":
         """The codec of a training frame: its domains, and the mean and
         sample sigma (n-1) of each numeric column from its rollups, summed
-        in float64 (0 sigma taken as 1)."""
+        in float64 (0 sigma taken as 1); with `reduced`, the categoricals
+        without NA lose their first level."""
         preds = [c for c in x if c != y and frame.vec(c).type != "str"]
         cats = [c for c in preds if frame.vec(c).type == T_CAT]
         nums = [c for c in preds if c not in cats]
@@ -145,7 +165,10 @@ class DataInfo:
                       y, rdom, weights, cat_mode=cat_mode,
                       standardize=standardize, impute_missing=impute_missing,
                       offset_name=offset,
-                      means=means, sigmas=sigmas, interactions=interactions)
+                      means=means, sigmas=sigmas, interactions=interactions,
+                      drop_first=[c for c in cats
+                                  if frame.vec(c).na_cnt() == 0]
+                      if reduced else ())
         for a, b, name in di.inter_pairs:
             # the statistics of the f32 product, in float64
             prod = (frame.vec(a).as_f32() * frame.vec(b).as_f32()).double()
@@ -171,9 +194,10 @@ class DataInfo:
 
     def _assemble(self, raw_cat, raw_num):
         """Raw columns (f32, NaN for NA) into the one-hot design matrix:
-        indicators, standardisation, imputation and interactions. An NA or
-        unseen level gives an all-zero indicator row, and so does an NA in
-        either factor of a cat x cat interaction."""
+        indicators (without the first level's column where it is dropped),
+        standardisation, imputation and interactions. An NA or unseen level
+        gives an all-zero indicator row, and so does an NA in either factor
+        of a cat x cat interaction."""
         ref = raw_cat if raw_cat is not None else raw_num
         dev = ref.device
 
@@ -194,7 +218,8 @@ class DataInfo:
 
         parts = []
         for j, c in enumerate(self.cat_cols):
-            parts.append(_one_hot(raw_cat[:, j], self.cardinalities[c]))
+            parts.append(_one_hot(raw_cat[:, j],
+                                  self.cardinalities[c])[:, self._first(c):])
         if self.num_cols:
             parts.append(fix(raw_num,
                              f32([self.means[c] for c in self.num_cols]),
@@ -485,10 +510,17 @@ class ModelBase:
             cat_mode=self._cat_mode(),
             standardize=bool(self.params.get("standardize")),
             offset=self.params.get("offset_column"),
-            interactions=self.params.get("interactions"))
+            interactions=self.params.get("interactions"),
+            reduced=self._reduced_design())
 
     def _cat_mode(self) -> str:
         return "onehot"
+
+    def _reduced_design(self) -> bool:
+        """Whether the one-hot design drops each NA-free categorical's
+        first level (DataInfo): off here, on for a model whose intercept
+        (or its like) would make every level's column singular."""
+        return False
 
     # ---- algorithm hooks ---------------------------------------------------
     def _fit(self, frame: Frame):
@@ -529,6 +561,13 @@ class ModelBase:
             return Frame(names, vecs)
         return Frame(["predict"],
                      [Vec.from_numpy(np.asarray(out, np.float64)[:n])])
+
+    def model_performance(self, test_data: Optional[Frame] = None):
+        """The metrics of a frame scored now; the training metrics without
+        one."""
+        if test_data is None:
+            return self._output.training_metrics
+        return self._compute_metrics(test_data)
 
     def _compute_metrics(self, frame: Frame):
         di = self._dinfo
@@ -656,8 +695,15 @@ class ModelBase:
     def logloss(self, valid=False):
         return self._metric("logloss", valid)
 
+    def mse(self, valid=False):
+        return self._metric("mse", valid)
+
     def rmse(self, valid=False):
         return self._metric("rmse", valid)
+
+    @property
+    def model_id(self):
+        return self.key
 
     def summary(self):
         return self._output.model_summary if self._output else {}
@@ -667,6 +713,39 @@ class ModelBase:
 
     def varimp(self):
         return self._output.variable_importances if self._output else None
+
+    def to_dict(self) -> dict:
+        """The model's JSON (ModelOutputSchemaV3's keys): its parameters,
+        metrics and summary, with the variable importances, the scoring
+        history, the coefficients and the centres where it has them."""
+        o = self._output
+
+        def metrics(m):
+            return m.to_dict() if m is not None else None
+        d = {"model_id": self.key, "algo": self.algo,
+             "params": {k: v for k, v in self.params.items()
+                        if v is not None},
+             "training_metrics": metrics(o.training_metrics) if o else None,
+             "validation_metrics": (metrics(o.validation_metrics)
+                                    if o else None),
+             "model_summary": o.model_summary if o else {}}
+        if o and o.variable_importances:
+            d["variable_importances"] = o.variable_importances
+        if o and o.scoring_history:
+            d["scoring_history"] = o.scoring_history
+        out = {}
+        if getattr(self, "_coefficients", None):
+            out["coefficients_table"] = self._coefficients
+            out["coefficients_std"] = getattr(self, "_coefficients_std",
+                                              None)
+        centres = getattr(self, "_centroids", None)
+        if centres is not None:
+            out["centers"] = np.asarray(
+                centres.cpu() if torch.is_tensor(centres) else centres,
+                np.float64).tolist()
+        if out:
+            d["output"] = out
+        return d
 
 
 def _matrix_frame(names: Sequence[str], M: torch.Tensor) -> Frame:

@@ -2,9 +2,14 @@
 
 One seeded frame goes to both packages; both cross-validate through their
 estimators (`nfolds` or `fold_column`). Tolerances: fold ids equal (the
-port draws them from the same numpy generator in the same order); the
-holdout predictions of a GLM within 1e-5 and its CV metrics within 1e-5
-relative (the same f64 solves of f32 Grams summed in another order); the
+port draws them from the same numpy generator in the same order); on a
+categorical with NAs, the holdout predictions of a GLM within 1e-5 and
+its CV metrics within 1e-5 relative (the same f64 solves of f32 Grams
+summed in another order); on one without NA, where the port's fold
+models drop its first level (the reduced design) and the JAX package's
+design is singular, each fold model's coefficients within 1e-4 of a
+float64 numpy fit's, its holdout predictions within 1e-5 of that fit's,
+and the JAX package's probabilities within 1e-3; the
 CV metrics of a depth-4 binned GBM within 1e-5 relative (the same trees,
 f32 sums in another order); the fold models' deadlines as the JAX
 package's.
@@ -24,9 +29,10 @@ N = 1500
 X = ["a", "b", "c", "color"]
 
 
-@pytest.fixture(scope="module")
-def frames():
-    h2o3_tpu_torch.init(device="cpu")
+def _cols(na):
+    """The seeded frame's columns; with `na`, color gets an NA every 50th
+    row after every draw (y unchanged), so that both packages' GLMs keep
+    every level of it and fit one full-rank design."""
     rng = np.random.default_rng(4)
     a, b, c = rng.normal(size=(3, N))
     a[rng.random(N) < 0.04] = np.nan
@@ -34,14 +40,29 @@ def frames():
     logit = 1.2 * np.nan_to_num(a) - 0.8 * b + 0.7 * (color == "blue")
     y = rng.random(N) < 1 / (1 + np.exp(-logit))
     y[:5] = True                     # class sizes that do not divide by 3
-    cols = {"a": a, "b": b, "c": c, "color": color,
+    if na:
+        color[::50] = None
+    return {"a": a, "b": b, "c": c, "color": color,
             "g": 2 * np.nan_to_num(a) - b + rng.normal(0, 0.3, N),
             "fold": rng.integers(0, 4, N).astype(float),
             "y": np.array(["n", "p"], object)[y.astype(int)]}
-    jf = JFrame.from_dict(cols)
-    tf = Frame(list(cols), [Vec.from_numpy(v) for v in cols.values()])
-    yield jf, tf
+
+
+def _pair(cols):
+    return (JFrame.from_dict(cols),
+            Frame(list(cols), [Vec.from_numpy(v) for v in cols.values()]))
+
+
+@pytest.fixture(scope="module")
+def frames():
+    h2o3_tpu_torch.init(device="cpu")
+    yield _pair(_cols(na=False))
     h2o3_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="module")
+def frames_na(frames):
+    return _pair(_cols(na=True))
 
 
 def _both(frames, jcls, tcls, y, **params):
@@ -78,9 +99,95 @@ def test_fold_ids_match_jax(frames, how):
             assert sizes.max() - sizes.min() <= 1
 
 
+def _fold_design(cols, train):
+    """The float64 reduced design of a fold model: color's green and red
+    indicators (blue, the first level, dropped), a, b and c standardised
+    by the fold's training rows' mean and sample sigma with NA as 0, and
+    the intercept last."""
+    nums = [(cols[c] - np.nanmean(cols[c][train]))
+            / np.nanstd(cols[c][train], ddof=1) for c in ("a", "b", "c")]
+    return np.column_stack(
+        [cols["color"] == "green", cols["color"] == "red"]
+        + [np.nan_to_num(v) for v in nums] + [np.ones(N)]).astype(np.float64)
+
+
+def _numpy_fit(Z, y, binomial):
+    """Float64 least squares, or IRLS for the logit link, to convergence."""
+    if not binomial:
+        return np.linalg.lstsq(Z, y, rcond=None)[0]
+    beta = np.zeros(Z.shape[1])
+    for _ in range(100):
+        mu = 1 / (1 + np.exp(-Z @ beta))
+        step = np.linalg.solve(Z.T @ ((mu * (1 - mu))[:, None] * Z),
+                               Z.T @ (y - mu))
+        beta += step
+        if np.abs(step).max() < 1e-13:
+            break
+    return beta
+
+
+def _hold_reduced_design(jm, tm, y):
+    """Color has no NA: each fold model fits the reduced design, and its
+    coefficients are a float64 numpy fit's on its training rows within
+    1e-4 of the largest; the holdout predictions and the CV metrics are
+    that fit's. The JAX package keeps every level of color beside its
+    intercept, a singular design: its holdout probabilities agree within
+    1e-3, and its CV metrics within 1e-3 relative."""
+    cols = _cols(na=False)
+    fa = DKV.get(tm._output.cv_fold_assignment_key).to_numpy()[:, 0]
+    yv = (cols["y"] == "p").astype(np.float64) if y == "y" else cols["g"]
+    want = np.zeros(N)
+    for f, fm in enumerate(tm._cv_models):
+        assert fm._dinfo.drop_first == ["color"]
+        assert fm._dinfo.feature_names == ["color.green", "color.red", "a",
+                                           "b", "c"]
+        train = fa != f
+        Z = _fold_design(cols, train)
+        beta = _numpy_fit(Z[train], yv[train], y == "y")
+        got = np.asarray(fm._state.beta, np.float64)
+        assert np.abs(got - beta).max() < 1e-4 * np.abs(beta).max()
+        eta = Z[~train] @ beta
+        want[~train] = 1 / (1 + np.exp(-eta)) if y == "y" else eta
+    tp = DKV.get(tm._output.cv_predictions_key).to_numpy()
+    jp = JDKV.get(jm._output.cv_predictions_key).to_numpy()
+    np.testing.assert_allclose(tp[:, -1], want, atol=1e-5)
+    tcv = tm._output.cross_validation_metrics
+    np.testing.assert_allclose(tcv.rmse, np.sqrt(np.mean((yv - want) ** 2)),
+                               rtol=1e-5)
+    if y == "y":
+        np.testing.assert_allclose(tp, jp, atol=1e-3)
+    jcv = jm._output.cross_validation_metrics
+    for k in ("auc", "logloss", "rmse", "pr_auc") if y == "y" else ("rmse",):
+        np.testing.assert_allclose(getattr(tcv, k), getattr(jcv, k),
+                                   rtol=1e-3, err_msg=k)
+
+
+_CV = dict(nfolds=3, seed=7, keep_cross_validation_predictions=True,
+           keep_cross_validation_fold_assignment=True)
+
+
 def test_glm_cv_metrics_and_kept_frames_match_jax(frames):
-    jm, tm = _glms(frames, nfolds=3, seed=7,
-                   keep_cross_validation_predictions=True)
+    """Color has no NA: the port's fold models fit the reduced design,
+    held as in `_hold_reduced_design`."""
+    jm, tm = _glms(frames, **_CV)
+    tp = DKV.get(tm._output.cv_predictions_key).to_numpy()
+    assert tp.shape == (N, 2)
+    _hold_reduced_design(jm, tm, "y")
+    # the holdout predictions are the fold models' own
+    fa = np.asarray(tm._cv_models[0]._dinfo.predictors)
+    assert list(fa) == X
+    assert abs(tm._output.cross_validation_metrics.auc - tm.auc()) < 0.05
+    # regression: one holdout column
+    jm, tm = _glms(frames, y="g", **_CV)
+    _hold_reduced_design(jm, tm, "g")
+    assert DKV.get(tm._output.cv_predictions_key).names == ["C1"]
+
+
+def test_glm_cv_full_rank_design_matches_jax(frames_na):
+    """Color has NAs, so both packages fit every level of it: the CV
+    metrics within 1e-5 relative, the holdout predictions within 1e-5."""
+    jm, tm = _glms(frames_na, **_CV)
+    assert tm._cv_models[0]._dinfo.drop_first == []
     jcv = jm._output.cross_validation_metrics
     tcv = tm._output.cross_validation_metrics
     for k in ("auc", "logloss", "rmse", "pr_auc"):
@@ -90,17 +197,10 @@ def test_glm_cv_metrics_and_kept_frames_match_jax(frames):
     tp = DKV.get(tm._output.cv_predictions_key).to_numpy()
     assert tp.shape == jp.shape == (N, 2)
     np.testing.assert_allclose(tp, jp, atol=1e-5)
-    # the holdout predictions are the fold models' own
-    fa = np.asarray(tm._cv_models[0]._dinfo.predictors)
-    assert list(fa) == X
-    assert abs(tcv.auc - tm.auc()) < 0.05
-    # regression: one holdout column
-    jm, tm = _glms(frames, y="g", nfolds=3, seed=7,
-                   keep_cross_validation_predictions=True)
+    jm, tm = _glms(frames_na, y="g", **_CV)
     np.testing.assert_allclose(tm._output.cross_validation_metrics.rmse,
                                jm._output.cross_validation_metrics.rmse,
                                rtol=1e-5)
-    assert DKV.get(tm._output.cv_predictions_key).names == ["C1"]
 
 
 def test_binned_gbm_cv_metrics_match_jax(frames):

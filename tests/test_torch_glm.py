@@ -360,3 +360,136 @@ def test_glm_surface(frames):
     with pytest.raises(NotImplementedError, match="not implemented"):
         h2o3_tpu_torch.H2OGeneralizedLinearEstimator(family="hglm").train(
             x=X, y="g", training_frame=tf)
+
+
+# ---------------------------------------------------------------------------
+# The reduced design: with an intercept, a categorical without NA loses its
+# first level's column (the JAX package keeps every level, and its design
+# is singular). The frame is the re-anchor probe's: 1,500 rows, a, b and c
+# N(0, 1) with 5% NA, color from three levels with no NA.
+@pytest.fixture(scope="module")
+def probe(port_cpu):
+    n = 1500
+    rng = np.random.default_rng(1)
+    a, b, c = rng.normal(size=(3, n))
+    for v in (a, b, c):
+        v[rng.random(n) < 0.05] = np.nan
+    color = np.array(rng.choice(["red", "green", "blue"], n), object)
+    logit = 1.4 * np.nan_to_num(a) - 0.9 * np.nan_to_num(b) \
+        + (color == "blue")
+    y = rng.random(n) < 1 / (1 + np.exp(-logit))
+    k = np.clip(np.round(logit / 2 + rng.logistic(size=n)), 0, 2)
+    cols = {"a": a, "b": b, "c": c, "color": color,
+            "y": np.array(["no", "yes"], object)[y.astype(int)],
+            "k": np.array(["lo", "mid", "top"], object)[k.astype(int)]}
+    return cols, _both(cols)
+
+
+def _reduced_design(cols):
+    """The float64 reduced design: color's green and red indicators (blue,
+    the first level, dropped), a, b and c standardised by their mean and
+    sample sigma with NA as 0, and the intercept last."""
+    nums = [(cols[c] - np.nanmean(cols[c])) / np.nanstd(cols[c], ddof=1)
+            for c in ("a", "b", "c")]
+    return np.column_stack(
+        [cols["color"] == "green", cols["color"] == "red"]
+        + [np.nan_to_num(v) for v in nums] + [np.ones(len(cols["a"]))]
+    ).astype(np.float64)
+
+
+def _softmax(E):
+    E = np.exp(E - E.max(axis=1, keepdims=True))
+    return E / E.sum(axis=1, keepdims=True)
+
+
+def test_reduced_design_binomial_glm_converges(probe):
+    """At its defaults the binomial GLM meets beta_epsilon before
+    max_iterations, its standard errors are finite and non-zero, its
+    coefficients are a float64 numpy IRLS's on the reduced design, and
+    its probabilities on the levels both packages know agree with the
+    JAX package's within the 1e-3 that the JAX package's own η allows on
+    its singular design. An NA or unseen level scores as the first."""
+    cols, (jf, tf) = probe
+    jm, tm = _fit((jf, tf), "y", compute_p_values=True)
+    assert tm._dinfo.drop_first == ["color"]
+    assert tm._dinfo.feature_names == ["color.green", "color.red", "a", "b",
+                                       "c"]
+    assert tm._iterations < tm.params["max_iterations"]
+    assert np.isfinite(tm._std_errors).all() and (tm._std_errors > 0).all()
+    Z = _reduced_design(cols)
+    yv = (cols["y"] == "yes").astype(np.float64)
+    beta = np.zeros(Z.shape[1])
+    for _ in range(100):
+        mu = 1 / (1 + np.exp(-Z @ beta))
+        W = mu * (1 - mu)
+        step = np.linalg.solve(Z.T @ (W[:, None] * Z), Z.T @ (yv - mu))
+        beta += step
+        if np.abs(step).max() < 1e-13:
+            break
+    _close_coefs(beta, tm._state.beta)
+    mu = 1 / (1 + np.exp(-Z @ beta))
+    se = np.sqrt(np.diag(np.linalg.inv(Z.T @ ((mu * (1 - mu))[:, None]
+                                              * Z))))
+    np.testing.assert_allclose(tm._std_errors, se, rtol=1e-3)
+    np.testing.assert_allclose(tm.predict(tf).to_numpy()[:, 1:],
+                               jm.predict(jf).to_numpy()[:, 1:], atol=1e-3)
+    test = {c: cols[c][:3] for c in ("a", "b", "c")}
+    test["color"] = np.array(["blue", "teal", None], object)
+    p = tm.predict(Frame.from_dict(test)).to_numpy()[:, 2]
+    q = tm.predict(Frame.from_dict(dict(test, color=np.array(
+        ["blue"] * 3, object)))).to_numpy()[:, 2]
+    np.testing.assert_array_equal(p, q)
+
+
+def test_reduced_design_multinomial_glm_converges(probe):
+    """The multinomial GLM at its defaults meets beta_epsilon before
+    max_iterations; its coefficients are those of a float64 numpy twin of
+    its block-coordinate IRLS on the reduced design; its probabilities
+    agree with the JAX package's within 1e-3."""
+    cols, (jf, tf) = probe
+    jm, tm = _fit((jf, tf), "k", family="multinomial")
+    assert tm._dinfo.drop_first == ["color"]
+    assert tm._iterations < tm.params["max_iterations"]
+    Z = _reduced_design(cols)
+    yi = np.searchsorted(["lo", "mid", "top"], cols["k"])
+    K, p1 = 3, Z.shape[1]
+    B = np.zeros((K, p1))
+    B[:, -1] = np.log(np.maximum(np.bincount(yi, minlength=K) / len(yi),
+                                 1e-6))
+    for _ in range(int(tm.params["max_iterations"])):
+        dmax = 0.0
+        for c in range(K):
+            pc = np.clip(_softmax(Z @ B.T)[:, c], 1e-6, 1 - 1e-6)
+            d = np.maximum(pc * (1 - pc), 1e-6)
+            z = Z @ B[c] + ((yi == c) - pc) / d
+            G = Z.T @ (d[:, None] * Z)
+            nb = np.linalg.solve(G + 1e-8 * np.eye(p1), Z.T @ (d * z))
+            dmax = max(dmax, np.abs(nb - B[c]).max())
+            B[c] = nb
+        if dmax < tm.params["beta_epsilon"]:
+            break
+    _close_coefs(B, tm._state.beta)
+    np.testing.assert_allclose(tm.predict(tf).to_numpy()[:, 1:],
+                               jm.predict(jf).to_numpy()[:, 1:], atol=1e-3)
+
+
+def test_reduced_design_follows_the_training_frame(probe):
+    """The choice is the training frame's: a categorical with an NA keeps
+    every level; without an intercept nothing is dropped; PCA keeps every
+    level; the codec lays a test frame out as the training frame."""
+    cols, (_, tf) = probe
+    na = dict(cols, color=np.where(np.arange(len(cols["a"])) == 0, None,
+                                   cols["color"]))
+    m = h2o3_tpu_torch.H2OGeneralizedLinearEstimator()
+    m.train(x=X, y="y", training_frame=Frame.from_dict(na))
+    assert m._dinfo.drop_first == [] and "color.blue" in \
+        m._dinfo.feature_names
+    m = h2o3_tpu_torch.H2OGeneralizedLinearEstimator(intercept=False)
+    m.train(x=X, y="y", training_frame=tf)
+    assert m._dinfo.drop_first == []
+    pca = h2o3_tpu_torch.H2OPrincipalComponentAnalysisEstimator(k=2)
+    pca.train(x=X, training_frame=tf)
+    assert "color.blue" in pca._dinfo.feature_names
+    m = h2o3_tpu_torch.H2OGeneralizedLinearEstimator()
+    m.train(x=X, y="y", training_frame=tf)
+    assert m._dinfo.matrix(Frame.from_dict(na)).shape[1] == 5

@@ -488,8 +488,11 @@ def test_port_imports_no_jax():
     assert {pkg / "core" / "jobs.py", pkg / "udf.py",
             pkg / "models" / "glm.py"} <= set(files)
     assert {pkg / "models" / f"{m}.py" for m in (
-        "deeplearning", "kmeans", "pca", "svd", "glrm")} <= set(files)
+        "deeplearning", "kmeans", "pca", "svd", "glrm", "grid", "ensemble",
+        "segments", "naive_bayes", "quantile", "coxph", "psvm",
+        "_lbfgs")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "h2o3_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "optax", "h2o3_tpu"), \
+                (f, mod)
