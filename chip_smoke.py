@@ -208,6 +208,45 @@ Phases, each printing its lines before the last:
            exact ranks equal to the sorted order statistics, the
            interpolated values within 1 f32 ulp, ms a column beside its
            bound;
+     then the models built on ported estimators, each with its seconds:
+       (ae) the aggregator at H2O's defaults (5000 exemplars, tolerance
+           0.5) on (j)'s credit-card frame: the exemplar count in the
+           band, the seconds of each radius sweep; over all rows, in the
+           direct distance form, every exemplar farther than r from every
+           earlier one, every other row within r of an earlier one and
+           counted to its nearest earlier exemplar, the counts summing to
+           the rows; the plain row-by-row walk on the CPU over the first
+           20,000 rows giving the same exemplars and counts;
+       (af) the extended isolation forest at H2O's defaults (100 trees,
+           sample size 256) on the same frame, extension_level 0 and 29:
+           the score's AUC against the planted labels above a bar set
+           from a CPU run; a 10,000-row slice card vs CPU with the same
+           draws (mean lengths within 1e-5);
+       (ag) GAM binomial on the HIGGS frame with x0, x1 and x4 as gam
+           columns: training AUC above a plain binomial GLM's on the same
+           predictors, the seconds an IRLS iteration, a 200,000-row slice
+           card vs CPU (coefficients within 1e-4 of the largest);
+       (ah) RuleFit at its defaults (rule length 3, 20 trees, rules and
+           linear terms) on the HIGGS frame: rules generated and selected,
+           each selected rule's support in (1%, 99%), the L1 GLM's AUC
+           above (ag)'s plain GLM's, launches per tree checked, the
+           seconds of the GBM, the rule columns and the GLM path;
+       (ai) target encoding on a planted click-through frame (11M rows,
+           categoricals of 1,000, 30,000 and 1,000,000 Zipf(1.1) levels,
+           5 folds), modes none, loo and kfold with blending: every
+           encoded column within 1e-6 relative of a float64 numpy bincount
+           version, the seconds of train() and transform;
+       (aj) the infogram on the HIGGS frame (28 predictors, depth 5, 20
+           bins, 5 trees a model): x0 and x1 admissible, x4 (0.4 sin(X4)
+           in the logit) above the information threshold, none of the 21
+           noise columns admissible or above it, launches per tree
+           checked, the 29 GBMs' seconds;
+       (ak) Word2Vec at H2O's defaults (5 epochs) on a planted corpus of
+           1M tokens over 3,000 topics of 10 words: the share of 200 probe
+           words with 3 of 5 synonyms in their topic above a bar set from
+           a CPU run, AVERAGE rows equal to their words' mean vector
+           within 1e-6, ms a step and a torch.profiler busy share, and
+           whether a short training run twice is bit-identical;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -227,9 +266,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(ad) are printed again just before the two JSON
+The lines of runs (d)-(ak) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ad)
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ak)
 add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -427,6 +466,52 @@ COX_BETA = (0.5, -0.4, 0.3, -0.2, 0.15, -0.1, 0.05, 0.0, 0.25, -0.3)
 PSVM_AUC_CPU, PSVM_AUC_STALLED = 0.739178, 0.738383
 PSVM_AUC_BAR = (PSVM_AUC_CPU + PSVM_AUC_STALLED) / 2
 PSVM_SLICE_N, PSVM_GRAD_RATIO = 20_000, 1e-3
+# runs (ae)-(ak): the models built on ported estimators
+# (ae) the aggregator at H2O's defaults on (j)'s credit-card frame; the
+# plain row-by-row walk on its first AGG_PLAIN_N rows
+AGG = dict(target_num_exemplars=5000, rel_tol_num_exemplars=0.5)
+AGG_PLAIN_N = 20_000
+# (af) the extended isolation forest at H2O's defaults (100 trees,
+# sample_size 256) on (j)'s frame, at extension_level 0 and 29; the score's
+# AUC against the planted labels must pass EIF_AUC_BAR: a CPU run of the
+# same generator (torch's CPU generator, seed 11) through the port on the
+# CPU gave EIF_AUC_CPU
+EIF_PARAMS = dict(ntrees=100, sample_size=256, seed=1)
+EIF_AUC_CPU = {0: 0.964786, 29: 0.973317}
+EIF_AUC_BAR = {0: 0.93, 29: 0.94}
+EIF_SLICE_N = 10_000
+# (ag) GAM binomial on the HIGGS frame: gam columns x0, x1 and x4 (the
+# generator's X0, X1 and sin(X4)) at the default 6 knots
+GAM_COLS = ["x0", "x1", "x4"]
+GAM_SLICE_N = 200_000
+# (ah) RuleFit at its defaults (rule length 3, 20 trees): per tree of
+# depth 3 the shallow-window kernel, 2 fused levels, the terminal route
+RULEFIT_PER_TREE = {"radix": 1.0, "fused": 2.0, "route_f": 1.0}
+# (ai) target encoding on a click-through frame shaped as the Avazu CTR
+# set (Kaggle 2014): TE_N rows, three categoricals of TE_LEVELS levels
+# drawn Zipf(TE_ZIPF), a per-level N(0, TE_SD^2) logit effect each, and a
+# TE_FOLDS-fold column
+TE_N, TE_LEVELS, TE_ZIPF, TE_SD, TE_FOLDS = \
+    11_000_000, (1000, 30_000, 1_000_000), 1.1, 0.5, 5
+# (aj) the infogram on the HIGGS frame: depth 5, 20 bins, 5 trees a model
+# (of the 20 asked: 29 models); per tree the shallow-window kernel, 4
+# fused levels, the terminal route
+INFOGRAM = dict(ntrees=5, max_depth=5, nbins=20)
+INFOGRAM_PER_TREE = {"radix": 1.0, "fused": 4.0, "route_f": 1.0}
+# (ak) Word2Vec at H2O's defaults (vec_size 100, window 5, min_word_freq
+# 5, 5 negatives, 5 epochs: one epoch leaves every topic unlearned, share
+# 0.0 in a CPU run of this corpus) on W2V_TOKENS tokens of W2V_TOPICS
+# topics of W2V_TOPIC_WORDS words, sentences of W2V_SENT words of one
+# topic; the share of W2V_PROBES probe words with 3 of 5 synonyms in their
+# topic must pass W2V_SHARE_BAR: a CPU run (torch's CPU generator) of the
+# same corpus gave W2V_SHARE_CPU; the busy share over the corpus's first
+# W2V_PROFILE_SHARE, one epoch
+W2V_TOKENS, W2V_TOPICS, W2V_TOPIC_WORDS, W2V_SENT = \
+    1_000_000, 3000, 10, (10, 30)
+W2V_PARAMS = dict(epochs=5, seed=16)
+W2V_PROBES = 200
+W2V_SHARE_CPU, W2V_SHARE_BAR = 0.145, 0.08
+W2V_PROFILE_SHARE = 0.05
 # the adaptive engine's stages, as its functions (engine.py)
 STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
           ("binning", "bin_rows"), ("histogram", "build_histograms"),
@@ -448,7 +533,10 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"adaptive|glm|gbm (custom|cv)|deeplearning|kmeans|"
                    r"pca \(|svd \(|glrm \(|grid \(x\)|ensemble \(y\)|"
                    r"segments \(z\)|naive bayes|coxph|psvm|quantiles|"
-                   r"framework and standalone|model_performance)")
+                   r"framework and standalone|model_performance|"
+                   r"aggregator \(ae|extended isolation|gam \(ag|"
+                   r"rulefit \(ah|target encoding \(ai|infogram \(aj|"
+                   r"word2vec \(ak|models on ported)")
 
 
 def say(msg):
@@ -3420,6 +3508,483 @@ def phase_framework(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+# Runs (ae)-(ak): the models built on ported estimators. The aggregator,
+# the extended isolation forest, GAM, target encoding and Word2Vec are
+# plain PyTorch (no kernel of ops/csrc on their paths); RuleFit and the
+# infogram train binned GBMs, so they launch the binned kernels.
+def _rows_nearest_earlier(torch, X, ex, block=4096):
+    """Each row's nearest exemplar among those of earlier rows (ties to
+    the earliest), in the direct form, row block by row block: the
+    exemplar index, and the squared distance (inf for row 0)."""
+    from h2o3_tpu_torch.models import aggregator as A
+    n = X.shape[0]
+    E = X[ex]
+    own = torch.empty(n, dtype=torch.int64, device=X.device)
+    best = torch.empty(n, dtype=torch.float32, device=X.device)
+    for r0 in range(0, n, block):
+        rows = torch.arange(r0, min(n, r0 + block), device=X.device)
+        d = A._sqdist(X[rows], E)
+        d = torch.where(ex[None, :] < rows[:, None], d, math.inf)
+        best[rows], own[rows] = torch.min(d, dim=1)
+    return own, best
+
+
+def aggregator_run(torch, h2o, HC, fr, vcols):
+    """Run (ae): the aggregator at H2O's defaults on (j)'s credit-card
+    frame; the leader-set invariants over all rows in the direct distance
+    form; the plain row-by-row walk on the first AGG_PLAIN_N rows."""
+    from h2o3_tpu_torch.models import aggregator as A
+    m, t, peak = timed_train(torch, HC, "aggregator (ae)",
+                             lambda: h2o.H2OAggregatorEstimator(**AGG),
+                             x=vcols, training_frame=fr)
+    ex, counts = m._exemplar_rows, m._counts
+    k, radius = ex.shape[0], m.summary()["radius"]
+    n, target = fr.nrows, AGG["target_num_exemplars"]
+    tol = AGG["rel_tol_num_exemplars"] * target
+    sweeps = m._sweep_seconds
+    say(f"aggregator (ae): {n} rows x {len(vcols)} columns, target "
+        f"{target} exemplars: {k} exemplars at radius {radius:.6f} after "
+        f"{len(sweeps)} sweeps ({', '.join(f'{s:.3f}' for s in sweeps)} s); "
+        f"train() {t:.3f} s, {peak}")
+    check(abs(k - target) <= tol or k == n,
+          f"aggregator (ae): {k} exemplars outside {target} +- {tol}")
+    X = m._normalized(fr)
+    r2 = radius * radius
+    t0 = time.perf_counter()
+    E = X[ex]
+    dd = A._sqdist(E, E)
+    earlier = torch.ones((k, k), dtype=torch.bool,
+                         device=X.device).tril(-1)
+    closest = float(torch.where(earlier, dd, math.inf).min())
+    own, best = _rows_nearest_earlier(torch, X, ex)
+    is_ex = torch.zeros(n, dtype=torch.bool, device=X.device)
+    is_ex[ex] = True
+    own[ex] = torch.arange(k, device=X.device)
+    want = torch.bincount(own, minlength=k)
+    covered = bool((best[~is_ex] <= r2).all())
+    t_inv = time.perf_counter() - t0
+    say(f"aggregator (ae) invariants over all {n} rows (direct form, "
+        f"{t_inv:.3f} s): the closest pair of exemplars {closest:.6f} "
+        f"(r^2 {r2:.6f}); every other row within r^2 of an earlier "
+        f"exemplar: {covered}; counts equal to each row's nearest earlier "
+        f"exemplar: {torch.equal(want, counts)}; counts sum "
+        f"{int(counts.sum())}")
+    check(closest > r2 and covered and torch.equal(want, counts)
+          and int(counts.sum()) == n, "aggregator (ae): leader-set "
+          "invariants fail")
+    Xs = X[:AGG_PLAIN_N]
+    t0 = time.perf_counter()
+    bex, bcnt = A._sweep(Xs, radius)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pex, pcnt = A._sweep_plain(Xs.cpu(), radius)
+    t_p = time.perf_counter() - t0
+    same = torch.equal(bex.cpu(), pex) and torch.equal(bcnt.cpu(), pcnt)
+    say(f"aggregator (ae): the first {AGG_PLAIN_N} rows at the same radius: "
+        f"{pex.shape[0]} exemplars; batched on the card {t_b:.3f} s, the "
+        f"plain row-by-row walk on the CPU {t_p:.3f} s; the same exemplars "
+        f"and counts: {same}")
+    check(same, "aggregator (ae): batched and plain sweeps differ")
+
+
+def eif_run(torch, h2o, HC, fr, y, vcols):
+    """Run (af): the extended isolation forest at H2O's defaults on (j)'s
+    frame, at extension_level 0 and C - 1; a slice card vs CPU with the
+    CPU generator's draws."""
+    from h2o3_tpu_torch.models import extended_isofor as EIF
+    from h2o3_tpu_torch.models.tree import engine as E
+    for ext in (0, len(vcols) - 1):
+        m, t, peak = timed_train(
+            torch, HC, "extended isolation forest (af)",
+            lambda: h2o.H2OExtendedIsolationForestEstimator(
+                **EIF_PARAMS, extension_level=ext),
+            x=vcols, training_frame=fr)
+        t0 = time.perf_counter()
+        auc = iso_auc(torch, m, fr, y)
+        t_pred = time.perf_counter() - t0
+        bar = EIF_AUC_BAR[ext]
+        say(f"extended isolation forest (af): extension_level {ext}, "
+            f"{EIF_PARAMS['ntrees']} trees of depth {m._D}: train() "
+            f"{t:.3f} s, {peak}; score AUC {auc:.6f} (bar {bar}; a CPU run "
+            f"of the same generator: {EIF_AUC_CPU[ext]}); predict "
+            f"{t_pred:.3f} s")
+        check(auc > bar, f"extended isolation forest (af): AUC {auc}")
+    sl = _sub_frame(fr, EIF_SLICE_N)
+    saved = EIF.H2OExtendedIsolationForestEstimator._draws
+    lengths = {}
+    try:
+        EIF.H2OExtendedIsolationForestEstimator._draws = (
+            lambda self, device: E.Draws(torch.Generator().manual_seed(5),
+                                         device))
+        for where in ("cuda", "cpu"):
+            def fit(f):
+                m = h2o.H2OExtendedIsolationForestEstimator(
+                    **EIF_PARAMS, extension_level=len(vcols) - 1)
+                m.train(x=vcols, training_frame=f)
+                return m.predict(f).to_numpy()[:, 1]
+            lengths[where] = (fit(sl) if where == "cuda"
+                              else _on_cpu(h2o, lambda: fit(_cpu_frame(sl))))
+    finally:
+        EIF.H2OExtendedIsolationForestEstimator._draws = saved
+    d = float(np.abs(lengths["cuda"] - lengths["cpu"]).max())
+    say(f"extended isolation forest (af): {EIF_SLICE_N}-row slice card vs "
+        f"CPU, the same draws: mean lengths max diff {d:.3g} (limit 1e-5)")
+    check(d < 1e-5, f"extended isolation forest (af): card vs CPU {d}")
+
+
+def gam_run(torch, h2o, HC, fr):
+    """Run (ag): GAM binomial on the HIGGS frame with the columns of X0,
+    X1 and sin(X4) as gam columns, against a plain binomial GLM on the
+    same predictors; a slice card vs CPU. Returns the plain GLM's AUC."""
+    glm, t_glm, _ = timed_train(
+        torch, HC, "gam (ag)",
+        lambda: h2o.H2OGeneralizedLinearEstimator(family="binomial",
+                                                  lambda_=0.0),
+        y="y", training_frame=fr)
+    m, t, peak = timed_train(
+        torch, HC, "gam (ag)",
+        lambda: h2o.H2OGeneralizedAdditiveEstimator(family="binomial",
+                                                    gam_columns=GAM_COLS),
+        y="y", training_frame=fr)
+    it = m._glm._iterations
+    say(f"gam (ag): binomial on {fr.nrows} rows, gam columns {GAM_COLS} "
+        f"(6 knots each), 25 linear columns: train() {t:.3f} s, {peak}; "
+        f"{it} IRLS iterations, {t / max(it, 1):.3f} s an iteration (the "
+        f"basis included); training AUC {m.auc():.6f} against the plain "
+        f"GLM's {glm.auc():.6f} ({t_glm:.3f} s, {glm._iterations} "
+        f"iterations)")
+    check(m.auc() > glm.auc(), f"gam (ag): AUC {m.auc()} not above the "
+          f"plain GLM's {glm.auc()}")
+    sl = _sub_frame(fr, GAM_SLICE_N)
+
+    def fit(f):
+        g = h2o.H2OGeneralizedAdditiveEstimator(family="binomial",
+                                                gam_columns=GAM_COLS)
+        g.train(y="y", training_frame=f)
+        return g.coef()
+    card = fit(sl)
+    cpu = _on_cpu(h2o, lambda: fit(_cpu_frame(sl)))
+    d = max(abs(card[k] - cpu[k]) for k in card)
+    big = max(abs(v) for v in cpu.values())
+    say(f"gam (ag): {GAM_SLICE_N}-row slice card vs CPU: coefficients max "
+        f"diff {d:.3g}, the largest coefficient {big:.4g} (limit 1e-4 of "
+        f"it)")
+    check(d < 1e-4 * max(big, 1.0), f"gam (ag): card vs CPU {d}")
+    return glm.auc()
+
+
+def rulefit_run(torch, h2o, HC, fr, glm_auc):
+    """Run (ah): RuleFit at its defaults on the HIGGS frame: rule length
+    3, 20 trees, rules and linear terms. Returns its kernel launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m = h2o.H2ORuleFitEstimator(seed=1)
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    m.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches = _kernel_launches(HC)
+    trees = 20
+    per_tree = {k: v / trees for k, v in launches.items()}
+    s = m.summary()
+    kept = {r["name"]: r["support"] for r in m._rules}
+    sel = [r["rule"] for r in m.rule_importance() if r["rule"] in kept]
+    sup = [kept[r] for r in sel]
+    tm = m._timings
+    say(f"rulefit (ah): {fr.nrows} rows, rule length 3, {trees} trees: "
+        f"train() {t:.3f} s ({_peak_gib(torch, held)}): GBM "
+        f"{tm['gbm']:.3f} s, rule columns {tm['rule columns']:.3f} s, GLM "
+        f"path {tm['glm']:.3f} s; {s['rules_generated']} rules generated, "
+        f"{s['rules_selected']} terms selected ({len(sel)} rules, support "
+        f"{min(sup, default=0):.4f}-{max(sup, default=0):.4f}); training "
+        f"AUC {m.auc():.6f} against (ag)'s plain GLM's {glm_auc:.6f}; "
+        f"launches per tree {per_tree}; top rules "
+        f"{[(r['rule'], round(r['coefficient'], 4)) for r in m.rule_importance()[:4]]}")
+    check(s["rules_generated"] > 0 and sel, "rulefit (ah): no rule")
+    check(all(0.01 < v < 0.99 for v in sup), "rulefit (ah): support")
+    check(m.auc() > glm_auc, f"rulefit (ah): AUC {m.auc()} not above the "
+          f"plain GLM's {glm_auc}")
+    check(per_tree == RULEFIT_PER_TREE, f"rulefit (ah): launches per tree "
+          f"{per_tree}, expected {RULEFIT_PER_TREE}")
+    return launches
+
+
+def _te_frame(torch, dev):
+    """(ai)'s click-through frame, made on the card: TE_LEVELS-level
+    categoricals drawn Zipf(TE_ZIPF), a binary response whose logit adds
+    a per-level N(0, TE_SD^2) effect of each, and a TE_FOLDS-fold column."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    names, vecs = [], []
+    logit = torch.full((TE_N,), -1.5, device=dev)
+    for j, L in enumerate(TE_LEVELS):
+        p = torch.arange(1, L + 1, device=dev, dtype=torch.float64) \
+            ** -TE_ZIPF
+        cdf = torch.cumsum(p / p.sum(), 0)
+        u = torch.rand(TE_N, generator=g, device=dev, dtype=torch.float64)
+        code = torch.searchsorted(cdf, u).clamp(max=L - 1)
+        eff = torch.randn(L, generator=g, device=dev) * TE_SD
+        logit += eff[code]
+        names.append(f"c{j}")
+        vecs.append(Vec.from_tensor(code.float(), type=T_CAT,
+                                    domain=[f"l{i}" for i in range(L)]))
+    y = (torch.rand(TE_N, generator=g, device=dev)
+         < torch.sigmoid(logit)).float()
+    fold = torch.randint(0, TE_FOLDS, (TE_N,), generator=g, device=dev)
+    names += ["y", "fold"]
+    vecs += [Vec.from_tensor(y, type=T_CAT, domain=["0", "1"]),
+             Vec.from_tensor(fold.float())]
+    return Frame(names, vecs)
+
+
+def _te_numpy(codes, y, folds, L, prior, mode, k=10.0, f=20.0):
+    """The target encoding of one column in float64 numpy on the host,
+    from bincounts: the reference's formulas."""
+    s = np.bincount(codes, weights=y, minlength=L)
+    n = np.bincount(codes, minlength=L).astype(np.float64)
+    s, n = s[codes], n[codes]
+    if mode == "loo":
+        s, n = s - y, n - 1
+    elif mode == "kfold":
+        key = folds * L + codes
+        size = TE_FOLDS * L
+        s = s - np.bincount(key, weights=y, minlength=size)[key]
+        n = n - np.bincount(key, minlength=size)[key]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lam = 1.0 / (1.0 + np.exp(-(n - k) / f))
+        out = lam * (s / n) + (1 - lam) * prior
+    return np.where(n > 0, out, prior)
+
+
+def target_encoding_run(torch, h2o, HC):
+    """Run (ai): target encoding of three high-cardinality categoricals on
+    a planted click-through frame, modes none, loo and kfold with
+    blending, against a float64 numpy version on the host."""
+    dev = h2o.init().device
+    fr = _te_frame(torch, dev)
+    y = fr.vec("y").as_f32().double().cpu().numpy()
+    folds = fr.vec("fold").as_f32().long().cpu().numpy()
+    codes = {c: fr.vec(c).as_f32().long().cpu().numpy() for c in
+             ("c0", "c1", "c2")}
+    cols = list(codes)
+    for mode in ("none", "loo", "kfold"):
+        te, t, peak = timed_train(
+            torch, HC, "target encoding (ai)",
+            lambda: h2o.H2OTargetEncoderEstimator(
+                data_leakage_handling=mode, blending=True,
+                fold_column="fold", columns_to_encode=cols),
+            y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = te.transform(fr, as_training=True)
+        torch.cuda.synchronize()
+        t_tr = time.perf_counter() - t0
+        worst = 0.0
+        for c, L in zip(cols, TE_LEVELS):
+            got = out.vec(f"{c}_te").as_f32().double().cpu().numpy()
+            want = _te_numpy(codes[c], y, folds, L, float(y.mean()), mode)
+            worst = max(worst, float((np.abs(got - want)
+                                      / np.abs(want)).max()))
+        seen = [int(np.unique(codes[c]).size) for c in cols]
+        say(f"target encoding (ai) {mode}: {TE_N} rows, levels "
+            f"{list(TE_LEVELS)} ({seen} seen), blending: train() {t:.3f} s, "
+            f"{peak}; transform {t_tr:.3f} s; encoded columns within "
+            f"{worst:.3g} relative of the float64 numpy bincount version "
+            f"(limit 1e-6)")
+        check(worst < 1e-6, f"target encoding (ai) {mode}: {worst}")
+
+
+def infogram_run(torch, h2o, HC, fr):
+    """Run (aj): the infogram on the HIGGS frame. Returns its launches."""
+    torch.cuda.synchronize()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    ig = h2o.H2OInfogram(**INFOGRAM)
+    ig.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    launches = _kernel_launches(HC)
+    adm = ig.get_admissible_features()
+    secs = ig.gbm_seconds
+    trees = len(secs) * INFOGRAM["ntrees"]
+    per_tree = {k: v / trees for k, v in launches.items()}
+    rows = {r["column"]: r for r in ig.result}
+    show = ", ".join(
+        f"{c} {rows[c]['relevance_index']:.3f}/"
+        f"{rows[c]['total_information_index']:.3f}"
+        for c in [f"x{j}" for j in range(8)])
+    say(f"infogram (aj): {fr.nrows} rows x {len(rows)} predictors, "
+        f"{len(secs)} GBMs of {INFOGRAM['ntrees']} trees, depth "
+        f"{INFOGRAM['max_depth']}: {t:.3f} s (the full model "
+        f"{secs[0]:.3f} s, one-column models {np.mean(secs[1:]):.3f} s "
+        f"each); admissible {adm}; relevance/information {show}; launches "
+        f"per tree {per_tree}")
+    # x4 enters the logit as 0.4 sin(x4): its gain share in the full
+    # model stays under the 0.1 relevance threshold (0.022 in a CPU run at
+    # 1M rows), so it carries information without being admissible
+    noise = [f"x{j}" for j in range(7, HIGGS_C)]
+    info = {c: r["total_information_index"] for c, r in rows.items()}
+    check({"x0", "x1"} <= set(adm), f"infogram (aj): admissible {adm}")
+    check(info["x4"] >= ig.info_thresh, f"infogram (aj): x4's information "
+          f"index {info['x4']}")
+    check(not set(noise) & set(adm)
+          and max(info[c] for c in noise) < ig.info_thresh,
+          f"infogram (aj): noise admissible {sorted(set(noise) & set(adm))} "
+          f"or informative {max(info[c] for c in noise)}")
+    check(per_tree == INFOGRAM_PER_TREE, f"infogram (aj): launches per tree "
+          f"{per_tree}, expected {INFOGRAM_PER_TREE}")
+    return launches
+
+
+def _w2v_corpus(seed=16):
+    """(ak)'s corpus: W2V_TOKENS words of W2V_TOPICS topics of
+    W2V_TOPIC_WORDS words, each sentence W2V_SENT words of one topic with
+    Zipf(1.0) frequencies inside it, sentences ending in NA. Returns the
+    words (None for NA)."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, W2V_TOPIC_WORDS + 1)
+    zipf /= zipf.sum()
+    n_sent = W2V_TOKENS // ((W2V_SENT[0] + W2V_SENT[1]) // 2)
+    lens = rng.integers(W2V_SENT[0], W2V_SENT[1] + 1, n_sent)
+    topics = rng.integers(0, W2V_TOPICS, n_sent)
+    wid = rng.choice(W2V_TOPIC_WORDS, size=int(lens.sum()), p=zipf)
+    tid = np.repeat(topics, lens)
+    names = np.array([f"t{t}w{w}" for t in range(W2V_TOPICS)
+                      for w in range(W2V_TOPIC_WORDS)], object)
+    words = names[tid * W2V_TOPIC_WORDS + wid]
+    ends = np.cumsum(lens)
+    return np.insert(words, ends, None)
+
+
+def _synonym_share(m, rng):
+    """The share of W2V_PROBES vocabulary words whose top-5 synonyms are
+    mostly (3 or more) of their own topic."""
+    vocab = m._vocab_list
+    probes = rng.choice(len(vocab), W2V_PROBES, replace=False)
+    hits = 0
+    for i in probes:
+        w = vocab[i]
+        topic = w.split("w")[0]
+        syn = list(m.find_synonyms(w, 5))
+        hits += sum(s.split("w")[0] == topic for s in syn) >= 3
+    return hits / W2V_PROBES
+
+
+def word2vec_run(torch, h2o, HC):
+    """Run (ak): Word2Vec at H2O's defaults on a planted topic corpus,
+    W2V_PARAMS' epochs; synonyms, AVERAGE transform, busy share."""
+    from h2o3_tpu_torch.core.frame import Frame, T_STR, Vec
+    from torch.profiler import ProfilerActivity, profile, record_function
+    words = _w2v_corpus()
+    fr = Frame(["w"], [Vec.from_numpy(words, type=T_STR)])
+    m, t, peak = timed_train(torch, HC, "word2vec (ak)",
+                             lambda: h2o.H2OWord2vecEstimator(**W2V_PARAMS),
+                             training_frame=fr)
+    share = _synonym_share(m, np.random.default_rng(16))
+    n_tok = int(sum(w is not None for w in words))
+    say(f"word2vec (ak): {n_tok} tokens, {len(m._vocab_list)} words in "
+        f"the vocabulary, {m._pairs} pairs, "
+        f"{W2V_PARAMS['epochs']} epochs: {m._steps} steps, train() {t:.3f} "
+        f"s ({1000 * t / m._steps:.4f} ms a step, the corpus and pairs "
+        f"included), {peak}; {W2V_PROBES} probe words with 3 of 5 synonyms "
+        f"in their topic: share {share:.3f} (bar {W2V_SHARE_BAR}; a CPU run "
+        f"of the same corpus: {W2V_SHARE_CPU})")
+    check(share > W2V_SHARE_BAR, f"word2vec (ak): synonym share {share}")
+    # AVERAGE: each sentence's row is the mean of its words' vectors
+    head = Frame(["w"], [Vec.from_numpy(words[:2000], type=T_STR)])
+    avg = torch.from_numpy(m.transform(head, "AVERAGE").to_numpy())
+    V = m._vectors.double().cpu()
+    rows, cur = [], []
+    for w in words[:2000]:
+        if w is None:
+            rows.append(torch.stack(cur).mean(0) if cur
+                        else torch.full((V.shape[1],), math.nan,
+                                        dtype=torch.float64))
+            cur = []
+        elif w in m._vocab:
+            cur.append(V[m._vocab[w]])
+    ref = torch.stack(rows)
+    same_na = torch.equal(torch.isnan(avg), torch.isnan(ref))
+    d = float((avg - ref).abs().nan_to_num(0.0).max())
+    say(f"word2vec (ak): AVERAGE transform of {len(rows)} sentences: max "
+        f"diff from the mean of their words' vectors {d:.3g} (limit 1e-6)")
+    check(same_na and d < 1e-6, f"word2vec (ak): AVERAGE {d}")
+    # the card's busy share over a short training
+    frac = W2V_PROFILE_SHARE
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("h2o3_train"):
+            p = h2o.H2OWord2vecEstimator(**dict(W2V_PARAMS, epochs=1))
+            p.train(training_frame=Frame(
+                ["w"], [Vec.from_numpy(words[:int(frac * len(words))],
+                                       type=T_STR)]))
+            torch.cuda.synchronize()
+    # the same short training again: index_add_ of float gradients on
+    # the card adds in no fixed order
+    q = h2o.H2OWord2vecEstimator(**dict(W2V_PARAMS, epochs=1))
+    q.train(training_frame=Frame(
+        ["w"], [Vec.from_numpy(words[:int(frac * len(words))], type=T_STR)]))
+    same = torch.equal(p._vectors, q._vectors)
+    say(f"word2vec (ak): the short training run twice: bit-identical "
+        f"{same}, vectors max diff "
+        f"{float((p._vectors - q._vectors).abs().max()):.3g}")
+    t0, t1, dev = _trace_window(prof, "h2o3_train")
+    if not dev:
+        say("word2vec (ak) profiler: busy share not measured (the trace "
+            "holds no device activity)")
+        return
+    kernels = [e for _, _, e in dev if e.get("cat") == "kernel"]
+    say(f"word2vec (ak) profiler, {p._steps} steps on the corpus's first "
+        f"{frac:.0%}: the card is busy {_busy(t0, dev) / 1e3:.3f} ms of the "
+        f"{(t1 - t0) / 1e3:.3f} ms train() window: busy share "
+        f"{_busy(t0, dev) / (t1 - t0):.4f}; "
+        f"{len(kernels) / p._steps:.1f} kernel launches a step")
+
+
+def phase_derived(torch, h2o, HC):
+    """Runs (ae)-(ak) at full width, each timed. Returns the launches of
+    (ah) and (aj)."""
+    t_all = time.perf_counter()
+    _glm_tf32(torch)
+    dev = h2o.init().device
+    times, launches = {}, {}
+    cc, y = _cc_frame(torch, dev)
+    vcols = [f"v{j}" for j in range(CC_C)]
+    for label, fn in (("ae", lambda: aggregator_run(torch, h2o, HC, cc,
+                                                    vcols)),
+                      ("af", lambda: eif_run(torch, h2o, HC, cc, y, vcols))):
+        t0 = time.perf_counter()
+        fn()
+        times[label] = time.perf_counter() - t0
+    del cc, y
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    t0 = time.perf_counter()
+    glm_auc = gam_run(torch, h2o, HC, fr)
+    times["ag"] = time.perf_counter() - t0
+    for label, fn in (("ah", lambda: rulefit_run(torch, h2o, HC, fr,
+                                                 glm_auc)),
+                      ("aj", lambda: infogram_run(torch, h2o, HC, fr))):
+        t0 = time.perf_counter()
+        launches[label] = fn()
+        times[label] = time.perf_counter() - t0
+    del fr
+    for label, fn in (("ai", lambda: target_encoding_run(torch, h2o, HC)),
+                      ("ak", lambda: word2vec_run(torch, h2o, HC))):
+        t0 = time.perf_counter()
+        fn()
+        times[label] = time.perf_counter() - t0
+    say("models on ported estimators, runs (ae)-(ak): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(times.items()))
+        + f"; total {time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -3781,12 +4346,15 @@ def main():
     phase_glm_cv(torch, h2o, HC)
     phase_dl_unsupervised(torch, h2o, HC)
     framework = phase_framework(torch, h2o, HC)
+    derived = phase_derived(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
     say("launches over the grid (x), the ensemble (y) and the segments "
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
-    say(f"recap of runs (d)-(ad) and the (d)-(f) kernels' timings "
+    say("launches over RuleFit (ah) and the infogram (aj): "
+        + "; ".join(f"({k}) {v}" for k, v in derived.items()))
+    say(f"recap of runs (d)-(ak) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -37,6 +37,11 @@ Around the estimators: `H2OGridSearch` (Cartesian and RandomDiscrete),
 `train_segments`, one model a segment. The standalone models are
 `H2ONaiveBayesEstimator`, `H2OCoxProportionalHazardsEstimator` and
 `H2OSupportVectorMachineEstimator`; `quantile` gives a frame's quantiles.
+The models built on those estimators are `H2OTargetEncoderEstimator`,
+`H2OGeneralizedAdditiveEstimator` (GLM on spline bases),
+`H2OExtendedIsolationForestEstimator`, `H2OAggregatorEstimator`,
+`H2ORuleFitEstimator` (GBM rules and an L1 GLM), `H2OInfogram` (GBMs) and
+`H2OWord2vecEstimator`.
 Every model has `model_performance`, `mse`, `model_id` and `to_dict`;
 `get_frame`, `get_model`, `remove` and `ls` reach the key-value store.
 """
@@ -45,14 +50,17 @@ from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.io.parser import import_file, parse_setup
 from h2o3_tpu_torch.models import (
-    H2OCoxProportionalHazardsEstimator, H2ODeepLearningEstimator,
-    H2OGeneralizedLinearEstimator, H2OGeneralizedLowRankEstimator,
-    H2OGradientBoostingEstimator, H2OGridSearch, H2OIsolationForestEstimator,
+    H2OAggregatorEstimator, H2OCoxProportionalHazardsEstimator,
+    H2ODeepLearningEstimator, H2OExtendedIsolationForestEstimator,
+    H2OGeneralizedAdditiveEstimator, H2OGeneralizedLinearEstimator,
+    H2OGeneralizedLowRankEstimator, H2OGradientBoostingEstimator,
+    H2OGridSearch, H2OInfogram, H2OIsolationForestEstimator,
     H2OKMeansEstimator, H2ONaiveBayesEstimator,
     H2OPrincipalComponentAnalysisEstimator, H2ORandomForestEstimator,
-    H2OSingularValueDecompositionEstimator, H2OStackedEnsembleEstimator,
-    H2OSupportVectorMachineEstimator, H2OXGBoostEstimator, SegmentModels,
-    train_segments)
+    H2ORuleFitEstimator, H2OSingularValueDecompositionEstimator,
+    H2OStackedEnsembleEstimator, H2OSupportVectorMachineEstimator,
+    H2OTargetEncoderEstimator, H2OWord2vecEstimator, H2OXGBoostEstimator,
+    SegmentModels, train_segments)
 from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
 
 
@@ -89,15 +97,18 @@ def quantile(frame, prob=None, combine_method="interpolate",
                  [Vec.from_numpy(np.asarray(d, np.float64)) for d in data])
 
 
-__all__ = ["DKV", "Frame", "H2OCoxProportionalHazardsEstimator",
-           "H2ODeepLearningEstimator", "H2OGeneralizedLinearEstimator",
+__all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
+           "H2OCoxProportionalHazardsEstimator", "H2ODeepLearningEstimator",
+           "H2OExtendedIsolationForestEstimator",
+           "H2OGeneralizedAdditiveEstimator", "H2OGeneralizedLinearEstimator",
            "H2OGeneralizedLowRankEstimator", "H2OGradientBoostingEstimator",
-           "H2OGridSearch", "H2OIsolationForestEstimator",
+           "H2OGridSearch", "H2OInfogram", "H2OIsolationForestEstimator",
            "H2OKMeansEstimator", "H2ONaiveBayesEstimator",
            "H2OPrincipalComponentAnalysisEstimator",
-           "H2ORandomForestEstimator",
+           "H2ORandomForestEstimator", "H2ORuleFitEstimator",
            "H2OSingularValueDecompositionEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
+           "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
            "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud", "get_frame",
            "get_model", "import_file", "init", "ls", "parse_setup",
            "quantile", "remove", "shutdown", "train_segments"]

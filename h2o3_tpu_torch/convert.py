@@ -14,8 +14,12 @@ rotation and the transform's statistics, `svd_from_arrays` V, d and
 theirs, `glrm_from_arrays` the archetypes, `coxph_from_arrays` β and
 `psvm_from_arrays` β, b0 and the random Fourier features (each of these
 with its one-hot codec's statistics), and `naive_bayes_from_arrays` the
-priors and tables; each returns a port model that scores the
-same rows to the same values. A
+priors and tables; `eif_from_arrays` an extended isolation forest's
+hyperplane trees, `gam_from_arrays` a GAM's knots, centring transforms
+and penalties with its inner GLM's arrays, `target_encoder_from_arrays`
+the per-level (and per-fold) sums and counts and the prior, and
+`word2vec_from_arrays` the word vectors; each returns a port model that
+scores the same rows to the same values. A
 carried GBM is a binned prior for a checkpoint restart only when the
 caller names the JAX model's binned engine; any other is a prior of the
 adaptive engine. Nothing here imports the JAX package: the caller pulls
@@ -32,6 +36,9 @@ import torch
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models.deeplearning import MLP, H2ODeepLearningEstimator
 from h2o3_tpu_torch.models.coxph import H2OCoxProportionalHazardsEstimator
+from h2o3_tpu_torch.models.extended_isofor import \
+    H2OExtendedIsolationForestEstimator
+from h2o3_tpu_torch.models.gam import H2OGeneralizedAdditiveEstimator
 from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator, _GLMState
 from h2o3_tpu_torch.models.glrm import H2OGeneralizedLowRankEstimator
 from h2o3_tpu_torch.models.kmeans import H2OKMeansEstimator
@@ -40,12 +47,15 @@ from h2o3_tpu_torch.models.naive_bayes import H2ONaiveBayesEstimator
 from h2o3_tpu_torch.models.pca import H2OPrincipalComponentAnalysisEstimator
 from h2o3_tpu_torch.models.psvm import H2OSupportVectorMachineEstimator
 from h2o3_tpu_torch.models.svd import H2OSingularValueDecompositionEstimator
+from h2o3_tpu_torch.models.target_encoder import H2OTargetEncoderEstimator
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
 from h2o3_tpu_torch.models.tree.drf import H2ORandomForestEstimator
-from h2o3_tpu_torch.models.tree.isofor import H2OIsolationForestEstimator
+from h2o3_tpu_torch.models.tree.isofor import (
+    H2OIsolationForestEstimator, _avg_path)
 from h2o3_tpu_torch.models.tree.shared_tree import H2OGradientBoostingEstimator
 from h2o3_tpu_torch.models.tree.xgboost import H2OXGBoostEstimator
+from h2o3_tpu_torch.models.word2vec import H2OWord2vecEstimator
 from h2o3_tpu_torch.parallel import mesh as _mesh
 
 
@@ -480,3 +490,104 @@ def psvm_from_arrays(*, beta, b0, rff, predictors: Sequence[str],
                                       standardize=True,
                                       response_name=response_name,
                                       response_domain=response_domain))
+
+
+def eif_from_arrays(*, norms, points, dids, vals, depth: int, psi: int,
+                    predictors: Sequence[str], domains: dict,
+                    extension_level: int = 0,
+                    model_id: Optional[str] = None,
+                    device=None) -> H2OExtendedIsolationForestEstimator:
+    """A port extended isolation forest from a JAX one's hyperplane trees:
+    `_norms` and `_points` (T, nodes, C) f32, `_dids` (T, nodes) bool,
+    `_vals` (T, nodes) f32, its depth `_D` and its sample size psi (which
+    gives c(ψ) of the score)."""
+    dev = _device(device)
+    model = H2OExtendedIsolationForestEstimator(
+        sample_size=int(psi), extension_level=int(extension_level),
+        model_id=model_id)
+    model._norms, model._points = _f32(norms, dev), _f32(points, dev)
+    model._dids = torch.tensor(np.asarray(dids, bool), device=dev)
+    model._vals = _f32(vals, dev)
+    model._D = int(depth)
+    model._cn = float(_avg_path(torch.tensor(float(psi))))
+    ntrees = int(model._norms.shape[0])
+    model.params["ntrees"] = ntrees
+    return _finish(model, algo="extendedisolationforest",
+                   predictors=predictors, domains=domains,
+                   response_name=None, response_domain=None,
+                   model_id=model_id,
+                   summary={"number_of_trees": ntrees, "sample_size": int(psi),
+                            "extension_level": int(extension_level)})
+
+
+def gam_from_arrays(*, knots: dict, Z: dict, S: dict, beta, family: str,
+                    link: str, predictors: Sequence[str], domains: dict,
+                    response_name: str,
+                    response_domain: Optional[Sequence[str]] = None,
+                    means: dict, sigmas: dict, standardize: bool,
+                    model_id: Optional[str] = None
+                    ) -> H2OGeneralizedAdditiveEstimator:
+    """A port GAM from a JAX one's state: by gam column (in the order of
+    `knots`), its knots, centring transform Z (K, K-1) and penalty S
+    (K, K); and its inner GLM's arrays as `glm_from_arrays` takes them
+    (the predictors include the basis columns `<column>_gam<j>`), which
+    keep the JAX package's all-levels one-hot layout."""
+    model = H2OGeneralizedAdditiveEstimator(family=family,
+                                            gam_columns=list(knots),
+                                            model_id=model_id)
+    model._gam_cols = list(knots)
+    t64 = (lambda a: torch.tensor(np.asarray(a, np.float64)))  # noqa: E731
+    model._knots = {c: t64(k) for c, k in knots.items()}
+    model._Z = {c: t64(z) for c, z in Z.items()}
+    model._S = {c: t64(s) for c, s in S.items()}
+    model._basis_names = {c: [f"{c}_gam{j}" for j in range(z.shape[1])]
+                          for c, z in model._Z.items()}
+    model._glm = glm_from_arrays(beta=beta, family=family, link=link,
+                                 predictors=predictors, domains=domains,
+                                 response_name=response_name,
+                                 response_domain=response_domain,
+                                 means=means, sigmas=sigmas,
+                                 standardize=standardize)
+    model.key = model_id or model._glm.key + "_gam"
+    model._output = model._glm._output
+    model._dinfo = model._glm._dinfo
+    DKV.put(model.key, model)
+    return model
+
+
+def target_encoder_from_arrays(*, encodings: dict, prior: float,
+                               response_name: str, params: dict,
+                               nfolds: Optional[int] = None,
+                               device=None) -> H2OTargetEncoderEstimator:
+    """A port target encoder from a JAX one's `_encodings` (by column: its
+    domain, sums and counts, and fold_sums and fold_counts under kfold),
+    `_prior`, `_y`, its params and `_nfolds`."""
+    dev = _device(device)
+    model = H2OTargetEncoderEstimator(**params)
+    t64 = (lambda a: torch.tensor(np.asarray(a, np.float64),  # noqa: E731
+                                  device=dev))
+    model._encodings = {
+        c: {k: (list(v) if k == "domain" else t64(v)) for k, v in e.items()}
+        for c, e in encodings.items()}
+    model._cols = list(encodings)
+    model._prior = float(prior)
+    model._y = response_name
+    if nfolds is not None:
+        model._nfolds = int(nfolds)
+    return model
+
+
+def word2vec_from_arrays(*, vectors, vocab: Sequence[str],
+                         model_id: Optional[str] = None,
+                         device=None) -> H2OWord2vecEstimator:
+    """A port Word2Vec from a JAX one's `_vectors` (V, d) and
+    `_vocab_list`."""
+    dev = _device(device)
+    model = H2OWord2vecEstimator(vec_size=int(np.asarray(vectors).shape[1]),
+                                 model_id=model_id)
+    model._vectors = _f32(vectors, dev)
+    model._vocab_list = list(vocab)
+    model._vocab = {w: i for i, w in enumerate(model._vocab_list)}
+    model.key = model_id or DKV.make_key("word2vec")
+    DKV.put(model.key, model)
+    return model

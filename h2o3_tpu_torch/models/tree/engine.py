@@ -516,6 +516,16 @@ class Draws:
         leaf's column, (L,) placing its threshold."""
         return self._rand(L, C), self._rand(L)
 
+    def eif_level(self, d, L, C, masked=True):
+        """The extended isolation forest's level draws: (L, C) normals of
+        each leaf's hyperplane, (L, C) uniforms placing its point, and
+        when `masked` (extension_level + 1 < C) the (L, C) uniforms that
+        pick the hyperplane's nonzero dimensions, else None."""
+        normal = torch.randn((L, C), generator=self.gen,
+                             device=self.gen.device).to(self.device)
+        return (normal, self._rand(L, C),
+                self._rand(L, C) if masked else None)
+
 
 class TreeGrower:
     """Grows one tree level by level on the adaptive engine. It stops as

@@ -16,7 +16,9 @@ estimator's key splits (h2o3_tpu/models/tree/*.py):
   iter3  multinomial GBM and XGBoost: per iteration
          key, k_rows, k_cols = split(key, 3), per class tree as iter2.
 A tree's level d draws with fold_in(k_tree, d) (the isolation forest:
-2d for the columns, 2d + 1 for the thresholds). Row draws are over the
+2d for the columns, 2d + 1 for the thresholds; the extended isolation
+forest, also scheme tree3: 3d for the normals, 3d + 1 for the points and
+3d + 2 for the dimension mask). Row draws are over the
 JAX frame's padded rows, cut to the frame's.
 """
 
@@ -82,6 +84,17 @@ class JaxDraws:
                     jax.random.fold_in(k, 2 * d + 1), (L,))))
 
 
+    def eif_level(self, d, L, C, masked=True):
+        k = self.k_tree
+        normal = np.array(jax.random.normal(jax.random.fold_in(k, 3 * d),
+                                            (L, C)))
+        return (torch.from_numpy(normal),
+                torch.from_numpy(_np_uniform(jax.random.fold_in(k, 3 * d + 1),
+                                             (L, C))),
+                torch.from_numpy(_np_uniform(jax.random.fold_in(k, 3 * d + 2),
+                                             (L, C))) if masked else None)
+
+
 def replay(model, seed, pad, scheme, K=1):
     """Make the port estimator `model` draw the JAX package's draws."""
     model._draws = lambda device: JaxDraws(seed, pad, scheme, K)
@@ -89,18 +102,23 @@ def replay(model, seed, pad, scheme, K=1):
 
 
 def test_draws_are_seeded_uniforms_on_the_rows_device():
-    """Each draw of engine.Draws has its shape, lies in [0, 1), and a
-    generator seeded alike draws it again the same."""
+    """Each draw of engine.Draws has its shape, lies in [0, 1) (the
+    extended isolation forest's normals aside), and a generator seeded
+    alike draws it again the same."""
     def run():
         d = TE.Draws(torch.Generator().manual_seed(5))
         level = d.levels()
-        return [d.rows(7), d.cols(4), level(2, 4, 3), *d.iso_level(1, 2, 3)]
-    first, again = run(), run()
+        normal, *eif = d.eif_level(1, 2, 3)
+        assert d.eif_level(0, 1, 3, masked=False)[2] is None
+        return [d.rows(7), d.cols(4), level(2, 4, 3), *d.iso_level(1, 2, 3),
+                *eif], normal
+    (first, n1), (again, n2) = run(), run()
     assert [tuple(a.shape) for a in first] == [(7,), (4,), (4, 3), (2, 3),
-                                               (2,)]
+                                               (2,), (2, 3), (2, 3)]
     for a, b in zip(first, again):
         assert a.device.type == "cpu" and a.dtype == torch.float32
         assert bool(((a >= 0) & (a < 1)).all()) and torch.equal(a, b)
+    assert n1.shape == (2, 3) and torch.equal(n1, n2)
 
 
 def test_replayed_draws_follow_the_jax_key_chain():

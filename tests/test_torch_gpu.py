@@ -829,3 +829,55 @@ def test_pca_svd_glrm_on_the_card_match_the_cpu(dev):
     assert np.abs(pr - qr).max() <= 1e-4
     assert np.abs(sv - tv * np.sign((sv * tv).sum(0))).max() <= 1e-4
     assert len(go) == len(ho) and np.abs(go - ho).max() <= 1e-4 * go.max()
+
+
+# ---------------------------------------------------------------------------
+# The models on ported estimators (plain PyTorch, no kernel of ops/csrc)
+@pytest.mark.gpu
+def test_aggregator_batched_admission_on_the_card_matches_plain(dev):
+    """The aggregator's batched admission on the card (batches of 4096 and
+    of 7) against the plain row-by-row walk on the CPU, on the same f32
+    rows: the same exemplar rows and counts, exactly (the distances are
+    the same column-by-column f32 sums on both)."""
+    from h2o3_tpu_torch.models import aggregator as A
+    rng = np.random.default_rng(120)
+    X = rng.normal(size=(6000, 6)).astype(np.float32)
+    X[3000:] *= 0.25
+    Xc = torch.from_numpy(X)
+    for radius in (1.0, 2.5):
+        pex, pcnt = A._sweep_plain(Xc, radius)
+        for batch in (4096, 7):
+            ex, cnt = A._sweep(Xc.to(dev), radius, batch=batch)
+            assert torch.equal(ex.cpu(), pex) and torch.equal(cnt.cpu(), pcnt)
+
+
+@pytest.mark.gpu
+def test_extended_isolation_forest_on_the_card_matches_the_cpu(dev):
+    """An extended isolation forest (extension_level 0 and C-1) with the
+    same draws (the CPU generator's, moved to the card): mean lengths
+    within 1e-5 of the CPU's."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    from h2o3_tpu_torch.models import extended_isofor as EIF
+    from h2o3_tpu_torch.models.tree import engine as E
+    rng = np.random.default_rng(121)
+    X = rng.normal(size=(10000, 8))
+    X[-100:, :3] += 3.0
+    saved = EIF.H2OExtendedIsolationForestEstimator._draws
+    try:
+        EIF.H2OExtendedIsolationForestEstimator._draws = (
+            lambda self, device: E.Draws(torch.Generator().manual_seed(5),
+                                         device))
+        for ext in (0, 7):
+            out = {}
+            for d in ("cpu", "cuda"):
+                h2o.init(device=d)
+                fr = Frame([f"x{j}" for j in range(8)],
+                           [Vec.from_numpy(X[:, j]) for j in range(8)])
+                m = h2o.H2OExtendedIsolationForestEstimator(
+                    ntrees=20, extension_level=ext, seed=1)
+                m.train(training_frame=fr)
+                out[d] = m.predict(fr).to_numpy()[:, 1]
+            assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-5
+    finally:
+        EIF.H2OExtendedIsolationForestEstimator._draws = saved

@@ -490,7 +490,8 @@ def test_port_imports_no_jax():
     assert {pkg / "models" / f"{m}.py" for m in (
         "deeplearning", "kmeans", "pca", "svd", "glrm", "grid", "ensemble",
         "segments", "naive_bayes", "quantile", "coxph", "psvm",
-        "_lbfgs")} <= set(files)
+        "_lbfgs", "target_encoder", "gam", "extended_isofor", "aggregator",
+        "rulefit", "infogram", "word2vec")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
