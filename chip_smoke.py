@@ -38,7 +38,10 @@ Phases, each printing its lines before the last:
      must agree; then on the same CSV XGBoost, a UniformAdaptive GBM and an
      isolation forest (the same draws on both) on the adaptive engine,
      card against CPU: AUC (the forest's score AUC against the label)
-     within 1e-3, no kernel launch;
+     within 1e-3, no kernel launch; and a seeded SVMLight, ARFF, csv.gz
+     and csv.zip file through import_file on the card and the CPU (the
+     same columns bit for bit; StrVec and UuidVec ops; the SVMLight
+     frame's sparse GLM within 1e-5 of the largest coefficient);
   4. the multinomial path at Covertype width (581,012 rows x 54 features,
      7 classes, made on the card from a seeded torch.Generator), each run
      with its launch counts per tree and its peak memory:
@@ -247,6 +250,31 @@ Phases, each printing its lines before the last:
            a CPU run, AVERAGE rows equal to their words' mean vector
            within 1e-6, ms a step and a torch.profiler busy share, and
            whether a short training run twice is bit-identical;
+     then the frame data plane (no kernel on its path), each run with
+     its seconds and peak memory:
+       (al) GLM binomial, alpha 0, lambda 1/n, on rcv1.binary's width
+           (697,641 rows x 47,236 Zipf(1.1) terms, ~74 tf-idf nonzeros a
+           row, made on the card, built as 47,236 SparseVecs from host
+           COO arrays; a planted logit, a 100,000-row validation frame):
+           the sparse L-BFGS path, no dense design, two fits compared bit
+           for bit, validation AUC within 0.02 of the planted logit's,
+           the float64 gradient below 1e-3 of its norm at zero,
+           model_performance(valid) = the validation metrics within
+           1e-7, a 50,000-row slice card vs CPU (1e-4 of the largest
+           coefficient, predictions 1e-5), ms an evaluation beside its
+           bound;
+       (am) (d)'s frame as covtype.binary (class 2 against the rest)
+           written as an SVMLight file and read by import_file (MB/s;
+           every feature a SparseVec, the values the generator's f32 bit
+           for bit), GLM at its defaults against a dense IRLSM fit
+           (training logloss within 1e-4);
+       (an) the HIGGS frame through Vec.from_numpy under an HBM budget of
+           a third of its packed bytes: GBM 10 trees of (b)'s
+           configuration, predictions bit for bit those of the
+           unconstrained frame with the pager's prefetch on and off, its
+           peak HBM bytes under the budget; every chunk to host, to disk
+           and back bit for bit, each transfer's GB/s beside the host
+           link's bound; rebalance_frame, the same values;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -266,9 +294,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(ak) are printed again just before the two JSON
+The lines of runs (d)-(an) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ak)
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(an)
 add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -277,6 +305,7 @@ exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -322,6 +351,20 @@ COV_N, COV_VALID_N, COV_NUM, COV_WILD, COV_SOIL = 581_012, 100_000, 10, 4, 40
 COV_GBM = dict(distribution="multinomial", ntrees=20, max_depth=8,
                nbins=HIGGS_NBINS, learn_rate=0.1, score_tree_interval=5,
                seed=1)
+# runs (al)-(an), the frame data plane: (al) at the width of LIBSVM's
+# rcv1.binary (Lewis et al. 2004, train and test together: 697,641 rows x
+# 47,236 terms, about 74 nonzeros a row), Zipf(1.1) term ids; the planted
+# logit on the RCV1_SIGNAL most frequent terms, N(0, RCV1_SCALE) weights;
+# a 100,000-row validation frame and a 50,000-row card-vs-CPU slice; an
+# evaluation's bound reads the ri, ci and vals planes forward and back
+RCV1_N, RCV1_C, RCV1_NNZ_ROW = 697_641, 47_236, 74
+RCV1_VALID_N, RCV1_SLICE_N = 100_000, 50_000
+RCV1_ZIPF, RCV1_SIGNAL, RCV1_SCALE, RCV1_POS = 1.1, 500, 4.0, 0.52
+RCV1_EVAL_BYTES = 2 * 3 * 4
+# (am): covtype.binary, class 2 (Lodgepole Pine) against the rest
+COVB_CLASS = 1
+# (an): PCIe gen 5 x16, 32 GT/s x 16 lanes x 128/130 / 8 bits, a direction
+PCIE5_X16_GBS = 32 * 16 * 128 / 130 / 8
 # Covertype's class shares (covtype.data: 211,840, 283,301, 35,754, 2,747,
 # 9,493, 17,367 and 20,510 rows)
 COV_PRIOR = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
@@ -536,7 +579,9 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"framework and standalone|model_performance|"
                    r"aggregator \(ae|extended isolation|gam \(ag|"
                    r"rulefit \(ah|target encoding \(ai|infogram \(aj|"
-                   r"word2vec \(ak|models on ported)")
+                   r"word2vec \(ak|models on ported|small path ingest|"
+                   r"sparse glm \(al|svmlight \(am|pager \(an|"
+                   r"frame data plane)")
 
 
 def say(msg):
@@ -1085,7 +1130,7 @@ def phase_higgs(torch, h2o, HC):
     pred = m.predict(fr)
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
-    p1 = pred.vec("p1").data
+    p1 = pred.vec("p1").as_f32()
     check(pred.nrows == HIGGS_N and bool(torch.isfinite(p1).all()),
           "HIGGS predictions not finite")
     say(f"higgs (a) predict {HIGGS_N} rows: {t_pred:.3f} s")
@@ -1153,7 +1198,7 @@ def drf_run(torch, h2o, HC, fr, valid):
     pred = m.predict(fr)
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
-    p1 = pred.vec("p1").data
+    p1 = pred.vec("p1").as_f32()
     say(f"drf (f): {trees} trees, mtries {summary['mtries']}, OOB (training) "
         f"AUC {oob:.6f}, validation AUC {vauc:.6f} (last history entry "
         f"{last['validation_auc']:.6f}), oob_scored {summary['oob_scored']};"
@@ -1344,7 +1389,7 @@ def phase_covtype(torch, h2o, HC):
     pv = d.predict(valid)
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
-    P = torch.stack([pv.vec(f"p{c + 1}").data for c in range(K)], 1)
+    P = torch.stack([pv.vec(f"p{c + 1}").as_f32() for c in range(K)], 1)
     psum_err = (P.double().sum(1) - 1).abs().max().item()
     say(f"covtype (d): {trees} trees ({COV_GBM['ntrees']} iterations x "
         f"{K} classes); training logloss {ll:.6f} (last history entry "
@@ -1515,7 +1560,7 @@ def busy_share(torch, h2o, fr):
 def _sub_frame(fr, n):
     """The first n rows of a frame, as a frame on the same device."""
     from h2o3_tpu_torch.core.frame import Frame, Vec
-    return Frame(fr.names, [Vec.from_tensor(v.data[:n].contiguous(),
+    return Frame(fr.names, [Vec.from_tensor(v.as_f32()[:n].contiguous(),
                                             type=v.type, domain=v.domain)
                             for v in fr.vecs])
 
@@ -1591,7 +1636,7 @@ def time_range_forms(torch, fr):
     scatter min/max (engine.SORTED_RANGE_LEAVES picks
     between them by the level's leaves). Both give the same bits."""
     from h2o3_tpu_torch.models.tree import engine as E
-    X = torch.stack([v.data for v in fr.vecs[:HIGGS_C]], 1)
+    X = torch.stack([v.as_f32() for v in fr.vecs[:HIGGS_C]], 1)
     g = torch.Generator(device=X.device)
     g.manual_seed(3)
     saved, parts = E.SORTED_RANGE_LEAVES, []
@@ -1781,7 +1826,7 @@ def phase_small_adaptive(torch, h2o, HC):
                     m = getattr(h2o, est)(**params)
                     m.train(y="label", training_frame=fr)
                     launches = {k: v for k, v in HC.LAUNCHES.items() if v}
-                    y = fr.vec("label").data.cpu()
+                    y = fr.vec("label").as_f32().cpu()
                     res[where] = (iso_auc(torch, m, fr, y)
                                   if est == "H2OIsolationForestEstimator"
                                   else m.auc(), launches,
@@ -2149,7 +2194,7 @@ def custom_gbm_run(torch, h2o, HC, fr):
     printed."""
     from h2o3_tpu_torch import udf
     from h2o3_tpu_torch.core.frame import Frame, Vec
-    num = Frame(fr.names, fr.vecs[:-1] + [Vec.from_tensor(fr.vec("y").data)])
+    num = Frame(fr.names, fr.vecs[:-1] + [Vec.from_tensor(fr.vec("y").as_f32())])
     ref = udf.register_udf("chip_gaussian", _gaussian_udf(torch))
     models = {}
     for dist in ("custom", "gaussian"):
@@ -2220,7 +2265,7 @@ def cv_gbm_run(torch, h2o, HC, fr):
                 for x in [m] + m._cv_models)
     per_tree = {k: v / trees for k, v in launches.items() if v}
     cv_auc = m._output.cross_validation_metrics.auc
-    fa = DKV.get(m._output.cv_fold_assignment_key).vec("C1").data
+    fa = DKV.get(m._output.cv_fold_assignment_key).vec("C1").as_f32()
     sizes = torch.bincount(fa.long(), minlength=3).tolist()
     off = max(abs(s - fr.nrows / 3) for s in sizes) / (fr.nrows / 3)
     say(f"gbm cv (p): bernoulli, 3 stratified folds, {trees} trees of depth "
@@ -2297,8 +2342,8 @@ def phase_small_glm(torch, h2o, HC):
                 m.train(x=x, y=y, training_frame=fr)
                 launches = {k: v for k, v in HC.LAUNCHES.items() if v}
                 pred = m.predict(fr)
-                res[where] = (m, launches, pred.vecs[-1].data.device.type,
-                              pred.vecs[-1].data.cpu().numpy())
+                res[where] = (m, launches, pred.vecs[-1].as_f32().device.type,
+                              pred.vecs[-1].as_f32().cpu().numpy())
             (cm, _, _, cp), (gm, gl, gd, gp) = res["cpu"], res["cuda"]
             cb, gb = _identifiable(cm), _identifiable(gm)
             big = max(np.abs(cm._state.beta).max(),
@@ -2328,7 +2373,7 @@ def phase_small_glm(torch, h2o, HC):
 def _cpu_frame(fr):
     """A frame's columns copied to the CPU (the card-vs-CPU slices)."""
     from h2o3_tpu_torch.core.frame import Frame, Vec
-    return Frame(fr.names, [Vec.from_tensor(v.data.cpu(), type=v.type,
+    return Frame(fr.names, [Vec.from_tensor(v.as_f32().cpu(), type=v.type,
                                             domain=v.domain)
                             for v in fr.vecs])
 
@@ -2653,7 +2698,7 @@ def dl_autoencoder_run(torch, h2o, HC):
         lambda: h2o.H2ODeepLearningEstimator(**DL_AE), x=xs,
         training_frame=fr)
     t0 = time.perf_counter()
-    mse = m.anomaly(fr).vecs[0].data
+    mse = m.anomaly(fr).vecs[0].as_f32()
     torch.cuda.synchronize()
     t_an = time.perf_counter() - t0
     auc = M.binomial_metrics(y, mse).auc
@@ -3123,7 +3168,7 @@ def segments_run(torch, h2o, HC, fr):
     t_seg = time.perf_counter() - t0
     launches = _kernel_launches(HC)
     rows = res.as_list()
-    wild = fr.vec("wilderness").data
+    wild = fr.vec("wilderness").as_f32()
     for r in rows:
         check(r["status"] == "SUCCEEDED", f"segments (z): {r}")
         m = h2o.get_model(r["model"])
@@ -3167,12 +3212,12 @@ def naive_bayes_runs(torch, h2o, HC, fr, cov, entropy):
     check(c.logloss() < entropy, f"naive bayes (aa): logloss {c.logloss()}")
     sl = _sub_frame(fr, NB_SLICE_N)
     card = h2o.H2ONaiveBayesEstimator().train(y="y", training_frame=sl)
-    pc = card.predict(sl).vecs[-1].data.cpu().numpy()
+    pc = card.predict(sl).vecs[-1].as_f32().cpu().numpy()
 
     def cpu_fit():
         f = _cpu_frame(sl)
         m = h2o.H2ONaiveBayesEstimator().train(y="y", training_frame=f)
-        return m.predict(f).vecs[-1].data.numpy()
+        return m.predict(f).vecs[-1].as_f32().numpy()
     pp = _on_cpu(h2o, cpu_fit)
     d = float(np.abs(pc - pp).max())
     say(f"naive bayes (aa): {NB_SLICE_N}-row slice card vs CPU: "
@@ -3985,6 +4030,643 @@ def phase_derived(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+# The frame data plane (no kernel on its path, none may count a launch):
+# ingest of SVMLight, ARFF, gzip and zip files, string and UUID columns,
+# GLM's sparse path and the chunk pager.
+def _small_files(tmp):
+    """A seeded SVMLight file, an ARFF file, and a CSV with a string and a
+    uuid column gzip'd and zipped; returns their paths."""
+    import gzip
+    import uuid
+    import zipfile
+    rng = np.random.default_rng(23)
+    svm = os.path.join(tmp, "small.svm")
+    with open(svm, "w") as f:
+        for _ in range(3000):
+            idx = np.sort(rng.choice(200, int(rng.integers(1, 12)),
+                                     replace=False))
+            v = rng.normal(size=len(idx)).astype(np.float32)
+            y = int(v[idx < 3].sum() + rng.normal(0, 0.5) > 0)
+            f.write(f"{y} " + " ".join(f"{j}:{x:.9g}"
+                                       for j, x in zip(idx, v)) + "\n")
+    arff = os.path.join(tmp, "small.arff")
+    with open(arff, "w") as f:
+        f.write("@relation r\n@attribute a numeric\n@attribute c {p,q,r}\n"
+                "@attribute s string\n@data\n")
+        for i in range(1000):
+            f.write(f"{rng.normal():.5f},{rng.choice(['p', 'q', 'r'])},"
+                    f"w{rng.integers(0, 50)}\n")
+    lines = ["id,x,word"] + [
+        f"{uuid.UUID(bytes=rng.bytes(16)) if i % 17 else ''},"
+        f"{rng.normal():.6f},{rng.choice(['alpha', 'beta', 'gamma'])}"
+        for i in range(2000)]
+    text = "\n".join(lines) + "\n"
+    gz = os.path.join(tmp, "small.csv.gz")
+    with gzip.open(gz, "wt") as f:
+        f.write(text)
+    zp = os.path.join(tmp, "small.csv.zip")
+    with zipfile.ZipFile(zp, "w") as z:
+        z.writestr("small.csv", text)
+    return {"svm": svm, "arff": arff, "gz": gz, "zip": zp}
+
+
+def _frame_bits(fr):
+    """Every column of a frame as host arrays (f32 bits, levels, strings,
+    uuids), for card-vs-CPU equality."""
+    out = []
+    for v in fr.vecs:
+        if v.type in ("str", "uuid"):
+            out.append((v.type, [str(x) for x in v.to_numpy()]))
+        else:
+            out.append((v.type, v.levels(),
+                        v.as_f32().cpu().numpy().view(np.int32).tobytes()))
+    return out
+
+
+def phase_small_ingest(torch, h2o, HC):
+    """Phase 3's ingest path: the four file kinds through import_file on
+    the card and on the CPU (the same columns bit for bit, every plane on
+    the card), a string and a uuid column's device ops, and the sparse GLM
+    fitted on the card and the CPU (coefficients within 1e-5 of the
+    largest, predict_sparse within 1e-6: both sum in float64 in a fixed
+    order); no kernel launch."""
+    from h2o3_tpu_torch.core.frame import SparseVec
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _small_files(tmp)
+        res = {}
+        for where in ("cpu", "cuda"):
+            h2o.init(device="cpu") if where == "cpu" else h2o.init()
+            HC.reset_launches()
+            frames = {k: h2o.import_file(
+                p, col_types={"word": "str"} if k in ("gz", "zip") else None)
+                for k, p in paths.items()}
+            csv = frames["gz"]
+            word, ids = csv.vec("word"), csv.vec("id")
+            m = h2o.H2OGeneralizedLinearEstimator(family="binomial",
+                                                  lambda_=1e-3, alpha=0.0)
+            m.train(y="target", training_frame=frames["svm"])
+            res[where] = {
+                "bits": {k: _frame_bits(f) for k, f in frames.items()},
+                "devices": {v.device.type for f in frames.values()
+                            for v in f.vecs},
+                "types": (type(word).__name__, type(ids).__name__,
+                          all(isinstance(frames["svm"].vec(c), SparseVec)
+                              for c in frames["svm"].names[1:])),
+                "upper": word.map_values(str.upper).codes.cpu().numpy(),
+                "eq": ids.eq(frames["zip"].vec("id")).cpu().numpy(),
+                "isna": ids.isna_f32().cpu().numpy(),
+                "glm": (m._sparse_fit, np.array(m._state.beta),
+                        m.predict_sparse(frames["svm"])),
+                "launches": {k: v for k, v in HC.LAUNCHES.items() if v}}
+        c, g = res["cpu"], res["cuda"]
+        check(g["devices"] == {"cuda"}, f"ingest devices {g['devices']}")
+        check(c["bits"] == g["bits"], "ingested frames differ card vs CPU")
+        check(g["types"] == ("StrVec", "UuidVec", True) == c["types"],
+              f"ingest column layouts {g['types']}")
+        for k in ("upper", "eq", "isna"):
+            check(np.array_equal(c[k], g[k]), f"{k} differs card vs CPU")
+        (cs, cb, cp), (gs, gb, gp) = c["glm"], g["glm"]
+        db = float(np.abs(cb - gb).max() / np.abs(cb).max())
+        dp = float(np.abs(cp - gp).max())
+        check(cs and gs, "the small SVMLight GLM left the sparse path")
+        check(db <= 1e-5 and dp <= 1e-6,
+              f"small sparse glm card vs CPU: coef {db}, pred {dp}")
+        check(not g["launches"], f"ingest launches {g['launches']}")
+        say(f"small path ingest: svm {len(g['bits']['svm'])} columns "
+            f"(SparseVec), arff, csv.gz, csv.zip (StrVec, UuidVec) card == "
+            f"cpu bit for bit; sparse glm card vs cpu coef max diff {db:.3g} "
+            f"of the largest, predict_sparse {dp:.3g}")
+    h2o.init()
+
+
+def _zipf_draws():
+    """Draws a row (with replacement) whose distinct terms average
+    RCV1_NNZ_ROW under Zipf(RCV1_ZIPF) over RCV1_C terms, and the chance
+    p_in of each term to be in a row."""
+    p = np.arange(1, RCV1_C + 1, dtype=np.float64) ** -RCV1_ZIPF
+    p /= p.sum()
+    best = None
+    for d in range(RCV1_NNZ_ROW, 4 * RCV1_NNZ_ROW):
+        e = float((1 - (1 - p) ** d).sum())
+        if best is None or abs(e - RCV1_NNZ_ROW) < abs(best[1]
+                                                      - RCV1_NNZ_ROW):
+            best = (d, e)
+        if e > RCV1_NNZ_ROW:
+            break
+    return best[0], 1 - (1 - p) ** best[0]
+
+
+def _rcv1_coo(torch, dev, n, seed, planted=None):
+    """rcv1.binary-shaped nonzeros made on the card: Zipf(1.1) term ids,
+    no repeat within a row (repeats fold into the term frequency), values
+    log(1 + tf) * idf, rows at unit L2 norm; y from a planted logit on the
+    RCV1_SIGNAL most frequent terms, its intercept set for RCV1_POS
+    positives. Returns (rows, cols, vals, y, p_true, planted), the
+    nonzeros sorted by row, then column."""
+    from h2o3_tpu_torch.models.glm import _offsets, _segment_sums
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    draws, p_in = _zipf_draws()
+    p = torch.arange(1, RCV1_C + 1, dtype=torch.float64,
+                     device=dev) ** -RCV1_ZIPF
+    cdf = torch.cumsum(p, 0)
+    cdf /= cdf[-1].clone()
+    keys = torch.empty(0, dtype=torch.int64, device=dev)
+    tf = torch.empty(0, dtype=torch.int64, device=dev)
+    step = 1 << 17                      # rows a block: bounded memory
+    for r0 in range(0, n, step):
+        m = min(step, n - r0)
+        u = torch.rand((m, draws), generator=g, device=dev,
+                       dtype=torch.float64)
+        terms = torch.searchsorted(cdf, u).clamp_(max=RCV1_C - 1)
+        k = ((torch.arange(r0, r0 + m, device=dev)[:, None] * RCV1_C)
+             + terms).reshape(-1)
+        k, c = torch.unique(k, return_counts=True)
+        keys, tf = torch.cat([keys, k]), torch.cat([tf, c])
+    rows, cols = keys // RCV1_C, keys % RCV1_C
+    idf = torch.log(1.0 / torch.as_tensor(p_in, device=dev))
+    vals = torch.log1p(tf.double()) * idf[cols]
+    ptr = _offsets(rows, n)
+    norm = torch.sqrt(_segment_sums(vals * vals, ptr))
+    vals = (vals / norm[rows]).float()
+    if planted is None:
+        beta = torch.zeros(RCV1_C, dtype=torch.float64, device=dev)
+        beta[:RCV1_SIGNAL] = torch.randn(RCV1_SIGNAL, generator=g,
+                                         device=dev, dtype=torch.float64) \
+            * RCV1_SCALE
+        eta0 = _segment_sums(vals.double() * beta[cols], ptr)
+        lo, hi = -20.0, 20.0
+        for _ in range(60):              # the intercept for RCV1_POS
+            b0 = (lo + hi) / 2
+            if float(torch.sigmoid(eta0 + b0).mean()) < RCV1_POS:
+                lo = b0
+            else:
+                hi = b0
+        planted = (beta, b0)
+    beta, b0 = planted
+    p_true = torch.sigmoid(_segment_sums(vals.double() * beta[cols], ptr)
+                           + b0)
+    y = (torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+         < p_true).float()
+    return rows, cols, vals, y, p_true, planted
+
+
+def _sparse_frame(torch, h2o, rows, cols, vals, y, n, device=None):
+    """A frame of the target and one SparseVec a column, built from host
+    COO arrays as the loaders build them. Returns (frame, construction
+    seconds, pager registration seconds)."""
+    from h2o3_tpu_torch.core import tiering
+    from h2o3_tpu_torch.core.frame import Frame, SparseVec, T_CAT, Vec
+    order = torch.argsort(cols * n + rows)
+    r = rows[order].to(torch.int32).cpu().numpy()
+    v = vals[order].cpu().numpy()
+    starts = np.searchsorted(cols[order].cpu().numpy(),
+                             np.arange(RCV1_C + 1))
+    yc = y.cpu().numpy().astype(np.float64)
+    reg = [0.0]
+    orig = tiering.PAGER.new_chunk
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            reg[0] += time.perf_counter() - t
+    tiering.PAGER.new_chunk = timed
+    try:
+        t0 = time.perf_counter()
+        vecs = [Vec.from_numpy(yc, type=T_CAT, domain=["0", "1"],
+                               device=device)]
+        vecs += [SparseVec(r[starts[j]:starts[j + 1]],
+                           v[starts[j]:starts[j + 1]], n, device=device)
+                 for j in range(RCV1_C)]
+        fr = Frame(["target"] + [f"t{j}" for j in range(RCV1_C)], vecs)
+        if device is None or torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        del tiering.PAGER.new_chunk
+    return fr, t_build, reg[0]
+
+
+class _NoDense:
+    """Frame.matrix over more than one column, or a SparseVec densified,
+    fails the run while inside."""
+
+    def __enter__(self):
+        from h2o3_tpu_torch.core.frame import Frame, SparseVec
+        self.saved = (Frame.matrix, SparseVec.as_f32)
+        orig = Frame.matrix
+
+        def poisoned(fr, cols=None):
+            check(len(list(cols if cols is not None else fr.names)) <= 1,
+                  "the dense design matrix was built")
+            return orig(fr, cols)
+
+        def densify(v):
+            fail("a sparse column was densified")
+        Frame.matrix, SparseVec.as_f32 = poisoned, densify
+        return self
+
+    def __exit__(self, *exc):
+        from h2o3_tpu_torch.core.frame import Frame, SparseVec
+        Frame.matrix, SparseVec.as_f32 = self.saved
+
+
+class _EvalClock:
+    """Counts and times the L-BFGS objective evaluations of GLM fits
+    (host clock around each: the evaluation returns host numbers, so it
+    ends synchronised)."""
+
+    def __enter__(self):
+        from h2o3_tpu_torch.models import glm as G
+        self.G, self.orig, self.evals, self.s = G, G._lbfgs, 0, 0.0
+
+        def counted(vg, x0, **kw):
+            def vg2(x):
+                t0 = time.perf_counter()
+                out = vg(x)
+                self.s += time.perf_counter() - t0
+                self.evals += 1
+                return out
+            return self.orig(vg2, x0, **kw)
+        G._lbfgs = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.G._lbfgs = self.orig
+
+
+def sparse_glm_rcv1_run(torch, h2o, HC):
+    """(al): GLM binomial, alpha 0, lambda 1/n (LIBLINEAR's C = 1 L2
+    logistic regression) at rcv1.binary's width."""
+    from h2o3_tpu_torch.models import metrics as M
+    dev = h2o.init().device
+    t0 = time.perf_counter()
+    rows, cols, vals, y, p_true, planted = _rcv1_coo(torch, dev, RCV1_N, 17)
+    vr, vc, vv, vy, vp, _ = _rcv1_coo(torch, dev, RCV1_VALID_N, 18, planted)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    nnz = int(rows.numel())
+    empty = RCV1_C - int(torch.unique(cols).numel())
+    fr, t_build, t_reg = _sparse_frame(torch, h2o, rows, cols, vals, y,
+                                       RCV1_N)
+    valid, _, _ = _sparse_frame(torch, h2o, vr, vc, vv, vy, RCV1_VALID_N)
+    preds = fr.names[1:]
+    t0 = time.perf_counter()
+    fr.sparse_coo(preds)
+    torch.cuda.synchronize()
+    t_coo = time.perf_counter() - t0
+    say(f"sparse glm (al): {RCV1_N} rows x {RCV1_C} columns, {nnz} "
+        f"nonzeros ({nnz / RCV1_N:.1f} a row, {empty} columns empty), "
+        f"positives {float(y.mean()):.4f}; generated on the card "
+        f"{t_gen:.2f} s; {RCV1_C} SparseVecs built {t_build:.2f} s, of "
+        f"which the pager's registration {t_reg:.2f} s; sparse_coo "
+        f"{t_coo:.3f} s; a validation frame of {RCV1_VALID_N} rows")
+    params = dict(family="binomial", alpha=0.0, lambda_=1.0 / RCV1_N)
+    betas, evals = [], []
+    for k in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        HC.reset_launches()
+        with _NoDense(), _EvalClock() as clock:
+            m = h2o.H2OGeneralizedLinearEstimator(**params)
+            t0 = time.perf_counter()
+            m.train(y="target", training_frame=fr, validation_frame=valid)
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t0
+            perf = m.model_performance(valid)
+        launches = {k2: v for k2, v in HC.LAUNCHES.items() if v}
+        check(not launches, f"sparse glm (al) launches {launches}")
+        check(m._sparse_fit and m._solver == "L_BFGS",
+              f"(al) took solver {m._solver}, sparse {m._sparse_fit}")
+        betas.append(m._state.beta.copy())
+        evals.append(clock.evals)
+        say(f"sparse glm (al) fit {k + 1}: train {t_fit:.2f} s, "
+            f"{clock.evals} L-BFGS evaluations, "
+            f"{1000 * clock.s / max(clock.evals, 1):.2f} ms an evaluation "
+            f"(bound {RCV1_EVAL_BYTES * nnz / HBM_BYTES_S * 1e3:.3f} ms: "
+            f"the ri, ci and vals planes read forward and back, "
+            f"{RCV1_EVAL_BYTES * nnz / 1e9:.2f} GB); "
+            + _peak_gib(torch, held))
+    same = np.array_equal(betas[0], betas[1])
+    say(f"sparse glm (al): the two fits bit-identical: {same}; largest "
+        f"coefficient difference {float(np.abs(betas[0] - betas[1]).max()):.3g}"
+        f"; evaluations {evals}")
+    vauc = m.auc(valid=True)
+    pauc = M.binomial_metrics(vy, vp.float()).auc
+    say(f"sparse glm (al): validation AUC {vauc:.6f}, the planted logit's "
+        f"{pauc:.6f} on the same rows; train AUC {m.auc():.6f}")
+    check(abs(vauc - pauc) <= 0.02, f"(al) validation AUC {vauc} vs planted "
+          f"{pauc}")
+    vm = m._output.validation_metrics
+    for k in ("auc", "logloss"):
+        d = abs(getattr(perf, k) - getattr(vm, k))
+        check(d <= 1e-7, f"(al) model_performance {k} differs by {d}")
+    vg, x0 = m._sparse_objective(fr)
+    g_end = np.linalg.norm(vg(m._state.beta)[1])
+    g_0 = np.linalg.norm(vg(np.zeros_like(x0))[1])
+    say(f"sparse glm (al): float64 gradient norm at the solution {g_end:.4g}"
+        f", at zero {g_0:.4g} (ratio {g_end / g_0:.3g}, limit 1e-3); "
+        "model_performance(valid) = train()'s validation metrics")
+    check(g_end <= 1e-3 * g_0, f"(al) gradient ratio {g_end / g_0}")
+    del fr, valid, vg
+    # the card against the CPU on a slice of rows, every column kept
+    keep = rows < RCV1_SLICE_N
+    sl = (rows[keep], cols[keep], vals[keep], y[:RCV1_SLICE_N])
+    res = {}
+    for where in ("cpu", "cuda"):
+        dev_s = torch.device(where)
+        h2o.init(device=dev_s) if where == "cpu" else h2o.init()
+        sf, _, _ = _sparse_frame(torch, h2o, *(t.to(dev_s) for t in sl),
+                                 RCV1_SLICE_N, device=dev_s)
+        sm = h2o.H2OGeneralizedLinearEstimator(**dict(
+            params, lambda_=1.0 / RCV1_SLICE_N))
+        t0 = time.perf_counter()
+        sm.train(y="target", training_frame=sf)
+        res[where] = (sm._state.beta, sm.predict_sparse(sf),
+                      time.perf_counter() - t0)
+        del sf
+    h2o.init()
+    (cb, cp, ct), (gb, gp, gt) = res["cpu"], res["cuda"]
+    db = float(np.abs(cb - gb).max() / np.abs(cb).max())
+    dp = float(np.abs(cp - gp).max())
+    say(f"sparse glm (al) slice {RCV1_SLICE_N} rows x {RCV1_C} columns: "
+        f"card {gt:.2f} s, cpu {ct:.2f} s; coefficients max diff {db:.3g} "
+        f"of the largest (limit 1e-4), predictions {dp:.3g} (limit 1e-5)")
+    check(db <= 1e-4 and dp <= 1e-5, f"(al) slice card vs CPU {db} {dp}")
+
+
+def svmlight_covtype_run(torch, h2o, HC):
+    """(am): the covtype.binary-shaped frame written as SVMLight, ingested
+    through import_file, and GLM binomial at its defaults (the sparse
+    L-BFGS path) against a dense IRLSM fit of the same columns."""
+    from h2o3_tpu_torch.core.frame import Frame, SparseVec, T_CAT, Vec
+    dev = h2o.init().device
+    gen, ycls = _covtype_frame(torch, dev, COV_N, 9)
+    feats = gen.names[:-1]
+    X = gen.matrix(feats)
+    label = (ycls == COVB_CLASS).float()
+    # the generator's nonzeros by column, rows ascending: sparse_coo's order
+    nz_col, nz_row = torch.nonzero(X.T != 0, as_tuple=True)
+    nz_vals = X[nz_row, nz_col]
+    per_col = torch.bincount(nz_col, minlength=len(feats)).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "covtype.binary.svm")
+        t0 = time.perf_counter()
+        Xh, yh = X.cpu().numpy(), label.cpu().numpy()
+        nz = Xh != 0
+        k = nz.sum(1)
+        with open(path, "w") as f:
+            if (k == k[0]).all():       # 12 a row: one format a row
+                c = np.nonzero(nz)[1].reshape(len(yh), k[0])
+                v = Xh[nz].reshape(len(yh), k[0]).astype(np.float64)
+                M = np.empty((len(yh), 1 + 2 * k[0]))
+                M[:, 0], M[:, 1::2], M[:, 2::2] = yh, c, v
+                fmt = "%d" + " %d:%.9g" * k[0] + "\n"
+                f.write("".join(fmt % tuple(r) for r in M.tolist()))
+            else:
+                for i in range(len(yh)):
+                    idx = np.nonzero(nz[i])[0]
+                    f.write(f"{int(yh[i])} " + " ".join(
+                        f"{j}:{float(Xh[i, j]):.9g}" for j in idx) + "\n")
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fr = h2o.import_file(path)
+        torch.cuda.synchronize()
+        t_ing = time.perf_counter() - t0
+    pairs = int(nz_row.numel())
+    say(f"svmlight (am): {COV_N} rows x {len(feats)} columns, {pairs} "
+        f"pairs ({pairs / COV_N:.1f} a row), class {COVB_CLASS + 1} share "
+        f"{float(label.mean()):.4f}; file {size / 1e6:.1f} MB written in "
+        f"{t_write:.2f} s; import_file {t_ing:.2f} s "
+        f"({size / 1e6 / t_ing:.1f} MB/s)")
+    check(fr.names[1:] == [f"C{j + 1}" for j in range(len(feats))],
+          f"(am) columns {fr.names[:3]}...")
+    check(all(isinstance(fr.vec(c), SparseVec) for c in fr.names[1:]),
+          "(am) a feature column is not a SparseVec")
+    got = np.array([fr.vec(c).nnz for c in fr.names[1:]])
+    check(np.array_equal(got, per_col), f"(am) nonzeros a column {got} vs "
+          f"{per_col}")
+    r, _, v, _ = fr.sparse_coo(fr.names[1:])
+    check(torch.equal(r.long(), nz_row) and torch.equal(
+        v.view(torch.int32), nz_vals.contiguous().view(torch.int32)),
+        "(am) ingested values differ from the generator's f32")
+    check(torch.equal(fr.vec("target").as_f32(), label),
+          "(am) targets differ")
+    fr["target"] = Vec.from_tensor(label, type=T_CAT, domain=["0", "1"])
+    HC.reset_launches()
+    with _NoDense(), _EvalClock() as clock:
+        m = h2o.H2OGeneralizedLinearEstimator(family="binomial")
+        t0 = time.perf_counter()
+        m.train(y="target", training_frame=fr)
+        t_fit = time.perf_counter() - t0
+    check(m._sparse_fit and m._solver == "L_BFGS", "(am) left the sparse "
+          "path")
+    dense = Frame(feats + ["y"], [gen.vec(c) for c in feats]
+                  + [Vec.from_tensor(label, type=T_CAT, domain=["0", "1"])])
+    d = h2o.H2OGeneralizedLinearEstimator(family="binomial", solver="IRLSM")
+    t0 = time.perf_counter()
+    d.train(y="y", training_frame=dense)
+    t_dense = time.perf_counter() - t0
+    launches = {k2: v2 for k2, v2 in HC.LAUNCHES.items() if v2}
+    check(not launches, f"(am) launches {launches}")
+    dl = abs(m.logloss() - d.logloss())
+    say(f"svmlight (am): sparse L-BFGS {t_fit:.2f} s ({clock.evals} "
+        f"evaluations, {1000 * clock.s / max(clock.evals, 1):.2f} ms each); "
+        f"training logloss {m.logloss():.7f}, dense IRLSM {d.logloss():.7f} "
+        f"({t_dense:.2f} s): diff {dl:.3g} (limit 1e-4); AUC sparse "
+        f"{m.auc():.6f} dense {d.auc():.6f}")
+    check(dl <= 1e-4, f"(am) logloss sparse vs dense {dl}")
+
+
+def _link_bound():
+    """The host link's bound in GB/s a direction from nvidia-smi's PCIe
+    generation and width (current and max), and the text of the reading."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        gc_, wc, gm, wm = (int(x) for x in
+                           q.stdout.strip().splitlines()[0].split(","))
+    except (ValueError, IndexError):
+        return None, f"unreadable: {q.stdout.strip()!r}"
+
+    def gbs(gen, width):
+        gts = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}[gen]
+        enc = 0.8 if gen <= 2 else 128 / 130
+        return gts * width * enc / 8
+    return gbs(max(gc_, gm), max(wc, wm)), (
+        f"gen {gc_} x{wc} now, gen {gm} x{wm} at most")
+
+
+def pager_higgs_run(torch, h2o, HC):
+    """(an): the HIGGS frame through Vec.from_numpy under an HBM budget of
+    a third of its packed bytes; GBM with prefetch on and off against the
+    unconstrained frame; the spill ladder; rebalance_frame."""
+    from h2o3_tpu_torch.core import tiering
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec, rebalance_frame
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.core.memory import frame_chunks
+    from h2o3_tpu_torch.parallel import mrtask
+    P = tiering.PAGER
+    dev = h2o.init().device
+    gen = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    Xh = gen.matrix(gen.names[:-1]).cpu().numpy()
+    yh = gen.vec("y").as_f32().cpu().numpy().astype(np.float64)
+    DKV.remove(gen.key)
+    del gen
+    names = [f"x{j}" for j in range(HIGGS_C)] + ["y"]
+
+    def ingest():
+        t0 = time.perf_counter()
+        vecs = [Vec.from_numpy(Xh[:, j]) for j in range(HIGGS_C)]
+        vecs.append(Vec.from_numpy(yh, type=T_CAT, domain=["0", "1"]))
+        return Frame(names, vecs), time.perf_counter() - t0
+
+    gbm = dict(HIGGS_DEFAULT, ntrees=10)
+
+    def train_predict(fr):
+        HC.reset_launches()
+        m = h2o.H2OGradientBoostingEstimator(**gbm)
+        t0 = time.perf_counter()
+        m.train(y="y", training_frame=fr)
+        p = m.predict(fr).vec("p1").as_f32()
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0, dict(HC.LAUNCHES)
+
+    P.hbm_budget = 0
+    ref_fr, t_ing = ingest()
+    p_ref, t_ref, l_ref = train_predict(ref_fr)
+    packed = sum(c.nbytes for c in frame_chunks(ref_fr))
+    codecs = sorted({v.codec.kind for v in ref_fr.vecs})
+    del ref_fr
+    DKV.clear()                   # the reference run's frames and model
+    gc.collect()
+    base = P.tier_bytes()["hbm"]
+    P.hbm_budget = base + packed // 3
+    fr, t_cold = ingest()
+    chunks = frame_chunks(fr)
+    check(all(c.tier == "host" for c in chunks), "(an) ingest was not cold")
+    for v in fr.vecs:       # the rollups, once: both runs below reuse them
+        v.rollups()
+    say(f"pager (an): {HIGGS_N} rows x {HIGGS_C} columns through "
+        f"Vec.from_numpy ({t_ing:.2f} s unconstrained, {t_cold:.2f} s cold),"
+        f" codecs {codecs}, packed {packed / 1e9:.3f} GB; HBM budget "
+        f"{packed // 3 / 1e9:.3f} GB above {base / 1e9:.3f} GB held by other "
+        f"chunks; unconstrained GBM 10 trees + predict {t_ref:.2f} s")
+    saved = mrtask.prefetch_chunks
+    for label in ("on", "off"):
+        for c in chunks:
+            P.demote(c, tiering.TIER_HOST)
+        fr._matrix_cache.clear()
+        gc.collect()
+        if label == "off":
+            mrtask.prefetch_chunks = lambda handles: None
+        s0 = P.stats()
+        P.reset_peak()
+        try:
+            p, t, launches = train_predict(fr)
+        finally:
+            mrtask.prefetch_chunks = saved
+        s1 = P.stats()
+        faults = {k: s1["faults_by_tier"][k] - s0["faults_by_tier"][k]
+                  for k in s1["faults_by_tier"]}
+        pf = (s1["prefetch_requests"] - s0["prefetch_requests"],
+              s1["prefetch_hits"] - s0["prefetch_hits"])
+        same = torch.equal(p.view(torch.int32), p_ref.view(torch.int32))
+        say(f"pager (an) prefetch {label}: GBM 10 trees + predict {t:.2f} s;"
+            f" faults {faults}, prefetch requests/hits {pf}, peak HBM "
+            f"{s1['peak_hbm_bytes'] / 1e9:.3f} GB (budget "
+            f"{P.hbm_budget / 1e9:.3f}); predictions bit for bit the "
+            f"unconstrained run's: {same}")
+        check(same, f"(an) prefetch {label}: predictions differ")
+        check(launches == l_ref, f"(an) launches {launches} vs {l_ref}")
+        check(s1["peak_hbm_bytes"] <= P.hbm_budget,
+              f"(an) peak {s1['peak_hbm_bytes']} over {P.hbm_budget}")
+        check(sum(faults.values()) > 0, "(an) the budgeted run never paged")
+        check((pf[0] > 0) == (label == "on"), f"(an) prefetch {label} {pf}")
+    # the ladder, unbudgeted (no host copy is kept): card, host, disk and
+    # back
+    for c in chunks:
+        P.demote(c, tiering.TIER_HOST)
+    P.hbm_budget = 0
+    fr._matrix_cache.clear()
+    before = [tuple(None if a is None else np.array(a) for a in
+                    c.staging_view()) for c in chunks]
+    nbytes = sum(c.nbytes for c in chunks)
+    bound, link = _link_bound()
+    rates = {}
+
+    def move(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in chunks:
+            fn(c)
+        torch.cuda.synchronize()
+        rates[what] = nbytes / (time.perf_counter() - t0) / 1e9
+    move("host -> card", lambda c: c.device())
+    check(all(c._host is None for c in chunks), "(an) host copies kept")
+    move("card -> host", lambda c: P.demote(c, tiering.TIER_HOST))
+    move("host -> disk", lambda c: P.demote(c, tiering.TIER_DISK))
+    move("disk -> card", lambda c: c.device())
+    for c, b in zip(chunks, before):
+        got = c.device()
+        check(c.tier == "hbm" and all(
+            (x is None and y is None) or np.array_equal(
+                x.cpu().numpy().view(np.uint8), y.view(np.uint8))
+            for x, y in zip(got, b)), f"(an) {c.key} changed on the ladder")
+    say(f"pager (an) ladder of {nbytes / 1e9:.3f} GB, planes bit-identical "
+        f"after it: " + ", ".join(f"{k} {v:.2f} GB/s" for k, v in
+                                  rates.items())
+        + (f"; the host link's bound {bound:.1f} GB/s a direction "
+           f"({link})" if bound else f"; the host link not readable "
+           f"({link}): the H100 SXM's PCIe gen 5 x16 data-sheet figure is "
+           f"{PCIE5_X16_GBS:.1f} GB/s a direction"))
+    t0 = time.perf_counter()
+    rb = rebalance_frame(fr)
+    same = all(torch.equal(a.as_f32().view(torch.int32),
+                           b.as_f32().view(torch.int32))
+               for a, b in zip(fr.vecs, rb.vecs))
+    say(f"pager (an) rebalance_frame {time.perf_counter() - t0:.2f} s: the "
+        f"same values {same}")
+    check(same, "(an) rebalance_frame changed values")
+    DKV.remove(rb.key)
+    DKV.remove(fr.key)
+
+
+def phase_data_plane(torch, h2o, HC):
+    """Runs (al)-(an), each timed, after every earlier frame is dropped
+    from the store."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    DKV.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    times = {}
+    for label, fn in (("al", sparse_glm_rcv1_run),
+                      ("am", svmlight_covtype_run),
+                      ("an", pager_higgs_run)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn(torch, h2o, HC)
+        times[label] = time.perf_counter() - t0
+        say(f"frame data plane ({label}): {times[label]:.1f} s, "
+            + _peak_gib(torch, held).replace("train()", "the run"))
+        DKV.clear()
+        gc.collect()
+    say("frame data plane, runs (al)-(an): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(times.items()))
+        + f"; total {time.perf_counter() - t_all:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -4340,6 +5022,7 @@ def main():
     phase_small_path(torch, h2o, HC)
     phase_small_adaptive(torch, h2o, HC)
     phase_small_glm(torch, h2o, HC)
+    phase_small_ingest(torch, h2o, HC)
     covtype = phase_covtype(torch, h2o, HC)
     runs = phase_higgs(torch, h2o, HC)
     phase_isofor(torch, h2o, HC)
@@ -4347,6 +5030,7 @@ def main():
     phase_dl_unsupervised(torch, h2o, HC)
     framework = phase_framework(torch, h2o, HC)
     derived = phase_derived(torch, h2o, HC)
+    phase_data_plane(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -4354,7 +5038,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(ak) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(an) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

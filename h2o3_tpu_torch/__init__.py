@@ -44,11 +44,18 @@ The models built on those estimators are `H2OTargetEncoderEstimator`,
 `H2OWord2vecEstimator`.
 Every model has `model_performance`, `mse`, `model_id` and `to_dict`;
 `get_frame`, `get_model`, `remove` and `ls` reach the key-value store.
+
+`import_file` reads a local CSV, ARFF or SVMLight file, plain, gzip or
+zip, and `upload_frame` takes in-memory data. A Frame's columns are packed
+by the JAX package's codecs and paged between the card, host memory and
+spill files (`core.tiering.PAGER`, `core.memory.MANAGER`); string, UUID
+and sparse columns have their own layouts, and GLM on all-sparse
+predictors fits without building the dense design.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.core.kvstore import DKV
-from h2o3_tpu_torch.io.parser import import_file, parse_setup
+from h2o3_tpu_torch.io.parser import import_file, parse_setup, upload_frame
 from h2o3_tpu_torch.models import (
     H2OAggregatorEstimator, H2OCoxProportionalHazardsEstimator,
     H2ODeepLearningEstimator, H2OExtendedIsolationForestEstimator,
@@ -111,4 +118,5 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
            "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud", "get_frame",
            "get_model", "import_file", "init", "ls", "parse_setup",
-           "quantile", "remove", "shutdown", "train_segments"]
+           "quantile", "remove", "shutdown", "train_segments",
+           "upload_frame"]

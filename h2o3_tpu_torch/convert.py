@@ -262,13 +262,16 @@ def glm_from_arrays(*, beta, family: str, link: str,
                     interactions: Optional[Sequence[str]] = None,
                     ord_beta=None, ord_thr=None,
                     tweedie_link_power: float = 1.0,
-                    model_id: Optional[str] = None
+                    model_id: Optional[str] = None,
+                    sparse_fit: bool = False
                     ) -> H2OGeneralizedLinearEstimator:
     """A port GLM from a JAX GLM's arrays: `beta` its `_state.beta` ((p+1,)
     with the intercept last, (K, p+1) for multinomial), its family and
     link, the ordinal `_ord_beta` and `_ord_thr`, and its one-hot
     `DataInfo`'s predictors, domains, means, sigmas (numeric and
-    interaction columns), standardize flag and interactions."""
+    interaction columns), standardize flag and interactions. A fit of the
+    sparse path carries its `_sparse_fit` flag (its raw-space `beta` and
+    `standardize=False`), and `predict_sparse` then scores it."""
     model = H2OGeneralizedLinearEstimator(
         family=family, link=link, standardize=bool(standardize),
         interactions=list(interactions) if interactions else None,
@@ -279,6 +282,7 @@ def glm_from_arrays(*, beta, family: str, link: str,
                      standardize=bool(standardize), means=means,
                      sigmas=sigmas, interactions=interactions)
     model._family, model._link = family, link
+    model._sparse_fit = bool(sparse_fit)
     model._state = _GLMState(beta=np.asarray(beta, np.float64), link=link,
                              family=family)
     if ord_beta is not None:

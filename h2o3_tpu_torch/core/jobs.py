@@ -6,9 +6,9 @@ work calls `update()` between device steps, which marks the deadline
 (`budget_exhausted`) and raises `JobCancelled` once `stop()` was asked.
 `ModelBase.train` runs every model build through one.
 
-Not ported here: the JAX package's QoS job slots (serving, queue 1 item
-10 of ROADMAP.md) and the trace propagation into the job's thread (obs,
-item 14).
+Not ported here: the JAX package's QoS job slots (serving, ROADMAP.md
+§1 item 7) and the trace propagation into the job's thread (obs, item
+11).
 """
 
 from __future__ import annotations

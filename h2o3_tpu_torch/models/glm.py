@@ -22,11 +22,17 @@ every level beside the intercept, so at its default lambda 0 it solves a
 singular system whose null direction f32 rounding decides; the fitted
 probabilities agree on the levels both know, the coefficients do not.
 
-Not ported: the sparse path of the JAX package (`_sparse_path_ok`,
-`_fit_sparse`, `predict_sparse`), which needs SparseVec, which the port
-does not have yet (queue 1 item 7 of ROADMAP.md), so no frame of the port
-can reach it; and the JAX package's IRLSM iteration counter and span
-(observability, queue 1 item 14).
+A frame whose predictors are all SparseVecs takes the sparse path
+(`_sparse_path_ok`, `_fit_sparse`): L-BFGS on the COO form in raw
+feature space, where the linear predictor and the gradient are sums over
+the nonzeros and neither the dense design nor the Gram is built
+(`_SparseDesign`). Those sums are made deterministic on the card: each is
+a float64 prefix sum over a fixed order (the nonzeros by row for η, by
+column for the gradient, as `Frame.sparse_coo` returns them, scanned a
+block at a time by `_prefix_sums`) differenced at the segment ends,
+where `index_add_` would sum in the order its atomics land.
+`predict_sparse` and the sparse `_compute_metrics` score the same way. Not ported: the JAX package's IRLSM iteration counter and
+span (observability, ROADMAP.md §1 item 11).
 """
 
 from __future__ import annotations
@@ -372,6 +378,16 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         if link in ("family_default", None, "AUTO"):
             link = _CANONICAL_LINK[fam]
         self._link = link
+        self._sparse_fit = False
+        # sparse rows (hex/DataInfo.java:23): all-SparseVec predictors
+        # never build the dense design; what the sparse L-BFGS cannot do
+        # (L1, bounds, lambda search, no intercept, IRLSM) goes dense
+        if frame.is_sparse(di.predictors) and fam in (
+                GAUSSIAN, BINOMIAL, QUASIBINOMIAL, POISSON) \
+                and self._sparse_path_ok():
+            self._fit_sparse(frame)
+            self._build_output(frame)
+            return
         X = di.matrix(frame)                       # standardized, imputed
         y = di.response(frame)
         w = torch.where(torch.isnan(y), 0.0, di.weights(frame))
@@ -390,6 +406,114 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         else:
             self._fit_irls(Xi, yz, w)
         self._build_output(frame)
+
+    def _sparse_path_ok(self) -> bool:
+        """The JAX package's gate of the sparse path: canonical-link
+        gaussian, binomial, quasibinomial or poisson, L2 only, with an
+        intercept, no bounds, no lambda search, no IRLSM or coordinate
+        descent asked for, no interactions or quadratic penalty."""
+        if self.params.get("interactions"):
+            return False
+        if self.params.get("quadratic_penalty") is not None:
+            return False
+        if (self._family, self._link) not in {
+                (GAUSSIAN, "identity"), (BINOMIAL, "logit"),
+                (QUASIBINOMIAL, "logit"), (POISSON, "log")}:
+            return False
+        alpha = _scalar(self.params.get("alpha"), 0.5)
+        lam = _scalar(self.params.get("lambda_") or 0.0, 0.0) or 0.0
+        s = str(self.params.get("solver") or "AUTO").upper()
+        return not ((alpha > 0 and lam > 0)
+                    or self.params.get("lambda_search")
+                    or self.params.get("beta_constraints") is not None
+                    or self.params.get("non_negative")
+                    or not self.params.get("intercept", True)
+                    or s in ("IRLSM", "COORDINATE_DESCENT",
+                             "COORDINATE_DESCENT_NAIVE"))
+
+    def _fit_sparse(self, frame: Frame):
+        """Sparse-rows GLM (DataInfo sparse, GLMTask's sparse iterators):
+        L-BFGS on `_sparse_objective`; no standardisation (centring would
+        densify)."""
+        self._dinfo.standardize = False   # scoring sees raw coordinates
+        value_grad, x0 = self._sparse_objective(frame)
+        x, _ = _lbfgs(value_grad, x0,
+                      max_iter=int(self.params["max_iterations"]) * 4,
+                      tol=SPARSE_LBFGS_TOL)
+        self._state = _GLMState(beta=x, link=self._link, family=self._family)
+        self._solver = "L_BFGS"
+        self._sparse_fit = True
+        self._progress(0.7, "sparse L-BFGS converged")
+
+    def _sparse_objective(self, frame: Frame):
+        """(value_grad, x0): the penalised negative log-likelihood of the
+        sparse design and its float64 gradient, as L-BFGS takes them, and
+        the JAX package's start (the intercept at the link of the
+        weighted mean). NAs count as zeros, like the implicit ones."""
+        di, fam = self._dinfo, self._family
+        sd = _SparseDesign(frame, di.predictors)
+        y = di.response(frame)
+        w = torch.where(torch.isnan(y), 0.0, di.weights(frame)).double()
+        y = torch.where(torch.isnan(y), 0.0, y).double()
+        wn = float(w.sum())
+        lam = _scalar(self.params.get("lambda_") or 0.0, 0.0) or 0.0
+        alpha = _scalar(self.params.get("alpha"), 0.5)
+        l2 = float(lam) * (1 - alpha) * wn
+        C, dev = sd.C, sd.vals.device
+
+        def value_grad(x):
+            xt = torch.as_tensor(np.asarray(x, np.float64), device=dev)
+            beta, b0 = xt[:C], xt[C]
+            eta = sd.eta(beta, b0)
+            if fam in (BINOMIAL, QUASIBINOMIAL):
+                ll = w * (torch.nn.functional.softplus(eta) - y * eta)
+                r = w * (torch.sigmoid(eta) - y)
+            elif fam == POISSON:
+                mu = torch.exp(eta)
+                ll = w * (mu - y * eta)
+                r = w * (mu - y)
+            else:
+                ll = 0.5 * w * (y - eta) ** 2
+                r = w * (eta - y)
+            g = torch.cat([sd.col_sums(r) + l2 * beta, r.sum()[None]])
+            f = ll.sum() + 0.5 * l2 * (beta * beta).sum()
+            return float(f), g.cpu().numpy()
+
+        x0 = np.zeros(C + 1)
+        ybar = float((w * y).sum()) / max(wn, 1e-12)
+        if fam in (BINOMIAL, QUASIBINOMIAL):
+            yb = min(max(ybar, 1e-6), 1 - 1e-6)
+            x0[-1] = math.log(yb / (1 - yb))
+        elif fam == POISSON:
+            x0[-1] = math.log(max(ybar, 1e-8))
+        else:
+            x0[-1] = ybar
+        return value_grad, x0
+
+    def _sparse_mu(self, frame: Frame) -> torch.Tensor:
+        st = self._state
+        sd = _SparseDesign(frame, self._dinfo.predictors, by_column=False)
+        beta = torch.as_tensor(st.beta[:sd.C], dtype=torch.float64,
+                               device=sd.vals.device)
+        return _linkinv(st.link, sd.eta(beta, float(st.beta[sd.C])))
+
+    def predict_sparse(self, frame: Frame) -> np.ndarray:
+        """mu of each row of a sparse frame, without densifying."""
+        return self._sparse_mu(frame).cpu().numpy()
+
+    def _compute_metrics(self, frame: Frame):
+        # a sparse fit scores sparse frames sparsely: no densify either
+        if getattr(self, "_sparse_fit", False) \
+                and frame.is_sparse(self._dinfo.predictors):
+            di = self._dinfo
+            mu = self._sparse_mu(frame).to(torch.float32)
+            y = di.response(frame)
+            w = torch.where(torch.isnan(y), 0.0, di.weights(frame))
+            y = torch.where(torch.isnan(y), 0.0, y)
+            out = torch.stack([1.0 - mu, mu], dim=1) \
+                if self._is_classifier else mu
+            return self._metrics_from_preds(y, out, w)
+        return super()._compute_metrics(frame)
 
     def _resolve_solver(self, fam, p1) -> str:
         """GLM.java defaultSolver: IRLSM for narrow problems, L_BFGS for
@@ -861,6 +985,86 @@ class H2OGeneralizedLinearEstimator(ModelBase):
 
     def coef_norm(self) -> dict:
         return dict(self._coefficients_std)
+
+
+# The sparse path's L-BFGS stop (relative change of the objective, or the
+# largest gradient entry). The JAX package stops at 1e-7, about the
+# resolution of its f32 objective, a sum over the rows; the port's is
+# float64. At rcv1.binary's size a 1e-7 stop left the gradient at 1e-2 of
+# its norm at zero, and at 1e-10 a fit on the card and one on the CPU,
+# whose sums round apart in the last bits from the third evaluation on,
+# stopped 5e-4 of the largest coefficient apart; at 1e-14 they agree
+# within 2e-6 (PERF.md §6, on an H100).
+SPARSE_LBFGS_TOL = 1e-14
+
+
+class _SparseDesign:
+    """A frame's sparse predictors as two orders of their nonzeros: by
+    row (for η) and by column (for the gradient, the order of
+    `Frame.sparse_coo`), each with the offsets of its segments. A
+    segment's sum is the difference of a float64 prefix sum at its ends,
+    which fixes the order of every addition: the sums are the same bits
+    from run to run on the card, where `index_add_` is not."""
+
+    def __init__(self, frame: Frame, cols, by_column: bool = True):
+        ri, ci, vals, (n, C) = frame.sparse_coo(cols)
+        vals = torch.where(torch.isnan(vals), 0.0, vals)
+        self.n, self.C = n, C
+        self.row_ptr = _offsets(ri, n)
+        order = torch.argsort(ri, stable=True)   # by row, columns sorted
+        self.ci_r = ci.index_select(0, order)
+        self.vals_r = vals.index_select(0, order)
+        if by_column:
+            self.ri, self.vals = ri, vals
+            self.col_ptr = _offsets(ci, C)
+        else:
+            self.ri, self.vals, self.col_ptr = None, self.vals_r, None
+
+    def eta(self, beta: torch.Tensor, b0) -> torch.Tensor:
+        """(n,) float64 linear predictor."""
+        contrib = self.vals_r * beta.index_select(0, self.ci_r)
+        return _segment_sums(contrib, self.row_ptr) + b0
+
+    def col_sums(self, r: torch.Tensor) -> torch.Tensor:
+        """(C,) float64 Σ over each column's nonzeros of value × r[row]."""
+        return _segment_sums(self.vals * r.index_select(0, self.ri),
+                             self.col_ptr)
+
+
+def _offsets(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """(k + 1,) int64 segment offsets of sorted keys in [0, k)."""
+    counts = torch.bincount(keys.long(), minlength=k)
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+def _segment_sums(x: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
+    """Sums of x's segments [ptr[i], ptr[i+1]) in float64, in a fixed
+    order of addition."""
+    cs = torch.cat([x.new_zeros(1, dtype=torch.float64),
+                    _prefix_sums(x.to(torch.float64))])
+    return cs.index_select(0, ptr[1:]) - cs.index_select(0, ptr[:-1])
+
+
+_SCAN_BLOCK = 1024
+
+
+def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D tensor, the same bits from run to
+    run: blocks of _SCAN_BLOCK scanned along their rows (one fixed
+    in-block order), then each block offset by the prefix of the block
+    totals, found the same way. A flat `torch.cumsum` of a long CUDA
+    tensor is a decoupled look-back scan, whose order of addition
+    depends on which block finished first."""
+    n = x.numel()
+    if n <= _SCAN_BLOCK:
+        return torch.cumsum(x.view(1, n), dim=1).view(n)
+    nb = -(-n // _SCAN_BLOCK)
+    pad = x.new_zeros(nb * _SCAN_BLOCK)
+    pad[:n] = x
+    blocks = torch.cumsum(pad.view(nb, _SCAN_BLOCK), dim=1)
+    offsets = _prefix_sums(blocks[:, -1].contiguous())
+    blocks[1:] += offsets[:-1, None]
+    return blocks.view(-1)[:n]
 
 
 def _irls_solve(Gs, qn, beta, lam, wsum, alpha, p_pen, lo, hi):

@@ -23,7 +23,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Frame, Vec, T_CAT, T_STR
+from h2o3_tpu_torch.core.frame import (Frame, StrVec, T_CAT,
+                                       UuidVec, Vec)
 from h2o3_tpu_torch.core.jobs import Job
 from h2o3_tpu_torch.core.kvstore import DKV
 from h2o3_tpu_torch.models import metrics as M
@@ -294,8 +295,9 @@ class DataInfo:
         changed = False
         vecs = []
         dev = frame.vecs[0].device
+        have = set(frame.names)
         for c in needed:
-            if c not in frame.names:
+            if c not in have:
                 v = Vec.from_numpy(np.full(frame.nrows, np.nan), device=dev)
                 changed = True
             else:
@@ -763,10 +765,15 @@ def _subframe(frame: Frame, idx: torch.Tensor) -> Frame:
     vecs = []
     for c in frame.names:
         v = frame.vec(c)
-        if v.type == T_STR:
-            vecs.append(Vec(None, idx.numel(), T_STR,
-                            host_data=v.host_data[idx.cpu().numpy()]))
-        else:
-            vecs.append(Vec(v.data.index_select(0, idx), idx.numel(), v.type,
-                            v.domain))
+        if isinstance(v, StrVec):
+            vecs.append(StrVec(v.codes.index_select(0, idx), v.levels_arr,
+                               idx.numel()))
+        elif isinstance(v, UuidVec):
+            words, na = v._uuid_chunk.staging_view()
+            rows = idx.cpu().numpy()
+            vecs.append(UuidVec(words[rows], na[rows], len(rows),
+                                device=v.device))
+        else:       # a sparse column is taken dense
+            vecs.append(Vec.from_tensor(v.as_f32().index_select(0, idx),
+                                        v.type, v.domain))
     return Frame(list(frame.names), vecs)

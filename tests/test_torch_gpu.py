@@ -15,7 +15,10 @@ across launch layouts (column groups, window copies, threads, warp
 aggregation); histograms of int32 stats (the int8 path) equal to the plain
 version (`torch.equal`: integer sums are exact) in every layout. The
 models without kernels (GLM, DeepLearning, KMeans, PCA, SVD, GLRM) are
-held on the card against their CPU runs, each tolerance in its test.
+held on the card against their CPU runs, each tolerance in its test; so
+are the frame data plane's prefetch stream and spill ladder (bit for
+bit) and the sparse GLM (bit for bit twice on the card; within 1e-4 of
+the CPU's, whose float64 sums round in another order).
 """
 
 import numpy as np
@@ -881,3 +884,130 @@ def test_extended_isolation_forest_on_the_card_matches_the_cpu(dev):
             assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-5
     finally:
         EIF.H2OExtendedIsolationForestEstimator._draws = saved
+
+
+# ---------------------------------------------------------------------------
+# The frame data plane on the card: prefetch copies on a side stream, the
+# spill ladder of CUDA planes, GLM's sparse path against the CPU.
+@pytest.fixture()
+def pager_state(tmp_path):
+    """The pager's budgets and ice root, restored after the test."""
+    from h2o3_tpu_torch.core import tiering
+    from h2o3_tpu_torch.core.memory import MANAGER
+    P = tiering.PAGER
+    saved = (P.hbm_budget, P.host_budget, MANAGER.ice_root)
+    MANAGER.ice_root = str(tmp_path)
+    yield P
+    P.hbm_budget, P.host_budget, MANAGER.ice_root = saved
+
+
+@pytest.mark.gpu
+def test_prefetch_on_a_side_stream_gives_the_same_bits(dev, pager_state):
+    """Frame.matrix of a frame demoted to host memory, with the next two
+    columns promoted on the side stream while a long kernel keeps the
+    consumer's stream busy: the same bits as without prefetch and as the
+    host columns, round after round (a consumer that read a half-copied
+    plane would differ)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core import tiering
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    from h2o3_tpu_torch.parallel import mrtask
+    P = pager_state
+    h2o.init()
+    rng = np.random.default_rng(131)
+    n, k = 1 << 21, 12
+    X = rng.normal(size=(n, k)).astype(np.float32)
+    fr = Frame([f"x{j}" for j in range(k)],
+               [Vec.from_numpy(X[:, j]) for j in range(k)])
+    chunks = [v._chunk for v in fr.vecs]
+    P.hbm_budget = sum(c.nbytes for c in chunks) // 3
+    big = torch.randn(4096, 4096, device=dev)
+    saved = mrtask.prefetch_chunks
+    try:
+        for rnd in range(3):
+            got = {}
+            for label in ("on", "off"):
+                for c in chunks:
+                    P.demote(c, tiering.TIER_HOST)
+                fr._matrix_cache.clear()
+                if label == "off":
+                    mrtask.prefetch_chunks = lambda handles: None
+                big @ big                      # keep the stream busy
+                got[label] = fr.matrix().cpu().numpy()
+                mrtask.prefetch_chunks = saved
+            assert np.array_equal(got["on"], got["off"]), rnd
+            assert np.array_equal(got["on"], X), rnd
+        assert P.stats()["prefetch_requests"] > 0
+    finally:
+        mrtask.prefetch_chunks = saved
+        P.hbm_budget = 0
+
+
+@pytest.mark.gpu
+def test_spill_ladder_of_cuda_planes_is_bit_exact(dev, pager_state):
+    """Every codec's planes and both SparseVec nz planes: card, host,
+    disk and back to the card, bit for bit and on the card."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core import tiering
+    from h2o3_tpu_torch.core.frame import Frame, SparseVec
+    P = pager_state
+    h2o.init()
+    i = np.arange(4096, dtype=np.float64)
+    fr = Frame.from_dict({
+        "const": np.full(4096, 7.0), "i8": np.where(i % 11 == 0, np.nan,
+                                                    i % 100),
+        "i16": i * 3.0, "i32": i * 70000.0,
+        "f32": np.random.default_rng(5).normal(size=4096)})
+    sv = SparseVec(np.arange(0, 4096, 7), np.linspace(-1, 1, 586), 4096)
+    chunks = [v._chunk for v in fr.vecs] + [sv._nzr_chunk, sv._nzv_chunk]
+    before = [[None if t is None else t.clone() for t in c.device()]
+              for c in chunks]
+    for to in (tiering.TIER_HOST, tiering.TIER_DISK):
+        for c in chunks:
+            P.demote(c, to)
+        assert all(c.tier == to for c in chunks)
+    for c, b in zip(chunks, before):
+        got = c.device()
+        assert c.tier == "hbm"
+        for t, u in zip(got, b):
+            assert (t is None) == (u is None)
+            if t is not None:
+                assert t.device.type == "cuda" and t.dtype == u.dtype
+                assert torch.equal(t, u)
+
+
+@pytest.mark.gpu
+def test_sparse_glm_on_the_card_matches_the_cpu(dev):
+    """GLM binomial on an all-sparse frame: two card fits bit for bit;
+    the card's coefficients within 1e-4 of the largest of the CPU's and
+    predict_sparse within 1e-5, the tolerances of chip_smoke.py's (al)
+    slice (both sum in float64 in a fixed order, but not the same one,
+    and L-BFGS carries the last bits to its stop: 8.8e-7 and 1.1e-6
+    apart on the card)."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, SparseVec, Vec
+    rng = np.random.default_rng(141)
+    n, C = 20000, 300
+    cols = [np.sort(rng.choice(n, int(rng.integers(1, 2000)),
+                               replace=False)) for _ in range(C)]
+    vals = [rng.normal(size=len(r)).astype(np.float32) for r in cols]
+    eta = np.zeros(n)
+    for j in range(5):
+        eta[cols[j]] += (2.0 - j) * vals[j]
+    y = (rng.random(n) < 1 / (1 + np.exp(-eta))).astype(np.float64)
+    out = {}
+    for d in ("cpu", "cuda", "cuda"):
+        h2o.init(device=d)
+        fr = Frame(["y"] + [f"c{j}" for j in range(C)],
+                   [Vec.from_numpy(y)] + [SparseVec(r, v, n)
+                                          for r, v in zip(cols, vals)])
+        m = h2o.H2OGeneralizedLinearEstimator(family="binomial",
+                                              lambda_=1e-4, alpha=0.0)
+        m.train(y="y", training_frame=fr)
+        assert m._sparse_fit
+        out.setdefault(d, []).append((m._state.beta, m.predict_sparse(fr)))
+    (cb, cp), = out["cpu"]
+    (g1, p1), (g2, p2) = out["cuda"]
+    assert np.array_equal(g1, g2) and np.array_equal(p1, p2)
+    assert np.abs(g1 - cb).max() <= 1e-4 * np.abs(cb).max()
+    assert np.abs(p1 - cp).max() <= 1e-5
