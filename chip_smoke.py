@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --psvm-cpu-reference
+    python3 chip_smoke.py --airline-cpu-reference
 
 The second form only runs run (ac)'s PSVM on the host's CPU, on (ac)'s
 frame made on the card and copied to the host, and prints the AUC that
-PSVM_AUC_BAR is set from; it prints no result line.
+PSVM_AUC_BAR is set from; the third runs (ao)'s GBM on the host's CPU at
+AIR_CPU_N rows of its generator and prints the held-out AUC that
+AIR_AUC_BAR is set from. Neither prints a result line.
 
 Phases, each printing its lines before the last:
   1. the card (nvidia-smi name and power limit, torch's device name) and
@@ -275,6 +278,33 @@ Phases, each printing its lines before the last:
            peak HBM bytes under the budget; every chunk to host, to disk
            and back bit for bit, each transfer's GB/s beside the host
            link's bound; rebalance_frame, the same values;
+     then ingest and persistence (no kernel of their own; the GBMs
+     launch the binned kernels), each run with its seconds and peak
+     memory:
+       (ao) the benchm-ml airline frame (10M rows, 9 columns: 3 "c-<n>"
+           date levels, DepTime, 22 carriers, about 300 Zipf(1.1)
+           airports twice, Distance, a Y/N response from a planted
+           logit) generated by numpy from seed 19 into one CSV, and from
+           its bytes 8 parts, a level-1 gzip and a localhost HTTP server
+           with ranges: import_file of each the same Frame bit for bit
+           (names, types, domains, codecs, planes, NA planes), every byte
+           counted by the native tokenizer, MB/s beside the host's CPUs
+           and the tokenizer threads; the Python tokenizer on the first
+           1M rows equal to the native parse of them and to the frame's
+           rows; GBM at H2O's defaults (50 trees, depth 5, nbins 20,
+           nbins_cats 1024) with its AUC above a bar from a CPU run;
+           export_file and import_frame bit for bit (MB/s); save_model and
+           load_model (seconds) with the card's predictions bit for bit,
+           and a process without a card (CUDA_VISIBLE_DEVICES='') loading
+           it onto the CPU and predicting 100,000 rows within 1e-5; a
+           4-model grid with a recovery directory killed after 2 models
+           and resumed: 2 trained, none twice, each model bit for bit the
+           uninterrupted grid's;
+       (ap) the first 1M rows of the HIGGS frame of runs (a)-(c) written
+           with %.9g and read by import_file: the in-memory values bit for
+           bit, MB/s at float width; (b)'s GBM for 10 trees on both frames
+           with the same predictions bit for bit and (b)'s launches per
+           tree;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -294,9 +324,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(an) are printed again just before the two JSON
+The lines of runs (d)-(ap) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(an)
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ap)
 add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -305,14 +335,21 @@ exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import functools
 import gc
+import gzip
+import hashlib
+import http.server
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -555,6 +592,42 @@ W2V_PARAMS = dict(epochs=5, seed=16)
 W2V_PROBES = 200
 W2V_SHARE_CPU, W2V_SHARE_BAR = 0.145, 0.08
 W2V_PROFILE_SHARE = 0.05
+# runs (ao) and (ap): ingest and persistence
+# (ao) the benchm-ml airline frame (szilard/benchm-ml train-10m.csv: 10M
+# US flights of 2005-2006, H2O's own GBM benchmark): Month, DayofMonth and
+# DayOfWeek as "c-<n>" levels, DepTime hhmm, 22 carriers, about 300
+# three-letter airports drawn Zipf(AIR_ZIPF) for Origin and Dest, Distance
+# in miles, dep_delayed_15min Y/N (about 19% Y) from a planted logit on
+# the hour, the carrier, the origin and the distance; seed AIR_SEED. The
+# same bytes as AIR_PARTS parts (each with the header), a level-1 gzip and
+# a localhost HTTP server with ranges; the Python tokenizer on the first
+# AIR_PY_ROWS rows
+AIR_N, AIR_SEED, AIR_PORTS, AIR_ZIPF, AIR_PARTS = \
+    10_000_000, 19, 300, 1.1, 8
+AIR_PY_ROWS, AIR_SLICE_N = 1_000_000, 100_000
+AIR_HEADER = ("Month,DayofMonth,DayOfWeek,DepTime,UniqueCarrier,Origin,"
+              "Dest,Distance,dep_delayed_15min")
+AIR_CARRIERS = ("AA AQ AS B6 CO DH DL EV F9 FL HA HP MQ NW OH OO TZ UA US "
+                "WN XE YV").split()
+# GBM at H2O's defaults
+AIR_GBM = dict(ntrees=50, max_depth=5, nbins=20, nbins_cats=1024,
+               learn_rate=0.1, distribution="bernoulli", seed=1)
+# its training AUC must pass AIR_AUC_BAR, 0.01 under AIR_AUC_CPU: the AUC
+# that `--airline-cpu-reference` (the generator's first AIR_CPU_N rows of
+# a draw of twice that, through the port on a CPU: 8 threads of the build
+# sandbox) gave on the draw's other AIR_CPU_N rows. At 10M rows the
+# training AUC is near that held-out AUC (at 1M it was 0.0145 above it:
+# the 300-level airports overfit); the hour, the carrier and the origin
+# carry the signal, and a model that misroutes its splits falls below
+AIR_CPU_N = 1_000_000
+AIR_AUC_CPU, AIR_AUC_BAR = 0.699391, 0.689
+# a 4-model grid with a recovery directory, stopped after 2 and resumed
+AIR_GRID = {"max_depth": [3, 5], "learn_rate": [0.1, 0.3]}
+AIR_GRID_GBM = dict(ntrees=5, nbins=20, distribution="bernoulli", seed=1)
+# (ap) the first HIGGS_CSV_N rows of the HIGGS frame of runs (a)-(c)
+# (seed 7, 29 columns) written with %.9g (every f32 round-trips) and read
+# back; (b)'s GBM for 10 trees on both frames
+HIGGS_CSV_N = 1_000_000
 # the adaptive engine's stages, as its functions (engine.py)
 STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
           ("binning", "bin_rows"), ("histogram", "build_histograms"),
@@ -581,7 +654,8 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"rulefit \(ah|target encoding \(ai|infogram \(aj|"
                    r"word2vec \(ak|models on ported|small path ingest|"
                    r"sparse glm \(al|svmlight \(am|pager \(an|"
-                   r"frame data plane)")
+                   r"frame data plane|airline \(ao|higgs csv \(ap|"
+                   r"ingest and persistence)")
 
 
 def say(msg):
@@ -4667,6 +4741,530 @@ def phase_data_plane(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+# Runs (ao) and (ap): ingest and persistence
+def _vocab_table(tokens):
+    """A vocabulary as a zero-padded byte matrix and the token lengths."""
+    enc = [t.encode() for t in tokens]
+    tab = np.zeros((len(enc), max(len(t) for t in enc)), np.uint8)
+    for i, t in enumerate(enc):
+        tab[i, :len(t)] = np.frombuffer(t, np.uint8)
+    return tab, np.array([len(t) for t in enc], np.int64)
+
+
+def airline_csv(path, n, seed=AIR_SEED):
+    """(ao)'s file: n rows drawn by numpy from `seed`, every column a code
+    into a small vocabulary, the rows' bytes laid out by numpy scatters
+    (no per-row formatting). Returns the Y share."""
+    rng = np.random.default_rng(seed)
+    ports = set()
+    while len(ports) < AIR_PORTS:
+        ports.add("".join(chr(65 + c) for c in rng.integers(0, 26, 3)))
+    ports = sorted(ports)
+    zipf = np.arange(1, AIR_PORTS + 1, dtype=np.float64) ** -AIR_ZIPF
+    zipf /= zipf.sum()
+    share = rng.dirichlet(np.full(len(AIR_CARRIERS), 2.0))
+    # the planted effects before the rows: every n draws its rows from the
+    # same population
+    c_eff = rng.normal(0, 0.4, len(AIR_CARRIERS))
+    o_eff = rng.normal(0, 0.3, AIR_PORTS)
+    hour_p = np.array([1, .5, .3, .2, .3, 2, 5, 6, 6, 6, 6, 6, 6, 6, 6, 6,
+                       6, 6, 6, 5, 4, 3, 2, 1.5])
+    month, dom = rng.integers(1, 13, n), rng.integers(1, 32, n)
+    dow = rng.integers(1, 8, n)
+    hour = rng.choice(24, n, p=hour_p / hour_p.sum())
+    dep = hour * 100 + rng.integers(0, 60, n)
+    carrier = rng.choice(len(AIR_CARRIERS), n, p=share)
+    origin = rng.choice(AIR_PORTS, n, p=zipf)
+    dest = rng.choice(AIR_PORTS, n, p=zipf)
+    dist = np.clip(np.exp(rng.normal(6.4, 0.65, n)), 30, 4962).astype(
+        np.int64)
+    logit = (-2.0 + 0.09 * (hour - 12) + 0.006 * (hour - 12) ** 2
+             + c_eff[carrier] + o_eff[origin] + 0.00012 * (dist - 700))
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.int64)
+    cols = [([f"c-{k}" for k in range(13)], month),
+            ([f"c-{k}" for k in range(32)], dom),
+            ([f"c-{k}" for k in range(8)], dow),
+            ([str(k) for k in range(2400)], dep), (AIR_CARRIERS, carrier),
+            (ports, origin), (ports, dest),
+            ([str(k) for k in range(4963)], dist), (["N", "Y"], y)]
+    tabs = [(_vocab_table(v), c) for v, c in cols]
+    rowlen = sum(lens[c] for (_t, lens), c in tabs) + len(tabs)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(rowlen, out=starts[1:])
+    out = np.empty(int(starts[-1]), np.uint8)
+    pos = starts[:-1].copy()
+    for k, ((tab, lens), c) in enumerate(tabs):
+        lc = lens[c]
+        for b in range(tab.shape[1]):
+            sel = lc > b
+            out[pos[sel] + b] = tab[c[sel], b]
+        pos += lc
+        out[pos] = ord("\n") if k == len(tabs) - 1 else ord(",")
+        pos += 1
+    with open(path, "wb") as f:
+        f.write((AIR_HEADER + "\n").encode())
+        f.write(out.data)
+    return float(y.mean())
+
+
+def airline_cpu_reference(torch, h2o):
+    """`--airline-cpu-reference`: (ao)'s GBM on AIR_CPU_N rows of its
+    generator through the port on the cloud's device (main puts it on the
+    host's CPU), scored on its training rows and on the next AIR_CPU_N
+    rows of the same draw; the held-out AUC (what the training AUC tends
+    to as the rows grow) sets AIR_AUC_BAR."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "airline.csv")
+        ys = airline_csv(path, 2 * AIR_CPU_N)
+        head, tail = os.path.join(tmp, "head.csv"), os.path.join(tmp,
+                                                                "tail.csv")
+        _head_rows(path, head, AIR_CPU_N)
+        with open(path, "rb") as fi, open(tail, "wb") as fo:
+            fo.write(fi.readline())
+            fi.seek(os.path.getsize(head))
+            shutil.copyfileobj(fi, fo)
+        fr, test = h2o.import_file(head), h2o.import_file(tail)
+    t0 = time.perf_counter()
+    m = h2o.H2OGradientBoostingEstimator(**AIR_GBM)
+    m.train(y="dep_delayed_15min", training_frame=fr)
+    t = time.perf_counter() - t0
+    say(f"airline (ao) on the CPU, {fr.nrows} rows, Y share {ys:.4f}: "
+        f"train AUC {m.auc()!r}, AUC on the next {test.nrows} rows "
+        f"{m.model_performance(test).auc!r}; train() {t:.1f} s on "
+        f"{torch.get_num_threads()} threads")
+
+
+class _RangeHandler(http.server.SimpleHTTPRequestHandler):
+    """A static file server of one directory that answers a Range request
+    with 206 and the bytes asked for."""
+
+    def log_message(self, *args):
+        pass
+
+    def send_head(self):
+        rng = self.headers.get("Range")
+        path = self.translate_path(self.path)
+        if not rng or not os.path.isfile(path):
+            return super().send_head()
+        size = os.path.getsize(path)
+        lo, hi = rng.split("=")[1].split("-")
+        lo, hi = int(lo), min(int(hi or size - 1), size - 1)
+        with open(path, "rb") as f:
+            f.seek(lo)
+            body = f.read(max(hi - lo + 1, 0))
+        self.send_response(206)
+        self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+        self.send_header("Content-Length", str(len(body)))
+        self.send_header("Accept-Ranges", "bytes")
+        self.end_headers()
+        return io.BytesIO(body)
+
+
+def _frame_digest(fr):
+    """A column's name, type, levels, codec and the sha256 of its packed
+    plane and NA plane, read from the cheapest tier."""
+    out = []
+    for name, v in zip(fr.names, fr.vecs):
+        d, m = v._chunk.staging_view()
+        c = v.codec
+        out.append((name, v.type, tuple(v.levels() or ()),
+                    (c.kind, c.bias, repr(c.const_val)),
+                    hashlib.sha256(np.ascontiguousarray(d)).hexdigest(),
+                    None if m is None else hashlib.sha256(
+                        np.ascontiguousarray(m)).hexdigest()))
+    return out
+
+
+def _decoded(fr, n):
+    """The first n rows of each column by value: a categorical's level
+    strings, a number's f32 bits."""
+    out = []
+    for v in fr.vecs:
+        x = v.as_f32()[:n].cpu().numpy()
+        if v.domain is not None:
+            out.append(np.asarray(v.domain, object)[x.astype(np.int64)])
+        else:
+            out.append(x.view(np.uint32))
+    return out
+
+
+def _head_rows(path, out, rows):
+    """The header and the first `rows` rows of `path` into `out`."""
+    with open(path, "rb") as f:
+        buf = f.read(min(os.path.getsize(path), (rows + 1) * 128))
+    nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == 10)
+    with open(out, "wb") as f:
+        f.write(buf[: int(nl[rows]) + 1])
+
+
+def _grid_trains(cls, kill_after=None):
+    """Record the model ids `cls` trains, and stop the walk with
+    KeyboardInterrupt at the train after `kill_after` of them (a grid
+    records an Exception as a failure and goes on; this stops it as a
+    killed process would). Returns (trained ids, restore)."""
+    had = "train" in cls.__dict__
+    old = cls.__dict__.get("train")
+    train = cls.train
+    trained = []
+
+    def counting(self, *a, **k):
+        if kill_after is not None and len(trained) >= kill_after:
+            raise KeyboardInterrupt
+        trained.append(self.params.get("model_id"))
+        return train(self, *a, **k)
+
+    def restore():
+        if had:
+            cls.train = old
+        else:
+            del cls.train
+    cls.train = counting
+    return trained, restore
+
+
+def _run_grid(h2o, gid, rdir, fr, kill_after=None):
+    cls = h2o.H2OGradientBoostingEstimator
+    trained, restore = _grid_trains(cls, kill_after)
+    g = h2o.H2OGridSearch(cls, AIR_GRID, grid_id=gid, recovery_dir=rdir)
+    try:
+        g.train(y="dep_delayed_15min", training_frame=fr, **AIR_GRID_GBM)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        restore()
+    return g, trained
+
+
+def airline_run(torch, h2o, HC):
+    """(ao): the airline file in four forms through import_file, the same
+    Frame from each and every byte through the native tokenizer; the
+    Python tokenizer on its head; GBM at H2O's defaults; the .hex round
+    trip; save and load on the card and in a card-less process; a grid
+    killed after 2 models and resumed."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.core.memory import frame_chunks
+    from h2o3_tpu_torch.io import dparse, fastcsv
+    from h2o3_tpu_torch.io.persist import import_frame
+    y = "dep_delayed_15min"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train-10m.csv")
+        t0 = time.perf_counter()
+        yshare = airline_csv(path, AIR_N)
+        t_gen = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        # the other forms, from the file's bytes
+        t0 = time.perf_counter()
+        parts = os.path.join(tmp, "parts")
+        os.makedirs(parts)
+        with open(path, "rb") as f:
+            head = f.readline()
+            body = f.read()
+        cuts = [0]
+        for k in range(1, AIR_PARTS):
+            cuts.append(body.index(b"\n", len(body) * k // AIR_PARTS) + 1)
+        cuts.append(len(body))
+        for k in range(AIR_PARTS):
+            with open(os.path.join(parts, f"part-{k}.csv"), "wb") as f:
+                f.write(head)
+                f.write(body[cuts[k]:cuts[k + 1]])
+        del body
+        gz = path + ".gz"
+        with open(path, "rb") as fi, gzip.open(gz, "wb", compresslevel=1) \
+                as fo:
+            shutil.copyfileobj(fi, fo, 16 << 20)
+        t_forms = time.perf_counter() - t0
+        httpd = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(_RangeHandler,
+                                                directory=tmp))
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/train-10m.csv"
+        say(f"airline (ao): {AIR_N} rows, {size / 1e6:.1f} MB written in "
+            f"{t_gen:.1f} s (Y share {yshare:.4f}); {AIR_PARTS} parts and a "
+            f"level-1 gzip of {os.path.getsize(gz) / 1e6:.1f} MB in "
+            f"{t_forms:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        frames, rates = {}, {}
+        cpus = os.cpu_count()
+        try:
+            for label, src in (("one file", path), ("8 parts", parts),
+                               ("gzip", gz), ("http ranges", url)):
+                fastcsv.reset_counts()
+                t0 = time.perf_counter()
+                fr = h2o.import_file(src)
+                torch.cuda.synchronize()
+                t = time.perf_counter() - t0
+                counts = dict(fastcsv.TOKENIZED_BYTES)
+                frames[label] = fr
+                rates[label] = size / t / 1e6
+                # the pool's threads: one a plan entry at most (a gzip's
+                # windows take the pool of 8 units)
+                units = {"one file": None, "8 parts": AIR_PARTS,
+                         "gzip": 8}.get(
+                    label, -(-size // dparse._chunk_bytes_default()))
+                threads = 1 if units is None else dparse._pool_workers(units)
+                say(f"airline (ao) ingest {label}: {t:.2f} s, "
+                    f"{rates[label]:.1f} MB/s ({cpus} host CPUs, {threads} "
+                    f"tokenizer threads); bytes tokenized {counts}")
+                check(counts["python"] == 0 and counts["fastcsv"] >= size,
+                      f"(ao) {label}: not every byte went through the "
+                      f"native tokenizer: {counts}")
+        finally:
+            httpd.shutdown()
+            server.join()
+            httpd.server_close()
+        peak_parse = torch.cuda.max_memory_allocated()
+        one = frames["one file"]
+        check(one.nrows == AIR_N and len(one.names) == 9,
+              f"(ao) shape {one.shape}")
+        check(one.types == {**{c: "enum" for c in one.names},
+                            "DepTime": "num", "Distance": "num"},
+              f"(ao) types {one.types}")
+        want = _frame_digest(one)
+        for label, fr in frames.items():
+            check(_frame_digest(fr) == want,
+                  f"(ao) {label}: not the one-file frame")
+            if fr is not one:
+                DKV.remove(fr.key)
+        say(f"airline (ao): the one-file, 8-part, gzip and http frames "
+            f"are the same bit for bit (names, types, domains of "
+            f"{[len(v.levels() or ()) for v in one.vecs]} levels, codecs "
+            f"{[v.codec.kind for v in one.vecs]}, planes and NA planes)")
+        shutil.rmtree(parts)
+        os.unlink(gz)
+        # the plain Python tokenizer on the head of the file
+        hpath = os.path.join(tmp, "head.csv")
+        _head_rows(path, hpath, AIR_PY_ROWS)
+        fastcsv.reset_counts()
+        t0 = time.perf_counter()
+        cols = dparse._tokenize_range_py(hpath, ",", True, 0, -1)
+        py = dparse._merge_chunks([cols], h2o.parse_setup(hpath), None,
+                                  None)
+        t_py = time.perf_counter() - t0
+        del cols
+        native = h2o.import_file(hpath)
+        same = _frame_digest(py) == _frame_digest(native)
+        rows_same = all(np.array_equal(a, b) for a, b in zip(
+            _decoded(native, AIR_PY_ROWS), _decoded(one, AIR_PY_ROWS)))
+        say(f"airline (ao): the Python tokenizer on the first "
+            f"{AIR_PY_ROWS} rows in {t_py:.1f} s "
+            f"({os.path.getsize(hpath) / t_py / 1e6:.2f} MB/s): the native "
+            f"parse of those rows bit for bit {same}, their values the "
+            f"10M-row frame's {rows_same}")
+        check(same and rows_same, "(ao) the Python tokenizer disagrees")
+        DKV.remove(py.key)
+        DKV.remove(native.key)
+        os.unlink(path)
+        # GBM at H2O's defaults
+        HC.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = h2o.H2OGradientBoostingEstimator(**AIR_GBM)
+        m.train(y=y, training_frame=one)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+        peak_train = torch.cuda.max_memory_allocated()
+        say(f"airline (ao) GBM {AIR_GBM['ntrees']} trees depth "
+            f"{AIR_GBM['max_depth']} nbins {AIR_GBM['nbins']}: train() "
+            f"{t_train:.2f} s, train AUC {m.auc():.6f} (bar {AIR_AUC_BAR}, "
+            f"the CPU's held-out {AIR_AUC_CPU} at {AIR_CPU_N} rows); "
+            f"launches {launches}; peak HBM of the four parses "
+            f"{peak_parse / 2**30:.2f} GiB, of train() "
+            f"{peak_train / 2**30:.2f} GiB")
+        check(m.auc() > AIR_AUC_BAR, f"(ao) AUC {m.auc()}")
+        check(all(launches.get(k) for k in ("radix", "fused", "route_f")),
+              f"(ao) launches {launches}")
+        # the .hex round trip
+        packed = sum(c.nbytes for c in frame_chunks(one))
+        hexp = os.path.join(tmp, "airline.hex")
+        t0 = time.perf_counter()
+        h2o.export_file(one, hexp)
+        t_exp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = import_frame(hexp, key="airline_hex")
+        torch.cuda.synchronize()
+        t_imp = time.perf_counter() - t0
+        same = _frame_digest(back) == want
+        say(f"airline (ao) export_file {packed / 1e6:.1f} MB of packed "
+            f"planes to {os.path.getsize(hexp) / 1e6:.1f} MB in "
+            f"{t_exp:.2f} s ({packed / t_exp / 1e6:.1f} MB/s), "
+            f"import_frame in {t_imp:.2f} s ({packed / t_imp / 1e6:.1f} "
+            f"MB/s): bit for bit {same}")
+        check(same, "(ao) the .hex round trip changed the frame")
+        DKV.remove(back.key)
+        os.unlink(hexp)
+        # save and load, on the card and in a process without one
+        mpath = os.path.join(tmp, "gbm.bin")
+        p_card = m.predict(one).vecs[-1].as_f32()      # P(Y)
+        t0 = time.perf_counter()
+        h2o.save_model(m, mpath)
+        t_save = time.perf_counter() - t0
+        DKV.remove(m.key)
+        t0 = time.perf_counter()
+        lm = h2o.load_model(mpath)
+        t_load = time.perf_counter() - t0
+        p_back = lm.predict(one).vecs[-1].as_f32()
+        same = torch.equal(p_back.view(torch.int32), p_card.view(torch.int32))
+        sl = _sub_frame(one, AIR_SLICE_N)
+        slp, outp = os.path.join(tmp, "slice.hex"), os.path.join(tmp, "p.npy")
+        h2o.export_file(sl, slp)
+        code = (
+            "import sys\nsys.path.insert(0, sys.argv[1])\n"
+            "import numpy as np, torch\nimport h2o3_tpu_torch as h2o\n"
+            "from h2o3_tpu_torch.io.persist import import_frame\n"
+            "assert not torch.cuda.is_available()\n"
+            "h2o.init(device='cpu')\nm = h2o.load_model(sys.argv[2])\n"
+            "np.save(sys.argv[4], m.predict(import_frame(sys.argv[3]))"
+            ".vecs[-1].to_numpy())\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code,
+             os.path.dirname(os.path.abspath(__file__)), mpath, slp, outp],
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=600)
+        t_sub = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"(ao) the card-less load failed: {proc.stderr[-2000:]}")
+        cpu_err = float(np.abs(np.load(outp) - p_card[:AIR_SLICE_N]
+                               .cpu().numpy()).max())
+        say(f"airline (ao) save_model {os.path.getsize(mpath) / 1e6:.2f} MB "
+            f"in {t_save:.3f} s, load_model in {t_load:.3f} s: predictions "
+            f"on the card bit for bit {same}; a process with "
+            f"CUDA_VISIBLE_DEVICES='' loaded it onto the CPU and predicted "
+            f"{AIR_SLICE_N} rows within {cpu_err:.3g} of the card (limit "
+            f"1e-5; {t_sub:.1f} s with its start)")
+        check(same and cpu_err <= 1e-5, f"(ao) save/load: card {same}, "
+              f"CPU {cpu_err}")
+        # a grid killed after 2 models and resumed
+        t0 = time.perf_counter()
+        full, _ = _run_grid(h2o, "air_full", None, one)
+        rdir = os.path.join(tmp, "recovery")
+        first, trained1 = _run_grid(h2o, "air_rec", rdir, one, kill_after=2)
+        for key in first.model_ids:
+            DKV.remove(key)
+        second, trained2 = _run_grid(h2o, "air_rec", rdir, one)
+        t_grid = time.perf_counter() - t0
+
+        def by_combo(g):
+            return {(mm.params["max_depth"], mm.params["learn_rate"]): mm
+                    for mm in g.models}
+        fb, rb = by_combo(full), by_combo(second)
+        same = fb.keys() == rb.keys() and len(fb) == 4 and all(
+            torch.equal(fb[k].predict(sl).vecs[-1].as_f32().view(
+                torch.int32), rb[k].predict(sl).vecs[-1].as_f32().view(
+                    torch.int32)) and fb[k].auc() == rb[k].auc()
+            for k in fb)
+        say(f"airline (ao) grid {AIR_GRID}: killed after {len(trained1)} "
+            f"models, resumed with {len(second.models)} ({len(trained2)} "
+            f"trained, none twice: {not set(trained1) & set(trained2)}); "
+            f"each model bit for bit the uninterrupted grid's {same} "
+            f"({t_grid:.1f} s for the three walks)")
+        check(len(trained1) == 2 and len(trained2) == 2
+              and not set(trained1) & set(trained2) and same,
+              "(ao) the resumed grid is not the uninterrupted one")
+        say(f"airline (ao): peak HBM since train() "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of the "
+            f"parses {peak_parse / 2**30:.2f} GiB "
+            f"({(peak_parse - held) / 2**30:.2f} GiB above what was held "
+            f"before them)")
+    DKV.clear()
+
+
+def higgs_csv_run(torch, h2o, HC):
+    """(ap): the first HIGGS_CSV_N rows of the HIGGS frame written with
+    %.9g and read back by import_file: the in-memory values bit for bit,
+    and (b)'s GBM for 10 trees the same predictions bit for bit on both."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.io import fastcsv
+    dev = h2o.init().device
+    big = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    fr = _sub_frame(big, HIGGS_CSV_N)
+    DKV.remove(big.key)
+    del big
+    gc.collect()
+    X = fr.matrix(fr.names[:-1]).cpu().numpy().astype(np.float64)
+    data = np.column_stack([X, fr.vec("y").as_f32().cpu().numpy()])
+    del X
+    fmt = ",".join(["%.9g"] * data.shape[1]) + "\n"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "higgs-1m.csv")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            f.write(",".join(fr.names) + "\n")
+            for s in range(0, HIGGS_CSV_N, 100_000):
+                blk = data[s:s + 100_000]
+                f.write((fmt * len(blk)) % tuple(blk.ravel().tolist()))
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fastcsv.reset_counts()
+        t0 = time.perf_counter()
+        pf = h2o.import_file(path, col_types={"y": "enum"})
+        torch.cuda.synchronize()
+        t_parse = time.perf_counter() - t0
+        counts = dict(fastcsv.TOKENIZED_BYTES)
+    same = pf.names == fr.names and pf.types == fr.types and \
+        pf.vec("y").levels() == fr.vec("y").levels() and all(
+            torch.equal(a.as_f32().view(torch.int32),
+                        b.as_f32().view(torch.int32))
+            for a, b in zip(pf.vecs, fr.vecs))
+    say(f"higgs csv (ap): {HIGGS_CSV_N} rows x {len(fr.names)} columns "
+        f"written with %.9g ({size / 1e6:.1f} MB in {t_write:.1f} s), "
+        f"import_file {t_parse:.2f} s ({size / t_parse / 1e6:.1f} MB/s, "
+        f"{os.cpu_count()} host CPUs, one tokenizer thread); bytes "
+        f"tokenized {counts}; the in-memory frame's values bit for bit "
+        f"{same}")
+    check(same and counts["python"] == 0 and counts["fastcsv"] == size,
+          f"(ap) parse: values {same}, counts {counts}")
+    gbm = dict(HIGGS_DEFAULT, ntrees=10)
+    preds = []
+    for frame in (fr, pf):
+        HC.reset_launches()
+        m = h2o.H2OGradientBoostingEstimator(**gbm)
+        m.train(y="y", training_frame=frame)
+        preds.append(m.predict(frame).vec("p1").as_f32())
+        torch.cuda.synchronize()
+        per_tree = {k: v / 10 for k, v in HC.LAUNCHES.items() if v}
+        check(per_tree == PER_TREE["default"],
+              f"(ap) launches per tree {per_tree}")
+    same = torch.equal(preds[0].view(torch.int32), preds[1].view(torch.int32))
+    say(f"higgs csv (ap) GBM 10 trees of (b)'s configuration on the "
+        f"in-memory and the parsed frame: predictions bit for bit {same}, "
+        f"launches per tree {per_tree}")
+    check(same, "(ap) GBM predictions differ between the two frames")
+    DKV.clear()
+
+
+def phase_ingest(torch, h2o, HC):
+    """Runs (ao) and (ap), each timed, after every earlier frame is
+    dropped from the store."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    DKV.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    times = {}
+    for label, fn in (("ao", airline_run), ("ap", higgs_csv_run)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn(torch, h2o, HC)
+        times[label] = time.perf_counter() - t0
+        say(f"ingest and persistence ({label}): {times[label]:.1f} s, "
+            + _peak_gib(torch, held).replace("train()", "the run"))
+        gc.collect()
+    from h2o3_tpu_torch.io import columnar
+    say("ingest and persistence, runs (ao)-(ap): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(times.items()))
+        + f"; total {time.perf_counter() - t_all:.1f} s; the columnar "
+        f"readers were not driven (available here: "
+        f"{columnar.available_formats()}; the CPU tests drive them)")
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -5011,6 +5609,9 @@ def main():
     if sys.argv[1:] == ["--psvm-cpu-reference"]:
         psvm_cpu_reference(torch, h2o)
         return
+    if sys.argv[1:] == ["--airline-cpu-reference"]:
+        _on_cpu(h2o, lambda: airline_cpu_reference(torch, h2o))
+        return
     t_start = time.perf_counter()
     card = phase_card(torch, _build)
     dev = torch.device("cuda", 0)
@@ -5031,6 +5632,7 @@ def main():
     framework = phase_framework(torch, h2o, HC)
     derived = phase_derived(torch, h2o, HC)
     phase_data_plane(torch, h2o, HC)
+    phase_ingest(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -5038,7 +5640,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(an) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(ap) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

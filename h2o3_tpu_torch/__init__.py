@@ -45,8 +45,14 @@ The models built on those estimators are `H2OTargetEncoderEstimator`,
 Every model has `model_performance`, `mse`, `model_id` and `to_dict`;
 `get_frame`, `get_model`, `remove` and `ls` reach the key-value store.
 
-`import_file` reads a local CSV, ARFF or SVMLight file, plain, gzip or
-zip, and `upload_frame` takes in-memory data. A Frame's columns are packed
+`import_file` reads CSV (through the native tokenizer), ARFF, SVMLight,
+xlsx, Parquet, ORC, Feather and Avro files, plain, gzip or zip, from a
+path, a directory, a glob, a list or an http(s) URI (the chunked parse
+of `io/dparse.py`), and `upload_frame` takes in-memory data.
+`export_file` writes a Frame as a `.hex` snapshot (read back by
+`io.persist.import_frame`), `save_model` and `load_model` write and
+read a binary model, and `H2OGridSearch(recovery_dir=...)` resumes an
+interrupted grid. A Frame's columns are packed
 by the JAX package's codecs and paged between the card, host memory and
 spill files (`core.tiering.PAGER`, `core.memory.MANAGER`); string, UUID
 and sparse columns have their own layouts, and GLM on all-sparse
@@ -91,6 +97,25 @@ def ls():
     return DKV.keys()
 
 
+def save_model(model, path):
+    """Binary model export (h2o.save_model)."""
+    from h2o3_tpu_torch.genmodel.mojo import save_model as _sm
+    return _sm(model, path)
+
+
+def load_model(path, device=None):
+    """Binary model import (h2o.load_model); its tensors on `device`, by
+    default the cloud's."""
+    from h2o3_tpu_torch.genmodel.mojo import load_model as _lm
+    return _lm(path, device)
+
+
+def export_file(frame, path):
+    """Frame snapshot export (h2o.export_file; the .hex format)."""
+    from h2o3_tpu_torch.io.persist import export_frame
+    return export_frame(frame, path)
+
+
 def quantile(frame, prob=None, combine_method="interpolate",
              weights_column=None):
     """h2o.quantile: a Frame of a Probs column and one column of
@@ -116,7 +141,7 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OSingularValueDecompositionEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
            "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
-           "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud", "get_frame",
-           "get_model", "import_file", "init", "ls", "parse_setup",
-           "quantile", "remove", "shutdown", "train_segments",
-           "upload_frame"]
+           "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud",
+           "export_file", "get_frame", "get_model", "import_file", "init",
+           "load_model", "ls", "parse_setup", "quantile", "remove",
+           "save_model", "shutdown", "train_segments", "upload_frame"]

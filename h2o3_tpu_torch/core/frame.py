@@ -204,6 +204,13 @@ class Vec:
         packed, codec = _choose_codec(
             np.where(mask, 0.0, col) if has_na else col, mask)
         mask_np = mask.astype(np.uint8) if has_na else None
+        return Vec._from_packed(packed, codec, mask_np, n, vtype, domain,
+                                device)
+
+    @staticmethod
+    def _from_packed(packed, codec, mask_np, n, vtype, domain=None,
+                     device=None) -> "Vec":
+        """A Vec over host planes already packed by `codec`."""
         dev = _device(device)
         if PAGER.ingest_cold:
             # budgeted ingest: a copy to the card now would overshoot the
@@ -359,10 +366,18 @@ class StrVec(Vec):
         levels, inv = np.unique(strs[~na], return_inverse=True)
         codes = np.full(n, -1, np.int32)
         codes[~na] = inv
+        return StrVec.from_codes(codes, levels, device)
+
+    @staticmethod
+    def from_codes(codes: np.ndarray, levels, device=None) -> "StrVec":
+        """int32 host codes (-1 for NA) into sorted `levels`."""
+        codes = np.ascontiguousarray(codes, np.int32)
         dev = _device(device)
         if PAGER.ingest_cold:
-            return StrVec(None, levels, n, host_codes=codes, device=dev)
-        return StrVec(_put(codes, dev), levels, n, host_codes=codes)
+            return StrVec(None, levels, len(codes), host_codes=codes,
+                          device=dev)
+        return StrVec(_put(codes, dev), levels, len(codes),
+                      host_codes=codes)
 
     # ---- Vec surface -----------------------------------------------------
     @property

@@ -58,6 +58,23 @@ class Job:
         self._thread: Optional[threading.Thread] = None
         DKV.put(self.key, self)
 
+    def __getstate__(self):
+        """A finished job is pickled with its model (genmodel/mojo.py
+        save_model): its events as flags, without its thread."""
+        state = dict(self.__dict__)
+        state["_stop_requested"] = self._stop_requested.is_set()
+        state["_done"] = self._done.is_set()
+        state["_thread"] = None
+        return state
+
+    def __setstate__(self, state):
+        for name in ("_stop_requested", "_done"):
+            ev = threading.Event()
+            if state[name]:
+                ev.set()
+            state[name] = ev
+        self.__dict__.update(state)
+
     # ---- lifecycle ------------------------------------------------------
     def start(self, work: Callable[["Job"], object],
               background: bool = True) -> "Job":

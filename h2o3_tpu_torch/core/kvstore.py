@@ -40,6 +40,10 @@ class _DKV:
         with self._mutex:
             return self._store.get(key, default)
 
+    def __contains__(self, key) -> bool:
+        with self._mutex:
+            return key in self._store
+
     def keys(self) -> list[str]:
         with self._mutex:
             return sorted(self._store.keys())

@@ -3,12 +3,21 @@ guess, phase-2 tokenize and type, then columns onto the cloud's device.
 
 The separator, header and column-type guesses and the categorical level
 order (sorted distinct tokens) are those of the JAX package, kept as a
-copy here. Local files only: CSV, ARFF (ARFFParser) and SVMLight
-(SVMLightParser, every feature column a SparseVec, never densified),
-each plain, gzip or zip (the first member). A string column becomes a
-StrVec and a uuid column a UuidVec. Directories, globs, remote paths and
-columnar formats raise `NotImplementedError` (ROADMAP.md §1 item 5, with
-the native tokenizer).
+copy here. `import_file` routes as the JAX package does:
+  * a path list, a directory or a glob, a compressed CSV and a remote CSV
+    whose server takes byte ranges go to the chunked parse (io/dparse.py);
+    another remote file is staged locally first (io/uri.py);
+  * Parquet, ORC, Feather, Avro and xlsx files go to io/columnar.py (by
+    extension, then by magic bytes);
+  * one plain local CSV is tokenized whole by the native tokenizer
+    (io/fastcsv.py), its columns rebuilt by the chunked parse's merge;
+    the plain Python tokenizer takes it only where the native library is
+    unavailable (no host compiler). A native error raises: the JAX
+    package's `except Exception: return None` re-parsed it in Python;
+  * ARFF (ARFFParser) and SVMLight (SVMLightParser, every feature column
+    a SparseVec, never densified) files, plain, gzip or zip.
+`fastcsv.TOKENIZED_BYTES` counts the bytes each engine tokenized. A
+string column becomes a StrVec and a uuid column a UuidVec.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import csv
 import gzip
 import io
+import math
 import os
 import re
 import warnings
@@ -54,6 +64,17 @@ def _open_text(path: str) -> io.TextIOBase:
         return io.TextIOWrapper(zf.open(zf.namelist()[0]), encoding="utf-8",
                                 newline="")
     return open(path, "r", encoding="utf-8", newline="")
+
+
+def _num_token(v: float) -> str:
+    """The source token of a number in a categorical or string column: an
+    integral value without a trailing '.0', anything else (and -0) by its
+    shortest round-trip repr, so distinct values never share a token."""
+    v = float(v)
+    if math.isfinite(v) and v == int(v) and abs(v) < 2 ** 53 \
+            and not (v == 0.0 and math.copysign(1.0, v) < 0):
+        return str(int(v))
+    return repr(v)
 
 
 def _is_num(tok: str) -> bool:
@@ -297,12 +318,16 @@ def _numbers(text: str, count: int) -> np.ndarray:
 def parse(path: str, setup: Optional[ParseSetup] = None,
           destination_frame: Optional[str] = None,
           col_types: Optional[dict] = None) -> Frame:
-    """Phase 2: tokenize, type and load the columns."""
+    """Phase 2: tokenize, type and load the columns of one file."""
     setup = setup or parse_setup(path)
     if setup.parse_type == "ARFF":
         return _parse_arff(path, setup, destination_frame)
     if setup.parse_type == "SVMLight":
         return _parse_svmlight(path, destination_frame)
+    from h2o3_tpu_torch.io import fastcsv
+    if not path.endswith((".gz", ".zip")) and fastcsv.available():
+        return _native_parse(path, setup, destination_frame, col_types)
+    fastcsv.count_bytes("python", os.path.getsize(path))
     cols = _tokenize_csv(path, setup)
     names = list(setup.column_names)
     types = list(setup.column_types)
@@ -316,29 +341,78 @@ def parse(path: str, setup: Optional[ParseSetup] = None,
     return Frame(names[: len(vecs)], vecs, destination_frame)
 
 
-def import_file(path: str, destination_frame: Optional[str] = None,
+def _native_parse(path: str, setup: ParseSetup, dest, col_types) -> Frame:
+    """The whole file through the native tokenizer as one chunk: numeric
+    columns from its doubles; categorical, string, time and uuid columns
+    rebuilt from its string cells by the chunked parse's merge (the
+    JAX package's `_native_parse` builds the same columns)."""
+    from h2o3_tpu_torch.io import dparse, fastcsv
+    cols = fastcsv.parse_columns(path, setup.separator, setup.header)
+    return dparse._merge_chunks([cols], setup, dest, col_types)
+
+
+_COLUMNAR = (".parquet", ".orc", ".feather", ".avro", ".xlsx")
+
+
+def import_file(path, destination_frame: Optional[str] = None,
                 col_types: Optional[dict] = None,
                 header: Optional[bool] = None,
                 sep: Optional[str] = None) -> Frame:
-    """h2o.import_file for one local file: CSV, ARFF or SVMLight, plain,
-    gzip or zip."""
-    if not isinstance(path, str) or "://" in path \
-            or any(c in path for c in "*?[") or os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path!r}: directories, globs and remote paths are not ported "
-            "yet (ROADMAP.md §1 item 5)")
-    if not os.path.isfile(path):
-        raise FileNotFoundError(path)
-    if path.endswith((".parquet", ".orc", ".feather", ".avro", ".xlsx")):
-        raise NotImplementedError(
-            f"{os.path.basename(path)}: columnar formats are not ported yet "
-            "(ROADMAP.md §1 item 5)")
-    setup = parse_setup(path)
-    if header is not None:
-        setup.header = header
-    if sep is not None:
-        setup.separator = sep
-    return parse(path, setup, destination_frame, col_types)
+    """h2o.import_file: a setup guess, then the parse, routed as the JAX
+    package routes it (the module's docstring)."""
+    from h2o3_tpu_torch.io import uri as _uri
+    path = _uri.local_path(path) if isinstance(path, str) else path
+    if isinstance(path, (list, tuple)) or (
+            isinstance(path, str) and not _uri.is_remote(path)
+            and (os.path.isdir(path) or any(c in path for c in "*?["))):
+        from h2o3_tpu_torch.io import dparse
+        setup = None
+        if header is not None or sep is not None:
+            setup = parse_setup(dparse.expand_paths(path)[0])
+            if header is not None:
+                setup.header = header
+            if sep is not None:
+                setup.separator = sep
+        return dparse.parse_files(path, setup, destination_frame,
+                                  col_types)
+    staged = None
+    if _uri.is_remote(path):
+        # a remote CSV whose server takes ranges joins the chunked plan;
+        # a columnar file, or a server without ranges, is staged whole
+        if header is None and sep is None and _uri.supports_ranges(path) \
+                and not path.endswith(_COLUMNAR):
+            from h2o3_tpu_torch.io import dparse
+            try:
+                return dparse.parse_files([path], None, destination_frame,
+                                          col_types)
+            except (OSError, NotImplementedError):
+                # only a failed transfer stages the file; a parse error
+                # raises
+                pass
+        path = staged = _uri.fetch_to_local(path)
+    try:
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        from h2o3_tpu_torch.io import columnar
+        colparser = columnar.sniff(path)
+        if colparser is not None:
+            return colparser(path, destination_frame)
+        setup = parse_setup(path)
+        if header is not None:
+            setup.header = header
+        if sep is not None:
+            setup.separator = sep
+        if path.endswith((".gz", ".zip")) and setup.parse_type == "CSV":
+            from h2o3_tpu_torch.io import dparse
+            return dparse.parse_files([path], setup, destination_frame,
+                                      col_types)
+        return parse(path, setup, destination_frame, col_types)
+    finally:
+        if staged is not None:
+            try:
+                os.unlink(staged)
+            except OSError:
+                pass
 
 
 def upload_frame(data, destination_frame: Optional[str] = None) -> Frame:

@@ -16,14 +16,19 @@ would overlap only host work, and one walk keeps every model bit for bit
 what it is when trained alone. The JAX package serialises trains on host
 meshes too (its `train_guard`).
 
-`recovery_dir` raises NotImplementedError: the recovery checkpoints need
-`io/persist`, which the port does not have yet.
+With `recovery_dir` (hex/faulttolerance/Recovery.java), the training and
+validation frames and every finished model are checkpointed there
+(io/persist.py `Recovery`); a grid trained again with the same `grid_id`
+and directory loads the models a previous run finished and skips their
+combinations. A RandomDiscrete walk without a seed then takes its seed
+from the grid id, so the walk is the same after the restart.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
+import zlib
 
 import numpy as np
 
@@ -34,9 +39,6 @@ class H2OGridSearch:
     def __init__(self, model, hyper_params: dict, grid_id=None,
                  search_criteria=None, parallelism: int = 1,
                  recovery_dir: str | None = None):
-        if recovery_dir:
-            raise NotImplementedError(
-                "grid recovery_dir needs io/persist, which is not ported yet")
         # an estimator class, or an instance whose parameters are defaults
         if isinstance(model, type):
             self._cls = model
@@ -52,6 +54,7 @@ class H2OGridSearch:
         self.models: list = []
         self.failures: list = []
         self.parallelism = max(1, int(parallelism))
+        self.recovery_dir = recovery_dir
         DKV.put(self.grid_id, self)
 
     def _combos(self) -> list:
@@ -61,6 +64,10 @@ class H2OGridSearch:
         if self.search_criteria.get("strategy",
                                     "Cartesian") == "RandomDiscrete":
             seed = int(self.search_criteria.get("seed", -1))
+            if seed <= 0 and self.recovery_dir:
+                # recovery skips combinations by index: the walk must be
+                # the same after a restart
+                seed = zlib.crc32(self.grid_id.encode()) or 1
             rng = np.random.default_rng(seed if seed > 0 else None)
             rng.shuffle(combos)
             mx = self.search_criteria.get("max_models")
@@ -73,9 +80,28 @@ class H2OGridSearch:
         max_secs = float(self.search_criteria.get("max_runtime_secs", 0)
                          or 0)
         t0 = time.time()
+        recovery, recovered = None, set()
+        if self.recovery_dir:
+            from h2o3_tpu_torch.io.persist import Recovery
+            recovery = Recovery(self.recovery_dir)
+            recovery.resume()
+            # only this grid's models: the directory may hold others'
+            prefix = f"{self.grid_id}_model_"
+            recovered = {k for k in recovery.recovered_model_keys()
+                         if k.startswith(prefix)}
+            have = {m.key for m in self.models}
+            for key in sorted(recovered - have):
+                prev = DKV.get(key)
+                if prev is not None:
+                    self.models.append(prev)
+            for fr in (training_frame, validation_frame):
+                if fr is not None:
+                    recovery.checkpoint_frame(fr)
         for i, combo in enumerate(self._combos()):
             if max_secs and time.time() - t0 > max_secs:
                 break
+            if f"{self.grid_id}_model_{i}" in recovered:
+                continue                   # finished before the restart
             params = dict(self._base_params)
             params.update(kw)
             params.update(combo)
@@ -85,6 +111,8 @@ class H2OGridSearch:
                 m.train(x=x, y=y, training_frame=training_frame,
                         validation_frame=validation_frame)
                 self.models.append(m)
+                if recovery is not None:
+                    recovery.checkpoint_model(m)
             except Exception as ex:  # noqa: BLE001 - the grid goes on
                 self.failures.append({"params": combo, "error": repr(ex)})
         return self

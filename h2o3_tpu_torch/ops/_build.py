@@ -8,9 +8,10 @@ use into `ops/build/lib<name>-<hash>.so` (git-ignored), for sm_90a:
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 `load_host(name)` builds `native/<name>.cpp` (TreeSHAP) the same way with
-`native/Makefile`'s flags:
+`native/Makefile`'s compiler and flags, and `load_host(name, src)` any
+other host source of the port (`io/csrc/fastcsv.cpp`, the CSV tokenizer):
 
-    c++ -O3 -fPIC -std=c++17 -Wall -shared -o build/lib<name>-<hash>.so \
+    g++ -O3 -fPIC -std=c++17 -Wall -shared -o build/lib<name>-<hash>.so \
         native/<name>.cpp
 
 The file name carries a hash of the source and flags, so an edited source
@@ -134,9 +135,10 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_host(name: str) -> ctypes.CDLL:
-    """The loaded library for native/<name>.cpp, built first if needed with
-    the host C++ compiler ($CXX, else c++) and native/Makefile's flags."""
+def load_host(name: str, src: Path | None = None) -> ctypes.CDLL:
+    """The loaded library for `src` (by default native/<name>.cpp), built
+    first if needed with the host C++ compiler ($CXX, else g++, as
+    native/Makefile) and native/Makefile's flags."""
     key = f"host:{name}"
     lib = _LIBS.get(key)
     if lib is not None:
@@ -144,11 +146,11 @@ def load_host(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            src = NATIVE / f"{name}.cpp"
+            src = Path(src) if src is not None else NATIVE / f"{name}.cpp"
             if not src.is_file():
                 raise BuildError(f"{src} not found")
             out, pending = _spawn(_target(name, src, HOST_FLAGS),
-                                  [os.environ.get("CXX") or "c++",
+                                  [os.environ.get("CXX") or "g++",
                                    *HOST_FLAGS], src)
             BUILD_LOGS[key] = _finish(name, out, pending)
             lib = _LIBS[key] = ctypes.CDLL(str(out))

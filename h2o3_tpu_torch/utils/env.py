@@ -1,9 +1,10 @@
 """Typed environment accessors of the port (h2o3_tpu/utils/env.py).
 
-A copy of the JAX package's `env_str`, `env_int` and `env_bool`, so that
-the port reads the same `H2O3_*` variables (the pager's budgets, the ice
-root) with the same semantics and a deployment's settings carry over:
-unset and empty both give the default, and an unparseable value warns
+A copy of the JAX package's `env_str`, `env_int`, `env_float` and
+`env_bool`, so that the port reads the same `H2O3_*` variables (the
+pager's budgets, the ice root, the parse's chunk size and workers) with
+the same semantics and a deployment's settings carry over: unset and
+empty both give the default, and an unparseable value warns
 once per (name, value) and gives the default instead of raising.
 """
 
@@ -47,6 +48,17 @@ def env_int(name: str, default: int) -> int:
         return int(v.strip())
     except ValueError:
         _bad(name, v, "int", default)
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    v = _raw(name)
+    if v is None or v.strip() == "":
+        return default
+    try:
+        return float(v.strip())
+    except ValueError:
+        _bad(name, v, "float", default)
         return default
 
 

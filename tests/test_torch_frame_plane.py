@@ -444,16 +444,36 @@ def test_csv_uuid_and_string_columns(tmp_path):
 
 
 def test_import_file_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        TP.import_file(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        TP.import_file(str(tmp_path / "*.csv"))
-    with pytest.raises(NotImplementedError):
-        TP.import_file("http://example.invalid/x.csv")
-    p = tmp_path / "x.parquet"
-    p.write_bytes(b"PAR1")
-    with pytest.raises(NotImplementedError):
-        TP.import_file(str(p))
+    """What the port refused before the ingest slice now parses as the JAX
+    package parses it: a directory, a glob, an http URL (a localhost
+    server) and a Parquet file. A malformed SVMLight file still raises."""
+    import functools
+    import http.server
+    import threading
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+    d = tmp_path / "d"
+    d.mkdir()
+    for k in range(2):
+        (d / f"p{k}.csv").write_text(
+            "x,c\n" + "".join(f"{k * 10 + i},l{i % 3}\n" for i in range(9)))
+    pq.write_table(pa.table({"x": np.arange(5.0),
+                             "c": ["a", "b", None, "a", "c"]}),
+                   str(tmp_path / "x.parquet"))
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(
+            http.server.SimpleHTTPRequestHandler, directory=str(d)))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/p1.csv"
+    try:
+        for src in (str(d), str(d / "*.csv"), url,
+                    str(tmp_path / "x.parquet")):
+            tf, jf = TP.import_file(src), JP.import_file(src)
+            _same_frame(jf, tf)
+            JDKV.remove(jf.key)
+            DKV.remove(tf.key)
+    finally:
+        httpd.shutdown()
     bad = tmp_path / "bad.svm"
     bad.write_text("1 3:0.5 qid:2\n")
     with pytest.raises(ValueError):

@@ -319,8 +319,10 @@ def test_grid_matches_jax(frames):
     assert lls == sorted(lls)
 
 
-def test_grid_parallelism_builds_the_same_models(frames):
-    """`parallelism` 2 builds the same GBMs, bit for bit, as 1."""
+def test_grid_parallelism_builds_the_same_models(frames, tmp_path):
+    """`parallelism` 2 builds the same GBMs, bit for bit, as 1; with a
+    `recovery_dir`, a grid trained again under the same id resumes: it
+    loads the models the first run checkpointed and trains none."""
     _, tf, _ = frames
     grids = []
     for par in (1, 2):
@@ -338,10 +340,25 @@ def test_grid_parallelism_builds_the_same_models(frames):
         assert m.auc() == other.auc() and m.logloss() == other.logloss()
     aucs = [m.auc() for m in g.get_grid("auc")]
     assert aucs == sorted(aucs, reverse=True)
-    with pytest.raises(NotImplementedError, match="io/persist"):
-        h2o3_tpu_torch.H2OGridSearch(
-            h2o3_tpu_torch.H2OGradientBoostingEstimator, {},
-            recovery_dir="checkpoints")
+    rdir = str(tmp_path / "checkpoints")
+    hyper = {"max_depth": [2, 3]}
+    kw = dict(x=X, y="y", training_frame=tf, ntrees=3, nbins=20, seed=3,
+              distribution="bernoulli")
+    first = h2o3_tpu_torch.H2OGridSearch(
+        h2o3_tpu_torch.H2OGradientBoostingEstimator, hyper,
+        grid_id="recov", recovery_dir=rdir).train(**kw)
+    for key in first.model_ids:
+        DKV.remove(key)
+    again = h2o3_tpu_torch.H2OGridSearch(
+        h2o3_tpu_torch.H2OGradientBoostingEstimator, hyper,
+        grid_id="recov", recovery_dir=rdir)
+    again._cls = None                  # a train would fail: none may run
+    again.train(**kw)
+    assert again.failures == [] and len(again) == 2
+    assert sorted(again.model_ids) == sorted(first.model_ids)
+    for a, b in zip(sorted(again.models, key=lambda m: m.key),
+                    sorted(first.models, key=lambda m: m.key)):
+        assert a is not b and a.auc() == b.auc()
 
 
 def test_grid_stops_at_its_runtime_budget(frames):

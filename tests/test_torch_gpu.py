@@ -18,7 +18,10 @@ models without kernels (GLM, DeepLearning, KMeans, PCA, SVD, GLRM) are
 held on the card against their CPU runs, each tolerance in its test; so
 are the frame data plane's prefetch stream and spill ladder (bit for
 bit) and the sparse GLM (bit for bit twice on the card; within 1e-4 of
-the CPU's, whose float64 sums round in another order).
+the CPU's, whose float64 sums round in another order). A CSV parsed on
+the card has the CPU parse's codecs and bits, whole and chunked; a GBM
+saved on the card predicts bit for bit after loading there and within
+1e-5 on the CPU (f32 sums in another order).
 """
 
 import numpy as np
@@ -1011,3 +1014,64 @@ def test_sparse_glm_on_the_card_matches_the_cpu(dev):
     assert np.array_equal(g1, g2) and np.array_equal(p1, p2)
     assert np.abs(g1 - cb).max() <= 1e-4 * np.abs(cb).max()
     assert np.abs(p1 - cp).max() <= 1e-5
+
+
+def _csv(path, n=3000, seed=151):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        f.write("a,b,c,y\n")
+        for i in range(n):
+            a = "NA" if i % 17 == 0 else f"{rng.normal():.6f}"
+            c = ["x", "yy", "-0", "1234567.4", '"q""r"'][int(rng.integers(5))]
+            f.write(f"{a},{rng.normal():.9g},{c},"
+                    f"{'yes' if rng.random() < 0.4 else 'no'}\n")
+
+
+@pytest.mark.gpu
+def test_chunked_parse_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A CSV through the native tokenizer, whole and in many chunks on
+    the pool: every plane on the card, the same codecs and bits as the
+    CPU's parse, every byte counted by the native engine."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.io import dparse, fastcsv
+    p = str(tmp_path / "m.csv")
+    _csv(p)
+    out = {}
+    for d in ("cpu", "cuda"):
+        h2o.init(device=d)
+        fastcsv.reset_counts()
+        frames = (h2o.import_file(p),
+                  dparse.parse_files([p], chunk_bytes=4096, workers=4))
+        assert fastcsv.TOKENIZED_BYTES["python"] == 0
+        out[d] = [[(v.type, v.levels(), v.codec.kind,
+                    v.as_f32().cpu().numpy().view(np.uint32).tolist())
+                   for v in fr.vecs] for fr in frames]
+        assert all(v.as_f32().device.type == d for fr in frames
+                   for v in fr.vecs)
+    assert out["cpu"] == out["cuda"]
+    assert out["cuda"][0] == out["cuda"][1]
+
+
+@pytest.mark.gpu
+def test_model_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):
+    """A GBM trained on the card, saved, and loaded onto the card (the
+    same predictions bit for bit) and onto the CPU (within 1e-5)."""
+    import h2o3_tpu_torch as h2o
+    p = str(tmp_path / "m.csv")
+    _csv(p)
+    h2o.init()
+    fr = h2o.import_file(p)
+    m = h2o.H2OGradientBoostingEstimator(ntrees=5, max_depth=4, seed=1)
+    m.train(y="y", training_frame=fr)
+    want = m.predict(fr).vecs[-1].as_f32()
+    path = str(tmp_path / "gbm.bin")
+    h2o.save_model(m, path)
+    back = h2o.load_model(path)
+    assert torch.equal(back.predict(fr).vecs[-1].as_f32().view(torch.int32),
+                       want.view(torch.int32))
+    h2o.init(device="cpu")
+    cpu = h2o.load_model(path)
+    got = cpu.predict(h2o.import_file(p)).vecs[-1].as_f32()
+    assert got.device.type == "cpu"
+    assert float((got - want.cpu()).abs().max()) <= 1e-5
+    h2o.init()

@@ -492,6 +492,11 @@ def test_port_imports_no_jax():
         "segments", "naive_bayes", "quantile", "coxph", "psvm",
         "_lbfgs", "target_encoder", "gam", "extended_isofor", "aggregator",
         "rulefit", "infogram", "word2vec")} <= set(files)
+    assert {pkg / "io" / f"{m}.py" for m in (
+        "parser", "fastcsv", "dparse", "uri", "xlsx", "columnar",
+        "persist", "spill")} <= set(files)
+    assert {pkg / "genmodel" / "mojo.py",
+            pkg / "utils" / "env.py"} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
