@@ -305,6 +305,26 @@ Phases, each printing its lines before the last:
            bit, MB/s at float width; (b)'s GBM for 10 trees on both frames
            with the same predictions bit for bit and (b)'s launches per
            tree;
+     then munging through h2o3_tpu_torch.rapids (no kernel on its path),
+     each run with its peak device memory:
+       (aq) h2oai/db-benchmark's group-by data G1_1e7_1e2_0_0 (numpy seed
+           20) and its questions 1-8 and 10, each twice, both times and
+           rows/s printed: group keys, counts and integer sums equal to
+           float64 numpy's, means within 1e-6 and sd within 1e-5
+           relative, q6's medians numpy's over the f32 values, q1 and q10
+           bit for bit across the two runs;
+       (as) on (aq)'s frame: sort by id4 ascending and v3 descending
+           (np.lexsort's order), cut, h2o.fillna forward and backward
+           (maxlen 2) on v3 with 1% NAs, rank_within_groupby, melt, pivot
+           of a duplicate-free 1M-row slice, cor, scale, ifelse, cumsum,
+           each against numpy; a Session's chain of temps with tmp= and
+           rm, released at its end; create_frame at 1e6 x 100;
+       (ar) db-benchmark's join data J1_1e7_NA_0_0 (numpy seed 21) and
+           its questions 1-5 through (merge …), and an outer join of x
+           and medium (q6, the port's own join in place of pandas), each
+           twice: the rows, the sums of v1 and v2 over the joined rows,
+           q3's NaN rows, q6's NaN counts and key order, and the clashing
+           names' _x and _y against numpy;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -324,9 +344,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(ap) are printed again just before the two JSON
+The lines of runs (d)-(as) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(ap)
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(as)
 add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -628,11 +648,102 @@ AIR_GRID_GBM = dict(ntrees=5, nbins=20, distribution="bernoulli", seed=1)
 # (seed 7, 29 columns) written with %.9g (every f32 round-trips) and read
 # back; (b)'s GBM for 10 trees on both frames
 HIGGS_CSV_N = 1_000_000
+# runs (aq)-(as): munging at h2oai/db-benchmark's published 1e7 sizes,
+# the data made from numpy seeds (`groupby_columns`, `join_tables`: the
+# benchmark's generated CSVs are not in the repository)
+GB_N, GB_K, GB_SEED = 10_000_000, 100, 20
+JN_N, JN_SEED = 10_000_000, 21
+# (as): the pivot's duplicate-free slice, create_frame's size
+PIVOT_ROWS, CF_ROWS, CF_COLS = 1_000_000, 1_000_000, 100
 # the adaptive engine's stages, as its functions (engine.py)
 STAGES = (("select", "in_sample_rows"), ("ranges", "_ranges"),
           ("binning", "bin_rows"), ("histogram", "build_histograms"),
           ("split search", "find_best_splits"), ("route", "route_rows"),
           ("gamma_pass", "gamma_pass"), ("covers", "node_covers"))
+
+
+def groupby_columns(n, k, seed):
+    """db-benchmark's groupby-datagen.R, G1_<n>_<k>_0_0 (no NAs, rows
+    unsorted): {name: (values, levels)}, a categorical as its codes into
+    the sorted levels. id1 and id2 take k levels id001…, id3 n/k levels
+    id0000000001…; id4 and id5 are integers in 1..k, id6 in 1..n/k; v1 in
+    1..5, v2 in 1..15, v3 uniform in [0, 100) rounded to 6 digits."""
+    rng = np.random.default_rng(seed)
+    nk = n // k
+
+    def levels(m, width):
+        return [f"id{i:0{width}d}" for i in range(1, m + 1)]
+
+    def ints(lo, hi):
+        return rng.integers(lo, hi, n).astype(np.float64)
+
+    return {"id1": (ints(0, k), levels(k, 3)),
+            "id2": (ints(0, k), levels(k, 3)),
+            "id3": (ints(0, nk), levels(nk, 10)),
+            "id4": (ints(1, k + 1), None), "id5": (ints(1, k + 1), None),
+            "id6": (ints(1, nk + 1), None), "v1": (ints(1, 6), None),
+            "v2": (ints(1, 16), None),
+            "v3": (np.round(rng.uniform(0, 100, n), 6), None)}
+
+
+def join_tables(n, seed, n1=None, n2=None):
+    """db-benchmark's join-datagen.R, J1_<n>_NA_0_0: the tables x (n
+    rows), small (n1 = n/1e6), medium (n2 = n/1e3) and big (n), each
+    {name: (values, levels)}. Each key set is split as the script splits
+    it: of 1.1 m shuffled keys, 0.9 m are on both sides, 0.1 m on x's side
+    only and 0.1 m on the right's only. id1, id2 and id3 are integer keys
+    (id3 a permutation); id4 and id5 the factors "id<key>" of id1 and id2
+    (levels sorted as text); v1 and v2 uniform in [0, 100) rounded to 6
+    digits. The 1e7-level factor id6 is left out: no question reads it,
+    and its levels would be 1e7 host strings."""
+    rng = np.random.default_rng(seed)
+    n1 = n // 10**6 if n1 is None else n1
+    n2 = n // 10**3 if n2 is None else n2
+
+    def split(m):
+        key = rng.permutation(int(m * 1.1)) + 1
+        a = int(m * 0.9)
+        return key[:a], key[a:m], key[m:int(m * 1.1)]
+
+    def sample_all(keys, size):
+        extra = rng.choice(keys, size - keys.size)
+        return rng.permutation(np.concatenate([keys, extra]))
+
+    def factor(ids):
+        u, inv = np.unique(ids, return_inverse=True)
+        text = np.array([f"id{v}" for v in u])
+        order = np.argsort(text)
+        rank = np.empty(u.size, np.int64)
+        rank[order] = np.arange(u.size)
+        return rank[inv].astype(np.float64), text[order].tolist()
+
+    def v(size):
+        return (np.round(rng.uniform(0, 100, size), 6), None)
+
+    k1, k2, k3 = split(n1), split(n2), split(n)
+    x1 = sample_all(np.concatenate([k1[0], k1[1]]), n)
+    x2 = sample_all(np.concatenate([k2[0], k2[1]]), n)
+    x = {"id1": (x1.astype(np.float64), None),
+         "id2": (x2.astype(np.float64), None),
+         "id3": (rng.permutation(np.concatenate([k3[0], k3[1]]))
+                 .astype(np.float64), None),
+         "id4": factor(x1), "id5": factor(x2), "v1": v(n)}
+    s1 = rng.permutation(np.concatenate([k1[0], k1[2]]))
+    small = {"id1": (s1.astype(np.float64), None), "id4": factor(s1),
+             "v2": v(n1)}
+    m1 = sample_all(np.concatenate([k1[0], k1[2]]), n2)
+    m2 = rng.permutation(np.concatenate([k2[0], k2[2]]))
+    medium = {"id1": (m1.astype(np.float64), None),
+              "id2": (m2.astype(np.float64), None),
+              "id4": factor(m1), "id5": factor(m2), "v2": v(n2)}
+    b1 = sample_all(np.concatenate([k1[0], k1[2]]), n)
+    b2 = sample_all(np.concatenate([k2[0], k2[2]]), n)
+    big = {"id1": (b1.astype(np.float64), None),
+           "id2": (b2.astype(np.float64), None),
+           "id3": (rng.permutation(np.concatenate([k3[0], k3[2]]))
+                   .astype(np.float64), None),
+           "id4": factor(b1), "id5": factor(b2), "v2": v(n)}
+    return x, small, medium, big
 
 
 def fail(msg):
@@ -655,7 +766,7 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"word2vec \(ak|models on ported|small path ingest|"
                    r"sparse glm \(al|svmlight \(am|pager \(an|"
                    r"frame data plane|airline \(ao|higgs csv \(ap|"
-                   r"ingest and persistence)")
+                   r"ingest and persistence|munging)")
 
 
 def say(msg):
@@ -5265,6 +5376,509 @@ def phase_ingest(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+# runs (aq)-(as): munging through h2o3_tpu_torch.rapids at db-benchmark's
+# 1e7 sizes
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _db_frame(torch, cols, key, dev):
+    """A Frame of f32 columns made on the device from {name: (values,
+    levels)} (integer codes and keys below 2^24 are exact in f32)."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, T_NUM, Vec
+    return Frame(list(cols), [
+        Vec.from_tensor(torch.from_numpy(np.asarray(v, np.float32)).to(dev),
+                        T_CAT if lv is not None else T_NUM, lv)
+        for v, lv in cols.values()], key)
+
+
+def _np_of(fr, j):
+    return fr.vecs[j].as_f32().cpu().numpy().astype(np.float64)
+
+
+def _drop_new(before):
+    """Every store key made since `before` removed (a query's temps)."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    for k in set(DKV.keys()) - before:
+        DKV.remove(k)
+
+
+def _twice(torch, h2o, expr):
+    """A Rapids expression run twice, as db-benchmark runs each question:
+    both results and both times (each ending in a synchronise)."""
+    out = []
+    for _ in range(2):
+        _sync(torch)
+        t0 = time.perf_counter()
+        r = h2o.rapids(expr)
+        _sync(torch)
+        out.append((r, time.perf_counter() - t0))
+    return out
+
+
+def _np_groups(keys):
+    """Groups of non-negative integer key columns in sorted tuple order:
+    the key tuples, each row's group, the group sizes."""
+    comb = np.zeros(keys[0].size, np.int64)
+    for k in keys:
+        comb = comb * (int(k.max()) + 1) + k.astype(np.int64)
+    _, first, inv, cnt = np.unique(comb, return_index=True,
+                                   return_inverse=True, return_counts=True)
+    return [k[first] for k in keys], inv.reshape(-1), cnt
+
+
+def _same_bits(torch, a, b):
+    return all(torch.equal(u.as_f32().view(torch.int32),
+                           v.as_f32().view(torch.int32))
+               for u, v in zip(a.vecs, b.vecs))
+
+
+def groupby_run(torch, h2o, n=GB_N, k=GB_K):
+    """Run (aq): db-benchmark's group-by questions 1-8 and 10 on
+    G1_<n>_<k>_0_0, each twice, each checked against float64 numpy over
+    the frame's values. Returns the frame and its columns for (as)."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    dev = h2o.cloud().device
+    t0 = time.perf_counter()
+    cols = groupby_columns(n, k, GB_SEED)
+    fr = _db_frame(torch, cols, "gb_x", dev)
+    c = {name: v.astype(np.float32).astype(np.float64)
+         for name, (v, _) in cols.items()}
+    say(f"munging (aq) G1_{n:.0e}_{k:.0e}_0_0 made in "
+        f"{time.perf_counter() - t0:.1f} s: {fr.nrows} rows, "
+        f"{[len(v[1]) for v in cols.values() if v[1] is not None]} levels")
+    v1, v2, v3 = c["v1"], c["v2"], c["v3"]
+    cache = {}
+
+    def groups(*names):
+        if names not in cache:
+            cache[names] = _np_groups([c[m] for m in names])
+        return cache[names]
+
+    def sums(inv, x):
+        return np.bincount(inv, weights=x)
+
+    def keys_equal(r, keys, cnt=None):
+        for j, kv in enumerate(keys):
+            check(np.array_equal(_np_of(r, j), kv), f"{r.names[j]} keys")
+        check(r.nrows == keys[0].size, "group count")
+
+    def q1(r):
+        keys, inv, cnt = groups("id1")
+        keys_equal(r, keys)
+        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q1 sum v1")
+
+    def q2(r):
+        keys, inv, cnt = groups("id1", "id2")
+        keys_equal(r, keys)
+        check(np.array_equal(_np_of(r, 2), sums(inv, v1)), "q2 sum v1")
+
+    def q3(r):
+        keys, inv, cnt = groups("id3")
+        keys_equal(r, keys)
+        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q3 sum v1")
+        rel(_np_of(r, 2), sums(inv, v3) / cnt, 1e-6, "q3 mean v3")
+
+    def q4(r):
+        keys, inv, cnt = groups("id4")
+        keys_equal(r, keys)
+        for j, x in enumerate((v1, v2, v3)):
+            rel(_np_of(r, 1 + j), sums(inv, x) / cnt, 1e-6, f"q4 mean {j}")
+
+    def q5(r):
+        keys, inv, cnt = groups("id6")
+        keys_equal(r, keys)
+        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q5 sum v1")
+        check(np.array_equal(_np_of(r, 2), sums(inv, v2)), "q5 sum v2")
+        rel(_np_of(r, 3), sums(inv, v3), 1e-6, "q5 sum v3")
+
+    def q6(r):
+        keys, inv, cnt = groups("id4", "id5")
+        keys_equal(r, keys)
+        # medians as numpy's nanmedian gives them over the f32 values
+        x32 = v3.astype(np.float32)
+        order = np.lexsort((x32, inv))
+        xs = x32[order]
+        start = np.cumsum(cnt) - cnt
+        lo, hi = xs[start + (cnt - 1) // 2], xs[start + cnt // 2]
+        med = np.where(cnt % 2 == 1, lo, (lo + hi) / np.float32(2))
+        check(np.array_equal(_np_of(r, 2), med.astype(np.float64)),
+              "q6 median v3")
+        mean = sums(inv, v3) / cnt
+        sd = np.sqrt(sums(inv, (v3 - mean[inv]) ** 2) / (cnt - 1))
+        rel(_np_of(r, 3), sd, 1e-5, "q6 sd v3")
+
+    def q7(r):
+        keys, inv, cnt = groups("id3")
+        order = np.argsort(inv, kind="stable")
+        start = np.cumsum(cnt) - cnt
+        mx = np.maximum.reduceat(v1[order], start)
+        mn = np.minimum.reduceat(v2[order], start)
+        check(r.nrows == cnt.size and np.array_equal(_np_of(r, 0), mx - mn),
+              "q7 max v1 - min v2")
+
+    def q8(r):
+        order = np.lexsort((-v3, c["id6"]))
+        g = c["id6"][order]
+        new = np.concatenate([[True], g[1:] != g[:-1]])
+        pos = np.arange(n)
+        start = np.maximum.accumulate(np.where(new, pos, 0))
+        top = order[pos - start < 2]
+        want = np.lexsort((c["v3"][top], c["id6"][top]))
+        got_g, got_v = _np_of(r, 5), _np_of(r, 8)
+        got = np.lexsort((got_v, got_g))
+        check(r.nrows == top.size
+              and np.array_equal(got_g[got], c["id6"][top][want])
+              and np.array_equal(got_v[got], v3[top][want]),
+              "q8 the largest two v3 by id6")
+
+    def q10(r):
+        keys, inv, cnt = groups("id1", "id2", "id3", "id4", "id5", "id6")
+        keys_equal(r, keys)
+        rel(_np_of(r, 6), sums(inv, v3), 1e-6, "q10 sum v3")
+        check(np.array_equal(_np_of(r, 7), cnt.astype(np.float64)),
+              "q10 count")
+
+    questions = [
+        ("q1 sum v1 by id1", "(GB gb_x [0] sum 6 \"rm\")", q1),
+        ("q2 sum v1 by id1:id2", "(GB gb_x [0 1] sum 6 \"rm\")", q2),
+        ("q3 sum v1 mean v3 by id3",
+         "(GB gb_x [2] sum 6 \"rm\" mean 8 \"rm\")", q3),
+        ("q4 mean v1:v3 by id4",
+         "(GB gb_x [3] mean 6 \"rm\" mean 7 \"rm\" mean 8 \"rm\")", q4),
+        ("q5 sum v1:v3 by id6",
+         "(GB gb_x [5] sum 6 \"rm\" sum 7 \"rm\" sum 8 \"rm\")", q5),
+        ("q6 median sd v3 by id4 id5",
+         "(GB gb_x [3 4] median 8 \"rm\" sd 8 \"rm\")", q6),
+        ("q7 max v1 - min v2 by id3",
+         "({g . (- (cols g [1]) (cols g [2]))} "
+         "(GB gb_x [2] max 6 \"rm\" min 7 \"rm\"))", q7),
+        ("q8 largest two v3 by id6",
+         "(rows gb_x (<= (cols (rank_within_groupby (cbind gb_x "
+         "(* (cols gb_x [8]) -1)) [5] [9] [1] \"r\" 0) [10]) 2))", q8),
+        ("q10 sum v3 count by id1:id6",
+         "(GB gb_x [0 1 2 3 4 5] sum 8 \"rm\" nrow 8 \"rm\")", q10),
+    ]
+    times = {}
+    for label, expr, chk in questions:
+        before = set(DKV.keys())
+        (r1, t1), (r2, t2) = _twice(torch, h2o, expr)
+        tc = time.perf_counter()
+        chk(r1)
+        same = _same_bits(torch, r1, r2)
+        if not same:
+            chk(r2)
+        if label.split()[0] in ("q1", "q10"):
+            check(same, f"(aq) {label}: two runs differ")
+        times[label.split()[0]] = (t1, t2)
+        say(f"munging (aq) {label}: {t1:.3f} s, {t2:.3f} s "
+            f"({n / t2:.3e} rows/s), {r1.nrows} rows out, the two runs "
+            f"{'bit for bit' if same else 'differ in bits'}; numpy check "
+            f"{time.perf_counter() - tc:.1f} s")
+        del r1, r2
+        _drop_new(before)
+    return fr, c, times
+
+
+def rel(got, want, tol, what):
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    check(err <= tol, f"{what}: relative error {err:.3g} above {tol}")
+
+
+def join_run(torch, h2o, n=JN_N, n1=None, n2=None):
+    """Run (ar): db-benchmark's join questions 1-5 on J1_<n>_NA_0_0 through
+    (merge …), and q6, x outer-joined with medium, each twice; rows, the
+    sums of v1 and v2 over the joined rows and the names against numpy,
+    q3's NaN rows exactly, q6's NaN counts and its key in sorted order."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    dev = h2o.cloud().device
+    t0 = time.perf_counter()
+    x, small, medium, big = join_tables(n, JN_SEED, n1, n2)
+    fx = _db_frame(torch, x, "jn_x", dev)
+    rhs = {"small": _db_frame(torch, small, "jn_small", dev),
+           "medium": _db_frame(torch, medium, "jn_medium", dev),
+           "big": _db_frame(torch, big, "jn_big", dev)}
+    tabs = {"small": small, "medium": medium, "big": big}
+    say(f"munging (ar) J1_{n:.0e}_NA_0_0 made in "
+        f"{time.perf_counter() - t0:.1f} s: x {fx.nrows}, small "
+        f"{rhs['small'].nrows}, medium {rhs['medium'].nrows}, big "
+        f"{rhs['big'].nrows} rows")
+    v1 = x["v1"][0].astype(np.float32).astype(np.float64)
+    questions = [("q1 small inner on int", "small", "id1", "inner"),
+                 ("q2 medium inner on int", "medium", "id2", "inner"),
+                 ("q3 medium left on int", "medium", "id2", "left"),
+                 ("q4 medium inner on factor", "medium", "id5", "inner"),
+                 ("q5 big inner on int", "big", "id3", "inner"),
+                 ("q6 medium outer on int", "medium", "id2", "outer")]
+    times = {}
+    for label, side, key, how in questions:
+        tab, rf = tabs[side], rhs[side]
+        # numpy: each x row's matches (a factor id<k> matches as its key)
+        tc = time.perf_counter()
+        ikey = {"id5": "id2"}.get(key, key)
+        rk = tab[ikey][0]
+        uk, rcnt = np.unique(rk, return_counts=True)
+        v2 = tab["v2"][0].astype(np.float32).astype(np.float64)
+        v2sum = np.bincount(np.searchsorted(uk, rk), weights=v2)
+        pos = np.clip(np.searchsorted(uk, x[ikey][0]), 0, uk.size - 1)
+        hit = uk[pos] == x[ikey][0]
+        cnt = np.where(hit, rcnt[pos], 0)
+        xrows = cnt if how == "inner" else np.maximum(cnt, 1)
+        rows = int(xrows.sum())
+        s1 = float((v1 * xrows).sum())
+        s2 = float(np.where(hit, v2sum[pos], 0.0).sum())
+        lnames = list(x)
+        rnames = [c for c in tab if c != key]
+        if how == "outer":
+            # the right rows x's keys miss, once each; pandas' _x and _y
+            lone = ~np.isin(rk, x[ikey][0])
+            rows += int(lone.sum())
+            s2 += float(v2[lone].sum())
+            clash = set(lnames) & set(rnames)
+            want_names = [c + "_x" if c in clash else c for c in lnames] + [
+                c + "_y" if c in clash else c for c in rnames]
+        else:
+            want_names = lnames + [
+                (c if c not in lnames else c + "_y") for c in rnames]
+        tc = time.perf_counter() - tc
+        before = set(DKV.keys())
+        expr = (f"(merge jn_x jn_{side} {int(how != 'inner')} "
+                f"{int(how == 'outer')} [{lnames.index(key)}] "
+                f"[{list(tab).index(key)}] \"auto\")")
+        (r1, t1), (r2, t2) = _twice(torch, h2o, expr)
+        t_check = time.perf_counter()
+        for r in (r1, r2):
+            check(list(r.names) == want_names, f"(ar) {label}: names "
+                  f"{r.names}, want {want_names}")
+            check(r.nrows == rows, f"(ar) {label}: {r.nrows} rows, numpy "
+                  f"{rows}")
+            w1 = r.vec("v1").as_f32().double()
+            w2 = r.vec("v2").as_f32().double()
+            g1, g2 = float(torch.nansum(w1)), float(torch.nansum(w2))
+            check(abs(g1 - s1) <= 1e-9 * abs(s1)
+                  and abs(g2 - s2) <= 1e-9 * abs(s2),
+                  f"(ar) {label}: sums {g1}, {g2}; numpy {s1}, {s2}")
+            if how == "left":
+                nan_rows = np.repeat(~hit, np.maximum(cnt, 1))
+                check(np.array_equal(torch.isnan(w2).cpu().numpy(),
+                                     nan_rows), f"(ar) {label}: NaN rows")
+            if how == "outer":
+                kk = r.vec(key).as_f32()
+                check(int(torch.isnan(w1).sum()) == int(lone.sum())
+                      and int(torch.isnan(w2).sum()) == int((~hit).sum())
+                      and not bool(torch.isnan(kk).any())
+                      and bool((kk[1:] >= kk[:-1]).all()),
+                      f"(ar) {label}: NaN counts or key order")
+        times[label.split()[0]] = (t1, t2)
+        tc += time.perf_counter() - t_check
+        say(f"munging (ar) {label}: {t1:.3f} s, {t2:.3f} s, {rows} rows "
+            f"out ({(n + rf.nrows) / t2:.3e} input rows/s), names "
+            f"{r1.names[len(lnames):]}; numpy and checks {tc:.1f} s")
+        del r1, r2
+        _drop_new(before)
+    return times
+
+
+def _fill_np(x, maxlen, forward=True):
+    """Forward (or backward) fill of NAs at most `maxlen` rows from the
+    last valid value, in numpy."""
+    y = x if forward else x[::-1]
+    idx = np.where(~np.isnan(y), np.arange(y.size), -1)
+    last = np.maximum.accumulate(idx)
+    src = y[np.maximum(last, 0)]
+    ok = np.isnan(y) & (last >= 0) & (np.arange(y.size) - last <= maxlen)
+    out = np.where(ok, src, y)
+    return out if forward else out[::-1]
+
+
+def mungers_run(torch, h2o, fr, c):
+    """Run (as): the card's mungers on (aq)'s frame, each timed and held
+    against numpy; a Rapids chain of temps in a session; create_frame."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.rapids import Session
+    dev = h2o.cloud().device
+    n = fr.nrows
+    v1, v2, v3, id4 = c["v1"], c["v2"], c["v3"], c["id4"]
+    rng = np.random.default_rng(GB_SEED + 1)
+    v3na = v3.copy()
+    v3na[rng.random(n) < 0.01] = np.nan
+    _db_frame(torch, {"v3na": (v3na, None)}, "gb_na", dev)
+    npiv = min(PIVOT_ROWS, n)
+    i = np.arange(npiv)
+    _db_frame(torch, {"i": (i // 100, None), "c": (i % 100, None),
+                      "v": (v3[:npiv], None)}, "gb_pv", dev)
+    out = {}
+
+    def run(label, expr, chk):
+        before = set(DKV.keys())
+        _sync(torch)
+        t0 = time.perf_counter()
+        r = h2o.rapids(expr)
+        _sync(torch)
+        out[label] = time.perf_counter() - t0
+        chk(r)
+        del r
+        _drop_new(before)
+
+    def sort_chk(r):
+        o = np.lexsort((-v3, id4))
+        for j, want in ((3, id4), (8, v3), (6, v1)):
+            check(np.array_equal(_np_of(r, j), want[o]), "sort order")
+
+    def cut_chk(r):
+        br = np.float32([0, 25, 50, 75, 100])
+        code = np.searchsorted(br, v3.astype(np.float32), "left") - 1
+        want = np.where((code < 0) | (code >= 4), np.nan, code)
+        check(np.array_equal(_np_of(r, 0), want, equal_nan=True), "cut")
+
+    def fill_chk(forward):
+        return lambda r: check(np.array_equal(
+            _np_of(r, 0), _fill_np(v3na, 2, forward), equal_nan=True),
+            "fillna")
+
+    def rank_chk(r):
+        o = np.lexsort((v3, id4))
+        g = id4[o]
+        new = np.concatenate([[True], g[1:] != g[:-1]])
+        pos = np.arange(n)
+        rank = np.empty(n)
+        rank[o] = pos - np.maximum.accumulate(np.where(new, pos, 0)) + 1
+        check(np.array_equal(_np_of(r, 9), rank), "rank_within_groupby")
+
+    def melt_chk(r):
+        check(r.nrows == 3 * n and np.array_equal(
+            _np_of(r, 2), np.concatenate([v1, v2, v3]))
+            and np.array_equal(_np_of(r, 1), np.repeat([0.0, 1.0, 2.0], n))
+            and np.array_equal(_np_of(r, 0), np.tile(id4, 3)), "melt")
+
+    def pivot_chk(r):
+        want = v3[:npiv].reshape(-1, 100)
+        got = np.column_stack([_np_of(r, 1 + j) for j in range(100)])
+        check(r.nrows == npiv // 100 and np.array_equal(got, want)
+              and r.names[1] == "0.0", "pivot")
+
+    def cor_chk(r):
+        want = np.corrcoef(np.stack([v1, v2, v3]))
+        got = np.column_stack([_np_of(r, j) for j in range(3)])
+        check(np.max(np.abs(got - want)) <= 1e-9, "cor")
+
+    def scale_chk(r):
+        for j, x in enumerate((v1, v2, v3)):
+            z = (x - x.mean()) / x.std(ddof=1)
+            check(np.max(np.abs(_np_of(r, j) - z)) <= 1e-5, "scale")
+
+    def ifelse_chk(r):
+        check(np.array_equal(_np_of(r, 0), np.where(v3 > 50, v1, v2)),
+              "ifelse")
+
+    def cumsum_chk(r):
+        check(np.array_equal(_np_of(r, 0), np.cumsum(v1.astype(np.float32))
+                             .astype(np.float64)), "cumsum")
+
+    run("sort by id4 asc, v3 desc", "(sort gb_x [3 8] [1 0])", sort_chk)
+    run("cut", "(cut (cols gb_x [8]) [0 25 50 75 100])", cut_chk)
+    run("fillna forward", "(h2o.fillna gb_na \"forward\" 0 2)",
+        fill_chk(True))
+    run("fillna backward", "(h2o.fillna gb_na \"backward\" 0 2)",
+        fill_chk(False))
+    run("rank_within_groupby", "(rank_within_groupby gb_x [3] [8] [1] "
+        "\"r\" 0)", rank_chk)
+    run("melt", "(melt gb_x [3] [6 7 8] \"variable\" \"value\" 0)",
+        melt_chk)
+    run("pivot", "(pivot gb_pv \"i\" \"c\" \"v\")", pivot_chk)
+    run("cor", "(cor (cols gb_x [6 7 8]))", cor_chk)
+    run("scale", "(scale (cols gb_x [6 7 8]) 1 1)", scale_chk)
+    run("ifelse", "(ifelse (> (cols gb_x [8]) 50) (cols gb_x [6]) "
+        "(cols gb_x [7]))", ifelse_chk)
+    run("cumsum", "(cumsum (cols gb_x [6]))", cumsum_chk)
+    # a session's chain of temps
+    s = Session("as_chain")
+    _sync(torch)
+    t0 = time.perf_counter()
+    h2o.rapids("(tmp= as_a (cols gb_x [6 7 8]))", s)
+    h2o.rapids("(tmp= as_b (* as_a 2))", s)
+    g = h2o.rapids("(tmp= as_c (GB (cbind (cols gb_x [3]) as_b) [0] sum 1 "
+                   "\"rm\"))", s)
+    h2o.rapids("(rm as_a)", s)
+    keys, inv, _ = _np_groups([id4])
+    check(DKV.get("as_a") is None and np.array_equal(
+        _np_of(g, 1), 2 * np.bincount(inv, weights=v1)), "session chain")
+    s.end()
+    check(all(DKV.get(k) is None for k in ("as_b", "as_c")),
+          "session temps left after end()")
+    _sync(torch)
+    out["a session's chain"] = time.perf_counter() - t0
+    del g
+    # create_frame at its defaults
+    t0 = time.perf_counter()
+    cf = h2o.create_frame(rows=min(CF_ROWS, n), cols=CF_COLS, seed=22)
+    _sync(torch)
+    out["create_frame"] = time.perf_counter() - t0
+    kinds = [v.type for v in cf.vecs]
+    na = float(np.mean([np.isnan(v.as_f32().cpu().numpy()).mean()
+                        for v in cf.vecs]))
+    check(cf.shape == (min(CF_ROWS, n), CF_COLS)
+          and kinds.count("enum") == CF_COLS // 5 and 0.005 < na < 0.02,
+          f"create_frame: {cf.shape}, {kinds.count('enum')} categorical, "
+          f"NA share {na}")
+    DKV.remove(cf.key)
+    for k in ("gb_na", "gb_pv"):
+        DKV.remove(k)
+    say("munging (as) " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                    out.items())
+        + f"; create_frame {cf.shape[0]} x {cf.shape[1]}, NA share "
+        f"{na:.4f}")
+    return out
+
+
+def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N):
+    """Runs (aq), (as) and (ar), each timed with its peak device memory,
+    after every earlier frame is dropped from the store."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    DKV.clear()
+    gc.collect()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    times = {}
+
+    def start():
+        if cuda:
+            _sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def peak():
+        return (f"peak HBM {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                "GiB") if cuda else "on the CPU"
+
+    t0 = start()
+    fr, c, _ = groupby_run(torch, h2o, n=gb_n)
+    times["aq"] = time.perf_counter() - t0
+    say(f"munging (aq): {times['aq']:.1f} s, {peak()}")
+    t0 = start()
+    mungers_run(torch, h2o, fr, c)
+    times["as"] = time.perf_counter() - t0
+    say(f"munging (as): {times['as']:.1f} s, {peak()}")
+    del fr, c
+    DKV.clear()
+    gc.collect()
+    t0 = start()
+    join_run(torch, h2o, n=jn_n, n1=None if jn_n >= 10**7 else 10,
+             n2=None if jn_n >= 10**5 else 100)
+    times["ar"] = time.perf_counter() - t0
+    say(f"munging (ar): {times['ar']:.1f} s, {peak()}")
+    DKV.clear()
+    gc.collect()
+    say("munging, runs (aq)-(as): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items())
+        + f"; total {time.perf_counter() - t_all:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -5633,6 +6247,7 @@ def main():
     derived = phase_derived(torch, h2o, HC)
     phase_data_plane(torch, h2o, HC)
     phase_ingest(torch, h2o, HC)
+    phase_munging(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -5640,7 +6255,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(ap) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(as) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -57,6 +57,12 @@ by the JAX package's codecs and paged between the card, host memory and
 spill files (`core.tiering.PAGER`, `core.memory.MANAGER`); string, UUID
 and sparse columns have their own layouts, and GLM on all-sparse
 predictors fits without building the dense design.
+
+`rapids(expr)` evaluates a Rapids expression (the language H2O's clients
+compile frame operations into) over the store's frames: arithmetic,
+math, reducers, string and time prims, and the mungers (sort, group-by
+and merge on the card, `ops/device_sort.py`); `create_frame` makes a
+random frame of mixed types from a seed.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
@@ -116,6 +122,22 @@ def export_file(frame, path):
     return export_frame(frame, path)
 
 
+def create_frame(**kw):
+    """A random frame of mixed column types (h2o.create_frame)."""
+    from h2o3_tpu_torch.utils.create_frame import create_frame as _cf
+    return _cf(**kw)
+
+
+# the subpackage first: its first import binds the name `rapids` here to
+# the module, so the function must be defined after it
+from h2o3_tpu_torch.rapids import rapids_exec as _rapids_exec  # noqa: E402
+
+
+def rapids(expr, session=None):
+    """Evaluate a Rapids expression (h2o.rapids) over the store's frames."""
+    return _rapids_exec(expr, session)
+
+
 def quantile(frame, prob=None, combine_method="interpolate",
              weights_column=None):
     """h2o.quantile: a Frame of a Probs column and one column of
@@ -142,6 +164,7 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
            "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
            "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud",
-           "export_file", "get_frame", "get_model", "import_file", "init",
-           "load_model", "ls", "parse_setup", "quantile", "remove",
-           "save_model", "shutdown", "train_segments", "upload_frame"]
+           "create_frame", "export_file", "get_frame", "get_model",
+           "import_file", "init", "load_model", "ls", "parse_setup",
+           "quantile", "rapids", "remove", "save_model", "shutdown",
+           "train_segments", "upload_frame"]

@@ -151,12 +151,20 @@ def fixed_point_scale(rows, n_rows):
     n = int(n_rows)
     a = rows.abs()
     m = torch.where(a < float("inf"), a, torch.zeros_like(a)).amax(dim=1)
-    t = m.to(torch.float64) * n
+    return pow2_scale(m.to(torch.float64) * n)
+
+
+def pow2_scale(t):
+    """The scale for sums bounded by t (f64, any shape): 2**e elementwise,
+    with e the largest integer such that t * 2**e <= 2**62 (1 where t is
+    0 or not finite, at most 2**1023), so every such sum of values at
+    that scale fits int64."""
     mant, ex = torch.frexp(t)
     # t = mant * 2**ex with mant in [0.5, 1): t * 2**e <= 2**62 holds up to
     # e = 62 - ex, and up to 63 - ex when mant is exactly 0.5
     e = (62 - ex + (mant == 0.5).to(ex.dtype)).to(torch.int64)
-    e = torch.where(t > 0, e, torch.zeros_like(e))
+    e = torch.where((t > 0) & (t < float("inf")), e,
+                    torch.zeros_like(e)).clamp(max=1023)
     # 2**e built from its bits (torch.ldexp rounds through f32)
     return ((e + 1023) << 52).view(torch.float64)
 

@@ -1075,3 +1075,50 @@ def test_model_saved_on_the_card_loads_on_the_cpu(dev, tmp_path):
     assert got.device.type == "cpu"
     assert float((got - want.cpu()).abs().max()) <= 1e-5
     h2o.init()
+
+
+@pytest.mark.gpu
+def test_device_sort_ties_signed_zeros_on_the_card(dev):
+    """A key of -0.0 and +0.0 (and a descending key, whose sign flip makes
+    every 0 a -0.0) sorts on the card in the CPU's stable order, which is
+    the JAX package's: the zeros tie and keep their rows' order. At 1M rows
+    torch sorts on the card by radix over the float's bits."""
+    from h2o3_tpu_torch.ops import device_sort as DS
+    rng = np.random.default_rng(8)
+    z = rng.integers(-2, 3, 1 << 20).astype(np.float32)
+    zero = z == 0
+    z[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    K = torch.from_numpy(z)[:, None]
+    for sign in (1.0, -1.0):
+        got = DS.lexsort_rows((K * sign).to(dev)).cpu()
+        want = DS.lexsort_rows(K * sign)
+        assert torch.equal(got, want)
+        assert torch.equal(want, torch.from_numpy(
+            np.lexsort([np.where(z * sign == 0, 0.0, z * sign)])))
+
+
+@pytest.mark.gpu
+def test_group_sums_bit_identical_twice_on_the_card(dev):
+    """group_by_device's sums and means on the card: the same bits from
+    two runs (exact fixed point), integer sums equal to numpy's."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    from h2o3_tpu_torch.ops import device_sort as DS
+    h2o.init()
+    rng = np.random.default_rng(9)
+    n = 1 << 21
+    k = rng.integers(0, 1000, n).astype(np.float32)
+    v = rng.integers(1, 6, n).astype(np.float32)
+    x = np.round(rng.uniform(0, 100, n), 6).astype(np.float32)
+    fr = Frame(["k", "v", "x"], [Vec.from_tensor(torch.from_numpy(c)
+                                                 .to(dev)) for c in (k, v, x)])
+    aggs = [("sum", 1), ("sum", 2), ("mean", 2), ("sd", 2)]
+    a = DS.group_by_device(fr, [0], aggs)[1]
+    b = DS.group_by_device(fr, [0], aggs)[1]
+    for c, d in zip(a, b):
+        assert torch.equal(c.view(torch.int32), d.view(torch.int32))
+    np.testing.assert_array_equal(
+        a[1].cpu().numpy(), np.bincount(k.astype(int), weights=v))
+    np.testing.assert_allclose(
+        a[2].cpu().numpy(), np.bincount(k.astype(int), weights=x),
+        rtol=1e-6)

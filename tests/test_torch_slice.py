@@ -497,6 +497,10 @@ def test_port_imports_no_jax():
         "persist", "spill")} <= set(files)
     assert {pkg / "genmodel" / "mojo.py",
             pkg / "utils" / "env.py"} <= set(files)
+    assert {pkg / "ops" / "device_sort.py", pkg / "rapids" / "rapids.py",
+            pkg / "rapids" / "prims_ext.py"} | {
+        pkg / "utils" / f"{m}.py" for m in (
+            "config", "tools", "stats", "create_frame")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
