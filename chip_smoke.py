@@ -325,6 +325,30 @@ Phases, each printing its lines before the last:
            twice: the rows, the sums of v1 and v2 over the joined rows,
            q3's NaN rows, q6's NaN counts and key order, and the clashing
            names' _x and _y against numpy;
+     then export, explanation and AutoML at HIGGS width (phase
+     export_explain; the models of (b), (k), (q) and (t), trained again
+     at their settings when the phase runs alone):
+       (at) (b)'s GBM as an H2O-3 MOJO, read back by import_mojo and
+           scored on all 11M rows on the card by H2OGenericEstimator: the
+           imported trees' col, thr and na_left bit for bit where a walk
+           reaches, each leaf f32(value*learn_rate), probabilities within
+           1e-5 of predict; its native MOJO (the numpy scorer) on the 1M
+           validation rows and its POJO's arrays replayed on 10,000, each
+           within 1e-5; (k)'s GLM, (q)'s net and (t)'s KMeans through their
+           H2O-3 MOJO oracles on 1M rows (1e-5; the same clusters); export
+           and import seconds and MB/s, rows/s of each scorer;
+       (au) on (b)'s model over the validation rows: the PDP of x0 and x4
+           at 20 bins (one bin equal, bit for bit, to the weighted mean of
+           predict on the frame with x0 set to its value), ICE of 100 rows,
+           permutation importance by AUC of the 28 columns (x0 and x1
+           first; x7-x27, which the logit never reads, under 2e-3);
+       (av) AutoML (GLM and GBM, 4 models, 3 folds, seed 1) on the first
+           1M rows: the binned kernels launched, the leaderboard sorted by
+           AUC, the best CV AUC above 0.7, the best GBM step trained alone
+           the same trees bit for bit (its binned kernels' share of its
+           train(), by CUDA events around each launch), the leader trained
+           alone the same, each ensemble's CV AUC (its metalearner on the
+           holdout predictions) at least the best base model's less 1e-3;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -344,9 +368,9 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(as) are printed again just before the two JSON
+The lines of runs (d)-(av) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(as)
+engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(av)
 add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
@@ -648,6 +672,19 @@ AIR_GRID_GBM = dict(ntrees=5, nbins=20, distribution="bernoulli", seed=1)
 # (seed 7, 29 columns) written with %.9g (every f32 round-trips) and read
 # back; (b)'s GBM for 10 trees on both frames
 HIGGS_CSV_N = 1_000_000
+# runs (at)-(av): export and import (probabilities within EXPORT_TOL of
+# predict, the POJO replayed on POJO_ROWS rows), the PDP of PDP_COLS at
+# PDP_BINS bins (PDP_CHECK_BIN held against predict bit for bit), ICE of
+# ICE_ROWS rows, permutation importance (the logit never reads x7-x27:
+# each moves the AUC by less than NOISE_DAUC), AutoML on the first
+# AML_ROWS rows (the best CV AUC above AML_AUC_BAR, each stacked
+# ensemble's at least the best base model's less SE_MARGIN)
+EXPORT_TOL = 1e-5
+POJO_ROWS = 10_000
+PDP_COLS, PDP_BINS, PDP_CHECK_BIN, ICE_ROWS = ("x0", "x4"), 20, 7, 100
+NOISE_COLS, NOISE_DAUC = range(7, 28), 2e-3
+AML = dict(include_algos=["GLM", "GBM"], max_models=4, nfolds=3, seed=1)
+AML_ROWS, AML_AUC_BAR, SE_MARGIN = 1_000_000, 0.7, 1e-3
 # runs (aq)-(as): munging at h2oai/db-benchmark's published 1e7 sizes,
 # the data made from numpy seeds (`groupby_columns`, `join_tables`: the
 # benchmark's generated CSVs are not in the repository)
@@ -766,12 +803,18 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"word2vec \(ak|models on ported|small path ingest|"
                    r"sparse glm \(al|svmlight \(am|pager \(an|"
                    r"frame data plane|airline \(ao|higgs csv \(ap|"
-                   r"ingest and persistence|munging)")
+                   r"ingest and persistence|munging|export and import "
+                   r"\(at|explain \(au|automl \(av|export, explain)")
 
 
 def say(msg):
     LOG.append(msg)
     print(msg, flush=True)
+
+
+# models of runs (b), (k), (q) and (t) kept for phase_export_explain, which
+# retrains one at the same settings when the phase runs alone
+KEPT = {}
 
 
 def check(cond, msg):
@@ -1188,6 +1231,26 @@ def phase_small_path(torch, h2o, HC):
 
 
 # ---------------------------------------------------------------------------
+class EventTimer:
+    """Wraps a kernel wrapper to time each call between two CUDA events
+    (no synchronise: the events are read after the run)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.pairs = torch, fn, []
+
+    def __call__(self, *args, **kw):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.fn(*args, **kw)
+        ev[1].record()
+        self.pairs.append(ev)
+        return out
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
 class Recorder:
     """Wraps a kernel wrapper to keep the inputs of its first `keep`
     calls (one tree's levels); the wrapper itself still runs and counts."""
@@ -1348,6 +1411,7 @@ def phase_higgs(torch, h2o, HC):
         out[label[0]] = (launches, calls)
         if label[0] == "b":
             performance_check("higgs (b)", m, valid)
+            KEPT["b"] = m
         del m
     say(f"higgs train AUC: default {aucs['b']:.6f}, int8_hist "
         f"{aucs['c']:.6f}")
@@ -2248,6 +2312,7 @@ def glm_higgs_runs(torch, h2o, HC, fr, valid):
     performance_check("glm (k)", m, valid)
     glm_gram_check(torch, m, fr)
     k_auc = m.auc()
+    KEPT["k"] = m
     del m
     glm_slice_card_vs_cpu(torch, h2o, fr)
     glm_stage_table(torch, h2o, fr, "run (k) without cross-validation",
@@ -2840,6 +2905,7 @@ def dl_higgs_run(torch, h2o, HC, fr, valid):
           f"deeplearning (q) AUC: train {m.auc()}, validation "
           f"{m.auc(valid=True)}")
     dl_stage_table(torch, m, fr, "deeplearning (q)")
+    KEPT["q"] = m
     del m
     m = dl_busy_share(torch, h2o, fr, DL_PROFILE_EPOCHS)
     dl_twice(torch, h2o, fr, m, DL_PROFILE_EPOCHS)
@@ -3004,6 +3070,7 @@ def kmeans_blob_run(torch, h2o, HC):
     say(f"kmeans (t): trained twice: centroids bit-identical {same} (max "
         f"diff {float((m._centroids - m2._centroids).abs().max()):.3g})")
     check(same, "kmeans (t): a second training gave other centroids")
+    KEPT["t"] = m
     del m2
     kmeans_stage_table(torch, m, fr)
     # the first KM_SLICE_N rows on the card and on the CPU
@@ -5879,6 +5946,403 @@ def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N):
 
 
 # ---------------------------------------------------------------------------
+# Runs (at)-(av), phase_export_explain: (b)'s GBM, (k)'s GLM, (q)'s net and
+# (t)'s KMeans through their artifacts and back, the explanation of (b)'s
+# model, and AutoML at HIGGS width. (at) and (au) launch no kernel of
+# ops/hist_cuda.py (scoring walks the trees in plain PyTorch); (av)'s GBM
+# steps train on the binned engine and launch them.
+def _np_tree_walk(col, thr, nal, val, depth, X):
+    """The sum over trees of each row's leaf value, walked as the POJO's
+    score0 walks its arrays (x > thr right, NaN by the NA direction)."""
+    T, nodes = col.shape
+    rows = np.arange(X.shape[0])
+    out = np.zeros(X.shape[0])
+    for t in range(T):
+        node = np.zeros(X.shape[0], np.int64)
+        for _ in range(depth):
+            c = col[t, node]
+            x = X[rows, np.maximum(c, 0)]
+            right = np.where(np.isnan(x), nal[t, node] == 0,
+                             x > thr[t, node])
+            node = np.where(c < 0, node, 2 * node + 1 + right)
+        out += val[t, node]
+    return out
+
+
+def _pojo_arrays(src, prefix):
+    """The tree arrays of a POJO's source, as test_pojo.py pulls them."""
+    def arr(name, dtype):
+        m = re.search(rf"{prefix}_{name}\s*=\s*\{{(.*?)\}};", src, re.S)
+        vals = [v.strip().rstrip("f") for v in m.group(1).split(",")]
+        return np.array([dtype(v) for v in vals if v])
+    T = int(re.search(rf"{prefix}_NTREES = (\d+)", src).group(1))
+    depth = int(re.search(rf"{prefix}_DEPTH = (\d+)", src).group(1))
+    return (arr("COL", int).reshape(T, -1), arr("THR", float).reshape(T, -1),
+            arr("NAL", int).reshape(T, -1), arr("VAL", float).reshape(T, -1),
+            depth)
+
+
+def _reached(torch, col):
+    """(T, nodes) bool: the heap nodes a walk from the root reaches."""
+    inner = col >= 0
+    reach = torch.zeros_like(inner)
+    reach[:, 0] = True
+    for i in range(col.shape[1] // 2):
+        reach[:, 2 * i + 1] |= reach[:, i] & inner[:, i]
+        reach[:, 2 * i + 2] |= reach[:, i] & inner[:, i]
+    return reach
+
+
+def _raw_matrix(fr, cols):
+    """Host float64 columns of a frame (the oracles' rows)."""
+    return np.column_stack([fr.vec(c).to_numpy() for c in cols])
+
+
+def _kept_models(torch, h2o, fr, valid, blobs):
+    """(b), (k), (q), (t) as the earlier runs left them, or each trained
+    again at its run's settings (the phase run alone)."""
+    out = dict(KEPT)
+    fresh = []
+    if "b" not in out:
+        m = h2o.H2OGradientBoostingEstimator(**HIGGS_DEFAULT)
+        m.train(y="y", training_frame=fr, validation_frame=valid)
+        out["b"] = m
+        fresh.append("b")
+    if "k" not in out:
+        m = h2o.H2OGeneralizedLinearEstimator(**GLM_K)
+        m.train(y="y", training_frame=fr, validation_frame=valid)
+        out["k"] = m
+        fresh.append("k")
+    if "q" not in out:
+        m = h2o.H2ODeepLearningEstimator(**DL_HIGGS)
+        m.train(y="y", training_frame=fr, validation_frame=valid)
+        out["q"] = m
+        fresh.append("q")
+    if "t" not in out:
+        m = h2o.H2OKMeansEstimator(**KM_BLOBS)
+        m.train(training_frame=blobs)
+        out["t"] = m
+        fresh.append("t")
+    torch.cuda.synchronize()
+    say(f"export and import (at): models of runs (b), (k), (q), (t): "
+        f"{'trained again ' + str(fresh) if fresh else 'kept from the runs'}")
+    return out
+
+
+def export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid, tmp):
+    """Run (at)."""
+    from h2o3_tpu_torch.genmodel import h2o_mojo as HM
+    gbm = models["b"]
+    lr = float(gbm.params["learn_rate"])
+    HC.reset_launches()
+    # (b)'s GBM as an H2O-3 MOJO, imported, scored on all of fr on the card
+    t0 = time.perf_counter()
+    path = gbm.download_mojo(os.path.join(tmp, "gbm_h2o3.zip"), format="h2o3")
+    t_exp = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    g = h2o.import_mojo(path)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = g.predict(fr)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    p_got = got.vec("p1").as_f32()
+    t0 = time.perf_counter()
+    want = gbm.predict(fr)
+    torch.cuda.synchronize()
+    t_own = time.perf_counter() - t0
+    p_want = want.vec("p1").as_f32()
+    d_p = float((p_got - p_want).abs().max())
+    imp, own = g._ref.trees_k[0], gbm._trees.to(p_got.device)
+    reach = _reached(torch, own.col)
+    node = reach & (own.col >= 0)
+    leaf = reach & (own.col < 0)
+    same_col = torch.equal(imp.col[reach], own.col[reach])
+    same_thr = torch.equal(imp.thr[node].view(torch.int32),
+                           own.thr[node].view(torch.int32))
+    same_nal = torch.equal(imp.na_left[node], own.na_left[node])
+    same_val = torch.equal(imp.value[leaf], own.value[leaf] * torch.tensor(
+        lr, dtype=torch.float32, device=own.value.device))
+    say(f"export and import (at): (b)'s GBM ({own.ntrees} trees, depth "
+        f"{own.depth}) as an H2O-3 MOJO: export {t_exp:.3f} s ({mb:.3f} MB, "
+        f"{mb / t_exp:.1f} MB/s), import_mojo {t_imp:.3f} s "
+        f"({mb / t_imp:.1f} MB/s); H2OGenericEstimator.predict of "
+        f"{fr.nrows} rows on the card {t_pred:.3f} s "
+        f"({fr.nrows / t_pred:.0f} rows/s; the model's own predict "
+        f"{t_own:.3f} s); {int(reach.sum())} nodes reached: col "
+        f"{same_col}, thr {same_thr}, na_left {same_nal} bit for bit, "
+        f"leaves f32(value*lr) {same_val}; probabilities max diff "
+        f"{d_p:.3g} (limit {EXPORT_TOL})")
+    check(same_col and same_thr and same_nal and same_val,
+          "export and import (at): the imported trees route otherwise")
+    check(d_p <= EXPORT_TOL, f"export and import (at): probabilities "
+          f"differ by {d_p}")
+    del got, want, p_got, p_want
+    # the native MOJO of the same GBM on the validation rows
+    t0 = time.perf_counter()
+    npath = gbm.download_mojo(os.path.join(tmp, "gbm.zip"))
+    t_nexp = time.perf_counter() - t0
+    nmb = os.path.getsize(npath) / 1e6
+    t0 = time.perf_counter()
+    gn = h2o.import_mojo(npath)
+    t_nimp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pn = gn.predict(valid).vec("p1").to_numpy()
+    t_npred = time.perf_counter() - t0
+    pv = gbm.predict(valid).vec("p1").to_numpy()
+    d_n = float(np.abs(pn - pv).max())
+    say(f"export and import (at): native MOJO of (b): export {t_nexp:.3f} s "
+        f"({nmb:.3f} MB, {nmb / t_nexp:.1f} MB/s), import {t_nimp:.3f} s; "
+        f"the numpy scorer on {valid.nrows} validation rows (the matrix "
+        f"built a column at a time) {t_npred:.3f} s "
+        f"({valid.nrows / t_npred:.0f} rows/s); max diff {d_n:.3g} (limit "
+        f"{EXPORT_TOL})")
+    check(d_n <= EXPORT_TOL, f"export and import (at): native MOJO "
+          f"differs by {d_n}")
+    # (k)'s GLM, (q)'s net, (t)'s KMeans through their H2O-3 MOJO oracles
+    Xv = _raw_matrix(valid, [f"x{j}" for j in range(HIGGS_C)])
+    for key, label in (("k", "glm (k)"), ("q", "deeplearning (q)"),
+                       ("t", "kmeans (t)")):
+        m = models[key]
+        frame = blobs_valid if key == "t" else valid
+        X = _raw_matrix(frame, m._dinfo.cat_cols + m._dinfo.num_cols) \
+            if key == "t" else Xv
+        t0 = time.perf_counter()
+        p = m.download_mojo(os.path.join(tmp, f"{key}.zip"), format="h2o3")
+        t_e = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o = HM.import_h2o_mojo_any(p)
+        t_i = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = o.predict_raw(X)
+        t_s = time.perf_counter() - t0
+        pred = m.predict(frame).to_numpy()
+        if key == "t":
+            diff = int((out != pred[:, 0]).sum())
+            ok = diff == 0
+            what = f"{diff} rows in another cluster"
+        else:
+            diff = float(np.abs(out[:, 1] - pred[:, 2]).max())
+            ok = diff <= EXPORT_TOL
+            what = f"probabilities max diff {diff:.3g} (limit {EXPORT_TOL})"
+        say(f"export and import (at): {label} as an H2O-3 MOJO: export "
+            f"{t_e:.3f} s ({os.path.getsize(p) / 1e3:.1f} kB), the oracle "
+            f"loaded in {t_i:.3f} s, scored {frame.nrows} rows in {t_s:.3f} "
+            f"s ({frame.nrows / t_s:.0f} rows/s, float64 numpy); {what}")
+        check(ok, f"export and import (at): {label}'s oracle: {what}")
+    # the POJO of (b)'s GBM, its arrays replayed on POJO_ROWS rows
+    t0 = time.perf_counter()
+    src = open(gbm.download_pojo(tmp)).read()
+    t_pojo = time.perf_counter() - t0
+    col, thr, nal, val, depth = _pojo_arrays(src, "T")
+    Xd = gbm._dinfo.matrix(valid)[:POJO_ROWS].cpu().double().numpy()
+    acc = _np_tree_walk(col, thr, nal, val, depth, Xd)
+    pj = 1.0 / (1.0 + np.exp(-(float(gbm._f0) + lr * acc)))
+    d_j = float(np.abs(pj - pv[:POJO_ROWS]).max())
+    say(f"export and import (at): POJO of (b): {len(src) / 1e6:.3f} MB of "
+        f"Java in {t_pojo:.3f} s; its arrays replayed on {POJO_ROWS} rows: "
+        f"max diff {d_j:.3g} (limit {EXPORT_TOL})")
+    check(d_j <= EXPORT_TOL, f"export and import (at): POJO differs by "
+          f"{d_j}")
+    launches = {k: v for k, v in HC.LAUNCHES.items() if v}
+    say(f"export and import (at): kernel launches {launches} (scoring walks "
+        "the trees in plain PyTorch)")
+
+
+def explain_run(torch, h2o, HC, valid, gbm):
+    """Run (au): (b)'s model explained over the validation rows."""
+    from h2o3_tpu_torch import explain_data as EX
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    out = {}
+    for c in PDP_COLS:
+        t0 = time.perf_counter()
+        out[c] = EX.partial_dependence(gbm, valid, c, nbins=PDP_BINS)
+        out[c]["s"] = time.perf_counter() - t0
+    pd = out[PDP_COLS[0]]
+    # one bin again: predict on the frame with the column set to its value
+    g = pd["grid"][PDP_CHECK_BIN]
+    n = valid.nrows
+    dev = valid.vecs[0].device
+    vf = Frame(valid.names, [
+        Vec.from_tensor(torch.full((n,), g, dtype=torch.float32,
+                                   device=dev))
+        if c == PDP_COLS[0] else valid.vec(c) for c in valid.names])
+    p = gbm.predict(vf).vec("p1").as_f32()
+    w = gbm._dinfo.weights(vf)
+    mu = float(torch.sum(p * w)) / max(float(torch.sum(w)), 1e-30)
+    same = mu == pd["mean_response"][PDP_CHECK_BIN]
+    say(f"explain (au): PDP of {PDP_COLS} at {PDP_BINS} bins over {n} rows: "
+        + ", ".join(f"{c} {out[c]['s']:.3f} s (mean response "
+                    f"{min(out[c]['mean_response']):.4f}-"
+                    f"{max(out[c]['mean_response']):.4f})"
+                    for c in PDP_COLS)
+        + f"; bin {PDP_CHECK_BIN} of {PDP_COLS[0]} ({g:.6g}) against the "
+        f"weighted mean of predict with the column set: {mu!r} vs "
+        f"{pd['mean_response'][PDP_CHECK_BIN]!r}, bit for bit {same}")
+    check(same, "explain (au): a PDP bin is not the mean of predict")
+    t0 = time.perf_counter()
+    grid, curves = EX.ice(gbm, valid, PDP_COLS[0], nbins=PDP_BINS,
+                          row_fraction=ICE_ROWS / n)
+    t_ice = time.perf_counter() - t0
+    check(curves.shape == (ICE_ROWS, PDP_BINS)
+          and np.isfinite(curves).all(), f"explain (au): ICE {curves.shape}")
+    t0 = time.perf_counter()
+    vi = EX.permutation_varimp(gbm, valid, metric="auc", seed=42)
+    t_vi = time.perf_counter() - t0
+    rank = [r["variable"] for r in vi]
+    noise = max(abs(r["relative_importance"]) for r in vi
+                if int(r["variable"][1:]) in NOISE_COLS)
+    say(f"explain (au): ICE of {ICE_ROWS} rows x {PDP_BINS} bins "
+        f"{t_ice:.3f} s; permutation importance (AUC) of {len(vi)} columns "
+        f"{t_vi:.3f} s ({t_vi / len(vi):.3f} s a column): "
+        + ", ".join(f"{r['variable']} {r['relative_importance']:.5f}"
+                    for r in vi[:7])
+        + f"; largest |delta AUC| of x7-x27 {noise:.3g} (limit {NOISE_DAUC})")
+    check(rank[:2] == ["x0", "x1"], f"explain (au): importance order {rank}")
+    check(noise < NOISE_DAUC, f"explain (au): a column the logit never "
+          f"reads moves the AUC by {noise}")
+
+
+def automl_run(torch, h2o, HC, fr):
+    """Run (av): AutoML on the first AML_ROWS rows of the HIGGS frame."""
+    from h2o3_tpu_torch.automl.automl import _steps
+    from h2o3_tpu_torch.models.ensemble import H2OStackedEnsembleEstimator
+    from h2o3_tpu_torch.models.model import _subframe
+    dev = fr.vecs[0].device
+    sub = _subframe(fr, torch.arange(AML_ROWS, device=dev))
+    torch.cuda.synchronize()
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    aml = h2o.automl(project_name="chip_aml", **AML)
+    aml.train(y="y", training_frame=sub)
+    torch.cuda.synchronize()
+    t_aml = time.perf_counter() - t0
+    launches = dict(HC.LAUNCHES)
+    log = aml.event_log
+    secs = {e["message"][len("building "):]: log[i + 1]["t"] - e["t"]
+            for i, e in enumerate(log[:-1])
+            if e["message"].startswith("building ")}
+    rows = aml.leaderboard_obj.as_list()
+    say(f"automl (av): {AML} on {AML_ROWS} rows x {HIGGS_C} features: "
+        f"{t_aml:.3f} s; each model's train() s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + "; leaderboard (auc): " + ", ".join(
+            f"{r['step']} {r['auc']:.6f}" for r in rows)
+        + f"; launches {launches}")
+    on_path = ("radix", "fused", "hist", "route", "route_f")
+    check(all(launches[k] > 0 for k in on_path),
+          f"automl (av): a binned kernel never launched: {launches}")
+    aucs = [r["auc"] for r in rows]
+    check(aucs == sorted(aucs, reverse=True),
+          "automl (av): the leaderboard is not sorted by AUC")
+    steps = {n: (c, p) for n, c, p in _steps(AML["seed"])}
+    base = [(r["step"], m) for r, m in aml.leaderboard_obj.rows
+            if r["step"] in steps]
+    best_cv = max(m._output.cross_validation_metrics.auc for _, m in base)
+    check(best_cv > AML_AUC_BAR, f"automl (av): the best CV AUC {best_cv}")
+
+    def alone(step, timed=False):
+        """The step's estimator trained alone on the same folds: the same
+        trees or coefficients as the run's model, bit for bit. Timed: each
+        binned kernel wrapper's launch between two CUDA events, and the
+        train() seconds. Returns (same, train s, the wrappers' ms)."""
+        cls, params = steps[step]
+        m = cls(**{"seed": AML["seed"], **params}, nfolds=AML["nfolds"],
+                keep_cross_validation_predictions=True)
+        timers = {name: EventTimer(torch, getattr(HC, name))
+                  for name in RECORDED} if timed else {}
+        saved = {name: getattr(HC, name) for name in timers}
+        for name, tm in timers.items():
+            setattr(HC, name, tm)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.train(y="y", training_frame=sub)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+        finally:
+            for name, fn in saved.items():
+                setattr(HC, name, fn)
+        run_m = dict(base)[step]
+        if m.algo == "glm":
+            same = np.array_equal(m._state.beta, run_m._state.beta)
+        else:
+            same = all(torch.equal(getattr(m._trees, f),
+                                   getattr(run_m._trees, f))
+                       for f in ("col", "thr", "na_left", "value"))
+        check(same, f"automl (av): {step} trained alone differs")
+        return same, t_train, {k: t.ms() for k, t in timers.items()}
+
+    # the best GBM step again: the binned kernels' share of its train()
+    gbm_step = next(s for s, m in base if m.algo == "gbm")
+    same, t_alone, kms = alone(gbm_step, timed=True)
+    ours = sum(kms.values())
+    say(f"automl (av): the best GBM step {gbm_step} trained alone with its "
+        f"parameters and folds: the same trees bit for bit {same}; train() "
+        f"{t_alone:.3f} s, the binned kernel wrappers (CUDA events around "
+        f"each launch) {ours:.1f} ms: busy share of the binned kernels "
+        f"{ours / 1e3 / t_alone:.4f} ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in kms.items()) + ")")
+    leader = aml.leader
+    if leader.algo == "stackedensemble":
+        se = H2OStackedEnsembleEstimator(base_models=leader._base)
+        se.train(y="y", training_frame=sub)
+        lsame = np.array_equal(se._meta._state.beta,
+                               leader._meta._state.beta)
+        check(lsame, "automl (av): the leader trained alone differs")
+    else:
+        lsame = alone(rows[0]["step"])[0] if rows[0]["step"] != gbm_step \
+            else same
+    say(f"automl (av): the leader {leader.key} trained alone (an ensemble: "
+        f"on the same base models): the same "
+        f"{'trees' if leader.algo == 'gbm' else 'coefficients'} bit for "
+        f"bit {lsame}")
+    ses = [(r["step"], m) for r, m in aml.leaderboard_obj.rows
+           if r["step"].startswith("StackedEnsemble")]
+    bests = best_cv
+    for name, se in ses:
+        cv = se._meta._output.training_metrics.auc
+        say(f"automl (av): {name}: CV AUC (the metalearner on the base "
+            f"models' holdout predictions) {cv:.6f}, the best base model's "
+            f"{bests:.6f}")
+        check(cv >= bests - SE_MARGIN, f"automl (av): {name} CV AUC {cv}")
+
+
+def phase_export_explain(torch, h2o, HC):
+    """Runs (at)-(av)."""
+    t_phase = time.perf_counter()
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    blobs, _ = _blob_frame(torch, dev, HIGGS_N, 12) if "t" not in KEPT \
+        else (None, None)
+    # the same planted centres (drawn first from the seed), other rows
+    blobs_valid, _ = _blob_frame(torch, dev, HIGGS_VALID_N, 12)
+    models = _kept_models(torch, h2o, fr, valid, blobs)
+    del blobs
+    tmp = tempfile.mkdtemp(prefix="h2o3_export_")
+    try:
+        t0 = time.perf_counter()
+        export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid,
+                          tmp)
+        t_at = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    explain_run(torch, h2o, HC, valid, models["b"])
+    t_au = time.perf_counter() - t0
+    del blobs_valid, valid, models
+    KEPT.clear()
+    t0 = time.perf_counter()
+    automl_run(torch, h2o, HC, fr)
+    t_av = time.perf_counter() - t0
+    say(f"export, explain and automl: (at) {t_at:.1f} s, (au) {t_au:.1f} s, "
+        f"(av) {t_av:.1f} s; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -6248,6 +6712,7 @@ def main():
     phase_data_plane(torch, h2o, HC)
     phase_ingest(torch, h2o, HC)
     phase_munging(torch, h2o, HC)
+    phase_export_explain(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -6255,7 +6720,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(as) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(av) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

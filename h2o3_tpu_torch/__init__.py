@@ -63,6 +63,13 @@ compile frame operations into) over the store's frames: arithmetic,
 math, reducers, string and time prims, and the mungers (sort, group-by
 and merge on the card, `ops/device_sort.py`); `create_frame` makes a
 random frame of mixed types from a seed.
+
+A model writes a scoring artifact (`download_mojo`: the native npz zip
+or, with format="h2o3", a genuine H2O-3 MOJO; `download_pojo`, a Java
+class) and `import_mojo` reads either family back as an
+`H2OGenericEstimator`. `explain` and `explain_row` draw a model's
+explanation figures (matplotlib, imported at the first figure), and
+`explain_data` gives their tables; `automl` runs H2O's AutoML plan.
 """
 
 from h2o3_tpu_torch.core.frame import Frame, Vec
@@ -72,6 +79,7 @@ from h2o3_tpu_torch.models import (
     H2OAggregatorEstimator, H2OCoxProportionalHazardsEstimator,
     H2ODeepLearningEstimator, H2OExtendedIsolationForestEstimator,
     H2OGeneralizedAdditiveEstimator, H2OGeneralizedLinearEstimator,
+    H2OGenericEstimator,
     H2OGeneralizedLowRankEstimator, H2OGradientBoostingEstimator,
     H2OGridSearch, H2OInfogram, H2OIsolationForestEstimator,
     H2OKMeansEstimator, H2ONaiveBayesEstimator,
@@ -116,6 +124,27 @@ def load_model(path, device=None):
     return _lm(path, device)
 
 
+def import_mojo(path):
+    """h2o.import_mojo: a native or H2O-3 MOJO as a generic model. (The
+    JAX package's returns the native artifact's MojoModel and reads no
+    H2O-3 MOJO; h2o-py's returns the generic model, as here.)"""
+    from h2o3_tpu_torch.models.generic import H2OGenericEstimator
+    return H2OGenericEstimator(path)
+
+
+def explain(models, frame, columns: int = 3, render: bool = False):
+    """h2o.explain: the figures of a model (SHAP summary, varimp, PDPs,
+    learning curve) or of a list of models (and their heatmaps)."""
+    from h2o3_tpu_torch import explain_plots as EP
+    return EP.explain(models, frame, columns=columns, render=render)
+
+
+def explain_row(models, frame, row_index: int, columns: int = 3):
+    """h2o.explain_row: a row's SHAP bars and ICE curves."""
+    from h2o3_tpu_torch import explain_plots as EP
+    return EP.explain_row(models, frame, row_index, columns=columns)
+
+
 def export_file(frame, path):
     """Frame snapshot export (h2o.export_file; the .hex format)."""
     from h2o3_tpu_torch.io.persist import export_frame
@@ -138,6 +167,15 @@ def rapids(expr, session=None):
     return _rapids_exec(expr, session)
 
 
+# the same for the automl subpackage and the function of its name
+from h2o3_tpu_torch.automl import H2OAutoML as _H2OAutoML  # noqa: E402
+
+
+def automl(**kw):
+    """An H2OAutoML run's object (h2o.automl)."""
+    return _H2OAutoML(**kw)
+
+
 def quantile(frame, prob=None, combine_method="interpolate",
              weights_column=None):
     """h2o.quantile: a Frame of a Probs column and one column of
@@ -155,6 +193,7 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OCoxProportionalHazardsEstimator", "H2ODeepLearningEstimator",
            "H2OExtendedIsolationForestEstimator",
            "H2OGeneralizedAdditiveEstimator", "H2OGeneralizedLinearEstimator",
+           "H2OGenericEstimator",
            "H2OGeneralizedLowRankEstimator", "H2OGradientBoostingEstimator",
            "H2OGridSearch", "H2OInfogram", "H2OIsolationForestEstimator",
            "H2OKMeansEstimator", "H2ONaiveBayesEstimator",
@@ -164,7 +203,7 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
            "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
            "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud",
-           "create_frame", "export_file", "get_frame", "get_model",
-           "import_file", "init", "load_model", "ls", "parse_setup",
+           "automl", "create_frame", "explain", "explain_row", "export_file",
+           "get_frame", "get_model", "import_file", "import_mojo", "init", "load_model", "ls", "parse_setup",
            "quantile", "rapids", "remove", "save_model", "shutdown",
            "train_segments", "upload_frame"]

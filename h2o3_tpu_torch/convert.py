@@ -288,6 +288,8 @@ def glm_from_arrays(*, beta, family: str, link: str,
     if ord_beta is not None:
         model._ord_beta = np.asarray(ord_beta, np.float64)
         model._ord_thr = np.asarray(ord_thr, np.float64)
+    model._dinfo = dinfo
+    model._set_coefficients()
     return _finish(model, algo="glm", predictors=predictors, domains=domains,
                    response_name=response_name,
                    response_domain=response_domain, edges=None, is_cat=None,

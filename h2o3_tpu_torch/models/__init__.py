@@ -7,6 +7,7 @@ from h2o3_tpu_torch.models.ensemble import H2OStackedEnsembleEstimator
 from h2o3_tpu_torch.models.extended_isofor import \
     H2OExtendedIsolationForestEstimator
 from h2o3_tpu_torch.models.gam import H2OGeneralizedAdditiveEstimator
+from h2o3_tpu_torch.models.generic import H2OGenericEstimator
 from h2o3_tpu_torch.models.glm import H2OGeneralizedLinearEstimator
 from h2o3_tpu_torch.models.glrm import H2OGeneralizedLowRankEstimator
 from h2o3_tpu_torch.models.grid import H2OGridSearch
@@ -27,7 +28,7 @@ from h2o3_tpu_torch.models.word2vec import H2OWord2vecEstimator
 
 __all__ = ["H2OAggregatorEstimator", "H2OCoxProportionalHazardsEstimator",
            "H2ODeepLearningEstimator", "H2OExtendedIsolationForestEstimator",
-           "H2OGeneralizedAdditiveEstimator",
+           "H2OGeneralizedAdditiveEstimator", "H2OGenericEstimator",
            "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
            "H2OGradientBoostingEstimator", "H2OGridSearch", "H2OInfogram",
            "H2OIsolationForestEstimator", "H2OKMeansEstimator",

@@ -907,29 +907,7 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         di = self._dinfo
         st = self._state
         names = di.feature_names + ["Intercept"]
-        if st.family == MULTINOMIAL:
-            coefs = {n: st.beta[:, j].tolist() for j, n in enumerate(names)}
-        else:
-            coefs = dict(zip(names, st.beta.tolist()))
-        self._coefficients_std = coefs
-        # de-standardised coefficients for the user (H2O reports both);
-        # ordinal keeps the standardised ones (its "Intercept" is the
-        # threshold t0, de-standardised with the opposite sign)
-        if di.standardize and st.family not in (MULTINOMIAL, ORDINAL):
-            raw = {}
-            icept = st.beta[-1]
-            for j, n in enumerate(di.feature_names):
-                b = st.beta[j]
-                if n in di.means:      # numeric (and interaction) columns
-                    s = max(di.sigmas[n], 1e-10)    # were standardised
-                    raw[n] = b / s
-                    icept -= b * di.means[n] / s
-                else:
-                    raw[n] = b
-            raw["Intercept"] = icept
-            self._coefficients = raw
-        else:
-            self._coefficients = coefs
+        self._set_coefficients()
         # variable importances: |standardised coefficient| (multinomial:
         # the largest over classes), GLMOutput.getVariableImportances
         mags = {}
@@ -955,6 +933,36 @@ class H2OGeneralizedLinearEstimator(ModelBase):
                 and st.family not in (MULTINOMIAL, ORDINAL) \
                 and getattr(self, "_Gram", None) is not None:
             self._compute_p_values()
+
+    def _set_coefficients(self):
+        """`_coefficients_std` from beta by feature name, and
+        `_coefficients` de-standardised where the design is."""
+        di = self._dinfo
+        st = self._state
+        names = di.feature_names + ["Intercept"]
+        if st.family == MULTINOMIAL:
+            coefs = {n: st.beta[:, j].tolist() for j, n in enumerate(names)}
+        else:
+            coefs = dict(zip(names, st.beta.tolist()))
+        self._coefficients_std = coefs
+        # de-standardised coefficients for the user (H2O reports both);
+        # ordinal keeps the standardised ones (its "Intercept" is the
+        # threshold t0, de-standardised with the opposite sign)
+        if di.standardize and st.family not in (MULTINOMIAL, ORDINAL):
+            raw = {}
+            icept = st.beta[-1]
+            for j, n in enumerate(di.feature_names):
+                b = st.beta[j]
+                if n in di.means:      # numeric (and interaction) columns
+                    s = max(di.sigmas[n], 1e-10)    # were standardised
+                    raw[n] = b / s
+                    icept -= b * di.means[n] / s
+                else:
+                    raw[n] = b
+            raw["Intercept"] = icept
+            self._coefficients = raw
+        else:
+            self._coefficients = coefs
 
     def _compute_p_values(self):
         """z-scores and p-values from the inverse Fisher information

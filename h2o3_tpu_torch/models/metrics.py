@@ -3,7 +3,8 @@ binomial and multinomial, each one pass over (actual, predicted, weight)
 tensors on their device into a small state, finished on the host exactly
 as the JAX package finishes it. The AUC is the 4096-score-bin histogram
 method (hex/AUC2.java with finer bins). `ClusteringMetrics` holds what
-KMeans computes itself.
+KMeans computes itself. A binomial metric carries its gains/lift table
+(hex/GainsLift.java: 16 groups of the score bins, highest scores first).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 NBINS_AUC = 4096
+GAINS_GROUPS = 16
 
 
 def _wmask(y, w):
@@ -84,6 +86,7 @@ class BinomialMetrics:
     mcc: float
     max_f1_threshold: float
     confusion_matrix: np.ndarray  # [[tn, fp], [fn, tp]] at the max-F1 threshold
+    gains_lift: Optional[dict] = None
     nobs: int = 0
     domain: Optional[list] = None
 
@@ -93,6 +96,7 @@ class BinomialMetrics:
               "mean_per_class_error", "f1", "accuracy", "precision", "recall",
               "mcc", "max_f1_threshold", "nobs")}
         d["confusion_matrix"] = np.asarray(self.confusion_matrix).tolist()
+        d["gains_lift"] = self.gains_lift
         return d
 
 
@@ -155,8 +159,36 @@ def binomial_metrics(y, p, w=None, domain=None) -> BinomialMetrics:
         f1=float(f1[bi]), f2=f2, f0point5=f05, accuracy=acc,
         precision=precision, recall=recall, specificity=spec, mcc=mcc,
         max_f1_threshold=thr,
-        confusion_matrix=np.array([[TN, FP], [FN, TP]]), nobs=int(n),
-        domain=domain)
+        confusion_matrix=np.array([[TN, FP], [FN, TP]]),
+        gains_lift=_gains_lift(pos, neg), nobs=int(n), domain=domain)
+
+
+def _gains_lift(pos, neg) -> dict:
+    """hex/GainsLift.java: GAINS_GROUPS groups of the score bins by
+    cumulative weight, from the highest score down; {} without positives."""
+    P, N = pos.sum(), neg.sum()
+    tot = P + N
+    if tot == 0 or P == 0:
+        return {}
+    cum_w = np.cumsum((pos + neg)[::-1])
+    cum_p = np.cumsum(pos[::-1])
+    rows = []
+    prev_w = prev_p = 0.0
+    for g in range(GAINS_GROUPS):
+        i = min(int(np.searchsorted(cum_w, tot * (g + 1) / GAINS_GROUPS)),
+                len(cum_w) - 1)
+        cw, cp = cum_w[i], cum_p[i]
+        grp_w, grp_p = cw - prev_w, cp - prev_p
+        resp_rate = grp_p / grp_w if grp_w else 0.0
+        rows.append({"group": g + 1,
+                     "cumulative_data_fraction": cw / tot,
+                     "response_rate": resp_rate,
+                     "lift": resp_rate / (P / tot),
+                     "cumulative_lift": (cp / cw) / (P / tot) if cw else 0.0,
+                     "capture_rate": grp_p / P,
+                     "cumulative_capture_rate": cp / P})
+        prev_w, prev_p = cw, cp
+    return {"groups": rows}
 
 
 

@@ -6,7 +6,10 @@ unsupervised model (`supervised = False`: KMeans, PCA, SVD, GLRM, the
 DeepLearning autoencoder) trains without a response and computes no
 supervised metrics; it builds its own output frames (`_matrix_frame`).
 
-Model monitoring and the serving cache are later slices. A parameter the
+Each model also has the explanation surface (explain_data.py,
+explain_plots.py) and the export surface (`download_mojo`, `save_mojo`,
+`download_pojo`, `save_model_details`; genmodel/). Model monitoring and
+the serving cache are later slices. A parameter the
 JAX package accepts and ignores although it would change the result
 (`offset_column`, `export_checkpoints_dir`) raises NotImplementedError
 here rather than being ignored.
@@ -715,6 +718,77 @@ class ModelBase:
 
     def varimp(self):
         return self._output.variable_importances if self._output else None
+
+    # ---- explanation surface (h2o-py explain module) ---------------------
+    def partial_plot(self, frame, cols=None, nbins: int = 20, plot=False):
+        """h2o model.partial_plot: PDP tables of `cols` (by default the
+        two most important predictors)."""
+        from h2o3_tpu_torch import explain_data as EX
+        cols = cols or [r["variable"] for r in (self.varimp() or [])[:2]] \
+            or self._dinfo.predictors[:2]
+        return [EX.partial_dependence(self, frame, c, nbins=nbins)
+                for c in cols]
+
+    def permutation_importance(self, frame, metric="AUTO", n_repeats=1,
+                               seed=42):
+        """h2o model.permutation_importance (PermutationVarImp.java)."""
+        from h2o3_tpu_torch import explain_data as EX
+        return EX.permutation_varimp(self, frame, metric=metric,
+                                     n_repeats=n_repeats, seed=seed)
+
+    def ice_plot(self, frame, column, nbins: int = 20):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.ice_plot(self, frame, column, nbins=nbins)
+
+    def pd_plot(self, frame, column, nbins: int = 20):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.pd_plot(self, frame, column, nbins=nbins)
+
+    def varimp_plot(self, num_of_features: int = 10):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.varimp_plot(self, num_of_features=num_of_features)
+
+    def shap_summary_plot(self, frame, top_n: int = 20):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.shap_summary_plot(self, frame, top_n=top_n)
+
+    def shap_explain_row_plot(self, frame, row_index: int, top_n: int = 10):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.shap_explain_row_plot(self, frame, row_index, top_n=top_n)
+
+    def learning_curve_plot(self):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.learning_curve_plot(self)
+
+    def explain(self, frame, columns: int = 3):
+        from h2o3_tpu_torch import explain_plots as EP
+        return EP.explain(self, frame, columns=columns)
+
+    # ---- export (h2o-genmodel surface) -----------------------------------
+    def download_mojo(self, path: str, format: str = "native") -> str:
+        """format="native": the npz-zip artifact (genmodel/mojo.py);
+        format="h2o3": a genuine H2O-3 MOJO zip (genmodel/h2o_mojo.py: GBM,
+        DRF, GLM, KMeans, DL)."""
+        if format == "h2o3":
+            from h2o3_tpu_torch.genmodel.h2o_mojo import export_h2o_mojo
+            return export_h2o_mojo(self, path)
+        from h2o3_tpu_torch.genmodel.mojo import export_mojo
+        return export_mojo(self, path)
+
+    save_mojo = download_mojo
+
+    def download_pojo(self, path: str) -> str:
+        """A dependency-free Java scoring class (water/util/JCodeGen.java)
+        at `path` (a directory: <ClassName>.java in it)."""
+        from h2o3_tpu_torch.genmodel.pojo import export_pojo
+        return export_pojo(self, path)
+
+    def save_model_details(self, path: str) -> str:
+        """to_dict() as JSON at `path`."""
+        import json
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, default=str)
+        return path
 
     def to_dict(self) -> dict:
         """The model's JSON (ModelOutputSchemaV3's keys): its parameters,

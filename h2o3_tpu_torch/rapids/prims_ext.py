@@ -18,7 +18,7 @@ package's `.at[].set` leaves the winner unspecified). Prims the JAX
 package computes in host numpy are host numpy here, over the same f32
 values. `ddply` is repaired: the JAX package's imports a name that does
 not exist, and its lambda check expects a tag its parser never makes, so
-it always raises. `PermutationVarImp` waits for `explain_data.py`.
+it always raises. `PermutationVarImp` scores through explain_data.py.
 """
 
 from __future__ import annotations
@@ -1118,10 +1118,25 @@ def _segment_models_as_frame(a, e):
 
 @prim("PermutationVarImp")
 def _perm_varimp(a, e):
-    """AstPermutationVarImp: waits for the port of explain_data.py."""
-    raise NotImplementedError(
-        "PermutationVarImp needs explain_data.py, not yet ported "
-        "(ROADMAP.md, queue 1 item 10)")
+    """AstPermutationVarImp (models/AstPermutationVarImp.java): model,
+    frame, metric, n_samples (the whole frame is used), n_repeats, _,
+    seed; a frame of the varimp rows."""
+    from h2o3_tpu_torch.explain_data import permutation_varimp
+    m = _eval(a[0], e)
+    fr = _eval(a[1], e)
+    metric = str(_eval(a[2], e)) if len(a) > 2 else "AUTO"
+    n_repeats = int(_eval(a[4], e)) if len(a) > 4 else 1
+    seed = int(_eval(a[6], e)) if len(a) > 6 else 42
+    rows = permutation_varimp(m, fr, metric=metric,
+                              n_repeats=max(1, n_repeats), seed=seed)
+    return _new_frame(
+        ["Variable", "Relative Importance", "Scaled Importance",
+         "Percentage"],
+        [np.asarray([r["variable"] for r in rows], object),
+         np.asarray([r["relative_importance"] for r in rows]),
+         np.asarray([r["scaled_importance"] for r in rows]),
+         np.asarray([r["percentage"] for r in rows])],
+        types=[T_STR, T_NUM, T_NUM, T_NUM])
 
 
 @prim("grouped_permute")

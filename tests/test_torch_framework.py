@@ -147,10 +147,14 @@ def test_metrics_to_dict_matches_jax(kind):
         t = TM.regression_metrics(torch.tensor(y), torch.tensor(p),
                                   torch.tensor(w)).to_dict()
     else:
-        j = JM.binomial_metrics(jnp.asarray(y), jnp.asarray(p),
-                                jnp.asarray(w)).to_dict()
+        jm = JM.binomial_metrics(jnp.asarray(y), jnp.asarray(p),
+                                 jnp.asarray(w))
         t = TM.binomial_metrics(torch.tensor(y), torch.tensor(p),
                                 torch.tensor(w)).to_dict()
+        # the port's dict carries the gains/lift table the JAX package
+        # keeps on the metrics object only
+        j = dict(jm.to_dict(), gains_lift=jm.gains_lift)
+        _same_tree(j.pop("gains_lift"), t.pop("gains_lift"))
     assert list(t) == list(j)
     for key in j:
         np.testing.assert_allclose(np.asarray(t[key], np.float64),
@@ -225,6 +229,26 @@ def _same_tree(j, t, differ=()):
             assert tv == jv, (k, tv, jv)
 
 
+def _metrics_dict(m):
+    """A JAX metrics object's to_dict(), with the gains/lift table the
+    port's to_dict() carries (binomial metrics)."""
+    d = m.to_dict()
+    if getattr(m, "gains_lift", None) is not None:
+        d["gains_lift"] = m.gains_lift
+    return json.loads(json.dumps(d))
+
+
+def _with_gains(d, jm):
+    """A JAX model's to_dict() with each binomial metric's gains/lift."""
+    d = json.loads(json.dumps(d))
+    for k in ("training_metrics", "validation_metrics"):
+        m = getattr(jm._output, k)
+        if d.get(k) is not None and getattr(m, "gains_lift", None) \
+                is not None:
+            d[k]["gains_lift"] = json.loads(json.dumps(m.gains_lift))
+    return d
+
+
 @pytest.mark.parametrize("algo", ["gbm", "glm", "kmeans"])
 def test_model_dict_and_performance_match_jax(frames, algo):
     """The same GBM (depth 3, min_rows 100), GLM and KMeans in both
@@ -249,7 +273,7 @@ def test_model_dict_and_performance_match_jax(frames, algo):
     tm = getattr(h2o3_tpu_torch, cls)(model_id=f"dict_{algo}", **kw)
     tm.train(training_frame=tf, validation_frame=tf if valid else None,
              **fit)
-    _same_tree(json.loads(json.dumps(jm.to_dict())),
+    _same_tree(_with_gains(jm.to_dict(), jm),
                json.loads(json.dumps(tm.to_dict())),
                differ=("/model_summary/engine",))
     assert tm.to_dict()["model_summary"].get("engine") in (None,
@@ -259,9 +283,9 @@ def test_model_dict_and_performance_match_jax(frames, algo):
             with pytest.raises(ValueError):
                 m.model_performance(f)
     else:
-        _same_tree(jm.model_performance(jf).to_dict(),
+        _same_tree(_metrics_dict(jm.model_performance(jf)),
                    tm.model_performance(tf).to_dict())
-    _same_tree(jm.model_performance().to_dict(),
+    _same_tree(_metrics_dict(jm.model_performance()),
                tm.model_performance().to_dict())
 
 

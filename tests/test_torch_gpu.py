@@ -21,7 +21,12 @@ bit) and the sparse GLM (bit for bit twice on the card; within 1e-4 of
 the CPU's, whose float64 sums round in another order). A CSV parsed on
 the card has the CPU parse's codecs and bits, whole and chunked; a GBM
 saved on the card predicts bit for bit after loading there and within
-1e-5 on the CPU (f32 sums in another order).
+1e-5 on the CPU (f32 sums in another order). Runs (at) and (av) small:
+a GBM's H2O-3 MOJO imported and scored on the card routes as the model
+(col, thr, na_left bit for bit, leaves f32(value * learn_rate)) and
+gives its probabilities within 1e-5, as does its native MOJO; AutoML's
+GBM steps launch the binned kernels, and each base model trained alone
+is the same bit for bit.
 """
 
 import numpy as np
@@ -1122,3 +1127,94 @@ def test_group_sums_bit_identical_twice_on_the_card(dev):
     np.testing.assert_allclose(
         a[2].cpu().numpy(), np.bincount(k.astype(int), weights=x),
         rtol=1e-6)
+
+
+def _higgs_like(dev, n, seed):
+    """A small HIGGS-shaped frame on the card: 28 N(0,1) columns, the
+    bench's logit, a 0/1 categorical response."""
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = torch.randn((n, 28), generator=g, device=dev)
+    logit = (1.2 * X[:, 0] - 0.8 * X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
+             + 0.4 * torch.sin(X[:, 4]) + 0.3 * X[:, 5] * X[:, 6])
+    y = (torch.rand(n, generator=g, device=dev)
+         < torch.sigmoid(logit)).float()
+    vecs = [Vec.from_tensor(X[:, j].contiguous()) for j in range(28)]
+    vecs.append(Vec.from_tensor(y, type=T_CAT, domain=["0", "1"]))
+    return Frame([f"x{j}" for j in range(28)] + ["y"], vecs)
+
+
+@pytest.mark.gpu
+def test_export_import_on_the_card(dev, tmp_path):
+    """Run (at) small: a GBM trained on the card to an H2O-3 MOJO and
+    back through import_mojo; the imported trees route as the model's
+    (col, thr, na_left bit for bit where the tree reaches), each leaf
+    f32(value * learn_rate), the generic estimator's probabilities on the
+    card within 1e-5 of predict; the native MOJO within 1e-5."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.genmodel.mojo import MojoModel
+    h2o.init()
+    fr = _higgs_like(dev, 20_000, 3)
+    m = h2o.H2OGradientBoostingEstimator(ntrees=5, max_depth=5, nbins=64,
+                                         seed=1, learn_rate=0.1)
+    m.train(y="y", training_frame=fr)
+    want = m.predict(fr).vec("p1").as_f32()
+    g = h2o.import_mojo(m.download_mojo(str(tmp_path / "m.zip"),
+                                        format="h2o3"))
+    got = g.predict(fr)
+    assert got.vec("p1").device.type == dev.type
+    assert float((got.vec("p1").as_f32() - want).abs().max()) <= 1e-5
+    imp, own = g._ref.trees_k[0], m._trees
+    inner = own.col >= 0
+    reach = torch.zeros_like(inner)
+    reach[:, 0] = True
+    for i in range(own.col.shape[1] // 2):
+        reach[:, 2 * i + 1] |= reach[:, i] & inner[:, i]
+        reach[:, 2 * i + 2] |= reach[:, i] & inner[:, i]
+    node = reach & inner
+    assert torch.equal(imp.col[reach], own.col[reach])
+    assert torch.equal(imp.thr[node].view(torch.int32),
+                       own.thr[node].view(torch.int32))
+    assert torch.equal(imp.na_left[node], own.na_left[node])
+    leaf = reach & ~inner
+    assert torch.equal(imp.value[leaf], own.value[leaf]
+                       * torch.tensor(0.1, dtype=torch.float32))
+    mm = MojoModel.load(m.download_mojo(str(tmp_path / "n.zip")))
+    X = m._dinfo.matrix(fr).cpu().double().numpy()
+    p = mm.predict_matrix(X)["probs"][:, 1]
+    assert np.abs(p - want.cpu().numpy()).max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_automl_on_the_card(dev):
+    """Run (av) small: GLM and GBM steps with 2 folds on the card; the
+    leaderboard sorted, the binned kernels launched, the best base model
+    the same trees or coefficients when trained alone."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.automl.automl import _steps
+    from h2o3_tpu_torch.ops import hist_cuda as HC
+    h2o.init()
+    fr = _higgs_like(dev, 20_000, 4)
+    HC.reset_launches()
+    aml = h2o.automl(include_algos=["GLM", "GBM"], max_models=2, nfolds=2,
+                     seed=1, project_name="gpu_aml")
+    aml.train(y="y", training_frame=fr)
+    launches = dict(HC.LAUNCHES)
+    assert launches["fused"] > 0 and launches["radix"] > 0
+    rows = aml.leaderboard_obj.as_list()
+    assert [r["auc"] for r in rows] == sorted((r["auc"] for r in rows),
+                                              reverse=True)
+    steps = {n: (c, p) for n, c, p in _steps(1)}
+    for r, m in aml.leaderboard_obj.rows:
+        if r["step"] not in steps:
+            continue
+        cls, params = steps[r["step"]]
+        alone = cls(**{"seed": 1, **params}, nfolds=2,
+                    keep_cross_validation_predictions=True)
+        alone.train(y="y", training_frame=fr)
+        if m.algo == "glm":
+            assert np.array_equal(m._state.beta, alone._state.beta)
+        else:
+            assert torch.equal(m._trees.value, alone._trees.value)
+            assert torch.equal(m._trees.col, alone._trees.col)

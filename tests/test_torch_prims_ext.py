@@ -35,10 +35,12 @@ from h2o3_tpu_torch.rapids import rapids as TR
 from h2o3_tpu_torch.utils import config as TCFG
 from test_torch_rapids import N, both, build, frame_data, same
 
-RAISES = {"PermutationVarImp"}
-# each with a test of its own below
+RAISES = set()
+# each with a test of its own below (PermutationVarImp in
+# test_torch_explain.py, with the JAX package's shuffles replayed)
 SPECIAL = {"ddply", "ls", "model.reset.threshold",
-           "segment_models_as_frame", "num_valid_substrings"}
+           "segment_models_as_frame", "num_valid_substrings",
+           "PermutationVarImp"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -276,8 +278,12 @@ def test_max_min_na_propagate_na(frames):
 
 
 def test_prims_that_raise(frames):
-    with pytest.raises(NotImplementedError, match="explain_data"):
-        TR.rapids_exec("(PermutationVarImp mdl fnum \"AUTO\")")
+    """No prim raises for want of a port any more; PermutationVarImp on a
+    frame in place of a model raises in both packages."""
+    assert not RAISES
+    for rx in (JR.rapids_exec, TR.rapids_exec):
+        with pytest.raises(AttributeError):
+            rx("(PermutationVarImp fnum fnum \"AUTO\")")
 
 
 def test_ddply_repaired_against_numpy(frames):

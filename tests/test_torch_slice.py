@@ -497,6 +497,10 @@ def test_port_imports_no_jax():
         "persist", "spill")} <= set(files)
     assert {pkg / "genmodel" / "mojo.py",
             pkg / "utils" / "env.py"} <= set(files)
+    assert {pkg / "genmodel" / "h2o_mojo.py", pkg / "genmodel" / "pojo.py",
+            pkg / "models" / "generic.py", pkg / "explain_data.py",
+            pkg / "explain_plots.py", pkg / "automl" / "automl.py",
+            pkg / "automl" / "__init__.py"} <= set(files)
     assert {pkg / "ops" / "device_sort.py", pkg / "rapids" / "rapids.py",
             pkg / "rapids" / "prims_ext.py"} | {
         pkg / "utils" / f"{m}.py" for m in (
