@@ -349,6 +349,42 @@ Phases, each printing its lines before the last:
            train(), by CUDA events around each launch), the leader trained
            alone the same, each ensemble's CV AUC (its metalearner on the
            holdout predictions) at least the best base model's less 1e-3;
+     then observability and serving (phase obs_serving; the models of
+     (b), (k), (q) and (t) as phase export_explain takes them):
+       (aw) a 10-tree GBM of (b)'s configuration at HIGGS width trained
+           without a trace, then under a trace with lockdep raising: no
+           lock-order inversion, the trees bit for bit, one job.run span
+           and gbm.chunk spans whose trees sum to 10,
+           h2o3_gbm_row_trees_total{engine="binned"} up by exactly 11M x
+           10, the trace back from the flight recorder's segment, the log
+           records of the run carrying its trace id, (b)'s launches per
+           tree; a 100,000-row HIGGS CSV through import_file (the parse
+           counters up by its bytes and rows, the four parse stage spans);
+           a metrics scrape (every Prometheus line in the exposition
+           grammar, the OpenMetrics text ending in # EOF, the device
+           memory gauge equal to torch.cuda.memory_allocated); both
+           train() times;
+       (ax) the four models through the scorer cache on rows of the 1M
+           validation frame (KMeans: blob rows of seed 12): at buckets
+           128-65,536 and 1, b/2+1 and b rows, each bucket's first call
+           one CUDA graph capture and a warm hit after, a replay equal to
+           the eager scorer on the same padded buffer bit for bit, against
+           the unpadded eager scorer the GBM bit for bit, GLM and DL
+           within 1e-6, KMeans the same clusters; model_performance
+           through score_frame_with_response within 1e-7 of the eager
+           metrics; a warm dispatch under set_sync_debug_mode("error");
+           the param bytes one copy, constant over buckets, and the MiB
+           the graphs hold; 1,000 one-row requests in turn under an HBM
+           budget the two largest models' params do not fit together, and
+           again with a host budget that spills every demote to an npz:
+           predictions bit for bit, the budget kept, one capture per
+           promotion; 8 threads scoring at once = their serial answers;
+           warm rows/s of predict at 4,096 rows and one-row p50/p99 of
+           score_rows and predict, through the cache and eagerly
+           (H2O3_SCORE_FASTPATH_MAX_ROWS=0), the cache's one-row p50s
+           below the eager ones; (b)'s key overwritten
+           by a retrained model and DELETE, each freeing the programs
+           and the placement once;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -368,7 +404,7 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(av) are printed again just before the two JSON
+The lines of runs (d)-(ax) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
 engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(av)
 add no kernel to it); the last line is
@@ -804,7 +840,9 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"sparse glm \(al|svmlight \(am|pager \(an|"
                    r"frame data plane|airline \(ao|higgs csv \(ap|"
                    r"ingest and persistence|munging|export and import "
-                   r"\(at|explain \(au|automl \(av|export, explain)")
+                   r"\(at|explain \(au|automl \(av|export, explain|"
+                   r"observability|serving \(ax\) (speed|lifecycle|1000)|"
+                   r"serving \(ax\) [bkqt]:)")
 
 
 def say(msg):
@@ -5998,7 +6036,7 @@ def _raw_matrix(fr, cols):
     return np.column_stack([fr.vec(c).to_numpy() for c in cols])
 
 
-def _kept_models(torch, h2o, fr, valid, blobs):
+def _kept_models(torch, h2o, fr, valid, blobs, label="export and import (at)"):
     """(b), (k), (q), (t) as the earlier runs left them, or each trained
     again at its run's settings (the phase run alone)."""
     out = dict(KEPT)
@@ -6024,7 +6062,7 @@ def _kept_models(torch, h2o, fr, valid, blobs):
         out["t"] = m
         fresh.append("t")
     torch.cuda.synchronize()
-    say(f"export and import (at): models of runs (b), (k), (q), (t): "
+    say(f"{label}: models of runs (b), (k), (q), (t): "
         f"{'trained again ' + str(fresh) if fresh else 'kept from the runs'}")
     return out
 
@@ -6334,12 +6372,552 @@ def phase_export_explain(torch, h2o, HC):
     explain_run(torch, h2o, HC, valid, models["b"])
     t_au = time.perf_counter() - t0
     del blobs_valid, valid, models
-    KEPT.clear()
     t0 = time.perf_counter()
     automl_run(torch, h2o, HC, fr)
     t_av = time.perf_counter() - t0
     say(f"export, explain and automl: (at) {t_at:.1f} s, (au) {t_au:.1f} s, "
         f"(av) {t_av:.1f} s; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# observability and serving: runs (aw) and (ax)
+# Prometheus 0.0.4 exposition grammar, one line at a time
+_PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_PROM_LINE = re.compile(
+    r"(# HELP " + _PROM_NAME + r" .*|# TYPE " + _PROM_NAME
+    + r" (counter|gauge|histogram|summary|untyped)|" + _PROM_NAME
+    + r"(\{[a-zA-Z_][a-zA-Z0-9_]*=\"([^\"\\\n]|\\[\\\"n])*\""
+    r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"([^\"\\\n]|\\[\\\"n])*\")*\})?"
+    r" (-?[0-9.e+-]+|[+-]?Inf|NaN))$")
+# (ax)'s row buckets and the requests of its timings
+SERVE_BUCKETS = [128 << i for i in range(10)]          # 128 .. 65,536
+SERVE_REQUESTS = 2000
+SERVE_BUDGET_REQUESTS = 1000
+SERVE_THREADS = 8
+
+
+def _trees_equal(torch, a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("col", "thr", "na_left", "value"))
+
+
+def _series_value(text, name, labels):
+    """The value of one series line of a Prometheus text, or None."""
+    want = name + "{" + ",".join(f'{k}="{v}"' for k, v in
+                                 sorted(labels.items())) + "}"
+    for line in text.splitlines():
+        if line.startswith(want + " "):
+            return float(line.split(" ")[1])
+    return None
+
+
+def obs_training_run(torch, h2o, HC, fr):
+    """(aw): a 10-tree GBM of (b)'s configuration, trained untraced, then
+    traced with lockdep raising; a 100,000-row HIGGS CSV parsed; the
+    metrics scraped."""
+    from h2o3_tpu_torch.analysis import lockdep
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.obs import recorder, timeline, tracing
+    from h2o3_tpu_torch.utils import log
+    gbm = dict(HIGGS_DEFAULT, ntrees=10)
+    row_trees = om.REGISTRY.get("h2o3_gbm_row_trees_total")
+    times, models = [], []
+    for traced in (False, True):
+        tid = None
+        if traced:
+            lockdep.reset()
+            lockdep.enable("raise")
+            tid = tracing.new_trace_id()
+            recorder.RECORDER.pin(tid)
+        rt0 = row_trees.value(engine="binned")
+        HC.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with tracing.trace(tid):
+                if traced:
+                    log.info("(aw) traced train() of 10 trees starts")
+                m = h2o.H2OGradientBoostingEstimator(**gbm)
+                m.train(y="y", training_frame=fr)
+                torch.cuda.synchronize()
+                if traced:
+                    log.info("(aw) traced train() done")
+        finally:
+            if traced:
+                lockdep.disable()
+        times.append(time.perf_counter() - t0)
+        drt = row_trees.value(engine="binned") - rt0
+        per_tree = {k: v / 10 for k, v in HC.LAUNCHES.items() if v}
+        models.append(m)
+    counts = lockdep.counts()
+    same = _trees_equal(torch, models[0]._trees, models[1]._trees)
+    spans = timeline.SPANS.trace_snapshot(tid)
+    names = [s["name"] for s in spans]
+    chunk_trees = sum(s["attrs"].get("trees", 0) for s in spans
+                      if s["name"] == "gbm.chunk")
+    stored = recorder.RECORDER.load_trace(tid)
+    stored_names = sorted({s["name"] for s in stored})
+    log.flush()
+    recs = log.search(trace=tid, limit=50)
+    say(f"observability (aw) GBM 10 trees of (b)'s configuration at "
+        f"{HIGGS_N:,} x {HIGGS_C}: train() {times[0]:.3f} s untraced, "
+        f"{times[1]:.3f} s traced with lockdep raising ({counts['edges']} "
+        f"lock-order edges, {counts['inversions']} inversions); trees bit "
+        f"for bit {same}; the trace's spans: {names.count('job.run')} "
+        f"job.run, {names.count('gbm.chunk')} gbm.chunk with trees summing "
+        f"to {chunk_trees}; h2o3_gbm_row_trees_total{{engine=\"binned\"}} "
+        f"+{drt:.0f}; the flight recorder's segment holds {len(stored)} "
+        f"spans ({stored_names}); {len(recs)} log records carry the trace "
+        f"id; launches per tree {per_tree}")
+    check(counts["inversions"] == 0, "(aw) lock-order inversion")
+    check(same, "(aw) traced trees differ from the untraced ones")
+    check(names.count("job.run") == 1 and chunk_trees == 10,
+          f"(aw) spans {names}")
+    check(drt == HIGGS_N * 10, f"(aw) row-trees counter rose by {drt}")
+    check({"job.run", "gbm.chunk"} <= set(stored_names),
+          f"(aw) recorder returned {stored_names}")
+    check(len(recs) >= 2 and all(r.get("trace") == tid for r in recs),
+          f"(aw) log records {recs}")
+    check(per_tree == PER_TREE["default"], f"(aw) launches {per_tree}")
+    # a 100,000-row HIGGS CSV through import_file
+    sub = _sub_frame(fr, 100_000)
+    X = sub.matrix(sub.names).cpu().numpy().astype(np.float64)
+    pb = om.REGISTRY.get("h2o3_parse_bytes_total")
+    pr = om.REGISTRY.get("h2o3_parse_rows_total")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "higgs-100k.csv")
+        np.savetxt(path, X, fmt="%.9g", delimiter=",",
+                   header=",".join(sub.names), comments="")
+        size = os.path.getsize(path)
+        b0, r0 = pb.value(type="CSV"), pr.value()
+        tid = tracing.new_trace_id()
+        with tracing.trace(tid):
+            with timeline.span("parse.request"):
+                pf = h2o.import_file(path)
+        db, dr = pb.value(type="CSV") - b0, pr.value() - r0
+    pnames = {s["name"] for s in timeline.SPANS.trace_snapshot(tid)}
+    want = {"parse.setup", "parse.file", "parse.tokenize", "parse.pack"}
+    say(f"observability (aw) parse of a 100,000-row HIGGS CSV "
+        f"({size} bytes): h2o3_parse_bytes_total +{db:.0f}, "
+        f"h2o3_parse_rows_total +{dr:.0f}; spans {sorted(pnames)}")
+    check(db == size and dr == 100_000 and pf.nrows == 100_000,
+          f"(aw) parse counters +{db}, +{dr}")
+    check(want <= pnames, f"(aw) parse spans {pnames}")
+    # the scrape
+    text = om.REGISTRY.prometheus_text()
+    allocated = torch.cuda.memory_allocated(0)
+    dev_bytes = _series_value(text, "h2o3_device_memory_bytes",
+                              {"device": "0", "kind": "bytes_in_use"})
+    bad = [ln for ln in text.splitlines() if not _PROM_LINE.fullmatch(ln)]
+    om_text = om.REGISTRY.openmetrics_text()
+    say(f"observability (aw) scrape: {len(text.splitlines())} Prometheus "
+        f"lines, {len(bad)} outside the exposition grammar; OpenMetrics "
+        f"ends in # EOF {om_text.endswith('# EOF' + chr(10))}; "
+        f"h2o3_device_memory_bytes{{device=\"0\",kind=\"bytes_in_use\"}} "
+        f"{dev_bytes:.0f} = torch.cuda.memory_allocated(0) {allocated}; "
+        f"graph captures so far {om.graph_capture_count():.0f}")
+    check(not bad, f"(aw) lines outside the grammar: {bad[:3]}")
+    check(om_text.endswith("# EOF\n"), "(aw) OpenMetrics text")
+    check(dev_bytes == allocated, f"(aw) device bytes {dev_bytes} vs "
+          f"{allocated}")
+    from h2o3_tpu_torch.core.kvstore import DKV
+    for k in (models[0].key, models[1].key, pf.key, sub.key):
+        DKV.remove(k)
+    return times
+
+
+def _pctl(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.uint8)
+
+
+def serve_correctness(torch, h2o, models, frames):
+    """(ax) correctness: each bucket's first call one capture, then none;
+    replay = eager scorer on the same padded buffer, bit for bit; against
+    predict without padding (the eager path); model_performance through
+    score_frame_with_response against the eager metrics."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    dev = h2o.init().device
+    hits = om.REGISTRY.get("h2o3_scorer_cache_hits_total")
+    misses = om.REGISTRY.get("h2o3_scorer_cache_misses_total")
+    graph_mib = {}
+    for tag, m in models.items():
+        fr = frames[tag]
+        di = m._dinfo
+        worst = 0.0
+        bytes_seen = set()
+        graph_mib[tag] = []
+        for b in SERVE_BUCKETS:
+            ns = ([1] if b == SERVE_BUCKETS[0] else []) + [b // 2 + 1, b]
+            for i, n in enumerate(ns):
+                sub = _sub_frame(fr, n)
+                c0, h0, m0 = (om.graph_capture_count(), hits.value(),
+                              misses.value())
+                raw = SC.stage_frame(di, di.adapt(sub), SC.row_bucket(n))
+                out = SC.score_rows(m, raw, n)
+                dc, dh, dm = (om.graph_capture_count() - c0,
+                              hits.value() - h0, misses.value() - m0)
+                first = i == 0
+                check((dc, dm, dh) == ((1, 1, 0) if first else (0, 0, 1)),
+                      f"(ax) {tag} bucket {b} rows {n}: captures {dc}, "
+                      f"misses {dm}, hits {dh}")
+                prog = SC.CACHE.program(m, b)
+                params = serving.PARAMS.placed(m, SC.model_token(m))
+                with torch.no_grad():
+                    eager_pad = prog._fn(
+                        params, torch.from_numpy(raw).to(dev)).cpu().numpy()
+                check(np.array_equal(_bits(out), _bits(eager_pad)),
+                      f"(ax) {tag} bucket {b}: replay vs eager scorer")
+                with torch.no_grad():
+                    plain = m._score_matrix(di.matrix(sub)).cpu().numpy()
+                if tag == "b":
+                    check(np.array_equal(_bits(out[:n]), _bits(plain)),
+                          f"(ax) {tag} rows {n}: not bit for bit")
+                elif tag == "t":
+                    check(np.array_equal(out[:n], plain),
+                          f"(ax) {tag} rows {n}: clusters differ")
+                else:
+                    d = float(np.abs(out[:n] - plain).max())
+                    worst = max(worst, d)
+                    check(d <= 1e-6, f"(ax) {tag} rows {n}: {d}")
+                bytes_seen.add(serving.PARAMS.bytes_for(m.key))
+                DKV.remove(sub.key)
+            graph_mib[tag].append(sum(
+                p.graph_bytes for p in SC.CACHE.programs(m.key)) / 2**20)
+        check(len(bytes_seen) == 1,
+              f"(ax) {tag} param bytes moved: {bytes_seen}")
+        say(f"serving (ax) {tag}: 10 buckets 128-65,536, one capture each "
+            f"and warm hits after; replay = eager scorer on the padded "
+            f"buffer bit for bit; vs the unpadded eager scorer "
+            f"{'bit for bit' if tag == 'b' else 'same clusters' if tag == 't' else f'max |diff| {worst:.3g}'}; "
+            f"params {bytes_seen.pop()} bytes, one copy (the same from 1 "
+            f"bucket to 10); MiB the graphs hold after each bucket "
+            f"{[round(x, 1) for x in graph_mib[tag]]}")
+    # model_performance: the cache's metrics against the eager ones
+    for tag in ("b", "k", "q"):
+        m, fr = models[tag], frames[tag]
+        for n in (4096, 65_536):
+            sub = _sub_frame(fr, n)
+            fast = m.model_performance(sub)
+            os.environ["H2O3_SCORE_FASTPATH_MAX_ROWS"] = "0"
+            try:
+                eager = m.model_performance(sub)
+            finally:
+                del os.environ["H2O3_SCORE_FASTPATH_MAX_ROWS"]
+            diffs = {k: abs(getattr(fast, k) - getattr(eager, k))
+                     for k in ("auc", "logloss", "mse")}
+            say(f"serving (ax) {tag} model_performance at {n} rows through "
+                f"score_frame_with_response vs eager: |diff| {diffs}")
+            check(max(diffs.values()) <= 1e-7,
+                  f"(ax) {tag} metrics differ: {diffs}")
+            DKV.remove(sub.key)
+    return graph_mib
+
+
+def serve_sync_free(torch, models, raws):
+    """(ax): a warm dispatch under torch.cuda.set_sync_debug_mode("error")
+    (its one wait is the event before the host reads the output)."""
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    for tag, m in models.items():
+        SC.score_rows(m, raws[tag], 1)          # warm
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            SC.score_rows(m, raws[tag], 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    say("serving (ax) warm dispatches of the four models under "
+        "set_sync_debug_mode('error'): no synchronising call")
+
+
+def serve_budget(torch, models, raws, refs, host_spill):
+    """(ax): SERVE_BUDGET_REQUESTS one-row requests in turn across the
+    models under an HBM budget one byte short of the two largest models'
+    params (they never sit together); with `host_spill` a host budget
+    below every model's params too, so each demote spills to an npz."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import params as SP
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    sizes = {t: serving.PARAMS.bytes_for(m.key) for t, m in models.items()}
+    two = sorted(sizes.values())[-2:]
+    budget = sum(two) - 1
+    os.environ["H2O3_SERVE_HBM_BUDGET_MB"] = repr(budget / 2**20)
+    if host_spill:
+        os.environ["H2O3_SERVE_HOST_BUDGET_MB"] = repr(
+            min(sizes.values()) / 2 / 2**20)
+    faults = om.REGISTRY.get("h2o3_serve_param_faults_total")
+    f0 = {t: faults.value(tier=t) for t in ("host", "disk")}
+    try:
+        for m in models.values():
+            serving.PARAMS.demote_key(
+                m.key, SP.TIER_DISK if host_spill else SP.TIER_HOST)
+        c0 = om.graph_capture_count()
+        cs0 = SC.CAPTURE_SECONDS.snapshot()["sum"]
+        p0 = serving.PARAMS.stats()["faults"]
+        over, wrong = 0, 0
+        tags = list(models)
+        t0 = time.perf_counter()
+        for i in range(SERVE_BUDGET_REQUESTS):
+            tag = tags[i % len(tags)]
+            out = SC.score_rows(models[tag], raws[tag], 1)
+            wrong += not np.array_equal(_bits(out), _bits(refs[tag]))
+            gauge = sum(v for _, v in
+                        om.REGISTRY.get("h2o3_scorer_params_bytes")
+                        ._collect())
+            over += (serving.PARAMS.admitted_bytes() > budget
+                     or gauge > budget)
+        dt = time.perf_counter() - t0
+        promotes = serving.PARAMS.stats()["faults"] - p0
+        caps = om.graph_capture_count() - c0
+        cap_ms = (SC.CAPTURE_SECONDS.snapshot()["sum"] - cs0) * 1e3 \
+            / max(caps, 1)
+        df = {t: faults.value(tier=t) - f0[t] for t in f0}
+        npz = len([f for f in os.listdir(_params_dir())
+                   if f.endswith(".npz")]) if host_spill else 0
+    finally:
+        os.environ.pop("H2O3_SERVE_HBM_BUDGET_MB", None)
+        os.environ.pop("H2O3_SERVE_HOST_BUDGET_MB", None)
+    say(f"serving (ax) {SERVE_BUDGET_REQUESTS} one-row requests in turn "
+        f"under an HBM budget of {budget} bytes (params {sizes})"
+        f"{', host budget ' + str(min(sizes.values()) // 2) + ' bytes' if host_spill else ''}: "
+        f"{wrong} predictions not bit for bit, {over} samples over the "
+        f"budget, {promotes} promotions ({df}), {caps} captures "
+        f"({cap_ms:.3f} ms each on average), {npz} npz files left; "
+        f"{dt:.2f} s")
+    check(wrong == 0 and over == 0, f"(ax) budget: {wrong} wrong, "
+          f"{over} over")
+    check(caps == promotes and promotes > 0,
+          f"(ax) {caps} captures for {promotes} promotions")
+    if host_spill:
+        check(df["disk"] > 0, f"(ax) no fault from npz: {df}")
+
+
+def _params_dir():
+    from h2o3_tpu_torch.io import spill
+    d = spill.params_dir()
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def serve_threads(torch, models, frames):
+    """(ax): SERVE_THREADS threads score their own frames at once, with
+    lockdep raising; each answer equals its serial run's."""
+    from h2o3_tpu_torch.analysis import lockdep
+    from h2o3_tpu_torch.core.kvstore import DKV
+    jobs = []
+    tags = list(models)
+    for i in range(SERVE_THREADS):
+        tag = tags[i % len(tags)]
+        jobs.append((models[tag], _sub_frame(frames[tag], 300 + 97 * i)))
+    serial = [m._score_host(f) for m, f in jobs]
+    results = [None] * len(jobs)
+    errors = []
+    barrier = threading.Barrier(len(jobs))
+
+    def work(i):
+        try:
+            m, f = jobs[i]
+            barrier.wait()
+            results[i] = [m._score_host(f) for _ in range(20)]
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(repr(e))
+    ts = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+    lockdep.reset()
+    lockdep.enable("raise")
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    finally:
+        lockdep.disable()
+    counts = lockdep.counts()
+    same = not errors and all(
+        np.array_equal(_bits(r), _bits(serial[i]))
+        for i in range(len(jobs)) for r in results[i])
+    say(f"serving (ax) {len(jobs)} threads x 20 requests of their own "
+        f"frames at once, lockdep raising ({counts['edges']} lock-order "
+        f"edges, {counts['inversions']} inversions): every answer its "
+        f"serial run's {same}")
+    check(same and not counts["inversions"], f"(ax) threads: {errors[:2]}")
+    for _, f in jobs:
+        DKV.remove(f.key)
+
+
+def serve_speed(torch, h2o, models, frames, raws):
+    """(ax): warm rows/s of predict on 4,096-row frames; p50/p99 of
+    score_rows with one row and of predict on a one-row frame, through
+    the cache and eagerly (H2O3_SCORE_FASTPATH_MAX_ROWS=0), in turns."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    dev = h2o.init().device
+    out = {}
+    for tag, m in models.items():
+        di = m._dinfo
+        f4k = _sub_frame(frames[tag], 4096)
+        f1 = _sub_frame(frames[tag], 1)
+        raw1 = raws[tag]
+        x1 = torch.from_numpy(raw1[:1]).to(dev)
+
+        def eager_score():
+            with torch.no_grad():
+                return m._score_matrix(di.assemble_design(
+                    torch.from_numpy(raw1[:1]).to(dev))).cpu().numpy()
+
+        def predict(f):
+            p = m.predict(f)
+            DKV.remove(p.key)
+        r = {}
+        for mode in ("graph", "eager"):
+            if mode == "eager":
+                os.environ["H2O3_SCORE_FASTPATH_MAX_ROWS"] = "0"
+            try:
+                predict(f4k)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    predict(f4k)
+                r[mode + "_rows_s"] = 20 * 4096 / (time.perf_counter() - t0)
+                lat_s, lat_p = [], []
+                one = (lambda: SC.score_rows(m, raw1, 1)) \
+                    if mode == "graph" else eager_score
+                for _ in range(50):
+                    one()
+                    predict(f1)
+                for _ in range(SERVE_REQUESTS):
+                    t0 = time.perf_counter()
+                    one()
+                    lat_s.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    predict(f1)
+                    lat_p.append(time.perf_counter() - t0)
+                r[mode + "_score_ms"] = (_pctl(lat_s, 50) * 1e3,
+                                         _pctl(lat_s, 99) * 1e3)
+                r[mode + "_predict_ms"] = (_pctl(lat_p, 50) * 1e3,
+                                           _pctl(lat_p, 99) * 1e3)
+            finally:
+                os.environ.pop("H2O3_SCORE_FASTPATH_MAX_ROWS", None)
+        del x1
+        out[tag] = r
+        say(f"serving (ax) speed {tag}: predict on 4,096-row frames "
+            f"{r['graph_rows_s']:,.0f} rows/s (eager "
+            f"{r['eager_rows_s']:,.0f}); one-row score_rows p50/p99 "
+            f"{r['graph_score_ms'][0]:.4f}/{r['graph_score_ms'][1]:.4f} ms "
+            f"(eager scorer {r['eager_score_ms'][0]:.4f}/"
+            f"{r['eager_score_ms'][1]:.4f}); one-row predict p50/p99 "
+            f"{r['graph_predict_ms'][0]:.4f}/{r['graph_predict_ms'][1]:.4f}"
+            f" ms (eager {r['eager_predict_ms'][0]:.4f}/"
+            f"{r['eager_predict_ms'][1]:.4f})")
+        check(r["graph_score_ms"][0] < r["eager_score_ms"][0]
+              and r["graph_predict_ms"][0] < r["eager_predict_ms"][0],
+              f"(ax) {tag}: the cache's one-row p50 is not below eager's")
+        for f in (f4k, f1):
+            DKV.remove(f.key)
+    return out
+
+
+def serve_lifecycle(torch, h2o, models, frames):
+    """(ax): (b)'s key overwritten in DKV by a retrained model frees the
+    old generation's programs and placement once and the new model
+    scores; DELETE frees everything once."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    old = models["b"]
+    key = old.key
+    n_old = len(SC.CACHE.programs(key))
+    ev = om.REGISTRY.get("h2o3_scorer_cache_evictions_total")
+    e0 = ev.value()
+    small = _sub_frame(frames["train"], 200_000)
+    new = h2o.H2OGradientBoostingEstimator(
+        **dict(HIGGS_DEFAULT, ntrees=5, model_id=key))
+    new.train(y="y", training_frame=small)     # DKV.put replaces (b)
+    gone = not SC.CACHE.programs(key) and \
+        serving.PARAMS.bytes_for(key) == 0
+    sub = _sub_frame(frames["b"], 1000)
+    p = new.predict(sub).vec("p1").as_f32().cpu().numpy()
+    with torch.no_grad():
+        plain = new._score_matrix(new._dinfo.matrix(sub))[:, 1].cpu().numpy()
+    scores = np.array_equal(_bits(p), _bits(plain))
+    n_new = len(SC.CACHE.programs(key))
+    nbytes = serving.PARAMS.bytes_for(key)
+    h2o.remove(key)
+    text = om.REGISTRY.prometheus_text()
+    freed = (not SC.CACHE.programs(key)
+             and serving.PARAMS.bytes_for(key) == 0
+             and f'model="{key}"' not in text)
+    say(f"serving (ax) lifecycle: (b)'s key overwritten by a retrained "
+        f"model: its {n_old} programs and placement freed {gone} "
+        f"({ev.value() - e0:.0f} evictions), the new model scores bit for "
+        f"bit {scores} ({n_new} program, {nbytes} param bytes); DELETE "
+        f"frees every program, placement and series {freed}")
+    check(gone and scores and freed, "(ax) lifecycle")
+    for f in (small, sub):
+        DKV.remove(f.key)
+
+
+def phase_obs_serving(torch, h2o, HC):
+    """Runs (aw) and (ax)."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    t_phase = time.perf_counter()
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    t0 = time.perf_counter()
+    obs_training_run(torch, h2o, HC, fr)
+    t_aw = time.perf_counter() - t0
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    blobs = _blob_frame(torch, dev, HIGGS_N, 12)[0] if "t" not in KEPT \
+        else None
+    blobs_valid, _ = _blob_frame(torch, dev, HIGGS_VALID_N, 12)
+    models = _kept_models(torch, h2o, fr, valid, blobs,
+                          label="serving (ax)")
+    models = {t: models[t] for t in ("b", "k", "q", "t")}
+    # the programs of earlier runs' models go; the four models are in the
+    # store under their keys, and (k)'s custom metric under its name (an
+    # earlier phase may have cleared the store)
+    SC.CACHE.clear()
+    for m in models.values():
+        DKV.put(m.key, m)
+    from h2o3_tpu_torch import udf
+    udf.register_udf("chip_logloss", _logloss_udf(torch))
+    if blobs is not None:
+        DKV.remove(blobs.key)
+    del blobs
+    frames = {"b": valid, "k": valid, "q": valid, "t": blobs_valid,
+              "train": fr}
+    t0 = time.perf_counter()
+    graph_mib = serve_correctness(torch, h2o, models, frames)
+    t_corr = time.perf_counter() - t0
+    raws = {}
+    for tag, m in models.items():
+        sub = _sub_frame(frames[tag], 1)
+        raws[tag] = SC.stage_frame(m._dinfo, m._dinfo.adapt(sub), 128)
+        DKV.remove(sub.key)
+    refs = {t: SC.score_rows(m, raws[t], 1) for t, m in models.items()}
+    serve_sync_free(torch, models, raws)
+    t0 = time.perf_counter()
+    serve_budget(torch, models, raws, refs, host_spill=False)
+    serve_budget(torch, models, raws, refs, host_spill=True)
+    t_budget = time.perf_counter() - t0
+    serve_threads(torch, models, frames)
+    t0 = time.perf_counter()
+    speed = serve_speed(torch, h2o, models, frames, raws)
+    t_speed = time.perf_counter() - t0
+    serve_lifecycle(torch, h2o, models, frames)
+    KEPT.clear()
+    say(f"observability and serving: (aw) {t_aw:.1f} s, (ax) correctness "
+        f"{t_corr:.1f} s, budgets {t_budget:.1f} s, speed {t_speed:.1f} s; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s")
+    DKV.clear()
+    return {"graph_mib": graph_mib, "speed": speed}
 
 
 # ---------------------------------------------------------------------------
@@ -6713,6 +7291,7 @@ def main():
     phase_ingest(torch, h2o, HC)
     phase_munging(torch, h2o, HC)
     phase_export_explain(torch, h2o, HC)
+    phase_obs_serving(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -6720,7 +7299,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(av) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(ax) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

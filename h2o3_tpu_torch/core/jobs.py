@@ -6,9 +6,10 @@ work calls `update()` between device steps, which marks the deadline
 (`budget_exhausted`) and raises `JobCancelled` once `stop()` was asked.
 `ModelBase.train` runs every model build through one.
 
-Not ported here: the JAX package's QoS job slots (serving, ROADMAP.md
-§1 item 7) and the trace propagation into the job's thread (obs, item
-11).
+A job inherits the trace id and the principal of the thread that
+started it, and its work runs inside a `job.run` span (tagged `error` on
+a failure, which the flight recorder keeps). The JAX package's QoS job
+slots wait for the QoS module (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -80,12 +81,31 @@ class Job:
               background: bool = True) -> "Job":
         """Run `work(job)`; its return value is put in the DKV under
         `dest`. A failure is kept on the job and raised again by join()."""
+        from h2o3_tpu_torch.obs import tracing as _tracing
+        parent_principal = _tracing.principal()
         self.status = RUNNING
         self.start_time = time.time()
+        # jobs inherit the starting thread's trace, so job.run and its
+        # nested spans stitch into that trace although the work may run
+        # on its own thread
+        parent_trace = _tracing.current()
 
         def _run():
+            from h2o3_tpu_torch.obs.timeline import span
+            prev_p = _tracing.set_principal(parent_principal)
             try:
-                result = work(self)
+                with _tracing.trace(parent_trace), \
+                        span("job.run", job=self.key,
+                             description=self.description) as _sp:
+                    try:
+                        result = work(self)
+                    except JobCancelled:
+                        raise
+                    except BaseException as e:
+                        # the `error` attr is what the flight recorder's
+                        # tail sampler keys on
+                        _sp.attrs["error"] = repr(e)
+                        raise
                 if result is not None and self.dest:
                     DKV.put(self.dest, result)
                 self.progress = 1.0
@@ -97,6 +117,7 @@ class Job:
                 self.traceback = traceback.format_exc()
                 self.status = FAILED
             finally:
+                _tracing.set_principal(prev_p)
                 self.end_time = time.time()
                 self._done.set()
 

@@ -4,26 +4,36 @@ One process, one dictionary: frames and models register under a key so
 `model_id` and frame keys resolve. `get` runs a value's `_tier_on_get`
 hook (a Frame's chunks are touched, and loaded back from disk when the
 whole frame was spilled) outside the registry lock, so pager I/O never
-nests under it; `raw_get` skips the hook; `remove` runs `_on_remove`.
+nests under it; `raw_get` skips the hook; `remove` runs `_on_remove`, and
+`put` over another value runs the old value's `_on_replace` (a retrained
+model frees its predecessor's serving residency), both outside the lock.
+The registry lock is the lockdep class `dkv`.
 Replication, homes and divergence checks are the JAX package's and wait
 for the compute-substrate item of ROADMAP.md.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Any
+
+from h2o3_tpu_torch.analysis.lockdep import make_rlock
 
 
 class _DKV:
     def __init__(self):
-        self._mutex = threading.Lock()
+        self._mutex = make_rlock("dkv")
         self._store: dict[str, Any] = {}
         self._counter = 0
 
     def put(self, key: str, value: Any) -> str:
         with self._mutex:
+            old = self._store.get(key)
             self._store[key] = value
+        # outside the mutex like _on_remove, so cache and pager locks
+        # never nest under `dkv`
+        if old is not None and old is not value \
+                and hasattr(old, "_on_replace"):
+            old._on_replace()
         return key
 
     def get(self, key: str, default=None):
@@ -57,6 +67,27 @@ class _DKV:
     def clear(self):
         with self._mutex:
             self._store.clear()
+
+    def stats(self) -> dict:
+        """Registry census: live keys, frames and their bytes, without
+        faulting spilled frames back in (raw_get). The port has no write
+        locks, so `write_locked` is 0."""
+        with self._mutex:
+            keys = list(self._store.keys())
+        from h2o3_tpu_torch.core.frame import Frame
+        from h2o3_tpu_torch.core.memory import MANAGER
+        nframes = 0
+        fbytes = 0
+        for k in keys:
+            v = self.raw_get(k)
+            if isinstance(v, Frame):
+                nframes += 1
+                try:
+                    fbytes += MANAGER.frame_bytes(v)
+                except Exception:   # noqa: BLE001 — census must never raise
+                    pass
+        return {"keys": len(keys), "frames": nframes,
+                "frame_bytes": fbytes, "write_locked": 0}
 
     def make_key(self, prefix: str = "obj") -> str:
         """Deterministic keys, as in the JAX package: prefix + counter."""

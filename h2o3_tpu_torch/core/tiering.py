@@ -40,8 +40,11 @@ lock is taken: frames resolve to chunks before the pager is entered.
 There is no mesh, so every chunk is placed whole on the cloud's device
 (the JAX package's "rows" and "flat" placements coincide), and a
 chunk's rows are the frame's rows: the JAX package pads them to its
-mesh (ROADMAP.md §3). The JAX package's Prometheus series and span
-events wait for the obs port; `stats()` returns their counts.
+mesh (ROADMAP.md §3). Faults and evictions are counted in the JAX
+package's series (`h2o3_dkv_tier_faults_total`,
+`h2o3_dkv_tier_evictions_total`, `h2o3_dkv_tier_bytes`) and marked as
+events on the span open in the calling thread; the two locks are the
+lockdep classes `tiering.io` and `tiering.residency`.
 """
 
 from __future__ import annotations
@@ -55,7 +58,10 @@ from collections import deque
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.analysis.lockdep import make_lock
 from h2o3_tpu_torch.io import spill as _spill
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs import timeline as _tl
 from h2o3_tpu_torch.utils.env import env_bool, env_int
 
 TIER_HBM = "hbm"
@@ -106,6 +112,18 @@ def _fetch_dev_planes(ch, dev):
             None if mask is None else mask.detach().cpu().numpy())
 
 
+TIER_FAULTS = _om.counter(
+    "h2o3_dkv_tier_faults_total",
+    "chunk promotions through the DKV tier ladder, labeled by the tier "
+    "the chunk was faulted FROM (host = device_put of resident codec "
+    "bytes, disk = spill-file load + device_put)")
+TIER_EVICTIONS = _om.counter(
+    "h2o3_dkv_tier_evictions_total",
+    "chunk demotions through the DKV tier ladder, labeled by the tier "
+    "the chunk was evicted TO (host = device buffers freed, disk = "
+    "codec bytes spilled under ice_root)")
+
+
 class TierChunk:
     """One pageable plane bundle. Its planes are written once (a Vec is
     immutable after ingest), so the tiers never diverge and any copy can
@@ -129,7 +147,7 @@ class TierChunk:
         self._dev = dev            # None: born cold, or demoted
         self._host = host          # (packed np, mask np or None) or None
         self._path = None          # the spill file while disk-resident
-        self._io = threading.Lock()
+        self._io = make_lock("tiering.io")
         self._last = 0
         self._prefetched = False
         self._ready = None         # CUDA event of a prefetch copy
@@ -191,7 +209,7 @@ class ChunkPager:
     """The three-tier LRU pager; one a process, like the Cleaner."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("tiering.residency")
         self._chunks: dict[str, weakref.ref] = {}
         self._dead: deque = deque()   # keys of collected chunks, appended
         #                               without the lock by weakref callbacks
@@ -422,7 +440,7 @@ class ChunkPager:
             # pass that freed nothing forces admission, so a chunk larger
             # than the whole budget still faults
             forced = not self._make_room(ch.nbytes, exclude=ch)
-        self._note_fault(src)
+        self._note_fault(ch, src)
         self._demote_host_tier()
         return dev
 
@@ -449,7 +467,7 @@ class ChunkPager:
             if stale is not None:
                 _spill.delete_chunk(stale)
         if ch._dev is None:
-            self._note_fault(TIER_DISK)
+            self._note_fault(ch, TIER_DISK, to_tier=TIER_HOST)
         self._demote_host_tier()
         return host
 
@@ -481,6 +499,11 @@ class ChunkPager:
         if moved:
             with self._lock:
                 self._evictions[to_tier] += 1
+            TIER_EVICTIONS.inc(tier=to_tier)
+            sp = _tl.SPANS.current()
+            if sp is not None:
+                sp.event("dkv.tier_evict", chunk=ch.key, to=to_tier,
+                         bytes=ch.nbytes)
 
     def _host_planes(self, ch: TierChunk):
         """The packed host planes for a fault (caller holds ch._io); reads
@@ -489,10 +512,16 @@ class ChunkPager:
             return ch._host
         return _spill.read_chunk(ch._path)
 
-    def _note_fault(self, src: str):
+    def _note_fault(self, ch: TierChunk, src: str, to_tier: str = TIER_HBM):
         if src != TIER_HBM:
             with self._lock:
                 self._faults[src] += 1
+        if src != to_tier:
+            TIER_FAULTS.inc(tier=src)
+        sp = _tl.SPANS.current()
+        if sp is not None:
+            sp.event("dkv.tier_fault", chunk=ch.key, src=src,
+                     bytes=ch.nbytes)
 
     # ---- budget enforcement ---------------------------------------------
     def _victims_locked(self, tier: str, exclude) -> list:
@@ -632,3 +661,15 @@ class ChunkPager:
 
 
 PAGER = ChunkPager()
+
+
+def _tier_bytes_series():
+    tb = PAGER.tier_bytes()
+    return [({"tier": t}, float(b)) for t, b in sorted(tb.items())]
+
+
+TIER_BYTES = _om.gauge(
+    "h2o3_dkv_tier_bytes",
+    "packed chunk bytes resident per DKV tier (hbm = device planes, "
+    "host = codec bytes in RAM, disk = spill files under ice_root)",
+    fn=_tier_bytes_series)

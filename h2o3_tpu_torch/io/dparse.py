@@ -48,7 +48,8 @@ from h2o3_tpu_torch.io import fastcsv
 from h2o3_tpu_torch.io import uri as _uri
 from h2o3_tpu_torch.io.fastcsv import StrCells
 from h2o3_tpu_torch.io.parser import (NA_TOKENS, ParseSetup, _num_token,
-                                      _parse_time_ms, parse_setup)
+                                      _parse_time_ms, parse_setup, pack_span)
+from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.utils.env import env_int
 
 _COMPRESSED = (".gz", ".zip")
@@ -393,11 +394,18 @@ def _merge_chunks(chunks, setup, destination_frame, col_types) -> Frame:
                 _merge_categorical(parts, n, offs))
 
     mw = _pool_workers(ncol or 1)
-    if mw > 1:
-        with ThreadPoolExecutor(mw) as ex:
-            merged = list(ex.map(merge_col, range(ncol)))
-    else:
-        merged = [merge_col(j) for j in range(ncol)]
+    with _span("parse.merge", cols=ncol, chunks=len(chunks), rows=n):
+        if mw > 1:
+            with ThreadPoolExecutor(mw) as ex:
+                merged = list(ex.map(merge_col, range(ncol)))
+        else:
+            merged = [merge_col(j) for j in range(ncol)]
+    with pack_span(cols=ncol):
+        return _pack_merged(merged, names, ncol, destination_frame)
+
+
+def _pack_merged(merged, names, ncol, destination_frame) -> Frame:
+    """The merged host columns packed into Vecs on the cloud's device."""
     vecs = []
     for kind, payload in merged:
         if kind in (T_NUM, T_TIME):

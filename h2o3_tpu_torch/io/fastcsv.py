@@ -33,6 +33,8 @@ import threading
 
 import numpy as np
 
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.ops import _build
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -42,14 +44,22 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 _UNAVAILABLE: list = []          # the BuildError, once the build failed
 
+# bytes handed to the native tokenizer (per byte-range call: the sum over
+# ranges equals the file bytes), fed by count_bytes
+FASTCSV_BYTES = _om.counter("h2o3_fastcsv_bytes_total",
+                            "bytes tokenized by the native CSV parser")
+
 TOKENIZED_BYTES = {"fastcsv": 0, "python": 0}
 _COUNT_LOCK = threading.Lock()
 
 
 def count_bytes(engine: str, nbytes: int):
-    """Add `nbytes` handed to tokenizer `engine` ("fastcsv" or "python")."""
+    """Add `nbytes` handed to tokenizer `engine` ("fastcsv" or "python");
+    the native engine's also feed `h2o3_fastcsv_bytes_total`."""
     with _COUNT_LOCK:
         TOKENIZED_BYTES[engine] += int(max(nbytes, 0))
+    if engine == "fastcsv":
+        FASTCSV_BYTES.inc(max(nbytes, 0))
 
 
 def reset_counts():
@@ -199,8 +209,9 @@ def parse_columns(path: str, sep: str, header: bool,
     lib = _lib()
     size = os.path.getsize(path)
     span = (size if end < 0 else min(end, size)) - start
-    h = lib.fastcsv_parse_range(os.fsencode(path), sep.encode(), start,
-                                end, 1 if header else 0)
+    with _span("parse.tokenize", engine="fastcsv", start=start, end=end):
+        h = lib.fastcsv_parse_range(os.fsencode(path), sep.encode(), start,
+                                    end, 1 if header else 0)
     if not h:
         raise IOError(f"fastcsv failed on {path}")
     count_bytes("fastcsv", span)
@@ -216,9 +227,10 @@ def parse_bytes_columns(buf: bytes, sep: str, header: bool,
     `skip_partial_first` the head up to the first newline belongs to the
     previous chunk; otherwise `buf` holds whole lines."""
     lib = _lib()
-    h = lib.fastcsv_parse_bytes(buf, len(buf), sep.encode(),
-                                1 if header else 0,
-                                1 if skip_partial_first else 0)
+    with _span("parse.tokenize", engine="fastcsv_bytes", nbytes=len(buf)):
+        h = lib.fastcsv_parse_bytes(buf, len(buf), sep.encode(),
+                                    1 if header else 0,
+                                    1 if skip_partial_first else 0)
     if not h:
         raise IOError("fastcsv failed on a byte buffer")
     count_bytes("fastcsv", len(buf))

@@ -16,8 +16,14 @@ copy here. `import_file` routes as the JAX package does:
     package's `except Exception: return None` re-parsed it in Python;
   * ARFF (ARFFParser) and SVMLight (SVMLightParser, every feature column
     a SparseVec, never densified) files, plain, gzip or zip.
-`fastcsv.TOKENIZED_BYTES` counts the bytes each engine tokenized. A
-string column becomes a StrVec and a uuid column a UuidVec.
+`fastcsv.TOKENIZED_BYTES` counts the bytes each engine tokenized, and
+`h2o3_fastcsv_bytes_total` the native engine's. A string column becomes
+a StrVec and a uuid column a UuidVec. The JAX package's series
+`h2o3_parse_bytes_total` and `h2o3_parse_rows_total` count each parsed
+file, and its spans `parse.setup`, `parse.file`, `parse.tokenize` and
+`parse.pack` mark the stages (the native path's columns are packed by
+the chunked parse's merge, which adds `parse.merge`, as the JAX
+package's chunked parse does).
 """
 
 from __future__ import annotations
@@ -37,6 +43,22 @@ import numpy as np
 
 from h2o3_tpu_torch.core.frame import (Frame, SparseVec, T_CAT, T_NUM,
                                        T_STR, T_TIME, T_UUID, UuidVec, Vec)
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs.timeline import span as _span
+
+# source bytes ingested, labeled by parse type (CSV/ARFF/SVMLight); the
+# python-vs-native engine split is in h2o3_fastcsv_bytes_total and the
+# parse.tokenize span's engine attr
+PARSE_BYTES = _om.counter("h2o3_parse_bytes_total",
+                          "source bytes ingested by the 2-phase parser")
+PARSE_ROWS = _om.counter("h2o3_parse_rows_total",
+                         "rows materialized into Frames by the parser")
+
+
+def pack_span(**attrs):
+    """The `parse.pack` stage span, shared by the single-file path here
+    and the chunked merge (io/dparse)."""
+    return _span("parse.pack", **attrs)
 
 NA_TOKENS = {"", "NA", "N/A", "na", "NaN", "nan", "null", "NULL", "None", "?"}
 _SEPARATORS = [",", "\t", ";", "|", " "]
@@ -131,7 +153,8 @@ def _guess_types(rows: Sequence[Sequence[str]], ncol: int) -> list:
 def parse_setup(path: str, sample_lines: int = 200) -> ParseSetup:
     """Phase 1: sniff the format, separator, header and column types from
     a sample."""
-    with _open_text(path) as f:
+    with _span("parse.setup", file=os.path.basename(path)), \
+            _open_text(path) as f:
         sample = [line.rstrip("\r\n") for _, line in zip(range(sample_lines), f)]
     sample = [ln for ln in sample if ln]
     if not sample:
@@ -320,6 +343,18 @@ def parse(path: str, setup: Optional[ParseSetup] = None,
           col_types: Optional[dict] = None) -> Frame:
     """Phase 2: tokenize, type and load the columns of one file."""
     setup = setup or parse_setup(path)
+    with _span("parse.file", file=os.path.basename(path),
+               parse_type=setup.parse_type):
+        f = _parse_dispatch(path, setup, destination_frame, col_types)
+    try:
+        PARSE_BYTES.inc(os.path.getsize(path), type=setup.parse_type)
+    except OSError:
+        pass
+    PARSE_ROWS.inc(f.nrows)
+    return f
+
+
+def _parse_dispatch(path, setup, destination_frame, col_types) -> Frame:
     if setup.parse_type == "ARFF":
         return _parse_arff(path, setup, destination_frame)
     if setup.parse_type == "SVMLight":
@@ -328,7 +363,8 @@ def parse(path: str, setup: Optional[ParseSetup] = None,
     if not path.endswith((".gz", ".zip")) and fastcsv.available():
         return _native_parse(path, setup, destination_frame, col_types)
     fastcsv.count_bytes("python", os.path.getsize(path))
-    cols = _tokenize_csv(path, setup)
+    with _span("parse.tokenize", engine="python_csv"):
+        cols = _tokenize_csv(path, setup)
     names = list(setup.column_names)
     types = list(setup.column_types)
     while len(names) < len(cols):
@@ -337,8 +373,9 @@ def parse(path: str, setup: Optional[ParseSetup] = None,
     for k, v in (col_types or {}).items():
         if k in names:
             types[names.index(k)] = v
-    vecs = [_column_to_vec(cols[j], types[j]) for j in range(len(cols))]
-    return Frame(names[: len(vecs)], vecs, destination_frame)
+    with pack_span(cols=len(cols)):
+        vecs = [_column_to_vec(cols[j], types[j]) for j in range(len(cols))]
+        return Frame(names[: len(vecs)], vecs, destination_frame)
 
 
 def _native_parse(path: str, setup: ParseSetup, dest, col_types) -> Frame:

@@ -43,6 +43,7 @@ from h2o3_tpu_torch.models.model import ModelBase
 
 class H2OCoxProportionalHazardsEstimator(ModelBase):
     algo = "coxph"
+    _serving_param_attrs = ("_beta",)
     _defaults = {
         "stop_column": None, "start_column": None, "ties": "efron",
         "stratify_by": None, "max_iterations": 20, "lre_min": 9.0,

@@ -112,6 +112,20 @@ class MLP(torch.nn.Module):
         return torch.addmm(self.b[last], h, self.W[last])
 
 
+class _Layers:
+    """Given (W, b) lists, the forward of an MLP's layers, its activation
+    taken from the net it mirrors (the serving params' net)."""
+
+    def __init__(self, W, b, like: MLP):
+        self.W, self.b = W, b
+        self.act = like.act
+        self.in_drop = 0.0
+        self.hid_drop = []
+
+    def __call__(self, x):
+        return MLP.forward(self, x)
+
+
 def _batches(rng, n, mb, nsteps, device):
     """(step, (mb,) int64 row ids on `device`) for each step: one
     rng.integers(0, n, size=mb) call a step, in the JAX package's order,
@@ -126,6 +140,9 @@ def _batches(rng, n, mb, nsteps, device):
 
 class H2ODeepLearningEstimator(ModelBase):
     algo = "deeplearning"
+    _serving_param_attrs = ("_params_net",)
+    _partition_rules = ((r"^_params_net/\d+/0$", (None, "model")),
+                        (r"^_params_net/\d+/1$", ("model",)))
     _defaults = {
         "hidden": None, "epochs": 10.0, "activation": "Rectifier",
         "adaptive_rate": True, "rho": 0.99, "epsilon": 1e-8,
@@ -291,9 +308,20 @@ class H2ODeepLearningEstimator(ModelBase):
 
     # ------------------------------------------------------------------
     def _score_matrix(self, X):
+        return self._score_net(self._net, X)
+
+    def _score_with_params(self, params, X):
+        """The placed (W, b) layers stand in for the net's parameters: the
+        same forward (`MLP.forward` without draws) over them."""
+        layers = params["_params_net"]
+        net = _Layers([W for W, _ in layers], [b for _, b in layers],
+                      self._net)
+        return self._score_net(net, X)
+
+    def _score_net(self, net, X):
         Xz = torch.where(torch.isnan(X), 0.0, X)
         with torch.no_grad():
-            out = torch.cat([self._net(Xz[r:r + _SCORE_ROWS])
+            out = torch.cat([net(Xz[r:r + _SCORE_ROWS])
                              for r in range(0, max(1, Xz.shape[0]),
                                             _SCORE_ROWS)])
             if self.params.get("autoencoder"):

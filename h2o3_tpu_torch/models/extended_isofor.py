@@ -86,6 +86,8 @@ def _eif_walk(X, norms, points, dids, vals, D):
 class H2OExtendedIsolationForestEstimator(SharedTreeEstimator):
     algo = "extendedisolationforest"
     supervised = False
+    _serving_param_attrs = ("_norms", "_points", "_dids", "_vals")
+    _partition_rules = ((r"^_(norms|points|dids|vals)$", ("model",)),)
     _defaults = dict(SharedTreeEstimator._tree_defaults)
     _defaults.update({"ntrees": 100, "sample_size": 256, "extension_level": 0})
 
@@ -144,7 +146,8 @@ class H2OExtendedIsolationForestEstimator(SharedTreeEstimator):
 
     def predict(self, test_data: Frame) -> Frame:
         """anomaly_score 2^(−E[h]/c(ψ)) and mean_length E[h]."""
-        ml = np.asarray(self._score_host(test_data), np.float64)
+        ml = np.asarray(self._score_host(test_data),
+                        np.float64)[: test_data.nrows]
         score = 2.0 ** (-ml / self._cn)
         return Frame(["anomaly_score", "mean_length"],
                      [Vec.from_numpy(score), Vec.from_numpy(ml)])

@@ -31,8 +31,9 @@ a float64 prefix sum over a fixed order (the nonzeros by row for η, by
 column for the gradient, as `Frame.sparse_coo` returns them, scanned a
 block at a time by `_prefix_sums`) differenced at the segment ends,
 where `index_add_` would sum in the order its atomics land.
-`predict_sparse` and the sparse `_compute_metrics` score the same way. Not ported: the JAX package's IRLSM iteration counter and
-span (observability, ROADMAP.md §1 item 11).
+`predict_sparse` and the sparse `_compute_metrics` score the same way.
+Each IRLSM iteration (a multinomial sweep) is a `glm.irlsm` span and one
+count of `h2o3_glm_irlsm_iterations_total`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +45,12 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Frame
-from h2o3_tpu_torch.models.model import ModelBase
+from h2o3_tpu_torch.models.model import ModelBase, _dev_f32
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs.timeline import span as _span
+
+_IRLSM_ITERS = _om.counter("h2o3_glm_irlsm_iterations_total",
+                           "IRLSM iterations across all GLM fits")
 
 # ---------------------------------------------------------------------------
 # Families and links (hex/glm/GLMModel.GLMParameters.Family)
@@ -338,6 +344,7 @@ def _scalar(v, default):
 
 class H2OGeneralizedLinearEstimator(ModelBase):
     algo = "glm"
+    _serving_param_attrs = ("_state", "_ord_beta", "_ord_thr")
     _defaults = {
         "family": "AUTO", "link": "family_default", "solver": "AUTO",
         "alpha": None, "lambda_": None, "lambda_search": False, "nlambdas": 30,
@@ -809,13 +816,16 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         path = []
         self._iterations = 0
         for lam in lams:
-            for _ in range(max(1, max_it)):
+            for it in range(max(1, max_it)):
                 self._iterations += 1
-                Gn, qn = gram(beta)
-                # the quadratic (smoothness) penalty: ∇½βᵀPβ = Pβ folds
-                # into the Gram exactly, for both solvers
-                nb = _irls_solve(Gn if P is None else Gn + P, qn, beta, lam,
-                                 wsum, alpha, p_pen, lo, hi)
+                with _span("glm.irlsm", iter=it, lam=float(lam),
+                           family=fam):
+                    _IRLSM_ITERS.inc()
+                    Gn, qn = gram(beta)
+                    # the quadratic (smoothness) penalty: ∇½βᵀPβ = Pβ
+                    # folds into the Gram exactly, for both solvers
+                    nb = _irls_solve(Gn if P is None else Gn + P, qn, beta,
+                                     lam, wsum, alpha, p_pen, lo, hi)
                 dmax = float(np.max(np.abs(nb - beta)))
                 beta = nb
                 if fam == GAUSSIAN and link == "identity":
@@ -857,18 +867,21 @@ class H2OGeneralizedLinearEstimator(ModelBase):
             self._iterations += 1
             dmax = 0.0
             last_good = beta.copy()
-            for c in range(K):
-                yk = (yi == c).to(torch.float32)
-                Gn, qn = _host_gram(*_class_gram(Xi, w, as_t(beta), c, yk))
-                if alpha > 0 and lam > 0:
-                    nb = _cod_solve(Gn, qn, lam * wsum, alpha, p_pen,
-                                    beta[c].copy())
-                else:
-                    A = Gn + lam * wsum * (1 - alpha) * np.eye(p1)
-                    A[p1 - 1, p1 - 1] = Gn[p1 - 1, p1 - 1]
-                    nb = np.linalg.solve(A + 1e-8 * np.eye(p1), qn)
-                dmax = max(dmax, float(np.max(np.abs(nb - beta[c]))))
-                beta[c] = nb
+            with _span("glm.irlsm", iter=sweep, family=MULTINOMIAL):
+                _IRLSM_ITERS.inc()
+                for c in range(K):
+                    yk = (yi == c).to(torch.float32)
+                    Gn, qn = _host_gram(*_class_gram(Xi, w, as_t(beta), c,
+                                                     yk))
+                    if alpha > 0 and lam > 0:
+                        nb = _cod_solve(Gn, qn, lam * wsum, alpha, p_pen,
+                                        beta[c].copy())
+                    else:
+                        A = Gn + lam * wsum * (1 - alpha) * np.eye(p1)
+                        A[p1 - 1, p1 - 1] = Gn[p1 - 1, p1 - 1]
+                        nb = np.linalg.solve(A + 1e-8 * np.eye(p1), qn)
+                    dmax = max(dmax, float(np.max(np.abs(nb - beta[c]))))
+                    beta[c] = nb
             self._progress(0.6, f"multinomial sweep {sweep}")
             obj = _multinomial_nll(Xi, w, yi, as_t(beta))
             if not math.isfinite(obj) or obj > prev_obj + 1e-6 * abs(prev_obj):
@@ -887,8 +900,7 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         Xi = torch.cat([torch.where(torch.isnan(X), 0.0, X), ones], dim=1)
 
         def t(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                   device=X.device)
+            return _dev_f32(a, X.device)
         if st.family == ORDINAL:
             pk = _ordinal_cum(Xi[:, :-1] @ t(self._ord_beta),
                               t(self._ord_thr))

@@ -22,9 +22,9 @@ import math
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.core.frame import Frame
+from h2o3_tpu_torch.core.frame import Frame, Vec
 from h2o3_tpu_torch.models import metrics as M
-from h2o3_tpu_torch.models.model import ModelBase, _matrix_frame
+from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree.engine import segment_sum
 
 
@@ -60,6 +60,7 @@ def _assign_only(X, C):
 class H2OKMeansEstimator(ModelBase):
     algo = "kmeans"
     supervised = False
+    _serving_param_attrs = ("_centroids",)
     _defaults = {
         "k": 1, "max_iterations": 10, "init": "Furthest", "estimate_k": False,
         "user_points": None, "standardize": True, "max_runtime_secs": 0.0,
@@ -145,8 +146,9 @@ class H2OKMeansEstimator(ModelBase):
         return _assign_only(Xz, self._centroids)[0]
 
     def predict(self, test_data: Frame) -> Frame:
-        assign = self._score_matrix(self._dinfo.matrix(test_data))
-        return _matrix_frame(["predict"], assign.to(torch.float32)[:, None])
+        # through the scorer cache (eager for big frames)
+        assign = np.asarray(self._score_host(test_data))[: test_data.nrows]
+        return Frame(["predict"], [Vec.from_numpy(assign.astype(np.float64))])
 
     def centers(self) -> np.ndarray:
         """Centroids in the (possibly standardized) model space."""

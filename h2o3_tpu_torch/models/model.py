@@ -8,8 +8,13 @@ supervised metrics; it builds its own output frames (`_matrix_frame`).
 
 Each model also has the explanation surface (explain_data.py,
 explain_plots.py) and the export surface (`download_mojo`, `save_mojo`,
-`download_pojo`, `save_model_details`; genmodel/). Model monitoring and
-the serving cache are later slices. A parameter the
+`download_pojo`, `save_model_details`; genmodel/). `predict` and
+`model_performance` score through the serving cache (serving/: a CUDA
+graph a row bucket on the card, the model's params placed once), as the
+JAX package's do through its compiled programs; each family names the
+attributes that enter the scorer as shared params
+(`_serving_param_attrs`). Model monitoring comes with the QoS slice. A
+parameter the
 JAX package accepts and ignores although it would change the result
 (`offset_column`, `export_checkpoints_dir`) raises NotImplementedError
 here rather than being ignored.
@@ -17,9 +22,12 @@ here rather than being ignored.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import math
+import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -206,7 +214,7 @@ class DataInfo:
         dev = ref.device
 
         def f32(vals):
-            return torch.tensor(np.asarray(vals, np.float32), device=dev)
+            return _dev_const(self, dev, vals)
 
         def sig(name):
             return max(self.sigmas[name], 1e-10)
@@ -321,6 +329,36 @@ class DataInfo:
         f = Frame(needed, vecs)
         DKV.remove(f.key)          # a transient product, not registered
         return f
+
+
+# DataInfo → {(device, values): f32 tensor}: the standardisation and
+# imputation constants of `_assemble`, copied to a device once. A scorer
+# captured into a CUDA graph must not copy from pageable host memory, so
+# the serving cache's warm-up runs fill this before a capture; the eager
+# path reads the same tensors.
+_DEV_CONSTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_DEV_CONSTS_LOCK = threading.Lock()
+
+
+def _dev_const(di, dev, vals) -> torch.Tensor:
+    arr = np.asarray(vals, np.float32)
+    key = (str(dev), arr.shape, arr.tobytes())
+    with _DEV_CONSTS_LOCK:
+        per = _DEV_CONSTS.setdefault(di, {})
+        t = per.get(key)
+    if t is None:
+        t = torch.tensor(arr, device=dev)
+        with _DEV_CONSTS_LOCK:
+            t = per.setdefault(key, t)
+    return t
+
+
+def _dev_f32(a, device) -> torch.Tensor:
+    """`a` as f32 on `device`: a host array is copied (as every scorer
+    did), a placed tensor is cast on its device (the same rounding)."""
+    if torch.is_tensor(a):
+        return a.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 def _one_hot(code: torch.Tensor, k: int) -> torch.Tensor:
@@ -535,6 +573,56 @@ class ModelBase:
         """Batch score: regression predictions (n,) or class probs (n, K)."""
         raise NotImplementedError
 
+    # ---- serving params ------------------------------------------------------
+    # The instance attributes whose values (tensors, arrays, dataclasses
+    # and lists of them) enter the serving scorer as SHARED params: the
+    # param store places them once per model generation and every
+    # row-bucket program reads that copy. Missing or None attributes are
+    # skipped. Anything the scorer reads as a Python number stays out.
+    _serving_param_attrs: tuple = ()
+    # ((regex, spec), ...) of the JAX package's sharding; declared for the
+    # multi-device item (ROADMAP.md §1), unread on one card.
+    _partition_rules: tuple = ()
+
+    def _serving_params(self):
+        """Param pytree for the serving fast path, or None when this
+        family's scorer reads its own state."""
+        attrs = self._serving_param_attrs
+        if not attrs:
+            return None
+        p = {a: getattr(self, a, None) for a in attrs}
+        p = {a: v for a, v in p.items() if v is not None}
+        return p or None
+
+    def _score_with_params(self, params, X):
+        """_score_matrix with `params` (a `_serving_params()`-shaped
+        pytree of placed tensors) standing in for the exported attributes:
+        the params are grafted onto a SHALLOW COPY of the model and the
+        family's own `_score_matrix` runs, so fast-path and eager
+        predictions come from the same code."""
+        clone = copy.copy(self)
+        for a, v in params.items():
+            setattr(clone, a, v)
+        return type(self)._score_matrix(clone, X)
+
+    # ---- DKV lifecycle hooks -------------------------------------------------
+    def _on_remove(self):
+        """DKV.remove(model key): drop the model's serving residency —
+        its programs and graphs, and its param placements on every tier —
+        exactly once. Runs outside the `dkv` lock."""
+        if not self.key:
+            return
+        try:
+            from h2o3_tpu_torch import serving
+            serving.CACHE.invalidate_key(self.key)
+        except Exception:   # noqa: BLE001 — removal must not fail the DKV op
+            pass
+
+    def _on_replace(self):
+        """A retrain overwriting this key frees the old generation's
+        serving residency like a remove."""
+        self._on_remove()
+
     # ---- scoring / metrics -------------------------------------------------
     @property
     def _is_classifier(self) -> bool:
@@ -550,22 +638,39 @@ class ModelBase:
         return self._prediction_frame(out, test_data.nrows)
 
     def _score_host(self, test_data: Frame) -> np.ndarray:
-        """Score a frame on its device and fetch the result in one copy."""
-        X = self._dinfo.matrix(test_data)
-        return self._score_matrix(X).cpu().numpy()
+        """Score a frame and fetch the result in one copy. Serving-sized
+        frames go through the scorer cache (a graph a row bucket; the
+        result at bucket length, trimmed by the callers); larger ones, and
+        any the fast path refuses, run the scorer eagerly."""
+        from h2o3_tpu_torch import serving
+        out = serving.score_frame(self, test_data)
+        if out is None:
+            X = self._dinfo.matrix(test_data)
+            out = self._score_matrix(X).cpu().numpy()
+        return out
 
-    def _prediction_frame(self, out: np.ndarray, n: int) -> Frame:
-        """predict + one p<level> column per class, or predict alone."""
+    def _prediction_columns(self, out: np.ndarray, n: int) -> list:
+        """The ONE map from raw scores to (name, float64 values,
+        domain-or-None) columns: predict and one p<level> column per class,
+        or predict alone."""
         if self._is_classifier:
             probs = np.asarray(out, np.float64)[:n]
             dom = self._dinfo.response_domain
-            names = ["predict"] + [f"p{lvl}" for lvl in dom]
-            vecs = [Vec.from_numpy(probs.argmax(axis=1).astype(np.float64),
-                                   type=T_CAT, domain=dom)]
-            vecs += [Vec.from_numpy(probs[:, k]) for k in range(len(dom))]
-            return Frame(names, vecs)
-        return Frame(["predict"],
-                     [Vec.from_numpy(np.asarray(out, np.float64)[:n])])
+            cols = [("predict", probs.argmax(axis=1).astype(np.float64),
+                     dom)]
+            cols += [(f"p{lvl}", probs[:, k], None)
+                     for k, lvl in enumerate(dom)]
+            return cols
+        return [("predict", np.asarray(out, np.float64)[:n], None)]
+
+    def _prediction_frame(self, out: np.ndarray, n: int) -> Frame:
+        """The predictions Frame from host scores."""
+        names, vecs = [], []
+        for name, vals, dom in self._prediction_columns(out, n):
+            vecs.append(Vec.from_numpy(vals, type=T_CAT, domain=dom)
+                        if dom is not None else Vec.from_numpy(vals))
+            names.append(name)
+        return Frame(names, vecs)
 
     def model_performance(self, test_data: Optional[Frame] = None):
         """The metrics of a frame scored now; the training metrics without
@@ -576,10 +681,19 @@ class ModelBase:
 
     def _compute_metrics(self, frame: Frame):
         di = self._dinfo
-        y = di.response(frame)
-        w = di.weights(frame)
-        w = torch.where(torch.isnan(y), 0.0, w)
-        out = self._score_matrix(di.matrix(frame))
+        from h2o3_tpu_torch import serving
+        fast = serving.score_frame_with_response(self, frame)
+        if fast is not None:
+            # bucketed fast path: (bucket,)-long y and w with w = 0 on
+            # the padding and missing-response rows, so padded rows never
+            # reach an aggregate
+            dev = frame.vecs[0].device
+            out, y, w = (torch.from_numpy(a).to(dev) for a in fast)
+        else:
+            y = di.response(frame)
+            w = di.weights(frame)
+            w = torch.where(torch.isnan(y), 0.0, w)
+            out = self._score_matrix(di.matrix(frame))
         m = self._metrics_from_preds(y, out, w)
         cmf = self.params.get("custom_metric_func")
         if cmf and m is not None:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.core.frame import Frame
-from h2o3_tpu_torch.models.model import DataInfo, ModelBase
+from h2o3_tpu_torch.models.model import DataInfo, ModelBase, _dev_f32
 
 _WHY = "the JAX Naive Bayes accepts it and never reads it " \
     "(h2o3_tpu/models/naive_bayes.py:29)"
@@ -39,6 +39,9 @@ def _class_sums(v, yi, K):
 
 class H2ONaiveBayesEstimator(ModelBase):
     algo = "naivebayes"
+    # the staged f32 scoring tables (not the raw counts) are the shared
+    # params; staged on first export
+    _serving_param_attrs = ("_score_tab",)
     _defaults = {
         "laplace": 0.0, "min_sdev": 0.001, "eps_sdev": 0.0,
         "min_prob": 0.001, "eps_prob": 0.0, "compute_metrics": True,
@@ -97,6 +100,12 @@ class H2ONaiveBayesEstimator(ModelBase):
         self._output.model_summary = {
             "nclasses": K, "priors": self._priors.tolist(), "laplace": lap}
 
+    def _serving_params(self):
+        if getattr(self, "_priors", None) is None:
+            return None
+        self._stage_score_tables()
+        return super()._serving_params()
+
     def _stage_score_tables(self) -> dict:
         """The log tables of scoring, in float64 on the host and cast to
         f32 once (the JAX package's `_stage_score_tables`), cached."""
@@ -123,8 +132,7 @@ class H2ONaiveBayesEstimator(ModelBase):
         tab = self._stage_score_tables()
 
         def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32),
-                                   device=X.device)
+            return _dev_f32(a, X.device)
         parts = t(tab["log_prior"])[None, :].expand(X.shape[0], -1)
         for k, j in enumerate(self._cat_idx):
             col = X[:, j]

@@ -55,6 +55,7 @@ def _top_eigen(Gn, k):
 
 class H2OPrincipalComponentAnalysisEstimator(ModelBase):
     algo = "pca"
+    _serving_param_attrs = ("_rotation", "_mean", "_sd")
     supervised = False
     _defaults = {
         "k": 1, "transform": "NONE", "pca_method": "GramSVD",

@@ -36,6 +36,9 @@ from h2o3_tpu_torch.models.model import ModelBase
 
 class H2OSupportVectorMachineEstimator(ModelBase):
     algo = "psvm"
+    # the JAX package's `_params_svm` is the port's feature map and
+    # hyperplane
+    _serving_param_attrs = ("_rff", "_beta", "_b0")
     _defaults = {
         "hyper_param": 1.0,            # C
         "kernel_type": "gaussian", "gamma": -1.0, "rank_ratio": -1.0,

@@ -27,6 +27,7 @@ def _gram_xtx(X):
 
 class H2OSingularValueDecompositionEstimator(ModelBase):
     algo = "svd"
+    _serving_param_attrs = ("_v", "_mean", "_sd")
     supervised = False
     _defaults = {
         "nv": 1, "transform": "NONE", "svd_method": "GramSVD",

@@ -29,7 +29,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.ops import hist_cuda as HC
+
+# rows x trees processed: the GBM throughput numerator (the JAX package's
+# series; per-ensemble rate = delta counter / delta t)
+ROW_TREES = _om.counter("h2o3_gbm_row_trees_total",
+                        "rows x trees processed by the tree engines")
+_LEVEL_SECONDS = _om.histogram(
+    "h2o3_tree_level_seconds",
+    "per-level wall time of the tree engines, labeled by engine "
+    "(adaptive = per-level host time of the level's launches) and by "
+    "level index")
 
 # Trees walked together in one batch of gathers; bounds the (trees, rows)
 # temporaries at large row counts.
@@ -116,6 +128,23 @@ def _walk(XT, col, thr, nal, depth, catbits=None, iscat=None):
     return node
 
 
+def _iscat(trees: TreeArrays, dev):
+    """The categorical-column flags on `dev`, or None when the trees have
+    no categorical SET split. A serving placement holds the flags as a
+    device tensor (copied once, before a graph is captured); a host array
+    is copied here, and skipped when no column is categorical. Both give
+    the same walk: a set split on no categorical column routes as the
+    numeric one."""
+    cic = trees.col_is_cat
+    if trees.catbits is None or cic is None:
+        return None
+    if torch.is_tensor(cic):
+        return cic.to(device=dev, dtype=torch.bool)
+    if not bool(np.any(np.asarray(cic))):
+        return None
+    return torch.as_tensor(np.asarray(cic, bool), device=dev)
+
+
 def predict_ensemble(X: torch.Tensor, trees: TreeArrays,
                      weights=None) -> torch.Tensor:
     """sum_t weight_t * value[t, leaf_t(row)] for X (n, C) f32 NaN-NA.
@@ -125,10 +154,8 @@ def predict_ensemble(X: torch.Tensor, trees: TreeArrays,
     T = trees.ntrees
     tw = (torch.as_tensor(weights, dtype=torch.float32, device=dev)
           if weights is not None else torch.ones(T, device=dev))
-    has_cat = (trees.catbits is not None and trees.col_is_cat is not None
-               and bool(np.any(np.asarray(trees.col_is_cat))))
-    iscat = (torch.as_tensor(np.asarray(trees.col_is_cat, bool), device=dev)
-             if has_cat else None)
+    iscat = _iscat(trees, dev)
+    has_cat = iscat is not None
     XT = X.t().contiguous()
     out = torch.zeros(X.shape[0], dtype=torch.float32, device=dev)
     for t0 in range(0, T, _TREE_BATCH):
@@ -462,14 +489,17 @@ def gamma_pass(heap, w, res, hess, val, *, nodes, scale=1.0,
     """GammaPass (GBM.java:1235): the Newton leaf sum w·res / sum w·hess;
     with reg_lambda and reg_alpha XGBoost's leaf weight
     sign(G)·max(|G|−α, 0)/(H+λ). Nodes no row reaches keep `val`."""
-    num, den = segment_sum(heap, torch.stack([w * res, w * hess], 1),
-                           nodes).unbind(1)
-    if reg_alpha:
-        num = torch.sign(num) * torch.clamp(num.abs() - reg_alpha, min=0.0)
-    den = den + reg_lambda
-    return torch.where(den > 1e-10,
-                       torch.clamp(scale * num / torch.clamp(den, min=1e-10),
-                                   -19, 19), val).to(torch.float32)
+    with _span("tree.gamma", nodes=nodes):
+        num, den = segment_sum(heap, torch.stack([w * res, w * hess], 1),
+                               nodes).unbind(1)
+        if reg_alpha:
+            num = torch.sign(num) * torch.clamp(num.abs() - reg_alpha,
+                                                min=0.0)
+        den = den + reg_lambda
+        return torch.where(den > 1e-10,
+                           torch.clamp(scale * num
+                                       / torch.clamp(den, min=1e-10),
+                                       -19, 19), val).to(torch.float32)
 
 
 def node_covers(heap, w, *, nodes, D):
@@ -564,14 +594,20 @@ class TreeGrower:
         gains = torch.zeros(C, dtype=torch.float32, device=dev)
         if col_mask is None:
             col_mask = torch.ones(C, dtype=torch.bool, device=dev)
-        for d in range(self.D):
-            r = draw(d, 2 ** d, C) if sampled else None
-            leaf, heap, active, colA, thrA, nalA, valA, gains = _level_step(
-                X, stats, w, leaf, heap, active, colA, thrA, nalA, valA,
-                gains, col_mask, r, d=d, B=self.B, mtries=int(mtries),
-                min_rows=self.min_rows, min_split_improvement=self.msi,
-                reg_lambda=self.reg_lambda)
-            if not bool(active.any()):
-                return colA, thrA, nalA, valA, heap, gains
-        valA = _final_leaves(stats, leaf, active, w, valA, D=self.D)
-        return colA, thrA, nalA, valA, heap, gains
+        ROW_TREES.inc(n, engine="adaptive")
+        with _span("tree.grow", rows=n, cols=C, depth=self.D):
+            for d in range(self.D):
+                r = draw(d, 2 ** d, C) if sampled else None
+                with _span("tree.level", depth=d), \
+                        _LEVEL_SECONDS.time(engine="adaptive", level=str(d)):
+                    leaf, heap, active, colA, thrA, nalA, valA, gains = \
+                        _level_step(
+                            X, stats, w, leaf, heap, active, colA, thrA,
+                            nalA, valA, gains, col_mask, r, d=d, B=self.B,
+                            mtries=int(mtries), min_rows=self.min_rows,
+                            min_split_improvement=self.msi,
+                            reg_lambda=self.reg_lambda)
+                if not bool(active.any()):
+                    return colA, thrA, nalA, valA, heap, gains
+            valA = _final_leaves(stats, leaf, active, w, valA, D=self.D)
+            return colA, thrA, nalA, valA, heap, gains

@@ -135,7 +135,8 @@ class H2OIsolationForestEstimator(SharedTreeEstimator):
     def predict(self, test_data: Frame) -> Frame:
         """predict: the anomaly score (max_len − mean length) over the
         training rows' observed range of mean lengths; mean_length."""
-        ml = np.asarray(self._score_host(test_data), np.float64)
+        ml = np.asarray(self._score_host(test_data),
+                        np.float64)[: test_data.nrows]
         span = max(self._max_len - self._min_len, 1e-12)
         score = (self._max_len - ml) / span
         return Frame(["predict", "mean_length"],

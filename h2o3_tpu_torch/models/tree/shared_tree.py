@@ -38,10 +38,19 @@ from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
+from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.udf import resolve_udf
 
 class SharedTreeEstimator(ModelBase):
     """Common driver of the tree estimators."""
+
+    # serving: the ensembles (`_trees` for the single-output
+    # distributions, `_trees_k` per class for multinomial) are the shared
+    # params; `_f0` stays the model's own (the scorer reads it as a
+    # number). The JAX package shards the tree axis over a "model" mesh
+    # axis; one card holds one copy.
+    _serving_param_attrs = ("_trees", "_trees_k")
+    _partition_rules = ((r"^_trees", ("model",)),)
 
     _tree_defaults = {
         "ntrees": 50, "max_depth": 5, "min_rows": 10.0, "nbins": 20,
@@ -489,7 +498,9 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
                 sample_rate=float(p["sample_rate"]),
                 mtries=self._per_level_mtries(C), k_trees=k,
                 col_rate_tree=float(p.get("col_sample_rate_per_tree") or 1.0))
-            F, trees = trainer(ctx["codes"], y1, w1, F, gen)
+            with _span("gbm.chunk", trees=k, rows=n, engine="binned"):
+                F, trees = trainer(ctx["codes"], y1, w1, F, gen)
+            E.ROW_TREES.inc(n * k, engine="binned")
             if self._vstate is not None:
                 self._valid_advance(self._binned_tree_arrays(ctx, [trees])[0],
                                     lr)
@@ -548,7 +559,10 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
                 sample_rate=float(p["sample_rate"]),
                 mtries=self._per_level_mtries(C), k_iters=k,
                 col_rate_tree=float(p.get("col_sample_rate_per_tree") or 1.0))
-            F, trees = trainer(ctx["codes"], y1, w1, F, gen)
+            with _span("gbm.chunk", trees=k * K, rows=n,
+                       engine="binned_multinomial"):
+                F, trees = trainer(ctx["codes"], y1, w1, F, gen)
+            E.ROW_TREES.inc(n * k * K, engine="binned")
             self._record_history_multi(done, F[:n], y, w)
             return trees
         chunks = self._train_chunks(

@@ -75,3 +75,9 @@ def env_bool(name: str, default: bool = False) -> bool:
         return False
     _bad(name, v, "bool", default)
     return default
+
+
+def process_id() -> int:
+    """This process' rank in the cloud (H2O3_PROCESS_ID, 0 on one card):
+    the timeline's span host and the structured logger's record host."""
+    return env_int("H2O3_PROCESS_ID", 0)

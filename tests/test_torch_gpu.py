@@ -26,7 +26,12 @@ a GBM's H2O-3 MOJO imported and scored on the card routes as the model
 (col, thr, na_left bit for bit, leaves f32(value * learn_rate)) and
 gives its probabilities within 1e-5, as does its native MOJO; AutoML's
 GBM steps launch the binned kernels, and each base model trained alone
-is the same bit for bit.
+is the same bit for bit. Run (ax) small: the scorer cache captures one
+CUDA graph a row bucket for a GBM, GLM, DL and KMeans and replays it
+bit for bit against the eager scorer on the same padded buffer, captures
+again after a demote and a promote (from the host tier and from an npz),
+gives 4 threads their serial answers, and runs a warm dispatch under
+`torch.cuda.set_sync_debug_mode("error")`.
 """
 
 import numpy as np
@@ -1218,3 +1223,129 @@ def test_automl_on_the_card(dev):
         else:
             assert torch.equal(m._trees.value, alone._trees.value)
             assert torch.equal(m._trees.col, alone._trees.col)
+
+
+def _serving_models(dev):
+    """A GBM, a GLM and a DL on a small HIGGS-like frame, and KMeans on
+    its predictors: the four families of run (ax)."""
+    import h2o3_tpu_torch as h2o
+    h2o.init()
+    fr = _higgs_like(dev, 20_000, 5)
+    xs = [c for c in fr.names if c != "y"]
+    gbm = h2o.H2OGradientBoostingEstimator(ntrees=10, max_depth=5, nbins=64,
+                                           seed=1)
+    glm = h2o.H2OGeneralizedLinearEstimator(family="binomial", lambda_=0.0)
+    dl = h2o.H2ODeepLearningEstimator(hidden=[32, 32], epochs=1, seed=1)
+    km = h2o.H2OKMeansEstimator(k=4, seed=1)
+    for m in (gbm, glm, dl):
+        m.train(y="y", training_frame=fr)
+    km.train(x=xs, training_frame=fr)
+    return fr, {"gbm": gbm, "glm": glm, "dl": dl, "km": km}
+
+
+def _staged(m, fr, n):
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.models.model import _subframe
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    sub = _subframe(fr, torch.arange(n, device=fr.vecs[0].device))
+    raw = SC.stage_frame(m._dinfo, m._dinfo.adapt(sub), SC.row_bucket(n))
+    DKV.remove(sub.key)
+    return raw
+
+
+@pytest.mark.gpu
+def test_scorer_graph_captured_once_a_bucket_and_bit_for_bit(dev):
+    """Run (ax) small: each bucket's first dispatch is one CUDA graph
+    capture, later ones replay; a replay equals the eager scorer on the
+    same padded buffer bit for bit, and the params are one copy."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    SC.CACHE.clear()
+    for m in models.values():
+        nbytes = set()
+        for b in (128, 256, 1024):
+            for i, n in enumerate((b // 2 + 1, b)):
+                raw = _staged(m, fr, n)
+                c0 = om.graph_capture_count()
+                out = SC.score_rows(m, raw, n)
+                assert om.graph_capture_count() - c0 == (1 if i == 0 else 0)
+                prog = SC.CACHE.program(m, b)
+                with torch.no_grad():
+                    want = prog._fn(serving.PARAMS.placed(
+                        m, SC.model_token(m)),
+                        torch.from_numpy(raw).to(dev)).cpu().numpy()
+                assert np.array_equal(out.view(np.uint8),
+                                      want.view(np.uint8)), (m.algo, n)
+                nbytes.add(serving.PARAMS.bytes_for(m.key))
+        assert len(nbytes) == 1 and nbytes.pop() > 0
+
+
+@pytest.mark.gpu
+def test_scorer_recaptures_after_demote_and_promote(dev):
+    """A demote then a promote re-places the params at new addresses: the
+    next dispatch captures again (never replays against the freed copy)
+    and answers bit for bit, from the host tier and from an npz."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import params as SP
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    for m in models.values():
+        raw = _staged(m, fr, 100)
+        want = SC.score_rows(m, raw, 100)
+        for tier in (SP.TIER_HOST, SP.TIER_DISK):
+            serving.PARAMS.demote_key(m.key, tier)
+            c0 = om.graph_capture_count()
+            got = SC.score_rows(m, raw, 100)
+            assert om.graph_capture_count() - c0 == 1
+            assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+            c0 = om.graph_capture_count()
+            SC.score_rows(m, raw, 100)
+            assert om.graph_capture_count() == c0
+
+
+@pytest.mark.gpu
+def test_scorer_threads_match_serial(dev):
+    """4 threads score their own frames at once, through one model's
+    programs and others': every answer equals its serial run's."""
+    import threading
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    ms = list(models.values())
+    jobs = [(ms[i % len(ms)], _staged(ms[i % len(ms)], fr, 200 + 50 * i),
+             200 + 50 * i) for i in range(4)]
+    serial = [SC.score_rows(m, raw, n) for m, raw, n in jobs]
+    got = [None] * len(jobs)
+    barrier = threading.Barrier(len(jobs))
+
+    def work(i):
+        m, raw, n = jobs[i]
+        barrier.wait()
+        got[i] = [SC.score_rows(m, raw, n) for _ in range(20)]
+    ts = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
+    for i, outs in enumerate(got):
+        for o in outs:
+            assert np.array_equal(o.view(np.uint8), serial[i].view(np.uint8))
+
+
+@pytest.mark.gpu
+def test_warm_dispatch_has_no_hidden_sync(dev):
+    """A warm dispatch runs under set_sync_debug_mode("error"): its only
+    wait is the event before the host reads the pinned output."""
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    for m in models.values():
+        raw = _staged(m, fr, 1)
+        SC.score_rows(m, raw, 1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            SC.score_rows(m, raw, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

@@ -505,6 +505,13 @@ def test_port_imports_no_jax():
             pkg / "rapids" / "prims_ext.py"} | {
         pkg / "utils" / f"{m}.py" for m in (
             "config", "tools", "stats", "create_frame")} <= set(files)
+    assert {pkg / "analysis" / "lockdep.py", pkg / "utils" / "log.py",
+            pkg / "utils" / "timeline.py"} | {
+        pkg / "obs" / f"{m}.py" for m in (
+            "__init__", "metrics", "tracing", "timeline", "segments",
+            "recorder")} | {
+        pkg / "serving" / f"{m}.py" for m in (
+            "__init__", "params", "scorer_cache")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
