@@ -385,6 +385,37 @@ Phases, each printing its lines before the last:
            below the eager ones; (b)'s key overwritten
            by a retrained model and DELETE, each freeing the programs
            and the placement once;
+     then the rest of serving (phase qos_serving, on the same models;
+     lockdep raising throughout; no trace-error fallback):
+       (ay) 20,000 requests from 64 threads, sizes 1/8/64 rows at
+           70/20/10% of validation rows (KMeans: blob rows), half through
+           score_payload (dict rows), half through predict_via_rest (frames
+           made on the card), over the four models, at a 2 ms linger and
+           at none: every answer equal to its rows scored alone (GBM and
+           KMeans bit for bit, GLM and DL within 1e-6), none lost or
+           answered twice; requests and rows a dispatch, requests/s,
+           p50/p99, the mean stage waterfall of the slowest 1%;
+       (az) tenants gold, silver and flood at weights 4:1:1 on one device
+           slot: flood over its rate (429) and its queue share (503), gold
+           and silver neither; blown deadlines (504) at admission and in
+           the batch, an all-dead batch with no dispatch and no capture;
+           gold's p50/p99 alone and under the flood, with the waterfall of
+           its slowest 1%; the usage ledger by principal summing to the
+           total within 1%, charging each principal the rows of its
+           answered requests and one call a dispatch, every request's
+           stages; a train() beside a job holding gold's one slot under
+           H2O3_QOS_MAX_JOBS=1 refused and the slot freed; chaos failing
+           one dispatch (one epoch retry,
+           every request answered) and delaying one past the follower's
+           watch (one watchdog trip whose dump names the leader);
+       (ba) the drift baselines of (b) and (k) on their 11M-row frame
+           (seconds each; the card's counts equal to numpy's on its first
+           1M rows); 1M unshifted validation rows scored, the tap folding
+           a stride sample of 62,500 (every PSI < 0.1),
+           the same rows with x3 moved by its sd (its PSI > 0.25, the
+           others < 0.1, the drift gauge following); two retrains under
+           (k)'s key (the generation-skew gauge set); DELETE leaving no
+           per-model series; the pressure document's seven dimensions;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -404,7 +435,7 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(ax) are printed again just before the two JSON
+The lines of runs (d)-(ba) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
 engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(av)
 add no kernel to it); the last line is
@@ -842,7 +873,7 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"ingest and persistence|munging|export and import "
                    r"\(at|explain \(au|automl \(av|export, explain|"
                    r"observability|serving \(ax\) (speed|lifecycle|1000)|"
-                   r"serving \(ax\) [bkqt]:)")
+                   r"serving \(ax\) [bkqt]:|qos serving)")
 
 
 def say(msg):
@@ -850,8 +881,9 @@ def say(msg):
     print(msg, flush=True)
 
 
-# models of runs (b), (k), (q) and (t) kept for phase_export_explain, which
-# retrains one at the same settings when the phase runs alone
+# models of runs (b), (k), (q) and (t) kept for phases export_explain,
+# obs_serving and qos_serving, which retrain one at the same settings when
+# the phase runs alone
 KEPT = {}
 
 
@@ -6832,6 +6864,7 @@ def serve_lifecycle(torch, h2o, models, frames):
     from h2o3_tpu_torch.serving import scorer_cache as SC
     old = models["b"]
     key = old.key
+    old_tok = SC.model_token(old)
     n_old = len(SC.CACHE.programs(key))
     ev = om.REGISTRY.get("h2o3_scorer_cache_evictions_total")
     e0 = ev.value()
@@ -6839,8 +6872,15 @@ def serve_lifecycle(torch, h2o, models, frames):
     new = h2o.H2OGradientBoostingEstimator(
         **dict(HIGGS_DEFAULT, ntrees=5, model_id=key))
     new.train(y="y", training_frame=small)     # DKV.put replaces (b)
-    gone = not SC.CACHE.programs(key) and \
-        serving.PARAMS.bytes_for(key) == 0
+    # the old generation's programs and placement are gone; the retrain's
+    # drift baseline (obs/modelmon.py) scored its training frame, so the
+    # new generation holds one program, of the training bucket
+    progs = SC.CACHE.programs(key)
+    gone = not [p for p in progs if p.token == old_tok] and \
+        (key, old_tok) not in serving.PARAMS._placements
+    baseline = [p.bucket for p in progs
+                if p.token == SC.model_token(new)] == \
+        [SC.row_bucket(small.nrows)] and len(progs) == 1
     sub = _sub_frame(frames["b"], 1000)
     p = new.predict(sub).vec("p1").as_f32().cpu().numpy()
     with torch.no_grad():
@@ -6855,10 +6895,12 @@ def serve_lifecycle(torch, h2o, models, frames):
              and f'model="{key}"' not in text)
     say(f"serving (ax) lifecycle: (b)'s key overwritten by a retrained "
         f"model: its {n_old} programs and placement freed {gone} "
-        f"({ev.value() - e0:.0f} evictions), the new model scores bit for "
-        f"bit {scores} ({n_new} program, {nbytes} param bytes); DELETE "
-        f"frees every program, placement and series {freed}")
-    check(gone and scores and freed, "(ax) lifecycle")
+        f"({ev.value() - e0:.0f} evictions), the retrain's drift baseline "
+        f"holds one program of its training bucket {baseline}, the new "
+        f"model scores bit for bit {scores} ({n_new} programs, {nbytes} "
+        f"param bytes); DELETE frees every program, placement and series "
+        f"{freed}")
+    check(gone and baseline and scores and freed, "(ax) lifecycle")
     for f in (small, sub):
         DKV.remove(f.key)
 
@@ -6912,12 +6954,787 @@ def phase_obs_serving(torch, h2o, HC):
     speed = serve_speed(torch, h2o, models, frames, raws)
     t_speed = time.perf_counter() - t0
     serve_lifecycle(torch, h2o, models, frames)
-    KEPT.clear()
     say(f"observability and serving: (aw) {t_aw:.1f} s, (ax) correctness "
         f"{t_corr:.1f} s, budgets {t_budget:.1f} s, speed {t_speed:.1f} s; "
         f"the phase {time.perf_counter() - t_phase:.1f} s")
     DKV.clear()
     return {"graph_mib": graph_mib, "speed": speed}
+
+
+# ---------------------------------------------------------------------------
+# (ay)-(ba): the rest of serving — the micro-batcher under QoS, usage
+# attribution, the watchdog and chaos, drift
+QOS_REQUESTS = 20_000        # (ay) requests a run
+QOS_THREADS = 64             # (ay) client threads
+QOS_SIZES = (1, 8, 64)       # (ay) rows a request ...
+QOS_SIZE_P = (0.7, 0.2, 0.1)  # ... and their shares
+QOS_POOL = 4096              # (ay) validation rows the requests draw from
+QOS_TOL = 1e-6               # GLM and DL rows scored in another bucket
+QOS_TENANT_REQUESTS = 150    # (az) requests of each gold/silver thread
+QOS_TENANT_THREADS = 4       # (az) gold and silver threads each
+QOS_FLOOD_THREADS = 32       # (az) flood threads
+QOS_FLOOD_RPS = 400          # (az) flood's H2O3_QOS_RATES rate
+QOS_QUEUE_DEPTH = 40         # (az) H2O3_SCORE_QUEUE_DEPTH: share cap 20
+DRIFT_SHIFT_COL = "x3"       # (ba) the feature shifted by one sd
+DRIFT_TAP_ROWS = 65_536      # (ba) H2O3_MODELMON_TAP_ROWS: rows a fold
+
+
+def _set_env(**kw):
+    """Set (a str) or unset (None) env knobs; returns the old values."""
+    old = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return old
+
+
+def _payload(rows, names):
+    return [dict(zip(names, map(float, r))) for r in rows]
+
+
+def _frame_of(torch, dev, rows, names):
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    t = torch.from_numpy(np.ascontiguousarray(rows.T)).to(dev)
+    return Frame(list(names), [Vec.from_tensor(t[j].contiguous())
+                               for j in range(len(names))])
+
+
+def _answer(tag, out, route):
+    """The number a request's answer is checked on: p1 for the binomial
+    models, the cluster for KMeans."""
+    col = "predict" if tag == "t" else "p1"
+    if route == "payload":
+        return np.array([d[col] for d in out], np.float64)
+    return out.vec(col).to_numpy().astype(np.float64)
+
+
+def _qos_reference(torch, models, pools):
+    """Every pool row scored through its model's program at once, and
+    200 of the (ay) requests' row sets scored alone in their own bucket:
+    the GBM and KMeans rows bit for bit the pool's, GLM and DL within
+    QOS_TOL."""
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    ref = {}
+    for tag, m in models.items():
+        out = SC.score_rows(m, pools[tag], QOS_POOL)[:QOS_POOL]
+        ref[tag] = (out[:, 1] if out.ndim == 2 else out).astype(np.float64)
+    rng = np.random.default_rng(31)
+    worst = 0.0
+    for _ in range(200):
+        tag = "bkqt"[int(rng.integers(0, 4))]
+        k = int(rng.choice(QOS_SIZES))
+        o = int(rng.integers(0, QOS_POOL - 64))
+        raw = np.full((SC.row_bucket(k), pools[tag].shape[1]), np.nan,
+                      np.float32)
+        raw[:k] = pools[tag][o:o + k]
+        a = SC.score_rows(models[tag], raw, k)[:k]
+        a = (a[:, 1] if a.ndim == 2 else a).astype(np.float64)
+        d = float(np.abs(a - ref[tag][o:o + k]).max())
+        check(d <= (0.0 if tag in "bt" else QOS_TOL),
+              f"(ay) {tag} rows {o}+{k} alone vs the pool: {d}")
+        worst = max(worst, d)
+    return ref, worst
+
+
+def qos_coalesced_run(torch, h2o, models, pools, names, ref, linger,
+                      n_requests, n_threads):
+    """(ay): n_requests from n_threads closed-loop clients, half through
+    score_payload (dict rows), half through predict_via_rest (frames),
+    spread over the four models; sizes 1/8/64 at 70/20/10%."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import usage
+    from h2o3_tpu_torch.serving import microbatch as mb
+    dev = h2o.init().device
+    rng = np.random.default_rng(29)
+    tags = rng.choice(list("bkqt"), n_requests)
+    sizes = rng.choice(QOS_SIZES, n_requests, p=QOS_SIZE_P)
+    payload = rng.random(n_requests) < 0.5
+    offs = rng.integers(0, QOS_POOL - 64, n_requests)
+    # frames: one per (thread, size, model's pool), made on the card
+    # before the clock starts, as a parsed request frame would be
+    frames = {}
+    for th in range(n_threads):
+        for k in QOS_SIZES:
+            o = (th * 61) % (QOS_POOL - 64)
+            for g in ("x", "t"):
+                frames[th, k, g] = (o, _frame_of(
+                    torch, dev, pools["b" if g == "x" else "t"][o:o + k],
+                    names))
+    bodies = [None] * n_requests
+    for i in range(n_requests):
+        if payload[i]:
+            o, k = int(offs[i]), int(sizes[i])
+            bodies[i] = _payload(pools[tags[i]][o:o + k], names)
+    results = [None] * n_requests
+    stages = [None] * n_requests
+    writes = np.zeros(n_requests, np.int64)
+    lat = np.zeros(n_requests)
+    errors = []
+    old = _set_env(H2O3_SCORE_LINGER_MS=linger)
+    barrier = threading.Barrier(n_threads)
+
+    def client(th):
+        try:
+            barrier.wait()
+            for i in range(th, n_requests, n_threads):
+                m = models[tags[i]]
+                usage.begin_request()
+                t0 = time.perf_counter()
+                if payload[i]:
+                    out = serving.score_payload(m, bodies[i])
+                else:
+                    g = "t" if tags[i] == "t" else "x"
+                    out = serving.predict_via_rest(
+                        m, frames[th, int(sizes[i]), g][1])
+                lat[i] = time.perf_counter() - t0
+                stages[i] = usage.finish_request(lat[i])
+                writes[i] += 1
+                results[i] = out
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    r0, d0 = mb.REQUESTS.value(), mb.DISPATCHES.value()
+    rows0 = mb.BATCH_ROWS.snapshot()
+    ts = [threading.Thread(target=client, args=(th,), name=f"client-{th}")
+          for th in range(n_threads)]
+    t0 = time.perf_counter()
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    finally:
+        _set_env(**old)
+    wall = time.perf_counter() - t0
+    dr, dd = mb.REQUESTS.value() - r0, mb.DISPATCHES.value() - d0
+    rows1 = mb.BATCH_ROWS.snapshot()
+    check(not errors, f"(ay) client errors {errors[:3]}")
+    # every request answered exactly once, with its own rows
+    lost = int((writes == 0).sum())
+    twice = int((writes > 1).sum())
+    wrong, worst = 0, {t: 0.0 for t in "bkqt"}
+    for i in range(n_requests):
+        tag, k = str(tags[i]), int(sizes[i])
+        route = "payload" if payload[i] else "frame"
+        o = int(offs[i]) if payload[i] else frames[
+            i % n_threads, k, "t" if tag == "t" else "x"][0]
+        got = _answer(tag, results[i], route)
+        want = ref[tag][o:o + k]
+        d = float(np.abs(got - want).max()) if len(got) == k else np.inf
+        worst[tag] = max(worst[tag], d)
+        wrong += d > (0.0 if tag in "bt" else QOS_TOL)
+        if route == "frame":
+            DKV.remove(results[i].key)
+    for _, f in frames.values():
+        DKV.remove(f.key)
+    batched = int(sum(1 for t in tags if t != "t"))
+    return {"wall": wall, "rps": n_requests / wall,
+            "p50": _pctl(lat, 50) * 1e3, "p99": _pctl(lat, 99) * 1e3,
+            "p50_payload": _pctl(lat[payload], 50) * 1e3,
+            "p50_frame": _pctl(lat[~payload], 50) * 1e3,
+            "per_dispatch": dr / max(dd, 1), "dispatches": dd,
+            "requests": dr, "batched": batched,
+            "rows_per_dispatch": (rows1["sum"] - rows0["sum"])
+            / max(rows1["count"] - rows0["count"], 1),
+            "tail": _tail_split(lat, stages),
+            "tail_models": {str(t): int(c) for t, c in zip(*np.unique(
+                tags[lat >= _pctl(lat, 99)], return_counts=True))},
+            "lost": lost, "twice": twice, "wrong": wrong, "worst": worst}
+
+
+def _split_text(tail):
+    return ", ".join(f"{k} {v:.3f}" for k, v in tail.items() if k != "n")
+
+
+def _tail_split(lat, stages, q=99):
+    """The mean waterfall (ms a stage) of the requests at or above the
+    q-th percentile of `lat`, and how many they are."""
+    lat = np.asarray(lat)
+    cut = _pctl(lat, q)
+    slow = [stages[i] or {} for i in np.flatnonzero(lat >= cut)]
+    names = sorted({k for st in slow for k in st})
+    return {"n": len(slow),
+            **{k: round(1e3 * sum(st.get(k, 0.0) for st in slow)
+                        / len(slow), 3) for k in names}}
+
+
+def _tenant_clients(principal, m, rows, names, n_threads, n_req, lats,
+                    outcome, rows_ok, stop=None, deadline_ms=None,
+                    stages=None):
+    """Threads sending one-row (gold/silver) or 64-row (flood) payloads
+    as `principal`; outcome[principal] counts ok/429/503/504 and
+    rows_ok[principal] the rows of its answered requests."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.obs import tracing, usage
+    from h2o3_tpu_torch.serving import qos
+    k = 64 if principal == "flood" else 1
+    bodies = [_payload(rows[o:o + k], names) for o in range(0, 512, 7)]
+
+    def client(th):
+        i = th
+        while (stop is None and i < n_req * n_threads) or \
+                (stop is not None and not stop):
+            body = bodies[i % len(bodies)]
+            dl = None if deadline_ms is None else \
+                time.monotonic() + deadline_ms / 1e3
+            usage.begin_request()
+            t0 = time.perf_counter()
+            try:
+                with tracing.request_context(principal, dl):
+                    serving.score_payload(m, body)
+                key = "ok"
+            except qos.RateLimited:
+                key = "429"
+            except serving.QueueFull:
+                key = "503"
+            except qos.DeadlineExceeded:
+                key = "504"
+            dt = time.perf_counter() - t0
+            if key != "ok" and stop is not None:
+                time.sleep(0.001)       # a flood client's retry delay
+            st = usage.finish_request(dt)
+            with _OUTCOME_LOCK:
+                outcome[principal][key] = outcome[principal].get(key, 0) + 1
+                if key == "ok":
+                    lats.append(dt)
+                    if stages is not None:
+                        stages.append(st or {})
+                    rows_ok[principal] = rows_ok.get(principal, 0) + k
+            i += n_threads
+    return [threading.Thread(target=client, args=(th,), daemon=True,
+                             name=f"{principal}-{th}")
+            for th in range(n_threads)]
+
+
+_OUTCOME_LOCK = threading.Lock()
+
+
+def _run_threads(ts):
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+
+
+def qos_tenants_run(torch, h2o, models, pools, names, ref, fr):
+    """(az): gold, silver and flood at weights 4:1:1 on one device slot
+    (H2O3_QOS_MAX_INFLIGHT=1): flood's rate limit (429) and queue share
+    (503), deadlines (504), an all-dead batch, gold's p99 under the flood
+    beside unloaded, the usage ledger, a job quota, an epoch retry and a
+    watchdog trip from the chaos layer."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.deploy import chaos
+    from h2o3_tpu_torch.deploy import membership
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.obs import recorder, tracing, usage, watchdog
+    from h2o3_tpu_torch.serving import microbatch as mb
+    from h2o3_tpu_torch.serving import qos
+    m = models["b"]
+    rows = pools["b"]
+    old = _set_env(H2O3_QOS_WEIGHTS="gold:4,silver:1,flood:1",
+                   H2O3_QOS_MAX_INFLIGHT=1,
+                   H2O3_QOS_RATES=f"flood:{QOS_FLOOD_RPS}",
+                   H2O3_SCORE_QUEUE_DEPTH=QOS_QUEUE_DEPTH)
+    out = {}
+    try:
+        qos.reset()
+        usage.reset()
+        d_start = mb.DISPATCHES.value()
+        # gold alone
+        outcome = {p: {} for p in ("gold", "silver", "flood")}
+        rows_ok = {}
+        lat_alone, st_alone = [], []
+        _run_threads(_tenant_clients("gold", m, rows, names,
+                                     QOS_TENANT_THREADS, QOS_TENANT_REQUESTS,
+                                     lat_alone, outcome, rows_ok,
+                                     stages=st_alone))
+        # gold and silver under the flood
+        rej0 = {(p, r): qos.REJECTS.value(principal=p, reason=r)
+                for p in ("gold", "silver", "flood")
+                for r in ("rate", "share")}
+        stop = []
+        lat_gold, lat_silver, st_gold, st_silver = [], [], [], []
+        flood = _tenant_clients("flood", m, rows, names, QOS_FLOOD_THREADS,
+                                0, [], outcome, rows_ok, stop=stop)
+        for t in flood:
+            t.start()
+        time.sleep(0.2)
+        _run_threads(
+            _tenant_clients("gold", m, rows, names, QOS_TENANT_THREADS,
+                            QOS_TENANT_REQUESTS, lat_gold, outcome,
+                            rows_ok, stages=st_gold)
+            + _tenant_clients("silver", m, rows, names, QOS_TENANT_THREADS,
+                              QOS_TENANT_REQUESTS, lat_silver, outcome,
+                              rows_ok, stages=st_silver))
+        stop.append(1)
+        for t in flood:
+            t.join()
+        dispatches = mb.DISPATCHES.value() - d_start
+        rej = {k: qos.REJECTS.value(principal=k[0], reason=k[1]) - v
+               for k, v in rej0.items()}
+        n_ok = 2 * QOS_TENANT_REQUESTS * QOS_TENANT_THREADS
+        check(outcome["gold"] == {"ok": n_ok}
+              and outcome["silver"] == {"ok": n_ok // 2},
+              f"(az) gold/silver outcomes {outcome}")
+        check(outcome["flood"].get("429", 0) > 0
+              and outcome["flood"].get("503", 0) > 0,
+              f"(az) the flood was neither rate-limited nor shed: "
+              f"{outcome['flood']}")
+        check(rej[("flood", "rate")] == outcome["flood"]["429"]
+              and rej[("flood", "share")] == outcome["flood"]["503"]
+              and not any(v for (p, _), v in rej.items() if p != "flood"),
+              f"(az) rejection counters {rej} vs {outcome['flood']}")
+        stages = st_alone + st_gold + st_silver
+        short = [s for s in stages
+                 if not {"queue", "gate", "decode", "device"} <= set(s)]
+        check(not short, f"(az) waterfalls without a stage: {short[:2]}")
+        # usage: the ledger by principal against the total, and against
+        # what the clients saw: each principal charged the rows of its
+        # answered requests, and one call a dispatch
+        snap = usage.usage_snapshot()
+        by_p, led = {}, {}
+        for r in snap["ledger"]:
+            by_p[r["principal"]] = by_p.get(r["principal"], 0.0) \
+                + r["device_seconds"]
+            c, n = led.get(r["principal"], (0, 0))
+            led[r["principal"]] = (c + r["calls"], n + r["rows"])
+        total = usage.device_seconds_total()
+        share_err = abs(sum(by_p.values()) - total) / max(total, 1e-12)
+        check(share_err <= 0.01, f"(az) ledger {by_p} vs total {total}")
+        check({p: n for p, (_, n) in led.items()} == rows_ok
+              and sum(c for c, _ in led.values()) == dispatches
+              and all(1 <= led[p][0] <= outcome[p]["ok"] for p in rows_ok),
+              f"(az) ledger (calls, rows) {led}: rows answered {rows_ok}, "
+              f"{dispatches} dispatches")
+        out.update(outcome=outcome, rej=rej, by_p=by_p, total=total,
+                   led=led, dispatches=dispatches,
+                   tail_alone=_tail_split(lat_alone, st_alone),
+                   tail_gold=_tail_split(lat_gold, st_gold),
+                   share_err=share_err, n_stages=len(stages),
+                   gold_alone=(_pctl(lat_alone, 50) * 1e3,
+                               _pctl(lat_alone, 99) * 1e3),
+                   gold=(_pctl(lat_gold, 50) * 1e3,
+                         _pctl(lat_gold, 99) * 1e3),
+                   silver=(_pctl(lat_silver, 50) * 1e3,
+                           _pctl(lat_silver, 99) * 1e3))
+        # deadlines: blown at admission, blown while the batch lingers,
+        # and an all-dead batch
+        s0 = {r: qos.SHED.value(reason=r) for r in ("admission", "batch")}
+        n504 = 0
+        for _ in range(50):
+            try:
+                with tracing.request_context("gold",
+                                             time.monotonic() - 0.01):
+                    serving.score_payload(m, _payload(rows[:1], names))
+            except qos.DeadlineExceeded:
+                n504 += 1
+        os.environ["H2O3_SCORE_LINGER_MS"] = "50"
+        try:
+            for _ in range(5):
+                try:
+                    with tracing.request_context(
+                            "gold", time.monotonic() + 0.01):
+                        serving.score_payload(m, _payload(rows[:1], names))
+                except qos.DeadlineExceeded:
+                    n504 += 1
+        finally:
+            os.environ.pop("H2O3_SCORE_LINGER_MS", None)
+        ds = {r: qos.SHED.value(reason=r) - s0[r] for r in s0}
+        check(n504 == 55 and ds == {"admission": 50, "batch": 5},
+              f"(az) {n504} deadline rejections, shed {ds}")
+        with tracing.request_context("late", time.monotonic() - 1.0):
+            dead = [mb._Request(np.zeros((5000, len(names)), np.float32),
+                                5000) for _ in range(3)]
+        d0, c0 = mb.DISPATCHES.value(), om.graph_capture_count()
+        mb.MicroBatcher._dispatch_chunk(models["q"], dead)
+        check(all(isinstance(r.error, qos.DeadlineExceeded) for r in dead)
+              and mb.DISPATCHES.value() == d0
+              and om.graph_capture_count() == c0,
+              "(az) an all-dead batch reached the device")
+        out["n504"], out["shed"] = n504, ds
+        # the job quota
+        os.environ["H2O3_QOS_MAX_JOBS"] = "1"
+        try:
+            from h2o3_tpu_torch.core.jobs import DONE, Job
+            sub = _sub_frame(fr, 1_000_000)
+            go = threading.Event()
+            # a job of gold's (as a train() runs in one) holds its one
+            # slot until `go` is set
+            with tracing.request_context("gold"):
+                holder = Job("quota holder").start(lambda job: go.wait(30))
+            held = dict(qos._job_counts).get("gold")
+            q0 = qos.REJECTS.value(principal="gold", reason="quota")
+            quota = None
+            try:
+                with tracing.request_context("gold"):
+                    h2o.H2OGeneralizedLinearEstimator(
+                        **dict(GLM_K, nfolds=0)).train(
+                        y="y", training_frame=sub)
+            except qos.QuotaExceeded as e:
+                quota = e
+            finally:
+                go.set()
+                holder.join(30)
+            freed = not qos._jobs_series()
+            check(held == 1 and quota is not None and freed
+                  and holder.status == DONE
+                  and qos.REJECTS.value(principal="gold", reason="quota")
+                  == q0 + 1,
+                  f"(az) job quota: held {held}, raised {quota!r}, "
+                  f"freed {freed}")
+            DKV.remove(sub.key)
+        finally:
+            os.environ.pop("H2O3_QOS_MAX_JOBS", None)
+        # chaos: one failed dispatch retried over the epoch change
+        os.environ["H2O3_SCORE_LINGER_MS"] = "50"
+        try:
+            chaos.install("point=microbatch.dispatch,action=fail,times=1")
+            e0 = membership.EPOCH_RETRIES.value(op="microbatch")
+            d0 = mb.DISPATCHES.value()
+            bodies = [rows[8 * i:8 * i + 8] for i in range(8)]
+            got = [None] * 8
+            errs = []
+
+            def one(i):
+                try:
+                    got[i] = serving.score_payload(
+                        m, _payload(bodies[i], names))
+                except Exception as e:      # noqa: BLE001 — reported
+                    errs.append(repr(e))
+            _run_threads([threading.Thread(target=one, args=(i,))
+                          for i in range(8)])
+            chaos.reset()
+            answered = sum(
+                g is not None and np.array_equal(
+                    _answer("b", g, "payload"), ref["b"][8 * i:8 * i + 8])
+                for i, g in enumerate(got))
+            retries = membership.EPOCH_RETRIES.value(op="microbatch") - e0
+            check(not errs and answered == 8 and retries == 1,
+                  f"(az) chaos fail: {answered}/8 answered, {retries} "
+                  f"retries, {errs[:2]}")
+            out["chaos_dispatches"] = mb.DISPATCHES.value() - d0
+            out["retries"] = retries
+            # chaos: a delay past the follower's watch deadline trips the
+            # watchdog once, with a dump naming the leader
+            os.environ["H2O3_WATCHDOG_STALL_S"] = "0.3"
+            os.environ["H2O3_WATCHDOG_POLL_S"] = "0.05"
+            watchdog.reset()
+            tr0 = watchdog.TRIPS.value(kind="microbatch")
+            chaos.install("point=microbatch.dispatch,action=delay,"
+                          "delay_s=1.5,times=1")
+            got = [None] * 2
+            _run_threads([threading.Thread(
+                target=lambda i=i: got.__setitem__(i, serving.score_payload(
+                    m, _payload(rows[i:i + 1], names))),
+                name=f"watch-probe-{i}") for i in range(2)])
+            chaos.reset()
+            trips = watchdog.WATCHDOG.trips()
+            recorder.RECORDER.flush()
+            spans = recorder.RECORDER.load_trace(trips[0]["trace"]) \
+                if trips else []
+            sp = next((s for s in spans if s["name"] == "watchdog.trip"),
+                      None)
+            dump = sp["attrs"]["jstack"] if sp else ""
+            leader = None
+            for block in dump.split('--- thread "')[1:]:
+                name, _, stack = block.partition('"')
+                if "_dispatch_chunk" in stack and "chaos.py" in stack:
+                    leader = name
+            stalled = sp["attrs"]["stalls"][0]["thread"] if sp else None
+            dtrips = watchdog.TRIPS.value(kind="microbatch") - tr0
+            check(len(trips) == 1 and dtrips == 1 and all(got)
+                  and leader is not None
+                  and leader.startswith("watch-probe-")
+                  and stalled.startswith("watch-probe-")
+                  and leader != stalled,
+                  f"(az) watchdog: {len(trips)} trips, leader {leader}, "
+                  f"stalled {stalled}")
+            out["trip"] = (leader, stalled)
+        finally:
+            chaos.reset()
+            watchdog.reset()
+            _set_env(H2O3_SCORE_LINGER_MS=None, H2O3_WATCHDOG_STALL_S=None,
+                     H2O3_WATCHDOG_POLL_S=None)
+    finally:
+        _set_env(**old)
+        qos.reset()
+    return out
+
+
+def _shifted(torch, fr, col, by):
+    """`fr` with column `col` moved by `by` (the other columns shared)."""
+    from h2o3_tpu_torch.core.frame import Frame, Vec
+    return Frame(fr.names, [
+        Vec.from_tensor(v.as_f32() + by, type=v.type, domain=v.domain)
+        if n == col else v for n, v in zip(fr.names, fr.vecs)])
+
+
+def _timed_baseline(torch, m, fr):
+    from h2o3_tpu_torch.obs import modelmon
+    _sync(torch)
+    t0 = time.perf_counter()
+    prof = modelmon.install_baseline(m, fr)
+    _sync(torch)
+    check(prof is not None, f"(ba) no baseline for {m.key}")
+    return time.perf_counter() - t0
+
+
+def qos_drift_run(torch, h2o, models, fr, valid):
+    """(ba): drift of the 1M validation rows against (b)'s and (k)'s
+    baselines from their 11M-row training frame; one feature shifted by
+    one sd; retrains under (k)'s key; DELETE; the pressure document."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.obs import modelmon, usage
+    # every batch folds (no duty cycle), a stride sample of at most
+    # DRIFT_TAP_ROWS rows of it (the tap's own bound on one fold's cost)
+    old = _set_env(H2O3_MODELMON_TAP_ROWS=DRIFT_TAP_ROWS,
+                   H2O3_MODELMON_TAP_PCT=100, H2O3_MODELMON_EVAL_S=0)
+    out = {}
+    try:
+        b, k = models["b"], models["k"]
+        times = [_timed_baseline(torch, b, fr),
+                 _timed_baseline(torch, k, fr)]
+        # the card's counts against numpy's on the first 1M training rows
+        from h2o3_tpu_torch.serving import scorer_cache as SC
+        sub = _sub_frame(fr, 1_000_000)
+        di = b._dinfo
+        card = modelmon.build_baseline(di, modelmon.FrameColumns(
+            sub, di.raw_columns(), sub.vecs[0].device), None)
+        host = modelmon.build_baseline(
+            di, SC.stage_frame(di, di.adapt(sub), sub.nrows), None)
+        same = (all(np.array_equal(x, y)
+                    for x, y in zip(card.counts, host.counts))
+                and np.array_equal(card.na, host.na)
+                and all(f.get("codes") == g.get("codes")
+                        and np.array_equal(f.get("edges", ()),
+                                           g.get("edges", ()))
+                        for f, g in zip(card.features, host.features)))
+        check(same, "(ba) the card's baseline counts differ from numpy's")
+        out["base_rows"] = sub.nrows
+        n = valid.nrows
+        scored = om.REGISTRY.get("h2o3_model_scored_rows_total")
+        s0 = {m.key: scored.value(model=m.key) for m in (b, k)}
+        for m in (b, k):
+            serving.score_frame(m, valid)
+        docs = modelmon.evaluate()
+        gen0 = docs[k.key]["generation"]
+        psi = {t: {f["name"]: f["psi"] for f in docs[m.key]["features"]}
+               for t, m in (("b", b), ("k", k))}
+        folded = -(-n // -(-n // DRIFT_TAP_ROWS))     # the stride sample
+        check(all(docs[m.key]["rows"] == folded
+                  and scored.value(model=m.key) - s0[m.key] == n
+                  for m in (b, k)),
+              f"(ba) rows folded {[docs[m.key]['rows'] for m in (b, k)]} "
+              f"of {folded}")
+        check(all(v < 0.1 for d in psi.values() for v in d.values()),
+              f"(ba) unshifted PSI {psi}")
+        quiet = {t: modelmon.DRIFT.value(model=m.key, feature_kind="numeric")
+                 for t, m in (("b", b), ("k", k))}
+        # the same rows with one feature moved by its sd, through (b) on a
+        # fresh generation of its baseline
+        times.append(_timed_baseline(torch, b, fr))
+        sd = float(valid.vec(DRIFT_SHIFT_COL).as_f32().double().std())
+        sh = _shifted(torch, valid, DRIFT_SHIFT_COL, sd)
+        serving.score_frame(b, sh)
+        doc = modelmon.evaluate()[b.key]
+        spsi = {f["name"]: f["psi"] for f in doc["features"]}
+        others = max(v for c, v in spsi.items() if c != DRIFT_SHIFT_COL)
+        loud = modelmon.DRIFT.value(model=b.key, feature_kind="numeric")
+        check(spsi[DRIFT_SHIFT_COL] > 0.25 and others < 0.1
+              and loud == spsi[DRIFT_SHIFT_COL] and quiet["b"] < 0.1,
+              f"(ba) shifted PSI {spsi}, gauge {loud}")
+        DKV.remove(sh.key)
+        # retrains under (k)'s key on 1M rows: generation 2 has a
+        # prediction distribution (11M rows exceed the fast path's 1<<20,
+        # so (k)'s own baseline has none), generation 3 is compared to it
+        gens = [k]
+        for lam in (0.0, 1e-3):
+            g = h2o.H2OGeneralizedLinearEstimator(
+                **dict(GLM_K, nfolds=0, lambda_=lam, model_id=k.key))
+            g.train(y="y", training_frame=sub)
+            gens.append(g)
+        serving.score_frame(gens[2], valid)
+        serving.score_frame(gens[1], valid)       # the old object: shadow
+        doc = modelmon.evaluate()[k.key]
+        skew = om.REGISTRY.get("h2o3_model_generation_skew").value(
+            model=k.key)
+        check(doc["generation"] == gen0 + 2
+              and doc["generation_skew"] is not None
+              and skew == doc["generation_skew"]
+              and doc["prev_rows"] == folded,
+              f"(ba) generation skew {doc['generation_skew']} gauge {skew}")
+        out.update(times=times, psi=psi, shifted=spsi, quiet=quiet,
+                   loud=loud, skew=skew, sd=sd, folded=folded)
+        # the pressure document
+        press = usage.evaluate_pressure()
+        dims = set(press["dimensions"])
+        check(dims == {"queue", "utilization", "slo_burn", "tier_occupancy",
+                       "tier_faults", "stalls", "drift"},
+              f"(ba) pressure dimensions {sorted(dims)}")
+        out["pressure"] = press["dimensions"]
+        # DELETE: every per-model series once, the baseline key, forget
+        for key in (b.key, k.key):
+            h2o.remove(key)
+        text = om.REGISTRY.prometheus_text()
+        gone = all(f'model="{key}"' not in text
+                   and DKV.get(modelmon.monitor_key(key)) is None
+                   and not modelmon.forget(key) for key in (b.key, k.key))
+        check(gone, "(ba) a model series outlived DELETE")
+        DKV.remove(sub.key)
+    finally:
+        _set_env(**old)
+    return out
+
+
+def phase_qos_serving(torch, h2o, HC, n_requests=QOS_REQUESTS,
+                      n_threads=QOS_THREADS):
+    """Runs (ay)-(ba)."""
+    from h2o3_tpu_torch.analysis import lockdep
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import modelmon, usage
+    from h2o3_tpu_torch.serving import qos
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    t_phase = time.perf_counter()
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    blobs = _blob_frame(torch, dev, HIGGS_N, 12)[0] if "t" not in KEPT \
+        else None
+    blobs_valid, _ = _blob_frame(torch, dev, QOS_POOL, 12)
+    models = _kept_models(torch, h2o, fr, valid, blobs,
+                          label="qos serving (ay)")
+    models = {t: models[t] for t in ("b", "k", "q", "t")}
+    for m in models.values():
+        DKV.put(m.key, m)
+    if blobs is not None:
+        DKV.remove(blobs.key)
+    del blobs
+    from h2o3_tpu_torch import udf
+    udf.register_udf("chip_logloss", _logloss_udf(torch))
+    modelmon.reset()
+    usage.reset()
+    qos.reset()
+    fb0 = SC.FALLBACKS.value(reason="trace-error")
+    # (b) and (k) monitored as their 11M-row train() leaves them
+    t_base = [_timed_baseline(torch, models[t], fr) for t in ("b", "k")]
+    names = [f"x{j}" for j in range(HIGGS_C)]
+    vsub = _sub_frame(valid, QOS_POOL)
+    pools = {}
+    for t, m in models.items():
+        src = blobs_valid if t == "t" else vsub
+        pools[t] = SC.stage_frame(m._dinfo, m._dinfo.adapt(src), QOS_POOL)
+    DKV.remove(vsub.key)
+    # every bucket a coalesced dispatch can reach, captured off the clock
+    for t in models:
+        b = SC.row_bucket(1)
+        while b <= SC.row_bucket(64 * n_threads):
+            SC.score_rows(models[t], pools[t][:b] if b <= QOS_POOL else
+                          np.resize(pools[t], (b, HIGGS_C)), 1)
+            b <<= 1
+    ref, alone_worst = _qos_reference(torch, models, pools)
+    lockdep.reset()
+    lockdep.enable("raise")
+    try:
+        runs = {}
+        for linger in ("2", "0"):
+            r = qos_coalesced_run(torch, h2o, models, pools, names, ref,
+                                  linger, n_requests, n_threads)
+            runs[linger] = r
+            say(f"qos serving (ay) {n_requests:,} requests from "
+                f"{n_threads} threads (sizes 1/8/64 rows at 70/20/10%, "
+                f"half score_payload, half predict_via_rest, over (b), "
+                f"(k), (q), (t)) at H2O3_SCORE_LINGER_MS={linger}: "
+                f"{r['rps']:,.0f} requests/s warm, p50/p99 "
+                f"{r['p50']:.3f}/{r['p99']:.3f} ms (p50 payload "
+                f"{r['p50_payload']:.3f}, frame {r['p50_frame']:.3f}); "
+                f"{r['requests']:.0f} micro-batched requests in "
+                f"{r['dispatches']:.0f} dispatches = "
+                f"{r['per_dispatch']:.2f} requests "
+                f"({r['rows_per_dispatch']:.1f} rows) a dispatch; "
+                f"{r['lost']} lost, {r['twice']} answered twice, "
+                f"{r['wrong']} wrong; largest |diff| vs the pool's rows "
+                f"{ {t: float(v) for t, v in r['worst'].items()} }; the "
+                f"mean waterfall (ms) of the {r['tail']['n']} requests at "
+                f"or above p99 {_split_text(r['tail'])} (requests of each "
+                f"model among them {r['tail_models']})")
+            check(r["lost"] == 0 and r["twice"] == 0 and r["wrong"] == 0,
+                  f"(ay) linger {linger}: {r['lost']} lost, {r['twice']} "
+                  f"twice, {r['wrong']} wrong")
+            check(r["requests"] == r["batched"],
+                  f"(ay) {r['requests']} micro-batched of {r['batched']}")
+        check(runs["2"]["per_dispatch"] > runs["0"]["per_dispatch"],
+              "(ay) the linger coalesced nothing")
+        say(f"qos serving (ay) 200 request row sets scored alone in their "
+            f"own bucket vs the same rows in the pool's dispatch: GBM and "
+            f"KMeans bit for bit, GLM/DL largest |diff| {alone_worst:.3g} "
+            f"(tolerance {QOS_TOL:g}); the DL net's largest |diff| under "
+            f"coalescing {float(runs['2']['worst']['q']):.3g}")
+        t0 = time.perf_counter()
+        az = qos_tenants_run(torch, h2o, models, pools, names, ref, fr)
+        t_az = time.perf_counter() - t0
+        counts = lockdep.counts()
+        ba = qos_drift_run(torch, h2o, models, fr, valid)
+    finally:
+        lockdep.disable()
+    check(lockdep.counts()["inversions"] == 0,
+          "(ay)-(ba) lock-order inversion")
+    fl = az["outcome"]["flood"]
+    say(f"qos serving (az) gold/silver/flood at weights 4:1:1, one device "
+        f"slot, flood rate {QOS_FLOOD_RPS}/s, queue depth "
+        f"{QOS_QUEUE_DEPTH} (share cap {QOS_QUEUE_DEPTH // 2}): gold "
+        f"p50/p99 {az['gold_alone'][0]:.3f}/{az['gold_alone'][1]:.3f} ms "
+        f"alone, {az['gold'][0]:.3f}/{az['gold'][1]:.3f} ms under the "
+        f"flood (silver {az['silver'][0]:.3f}/{az['silver'][1]:.3f}); "
+        f"flood {fl.get('ok', 0)} ok, {fl.get('429', 0)} 429 "
+        f"(RateLimited), {fl.get('503', 0)} 503 (QueueFull); gold and "
+        f"silver none; {az['n504']} 504 (shed {az['shed']}); an all-dead "
+        f"batch no dispatch, no capture; ledger by principal "
+        f"{ {p: round(v, 6) for p, v in az['by_p'].items()} } sums to "
+        f"the total {az['total']:.6f} s within {az['share_err']:.2e}; "
+        f"its (calls, rows) {az['led']}: the rows each principal's "
+        f"answered requests sent, {az['dispatches']:.0f} calls = the "
+        f"dispatches; gold's slowest 1% (ms a stage) "
+        f"{_split_text(az['tail_alone'])} alone, "
+        f"{_split_text(az['tail_gold'])} under the flood; "
+        f"{az['n_stages']} waterfalls with queue, gate, decode, device; "
+        f"a train() beside a job holding gold's one slot under "
+        f"H2O3_QOS_MAX_JOBS=1 raised QuotaExceeded and the slot was "
+        f"freed; chaos fail: 8/8 answered, "
+        f"{az['retries']:.0f} epoch retry, {az['chaos_dispatches']:.0f} "
+        f"dispatches; chaos delay: one watchdog trip, the dump names the "
+        f"leader {az['trip'][0]} (stalled follower {az['trip'][1]}); "
+        f"lockdep raising: {counts['edges']} edges, "
+        f"{counts['inversions']} inversions; {t_az:.1f} s")
+    fb = SC.FALLBACKS.value(reason="trace-error") - fb0
+    check(fb == 0, f"(ay)-(ba) {fb} trace-error fallbacks")
+    worst_psi = {t: round(max(d.values()), 6) for t, d in ba["psi"].items()}
+    say(f"qos serving (ba) drift baseline of an {HIGGS_N:,}-row train "
+        f"(install_baseline, as train() runs it): "
+        f"{', '.join(f'{x:.3f}' for x in t_base + ba['times'])} s; its "
+        f"counts on the card = numpy's on {ba['base_rows']:,} rows (the "
+        f"edges equal); "
+        f"{HIGGS_VALID_N:,} unshifted validation rows scored (the tap "
+        f"folds a stride sample of {ba['folded']:,}): largest PSI "
+        f"{worst_psi}, h2o3_model_drift{{numeric}} {ba['quiet']}; "
+        f"{DRIFT_SHIFT_COL} moved by its sd {ba['sd']:.4f}: its PSI "
+        f"{ba['shifted'][DRIFT_SHIFT_COL]:.4f}, the others' largest "
+        f"{max(v for c, v in ba['shifted'].items() if c != DRIFT_SHIFT_COL):.4f}, "
+        f"gauge {ba['loud']:.4f}; two retrains under (k)'s key: "
+        f"h2o3_model_generation_skew {ba['skew']:.6f}; DELETE left no "
+        f"series; pressure {ba['pressure']}; trace-error fallbacks "
+        f"{fb:.0f}; lockdep raising through (ba): "
+        f"{lockdep.counts()['inversions']} inversions")
+    modelmon.reset()
+    usage.reset()
+    KEPT.clear()
+    say(f"qos serving: the phase {time.perf_counter() - t_phase:.1f} s")
+    DKV.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -7292,6 +8109,7 @@ def main():
     phase_munging(torch, h2o, HC)
     phase_export_explain(torch, h2o, HC)
     phase_obs_serving(torch, h2o, HC)
+    phase_qos_serving(torch, h2o, HC)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -7299,7 +8117,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(ax) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(ba) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -223,15 +223,19 @@ class Vec:
 
     @staticmethod
     def from_tensor(col: torch.Tensor, type: str = T_NUM,
-                    domain=None) -> "Vec":
+                    domain=None, has_na=None) -> "Vec":
         """A column already on the device (f32, NaN = NA), stored with the
         f32 codec (the JAX package's `from_device_floats`): no host round
-        trip, and without NaNs the tensor itself is the plane."""
+        trip, and without NaNs the tensor itself is the plane. A caller
+        that knows whether the column holds a NaN passes `has_na`, and
+        the column is not tested on the device (which waits on it)."""
         if col.dim() != 1:
             raise ValueError("a Vec is one-dimensional")
         x = col.to(torch.float32).contiguous()
-        isna = torch.isnan(x)
-        if bool(isna.any()):
+        if has_na is None:
+            has_na = bool(torch.isnan(x).any())
+        if has_na:
+            isna = torch.isnan(x)
             return Vec(torch.where(isna, torch.zeros_like(x), x),
                        Codec("f32"), isna.to(torch.uint8), x.shape[0], type,
                        domain)

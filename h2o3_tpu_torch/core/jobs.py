@@ -8,8 +8,12 @@ work calls `update()` between device steps, which marks the deadline
 
 A job inherits the trace id and the principal of the thread that
 started it, and its work runs inside a `job.run` span (tagged `error` on
-a failure, which the flight recorder keeps). The JAX package's QoS job
-slots wait for the QoS module (ROADMAP.md §1).
+a failure, which the flight recorder keeps). Multi-tenant QoS: starting a
+job charges the launching request's principal against its
+concurrent-job quota (H2O3_QOS_MAX_JOBS → QuotaExceeded) before the job
+is RUNNING; the worker runs in `qos.job_context` (so nested jobs are not
+charged again and its dispatches ride the batch lane), and the slot is
+released when the job ends — or when its thread cannot start.
 """
 
 from __future__ import annotations
@@ -80,8 +84,17 @@ class Job:
     def start(self, work: Callable[["Job"], object],
               background: bool = True) -> "Job":
         """Run `work(job)`; its return value is put in the DKV under
-        `dest`. A failure is kept on the job and raised again by join()."""
+        `dest`. A failure is kept on the job and raised again by join().
+        Raises QuotaExceeded when the principal already runs
+        H2O3_QOS_MAX_JOBS jobs."""
         from h2o3_tpu_torch.obs import tracing as _tracing
+        from h2o3_tpu_torch.serving import qos as _qos
+        # a REST job-route request may have pre-paid its quota charge
+        # (qos.prepay_job_slot); adopt it — only job starts outside that
+        # flow charge here
+        qos_slot = _qos.adopt_prepaid_job_slot()
+        if qos_slot is None:
+            qos_slot = _qos.acquire_job_slot()
         parent_principal = _tracing.principal()
         self.status = RUNNING
         self.start_time = time.time()
@@ -92,9 +105,9 @@ class Job:
 
         def _run():
             from h2o3_tpu_torch.obs.timeline import span
-            prev_p = _tracing.set_principal(parent_principal)
             try:
                 with _tracing.trace(parent_trace), \
+                        _qos.job_context(parent_principal), \
                         span("job.run", job=self.key,
                              description=self.description) as _sp:
                     try:
@@ -117,14 +130,23 @@ class Job:
                 self.traceback = traceback.format_exc()
                 self.status = FAILED
             finally:
-                _tracing.set_principal(prev_p)
+                _qos.release_job_slot(qos_slot)
                 self.end_time = time.time()
                 self._done.set()
 
         if background:
-            self._thread = threading.Thread(target=_run, daemon=True,
-                                            name=f"job-{self.key}")
-            self._thread.start()
+            try:
+                self._thread = threading.Thread(target=_run, daemon=True,
+                                                name=f"job-{self.key}")
+                self._thread.start()
+            except BaseException as e:
+                # the worker that would release the slot in its finally
+                # never runs: release it here, or the charge leaks
+                self.exception = e
+                self.status = FAILED
+                _qos.release_job_slot(qos_slot)
+                self._done.set()
+                raise
         else:
             _run()
         return self

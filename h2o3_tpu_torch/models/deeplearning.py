@@ -330,13 +330,15 @@ class H2ODeepLearningEstimator(ModelBase):
                 return torch.softmax(out, dim=1)
             return out[:, 0]
 
-    def predict(self, test_data: Frame) -> Frame:
+    def _prediction_columns(self, out, n: int) -> list:
+        # here rather than in an override of predict: the base predict is
+        # what makes a model ride the micro-batcher (serving/__init__.py)
         if self.params.get("autoencoder"):
             # the JAX package's prediction frame cannot hold the (n, p)
             # reconstruction and raises ValueError too
             raise ValueError("deeplearning: an autoencoder has no "
                              "prediction frame; use anomaly()")
-        return ModelBase.predict(self, test_data)
+        return ModelBase._prediction_columns(self, out, n)
 
     def anomaly(self, test_data: Frame) -> Frame:
         """Autoencoder per-row reconstruction MSE (H2O h2o.anomaly)."""

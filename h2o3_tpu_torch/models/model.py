@@ -13,9 +13,11 @@ explain_plots.py) and the export surface (`download_mojo`, `save_mojo`,
 graph a row bucket on the card, the model's params placed once), as the
 JAX package's do through its compiled programs; each family names the
 attributes that enter the scorer as shared params
-(`_serving_param_attrs`). Model monitoring comes with the QoS slice. A
-parameter the
-JAX package accepts and ignores although it would change the result
+(`_serving_param_attrs`). `train()` stamps the drift baseline of those
+families (obs/modelmon.py) before it publishes the model; a DELETE drops
+the model's drift and usage series, a retrain over its key keeps them
+(the previous generation's sketch is the shadow-compare). A parameter
+the JAX package accepts and ignores although it would change the result
 (`offset_column`, `export_checkpoints_dir`) raises NotImplementedError
 here rather than being ignored.
 """
@@ -521,6 +523,13 @@ class ModelBase:
 
         job.start(work, background=False)
         job.join()
+        # drift baseline: profile the training distribution (features +
+        # predictions) and register the model for live monitoring BEFORE
+        # publish, so a retrain rotates generations before any request
+        # can score the new one (modelmon owns the try/except — a failed
+        # profile must never fail the train)
+        from h2o3_tpu_torch.obs import modelmon as _modelmon
+        _modelmon.install_baseline(self, frame)
         DKV.put(self.key, self)
         return self
 
@@ -609,7 +618,32 @@ class ModelBase:
     def _on_remove(self):
         """DKV.remove(model key): drop the model's serving residency —
         its programs and graphs, and its param placements on every tier —
-        exactly once. Runs outside the `dkv` lock."""
+        exactly once, and its per-model observability series. Runs
+        outside the `dkv` lock."""
+        if not self.key:
+            return
+        self._on_replace()
+        # per-model observability series leave /metrics exactly once:
+        # drift sketches + gauges (modelmon) and the usage ledger's
+        # attribution rows/counters. Both are idempotent no-ops when the
+        # model was never monitored/charged.
+        try:
+            from h2o3_tpu_torch.obs import modelmon as _mm
+            _mm.forget(self.key)
+        except Exception:   # noqa: BLE001
+            pass
+        try:
+            from h2o3_tpu_torch.obs import usage as _usage
+            _usage.forget_model(self.key)
+        except Exception:   # noqa: BLE001
+            pass
+
+    def _on_replace(self):
+        """A retrain overwriting this key frees the old generation's
+        serving residency like a remove — but KEEPS the monitoring series:
+        modelmon retains the outgoing generation's live sketch for the
+        shadow-compare (rotation happened in install_baseline), and the
+        usage ledger keeps attributing to the key across generations."""
         if not self.key:
             return
         try:
@@ -617,11 +651,6 @@ class ModelBase:
             serving.CACHE.invalidate_key(self.key)
         except Exception:   # noqa: BLE001 — removal must not fail the DKV op
             pass
-
-    def _on_replace(self):
-        """A retrain overwriting this key frees the old generation's
-        serving residency like a remove."""
-        self._on_remove()
 
     # ---- scoring / metrics -------------------------------------------------
     @property

@@ -2,9 +2,12 @@
 registry (Prometheus and OpenMetrics text, JSON, the cluster merge), a
 bounded ring of timed spans nested per thread, trace ids carried in a
 per-thread context (`tracing`), and the flight recorder (`recorder`),
-which keeps traces by tail sampling in segment files under the ice root.
-The structured logger is `utils/log.py`, and the lock-order checker
-`analysis/lockdep.py`.
+which keeps traces by tail sampling in segment files under the ice root;
+`usage` (device-time attribution, request stage waterfalls, the pressure
+model), `modelmon` (drift against a training baseline), `slo` (multi-window
+burn-rate alerts) and `watchdog` (stalls turned into pinned diagnostic
+traces). The structured logger is `utils/log.py`, and the lock-order
+checker `analysis/lockdep.py`.
 
 Env surface:
   H2O3_OBS_TIMELINE_CAPACITY  span ring size (default 4096)

@@ -36,9 +36,10 @@ three-tier ladder as chunk planes (core/tiering.py):
     faulting tenant's own cold placements, then cross-tenant in ascending
     standing, then by the hotness clock; every eviction is CHARGED to the
     tenant whose fault forced it. `pin()` marks a model's placements
-    never-victim. Until the QoS module is ported (ROADMAP.md §1), the
-    tenant is `tracing.principal()` or "anonymous" and every standing is
-    1.0 — what the JAX package itself falls back to.
+    never-victim. The tenant is the request's QoS principal
+    (`qos.resolve_principal`, "anonymous" without a request context) and
+    the standing `qos.eviction_standing` (token-bucket headroom times
+    queue-share headroom).
   * `H2O3_SERVE_HOST_BUDGET_MB` bounds the host tier the same way;
     overflow spills to an npz artifact under ice_root (io/spill.py),
     freed exactly once on release/DELETE/retrain.
@@ -105,9 +106,14 @@ def _host_budget_bytes() -> int:
 
 
 def _standing(principal: str) -> float:
-    """Cross-tenant victim ordering key in [0, 1], lower = evicted first.
-    The QoS standing is not ported yet: every tenant stands at 1.0."""
-    return 1.0
+    """Cross-tenant victim ordering key — qos.eviction_standing in
+    [0, 1], lower = heavier consumer = evicted first. Looked up OUTSIDE
+    the store lock (qos takes its own locks)."""
+    try:
+        from h2o3_tpu_torch.serving import qos as _qos
+        return _qos.eviction_standing(principal)
+    except Exception:   # noqa: BLE001 — victim order must never fail
+        return 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +259,15 @@ class ParamStore:
 
     @staticmethod
     def _tenant() -> str:
-        """The principal of the request on this thread — the tenant a
-        fault's evictions are charged to."""
-        from h2o3_tpu_torch.obs import tracing as _tracing
-        return _tracing.principal() or "anonymous"
+        """The QoS principal of the request on this thread — the tenant
+        a fault's evictions are charged to. Never called with the store
+        lock held (qos/tracing take their own locks)."""
+        try:
+            from h2o3_tpu_torch.obs import tracing as _tracing
+            from h2o3_tpu_torch.serving import qos as _qos
+            return _qos.resolve_principal(_tracing.principal() or "")
+        except Exception:   # noqa: BLE001 — attribution must not break serving
+            return "anonymous"
 
     # -- accounting (presence-based, mirrors ChunkPager) -------------------
     def _account_locked(self, p: "Placement"):

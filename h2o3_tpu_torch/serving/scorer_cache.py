@@ -30,9 +30,11 @@ graph:
 
 `_Program` on the card: a static (bucket, C) input on the card, a pinned
 host staging buffer and a pinned output. The first dispatch runs warm-up
-runs on a side stream, then captures the scorer into a CUDA graph against
-the params' current placement. A dispatch copies the staged rows in
-without blocking, replays the graph, copies the output back without
+runs on a side stream (again on each thread's first capture of the
+program: torch keeps cuBLAS handles per thread), then captures the
+scorer into a CUDA graph against the params' current placement. A
+dispatch copies the staged rows in without blocking, replays the graph,
+copies the output back without
 blocking and waits on one event — all under the program's own lock (a
 graph's buffers are fixed, so two replays of one graph must not overlap;
 each graph has its own memory pool). A graph bakes in the addresses it
@@ -43,9 +45,14 @@ storage. On the CPU the program calls the same function eagerly.
 `h2o3_cuda_graph_captures_total` counts the captures and
 `h2o3_cuda_graph_capture_seconds` their time.
 
-The JAX package's usage meter and drift tap (`obs/usage.py`,
-`obs/modelmon.py`) are not called yet: they come with the QoS slice
-(ROADMAP.md §1).
+Every dispatch is metered (`obs/usage.py`: `meter("score", model,
+rows)` charges its wall seconds to the request's principal) and feeds
+the request's stage waterfall: on the card `device` is the time between
+CUDA events recorded before the copy-in and after the replay, and
+`readback` the copy-out's, read after the program's one event wait (no
+second synchronize); on the CPU both are host time. After the readback
+the drift tap (`obs/modelmon.py` `observe`) folds the batch into the
+model's live sketch.
 
 Env knobs:
   H2O3_SCORER_CACHE_SIZE      max resident programs (LRU; default 64)
@@ -75,7 +82,9 @@ import torch
 
 from h2o3_tpu_torch.analysis.lockdep import make_lock, make_rlock
 from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.obs import modelmon as _modelmon
 from h2o3_tpu_torch.obs import tracing as _tracing
+from h2o3_tpu_torch.obs import usage as _usage
 from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.parallel import mesh as _mesh
 from h2o3_tpu_torch.serving.params import PARAMS
@@ -95,8 +104,13 @@ ROWS_SCORED = _om.counter("h2o3_score_rows_total",
 CAPTURES, CAPTURE_SECONDS = _om._capture_series()
 
 # eager runs on a side stream before a capture: they create what the
-# scorer's first launch creates lazily (cuBLAS handles and workspaces)
+# scorer's first launch creates lazily (cuBLAS handles and workspaces).
+# torch keeps cuBLAS handles per thread, so each thread warms a program up
+# before its first capture of it (a micro-batch leader on another thread
+# recaptures after a re-placement): a handle created inside a capture
+# fails it (CUBLAS_STATUS_NOT_INITIALIZED)
 _WARMUP_RUNS = 2
+_WARM_TLS = threading.local()       # .progs: programs this thread warmed
 # one capture at a time, process-wide, on one side stream a device
 _CAPTURE_LOCK = make_lock("scorer_cache.capture")
 _SIDE_STREAMS: dict = {}
@@ -249,8 +263,8 @@ class _Program:
     __slots__ = ("model_key", "token", "shares_params", "_model",
                  "placement", "bucket", "ncols", "_lock", "_graph",
                  "_cap", "_static_in", "_static_out", "_stage",
-                 "_host_out", "_event", "graph_bytes", "captures",
-                 "__weakref__")
+                 "_host_out", "_event", "_ev_in", "_ev_run", "graph_bytes",
+                 "captures", "__weakref__")
 
     def __init__(self, model, token, bucket: int, ncols: int,
                  placement=None, shares_params: bool = False):
@@ -267,6 +281,7 @@ class _Program:
         self._cap = None            # (Placement, gen) captured against
         self._static_in = self._static_out = None
         self._stage = self._host_out = self._event = None
+        self._ev_in = self._ev_run = None   # stage-split timing events
         self.graph_bytes = 0        # reserved bytes the last capture took
         self.captures = 0
 
@@ -294,24 +309,61 @@ class _Program:
             if dev.type != "cuda" or (self.shares_params and pl is None):
                 # the CPU, or a one-shot placement (the entry was
                 # invalidated mid-flight): eager, never captured
-                if torch.is_tensor(raw):
-                    x = torch.full((self.bucket, self.ncols), float("nan"),
-                                   dtype=torch.float32, device=dev)
-                    x[:raw.shape[0]] = raw
-                else:
-                    x = torch.from_numpy(raw).to(dev)
-                with torch.no_grad():
-                    out = self._fn(params, x)
-                return out.cpu().numpy()
+                return self._eager(params, raw, dev)
             self._stage_in(raw, dev)
             if self._graph is None or self._cap != (pl, gen):
                 self._capture(params, dev)
                 self._cap = (pl, gen)
+                # the capture's host time is no device time: on this
+                # dispatch `device` is the replay alone
+                self._ev_in.record()
             self._graph.replay()
+            self._ev_run.record()
             self._host_out.copy_(self._static_out, non_blocking=True)
             self._event.record()
             self._event.synchronize()
+            if _usage.stage_active():
+                # the events before it completed with the one wait above:
+                # reading them adds no synchronize
+                _usage.add_stage(
+                    "device", self._ev_in.elapsed_time(self._ev_run) / 1e3)
+                _usage.add_stage(
+                    "readback", self._ev_run.elapsed_time(self._event) / 1e3)
             return self._host_out.numpy().copy()
+
+    def _eager(self, params, raw, dev) -> np.ndarray:
+        """The scorer called eagerly. On the card its device and readback
+        stages come from CUDA events read after the one wait on the
+        pinned copy, as a replay's do; on the CPU from the host clock."""
+        cuda = dev.type == "cuda"
+        if cuda:
+            evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            evs[0].record()
+        t0 = time.perf_counter()
+        if torch.is_tensor(raw):
+            x = torch.full((self.bucket, self.ncols), float("nan"),
+                           dtype=torch.float32, device=dev)
+            x[:raw.shape[0]] = raw
+        else:
+            x = torch.from_numpy(raw).to(dev)
+        with torch.no_grad():
+            out = self._fn(params, x)
+        if not cuda:
+            t1 = time.perf_counter()
+            host = out.numpy()
+            if _usage.stage_active():
+                _usage.add_stage("device", t1 - t0)
+                _usage.add_stage("readback", time.perf_counter() - t1)
+            return host
+        evs[1].record()
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        evs[2].record()
+        evs[2].synchronize()
+        if _usage.stage_active():
+            _usage.add_stage("device", evs[0].elapsed_time(evs[1]) / 1e3)
+            _usage.add_stage("readback", evs[1].elapsed_time(evs[2]) / 1e3)
+        return host.numpy()
 
     def _stage_in(self, raw, dev):
         if self._static_in is not None and self._static_in.device != dev:
@@ -322,9 +374,11 @@ class _Program:
             shape = (self.bucket, self.ncols)
             self._static_in = torch.empty(shape, dtype=torch.float32,
                                           device=dev)
-            self._event = torch.cuda.Event()
+            self._event, self._ev_in, self._ev_run = (
+                torch.cuda.Event(enable_timing=True) for _ in range(3))
         if torch.is_tensor(raw):
             n = raw.shape[0]
+            self._ev_in.record()
             self._static_in[:n].copy_(raw)
             self._static_in[n:].fill_(float("nan"))
             return
@@ -332,14 +386,16 @@ class _Program:
             self._stage = torch.empty((self.bucket, self.ncols),
                                       dtype=torch.float32, pin_memory=True)
         self._stage.numpy()[...] = raw
+        self._ev_in.record()
         self._static_in.copy_(self._stage, non_blocking=True)
 
     def _capture(self, params, dev):
-        """Warm-up runs on the side stream (the program's first capture
-        only: a recapture after a re-placement runs the same kernels
-        again), then one capture of the scorer against `params` (the
-        staged rows are already in the input). torch.cuda.graph's
-        context would also run gc.collect() and empty the allocator's
+        """Warm-up runs on the side stream (this thread's first capture
+        of the program only: a recapture after a re-placement runs the
+        same kernels again), then one capture of the scorer against
+        `params` (the staged rows are already in the input).
+        torch.cuda.graph's context would also run gc.collect() and empty
+        the allocator's
         cache at each capture; the program calls capture_begin and
         capture_end itself, on the process's one capture stream (whose
         cuBLAS workspace the first warm-up creates), in thread-local mode
@@ -348,13 +404,17 @@ class _Program:
         self._graph = None          # the old graph's pool is freed first
         self._static_out = None
         cur = torch.cuda.current_stream(dev)
+        warmed = getattr(_WARM_TLS, "progs", None)
+        if warmed is None:
+            warmed = _WARM_TLS.progs = weakref.WeakSet()
         with _CAPTURE_LOCK, torch.no_grad():
             side = _side_stream(dev)
             side.wait_stream(cur)
-            if not self.captures:
+            if self not in warmed:
                 with torch.cuda.stream(side):
                     for _ in range(_WARMUP_RUNS):
                         self._fn(params, self._static_in)
+                warmed.add(self)
             side.synchronize()
             before = torch.cuda.memory_reserved(dev)
             g = torch.cuda.CUDAGraph()
@@ -576,9 +636,15 @@ def score_rows(model, raw, n: int, links=()) -> np.ndarray:
                     **attrs)
     else:
         ctx = contextlib.nullcontext()
-    with ctx:
+    # usage attribution: the scorer is the funnel layer that knows the
+    # MODEL and row count, so its meter owns the charge (kind `score`);
+    # the program itself feeds the device/readback stage splits
+    with ctx, _usage.meter("score", model=model.key, rows=n):
         host = fn(raw)
         ROWS_SCORED.inc(n)
+    # drift tap: fold the batch into the model's live sketch (a no-op for
+    # unmonitored models, and guaranteed never to break scoring)
+    _modelmon.observe(model, raw, host, n)
     return host
 
 

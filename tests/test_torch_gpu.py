@@ -31,7 +31,13 @@ CUDA graph a row bucket for a GBM, GLM, DL and KMeans and replays it
 bit for bit against the eager scorer on the same padded buffer, captures
 again after a demote and a promote (from the host tier and from an npz),
 gives 4 threads their serial answers, and runs a warm dispatch under
-`torch.cuda.set_sync_debug_mode("error")`.
+`torch.cuda.set_sync_debug_mode("error")`. Runs (ay)-(ba) small:
+requests that coalesce into one micro-batched dispatch get the rows each
+scored alone gets (GBM and KMeans bit for bit, GLM and DL within 1e-6);
+leaders capture again while other threads replay under
+H2O3_QOS_MAX_INFLIGHT=4 and lockdep raising; the drift baseline binned
+on the card equals numpy's counts; the stage split (CUDA events) adds no
+synchronising call.
 """
 
 import numpy as np
@@ -1349,3 +1355,228 @@ def test_warm_dispatch_has_no_hidden_sync(dev):
             SC.score_rows(m, raw, 1)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+def _rows_of(m, fr, n_total=256):
+    """The first n_total rows of `fr` staged for `m` (host, unpadded)."""
+    return _staged(m, fr, n_total)[:n_total]
+
+
+def _alone(m, raw):
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    n = raw.shape[0]
+    buf = np.full((SC.row_bucket(n), raw.shape[1]), np.nan, np.float32)
+    buf[:n] = raw
+    return SC.score_rows(m, buf, n)[:n]
+
+
+def _threads(fn, args, timeout=120):
+    import threading
+    barrier = threading.Barrier(len(args))
+    out = [None] * len(args)
+
+    def run(i):
+        barrier.wait()
+        try:
+            out[i] = fn(*args[i])
+        except Exception as e:      # noqa: BLE001 — returned to the test
+            import traceback
+            e.args = (*e.args, traceback.format_exc())
+            out[i] = e
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(args))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    assert not any(t.is_alive() for t in ts)
+    return out
+
+
+@pytest.mark.gpu
+def test_coalesced_dispatch_equals_separate_dispatches(dev, monkeypatch):
+    """Run (ay) small: requests of 1, 8 and 64 rows that coalesce into one
+    dispatch (one replay of the bucket holding all their rows) get the
+    rows each scored alone gets: the GBM and KMeans bit for bit, GLM and
+    DL within 1e-6 (cuBLAS may pick another algorithm at another M)."""
+    from h2o3_tpu_torch.serving import microbatch as mb
+    monkeypatch.setenv("H2O3_SCORE_LINGER_MS", "300")
+    fr, models = _serving_models(dev)
+    sizes = [1, 8, 64, 1, 8, 1, 64, 3]
+    for tag, m in models.items():
+        rows = _rows_of(m, fr)
+        offs = np.cumsum([0] + sizes[:-1])
+        raws = [rows[o:o + k] for o, k in zip(offs, sizes)]
+        want = [_alone(m, r) for r in raws]
+        d0 = mb.DISPATCHES.value()
+        got = _threads(lambda r: mb.BATCHER.score(m, r, r.shape[0]),
+                       [(r,) for r in raws])
+        assert mb.DISPATCHES.value() - d0 == 1, tag
+        for g, w in zip(got, want):
+            assert not isinstance(g, Exception), g
+            if tag in ("gbm", "km"):
+                assert np.array_equal(np.ascontiguousarray(g).view(np.uint8),
+                                      np.ascontiguousarray(w).view(np.uint8))
+            else:
+                assert np.abs(g.astype(np.float64) - w).max() <= 1e-6, tag
+
+
+@pytest.mark.gpu
+def test_capture_concurrent_with_replays_under_the_fair_gate(dev,
+                                                             monkeypatch):
+    """H2O3_QOS_MAX_INFLIGHT=4: coalesced dispatches of the four models
+    replay on several threads while another thread demotes their params
+    again and again, so leaders capture again while others replay. With
+    lockdep raising: no error, no inversion, every answer its serial
+    one's, and recaptures happened."""
+    import threading
+    import time
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.analysis import lockdep
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import microbatch as mb
+    from h2o3_tpu_torch.serving import params as SP
+    monkeypatch.setenv("H2O3_QOS_MAX_INFLIGHT", "4")
+    monkeypatch.setenv("H2O3_SCORE_LINGER_MS", "1")
+    fr, models = _serving_models(dev)
+    tags = list(models)
+    rows = {t: _rows_of(models[t], fr) for t in tags}
+    work = []
+    for i in range(12):
+        t = tags[i % len(tags)]
+        k = (1, 8, 64)[i % 3]
+        work.append((t, rows[t][i:i + k]))
+    want = [_alone(models[t], r) for t, r in work]
+    c0 = om.graph_capture_count()
+    stop = []
+
+    def churn():
+        while not stop:
+            for m in models.values():
+                serving.PARAMS.demote_key(m.key, SP.TIER_HOST)
+            time.sleep(0.005)
+
+    ch = threading.Thread(target=churn, daemon=True)
+    lockdep.reset()
+    lockdep.enable("raise")
+    try:
+        ch.start()
+        got = _threads(
+            lambda t, r: [mb.BATCHER.score(models[t], r, r.shape[0])
+                          for _ in range(15)],
+            work)
+    finally:
+        stop.append(1)
+        ch.join(timeout=30)
+        lockdep.disable()
+    assert lockdep.counts()["inversions"] == 0
+    for (t, _), outs, w in zip(work, got, want):
+        assert not isinstance(outs, Exception), outs
+        for o in outs:
+            assert np.abs(o.astype(np.float64) - w).max() <= \
+                (0.0 if t in ("gbm", "km") else 1e-6), t
+    assert om.graph_capture_count() - c0 > len(models)
+
+
+@pytest.mark.gpu
+def test_card_side_baseline_counts_equal_numpy(dev):
+    """The drift baseline binned on the card (bucketize against the f64
+    edges, bincount) equals the numpy path on the same rows exactly, and
+    a train() on a frame in HBM stamps that profile."""
+    import types
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import modelmon
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    n = 300_000
+    X = torch.randn((n, 5), generator=g, device=dev)
+    X[::37, 0] = float("nan")
+    X[::101, 1] = float("inf")
+    X[:, 2] = torch.round(X[:, 2] * 4)             # ties
+    X[:, 3] = torch.floor(torch.rand(n, generator=g, device=dev) * 12)
+    X[::53, 3] = float("nan")
+    di = types.SimpleNamespace(
+        raw_columns=lambda: ["a", "b", "c", "k", "d"], cat_cols=["k"],
+        cardinalities={"k": 10}, domains={"k": [str(i) for i in range(10)]},
+        response_domain=None)
+    got = modelmon.build_baseline(di, X, None)
+    want = modelmon.build_baseline(di, X.cpu().numpy(), None)
+    for a, b in zip(got.counts, want.counts):
+        assert a.tolist() == b.tolist()
+    assert got.na.tolist() == want.na.tolist()
+    for fa, fb in zip(got.features, want.features):
+        assert fa.keys() == fb.keys()
+        if "edges" in fa:
+            assert fa["edges"].tobytes() == fb["edges"].tobytes()
+    # earlier tests' models may fill H2O3_MODELMON_MAX_MODELS
+    modelmon.reset()
+    fr, models = _serving_models(dev)
+    m = models["glm"]
+    prof = DKV.get(modelmon.monitor_key(m.key))
+    raw = SC.stage_frame(m._dinfo, m._dinfo.adapt(fr), fr.nrows)
+    host = modelmon.build_baseline(m._dinfo, raw, None)
+    assert [c.tolist() for c in prof.counts] == \
+        [c.tolist() for c in host.counts]
+
+
+@pytest.mark.gpu
+def test_stage_split_adds_no_sync(dev):
+    """The device/readback split of a warm dispatch comes from CUDA events
+    read after the program's one event wait: a warm score_rows — and a
+    micro-batched request — under set_sync_debug_mode("error") records
+    both stages and synchronises nothing else."""
+    from h2o3_tpu_torch.obs import usage
+    from h2o3_tpu_torch.serving import microbatch as mb
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    for m in models.values():
+        raw = _staged(m, fr, 1)
+        SC.score_rows(m, raw, 1)
+        mb.BATCHER.score(m, raw[:1], 1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with usage.capture_stages() as cap:
+                SC.score_rows(m, raw, 1)
+            usage.begin_request()
+            mb.BATCHER.score(m, raw[:1], 1)
+            st = usage.finish_request()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert cap["device"] > 0 and cap["readback"] > 0
+        assert {"queue", "gate", "device", "readback"} <= set(st)
+
+
+@pytest.mark.gpu
+def test_stage_split_of_capturing_and_eager_dispatches(dev, monkeypatch):
+    """A dispatch that captures reports the replay alone as `device` (the
+    capture's host time is not device time); a one-shot placement's eager
+    dispatch times device and readback with CUDA events, and its answer
+    equals the graph's."""
+    from h2o3_tpu_torch.obs import usage
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    fr, models = _serving_models(dev)
+    eager_models = 0
+    for m in models.values():
+        n = 3000                    # a bucket no other test of m captured
+        raw = _staged(m, fr, n)
+        c0 = SC.CAPTURE_SECONDS.snapshot()
+        with usage.capture_stages() as cap:
+            graph = SC.score_rows(m, raw, n)
+        c1 = SC.CAPTURE_SECONDS.snapshot()
+        assert c1["count"] == c0["count"] + 1
+        assert 0 < cap["device"] < c1["sum"] - c0["sum"]
+        prog = next(p for p in SC.CACHE.programs(m.key)
+                    if p.bucket == raw.shape[0])
+        if not prog.shares_params:
+            continue
+        eager_models += 1
+        params, _, _ = prog._params()
+        # a one-shot placement: the program scores eagerly
+        with monkeypatch.context() as mp:
+            mp.setattr(SC._Program, "_params",
+                       lambda self: (params, None, 0))
+            with usage.capture_stages() as cap:
+                eager = prog(raw)
+        assert cap["device"] > 0 and cap["readback"] > 0
+        np.testing.assert_allclose(eager[:n], graph[:n], rtol=0, atol=1e-6)
+    assert eager_models > 0

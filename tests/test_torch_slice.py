@@ -511,7 +511,12 @@ def test_port_imports_no_jax():
             "__init__", "metrics", "tracing", "timeline", "segments",
             "recorder")} | {
         pkg / "serving" / f"{m}.py" for m in (
-            "__init__", "params", "scorer_cache")} <= set(files)
+            "__init__", "params", "scorer_cache", "qos",
+            "microbatch")} <= set(files)
+    assert {pkg / "obs" / f"{m}.py" for m in (
+        "usage", "modelmon", "slo", "watchdog")} | {
+        pkg / "deploy" / f"{m}.py" for m in (
+            "__init__", "chaos", "membership")} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
