@@ -416,6 +416,42 @@ Phases, each printing its lines before the last:
            others < 0.1, the drift gauge following); two retrains under
            (k)'s key (the generation-skew gauge set); DELETE leaving no
            per-model series; the pressure document's seven dimensions;
+     then the REST front end (phase rest: the port's H2OServer in this
+     process with a basic-auth file of three users, spoken to over
+     loopback HTTP; lockdep and leaktrack raising throughout):
+       (bb) (ap)'s 1M-row HIGGS CSV through /3/ImportFiles, /3/ParseSetup
+           and /3/Parse polled on /3/Jobs (the frame = import_file's bit
+           for bit, MB/s of both); POST /3/ModelBuilders/gbm on the 11M
+           HIGGS frame at (b)'s configuration cut to 10 trees (the trees
+           = train()'s with the same keyword arguments bit for bit,
+           seconds and launches a tree of both); POST /3/Predictions on
+           the 1M validation rows (= predict bit for bit, the AUC =
+           model_performance's); GET /3/Models/{m}/mojo through
+           import_mojo (1e-5 of predict); /99/Rapids group-by and row
+           filter = rapids_exec's;
+       (bc) 5,000 of (ay)'s requests from 4 client processes x 16
+           closed-loop threads to POST /3/Predictions/models/{m}: every
+           answer = score_payload of its rows alone (GBM and KMeans bit
+           for bit, GLM and DL within 1e-6), no graph captured on the
+           handler threads; requests/s, p50/p99, requests a dispatch,
+           the Server-Timing split of the slowest 1%, the server's
+           process CPU and its handler threads' CPU a request beside
+           (ay)'s in process numbers, and the server's own overhead a
+           request (serialized time, process CPU, p50); then (az)'s
+           tenants as basic-auth users:
+           the flood's 429 and 503 with Retry-After, a 0 ms deadline 504,
+           gold and silver never refused;
+       (bd) /3/Cloud and /3/About name the card and torch/cuda; 1,000
+           unauthenticated requests 401 with the QoS counters unchanged;
+           /3/Profiler kind torch around a 2-tree REST build on 1M rows
+           (the trace's CUDA kernel events name fused_kernel,
+           radix_kernel, route_kernel); /3/Trace of the build,
+           /3/Timeline, /3/JStack, /3/Alerts, /3/Usage (= the ledger),
+           /3/CloudHealth, /3/ModelMonitor; /metrics in the exposition
+           grammar counting every request of the phase, its device gauge
+           = torch.cuda.memory_allocated; a second server under
+           H2O3_TRANSFER_GUARD=disallow answering 100 warm one-row
+           predicts while an .item() raises;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -435,7 +471,7 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(ba) are printed again just before the two JSON
+The lines of runs (d)-(bd) are printed again just before the two JSON
 lines. The line before the last is the kernels' JSON record (the adaptive
 engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(av)
 add no kernel to it); the last line is
@@ -873,7 +909,7 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"ingest and persistence|munging|export and import "
                    r"\(at|explain \(au|automl \(av|export, explain|"
                    r"observability|serving \(ax\) (speed|lifecycle|1000)|"
-                   r"serving \(ax\) [bkqt]:|qos serving)")
+                   r"serving \(ax\) [bkqt]:|qos serving|rest)")
 
 
 def say(msg):
@@ -882,8 +918,8 @@ def say(msg):
 
 
 # models of runs (b), (k), (q) and (t) kept for phases export_explain,
-# obs_serving and qos_serving, which retrain one at the same settings when
-# the phase runs alone
+# obs_serving, qos_serving and rest, which retrain one at the same
+# settings when the phase runs alone
 KEPT = {}
 
 
@@ -5421,38 +5457,42 @@ def airline_run(torch, h2o, HC):
     DKV.clear()
 
 
-def higgs_csv_run(torch, h2o, HC):
-    """(ap): the first HIGGS_CSV_N rows of the HIGGS frame written with
-    %.9g and read back by import_file: the in-memory values bit for bit,
-    and (b)'s GBM for 10 trees the same predictions bit for bit on both."""
-    from h2o3_tpu_torch.core.kvstore import DKV
-    from h2o3_tpu_torch.io import fastcsv
-    dev = h2o.init().device
-    big = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+def _write_higgs_csv(torch, big, path):
+    """The first HIGGS_CSV_N rows of the HIGGS frame `big` written to
+    `path` with %.9g: (the rows' Frame, the file's bytes, seconds)."""
     fr = _sub_frame(big, HIGGS_CSV_N)
-    DKV.remove(big.key)
-    del big
-    gc.collect()
     X = fr.matrix(fr.names[:-1]).cpu().numpy().astype(np.float64)
     data = np.column_stack([X, fr.vec("y").as_f32().cpu().numpy()])
     del X
     fmt = ",".join(["%.9g"] * data.shape[1]) + "\n"
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "higgs-1m.csv")
-        t0 = time.perf_counter()
-        with open(path, "w") as f:
-            f.write(",".join(fr.names) + "\n")
-            for s in range(0, HIGGS_CSV_N, 100_000):
-                blk = data[s:s + 100_000]
-                f.write((fmt * len(blk)) % tuple(blk.ravel().tolist()))
-        t_write = time.perf_counter() - t0
-        size = os.path.getsize(path)
-        fastcsv.reset_counts()
-        t0 = time.perf_counter()
-        pf = h2o.import_file(path, col_types={"y": "enum"})
-        torch.cuda.synchronize()
-        t_parse = time.perf_counter() - t0
-        counts = dict(fastcsv.TOKENIZED_BYTES)
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        f.write(",".join(fr.names) + "\n")
+        for s in range(0, HIGGS_CSV_N, 100_000):
+            blk = data[s:s + 100_000]
+            f.write((fmt * len(blk)) % tuple(blk.ravel().tolist()))
+    return fr, os.path.getsize(path), time.perf_counter() - t0
+
+
+def higgs_csv_run(torch, h2o, HC, path):
+    """(ap): the first HIGGS_CSV_N rows of the HIGGS frame written with
+    %.9g to `path` and read back by import_file: the in-memory values bit
+    for bit, and (b)'s GBM for 10 trees the same predictions bit for bit on
+    both. The file stays for (bb), which parses it again over REST."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.io import fastcsv
+    dev = h2o.init().device
+    big = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    fr, size, t_write = _write_higgs_csv(torch, big, path)
+    DKV.remove(big.key)
+    del big
+    gc.collect()
+    fastcsv.reset_counts()
+    t0 = time.perf_counter()
+    pf = h2o.import_file(path, col_types={"y": "enum"})
+    torch.cuda.synchronize()
+    t_parse = time.perf_counter() - t0
+    counts = dict(fastcsv.TOKENIZED_BYTES)
     same = pf.names == fr.names and pf.types == fr.types and \
         pf.vec("y").levels() == fr.vec("y").levels() and all(
             torch.equal(a.as_f32().view(torch.int32),
@@ -5485,16 +5525,17 @@ def higgs_csv_run(torch, h2o, HC):
     DKV.clear()
 
 
-def phase_ingest(torch, h2o, HC):
+def phase_ingest(torch, h2o, HC, higgs_csv):
     """Runs (ao) and (ap), each timed, after every earlier frame is
-    dropped from the store."""
+    dropped from the store; (ap) writes its CSV to `higgs_csv`."""
     from h2o3_tpu_torch.core.kvstore import DKV
     DKV.clear()
     gc.collect()
     torch.cuda.empty_cache()
     t_all = time.perf_counter()
     times = {}
-    for label, fn in (("ao", airline_run), ("ap", higgs_csv_run)):
+    for label, fn in (("ao", airline_run),
+                      ("ap", lambda *a: higgs_csv_run(*a, higgs_csv))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -7100,7 +7141,7 @@ def qos_coalesced_run(torch, h2o, models, pools, names, ref, linger,
     rows0 = mb.BATCH_ROWS.snapshot()
     ts = [threading.Thread(target=client, args=(th,), name=f"client-{th}")
           for th in range(n_threads)]
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.process_time()
     try:
         for t in ts:
             t.start()
@@ -7109,6 +7150,7 @@ def qos_coalesced_run(torch, h2o, models, pools, names, ref, linger,
     finally:
         _set_env(**old)
     wall = time.perf_counter() - t0
+    cpu = time.process_time() - c0
     dr, dd = mb.REQUESTS.value() - r0, mb.DISPATCHES.value() - d0
     rows1 = mb.BATCH_ROWS.snapshot()
     check(not errors, f"(ay) client errors {errors[:3]}")
@@ -7132,6 +7174,7 @@ def qos_coalesced_run(torch, h2o, models, pools, names, ref, linger,
         DKV.remove(f.key)
     batched = int(sum(1 for t in tags if t != "t"))
     return {"wall": wall, "rps": n_requests / wall,
+            "cpu_ms": cpu / n_requests * 1e3, "cores": cpu / wall,
             "p50": _pctl(lat, 50) * 1e3, "p99": _pctl(lat, 99) * 1e3,
             "p50_payload": _pctl(lat[payload], 50) * 1e3,
             "p50_frame": _pctl(lat[~payload], 50) * 1e3,
@@ -7498,6 +7541,12 @@ def qos_drift_run(torch, h2o, models, fr, valid):
     out = {}
     try:
         b, k = models["b"], models["k"]
+        # fresh monitoring states: a baseline installed over a monitored
+        # key keeps its tap's duty-cycle deferral, which (ay)'s and (az)'s
+        # traffic at the default share set and a slow host stretches past
+        # this run's scoring (then none of its rows fold)
+        for m in (b, k):
+            modelmon.forget(m.key)
         times = [_timed_baseline(torch, b, fr),
                  _timed_baseline(torch, k, fr)]
         # the card's counts against numpy's on the first 1M training rows
@@ -7732,8 +7781,770 @@ def phase_qos_serving(torch, h2o, HC, n_requests=QOS_REQUESTS,
         f"{lockdep.counts()['inversions']} inversions")
     modelmon.reset()
     usage.reset()
-    KEPT.clear()
     say(f"qos serving: the phase {time.perf_counter() - t_phase:.1f} s")
+    DKV.clear()
+    return runs["2"]
+
+
+# ---------------------------------------------------------------------------
+# (bb)-(bd): the REST front end — the port's H2OServer in this process,
+# spoken to over loopback HTTP
+REST_USERS = {"gold": "gold-pw", "silver": "silver-pw", "flood": "flood-pw"}
+REST_REQUESTS = 5000         # (bc) requests over HTTP
+REST_PROCS = 4               # (bc) client processes ...
+REST_THREADS = 16            # ... of 16 closed-loop threads each
+REST_TENANT_REQUESTS = 20    # (bc) requests of each gold/silver thread
+# (bc)'s tenants over HTTP: the flood's rate well below the ~100-140
+# requests/s the server answers on an H100's host (so 429s), and a queue
+# share of 6 of a depth of 16 (so 503s), which gold's and silver's 4
+# threads each never reach, nor all three the depth (6 + 4 + 4 < 16)
+REST_FLOOD_RPS, REST_QUEUE_DEPTH, REST_TENANT_SHARE = 20, 16, 0.375
+REST_UNAUTH = 1000           # (bd) unauthenticated requests
+REST_GUARDED = 100           # (bd) warm one-row predicts under the guard
+REST_PROFILE_N = 1_000_000   # (bd) rows of the profiled two-tree build
+REST_GBM = dict(HIGGS_DEFAULT, ntrees=10)   # (b) cut to 10 of 50 trees
+REST_SENT = [0]              # requests this process sent to a server
+_SENT_LOCK = threading.Lock()
+
+# the (bc) client: stdlib only, so that a process starts in milliseconds
+# and its interpreter lock holds no part of the server
+_REST_CLIENT = r"""
+import http.client, json, sys, threading, time
+job = json.load(open(sys.argv[1]))
+reqs, out = job["requests"], [None] * len(job["requests"])
+def client(th):
+    for j in range(th, len(reqs), job["threads"]):
+        i, path, body = reqs[j]
+        t0 = time.perf_counter()
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", job["port"],
+                                           timeout=300)
+            c.request("POST", path, body=body.encode(), headers={
+                "Content-Type": "application/json",
+                "Authorization": job["auth"]})
+            r = c.getresponse()
+            raw = r.read()
+            c.close()
+            out[j] = [i, r.status, time.perf_counter() - t0,
+                      r.getheader("Server-Timing"), raw.decode()]
+        except Exception as e:
+            out[j] = [i, -1, time.perf_counter() - t0, None, repr(e)]
+ts = [threading.Thread(target=client, args=(th,))
+      for th in range(job["threads"])]
+while time.time() < job["start_at"]:
+    time.sleep(0.001)
+t0 = time.time()
+for t in ts:
+    t.start()
+for t in ts:
+    t.join()
+json.dump({"t0": t0, "t1": time.time(), "out": out}, open(sys.argv[2], "w"))
+"""
+
+
+def _basic(user):
+    import base64
+    return "Basic " + base64.b64encode(
+        f"{user}:{REST_USERS[user]}".encode()).decode()
+
+
+def _http(port, method, path, data=None, body=None, user=None,
+          headers=None):
+    """One request over loopback: (status, lower-cased headers, the JSON
+    answer or the raw bytes). Counted in REST_SENT."""
+    import http.client
+    import urllib.parse
+    hdrs = dict(headers or {})
+    if user is not None:
+        hdrs["Authorization"] = _basic(user)
+    if data is not None:
+        body = urllib.parse.urlencode(
+            {k: (json.dumps(v) if isinstance(v, (list, dict)) else str(v))
+             for k, v in data.items()}).encode()
+        hdrs["Content-Type"] = "application/x-www-form-urlencoded"
+    elif isinstance(body, (dict, list)):
+        body = json.dumps(body).encode()
+        hdrs["Content-Type"] = "application/json"
+    with _SENT_LOCK:
+        REST_SENT[0] += 1
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request(method, path, body=body, headers=hdrs)
+    r = c.getresponse()
+    raw = r.read()
+    h = {k.lower(): v for k, v in r.getheaders()}
+    c.close()
+    try:
+        return r.status, h, json.loads(raw) if raw else None
+    except ValueError:
+        return r.status, h, raw
+
+
+def _rest_ok(port, method, path, schema, **kw):
+    st, h, js = _http(port, method, path, **kw)
+    check(st == 200 and isinstance(js, dict)
+          and js.get("__meta", {}).get("schema_type") == schema,
+          f"(bd) {method} {path}: {st} {str(js)[:300]}")
+    return h, js
+
+
+def _rest_job(port, key, user="gold"):
+    while True:
+        st, _, js = _http(port, "GET", f"/3/Jobs/{key}", user=user)
+        check(st == 200, f"job {key}: {st} {js}")
+        j = js["jobs"][0]
+        if j["status"] in ("DONE", "FAILED", "CANCELLED"):
+            check(j["status"] == "DONE", f"job {key}: {j}")
+            return j
+        time.sleep(0.02)
+
+
+def _frames_bits_equal(torch, a, b):
+    return a.names == b.names and a.types == b.types and all(
+        va.levels() == vb.levels() and torch.equal(
+            va.as_f32().view(torch.int32), vb.as_f32().view(torch.int32))
+        for va, vb in zip(a.vecs, b.vecs))
+
+
+def _timings(header):
+    """Server-Timing `stage;dur=ms, ...` as {stage: seconds}."""
+    out = {}
+    for part in (header or "").split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if name and dur:
+            out[name] = float(dur) / 1e3
+    return out
+
+
+def rest_main_path_run(torch, h2o, HC, port, fr, valid, tmp, path):
+    """(bb): the main path over REST at HIGGS width — parse of (ap)'s CSV
+    at `path`, GBM build, predictions and their metrics, the MOJO, Rapids
+    — each against its in-process counterpart."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.rapids import rapids_exec
+    out = {}
+    # parse: ImportFiles, ParseSetup, Parse polled through /3/Jobs, of
+    # the file (ap) wrote
+    mem, size = _sub_frame(fr, HIGGS_CSV_N), os.path.getsize(path)
+    _, imp = _rest_ok(port, "GET", "/3/ImportFiles?path=" + path,
+                      "ImportFilesV3", user="gold")
+    _, setup = _rest_ok(port, "POST", "/3/ParseSetup", "ParseSetupV3",
+                        data={"source_frames": imp["destination_frames"]},
+                        user="gold")
+    t0 = time.perf_counter()
+    pf = h2o.import_file(path, col_types={"y": "enum"})
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, p = _rest_ok(port, "POST", "/3/Parse", "ParseV3", user="gold", data={
+        "source_frames": [path], "destination_frame": "higgs_rest.csv.hex",
+        "column_names": setup["column_names"],
+        "column_types": {"y": "enum"}})
+    _rest_job(port, p["job"]["key"])
+    torch.cuda.synchronize()
+    t_rest = time.perf_counter() - t0
+    rf = DKV.get("higgs_rest.csv.hex")
+    same = _frames_bits_equal(torch, rf, pf) and \
+        _frames_bits_equal(torch, rf, mem)
+    check(same, "(bb) the REST-parsed frame differs from import_file's")
+    out["parse"] = (size, t_rest, t_in, setup["column_types"][:2])
+    for f in (rf, pf, mem):
+        DKV.remove(f.key)
+    # GBM: (b)'s configuration over REST and through train()
+    form = dict(REST_GBM, training_frame=fr.key, response_column="y",
+                model_id="rest_gbm_b")
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    _, b = _rest_ok(port, "POST", "/3/ModelBuilders/gbm",
+                    "ModelBuilderJobV3", data=form, user="gold")
+    _rest_job(port, b["job"]["key"])
+    torch.cuda.synchronize()
+    t_gbm_rest = time.perf_counter() - t0
+    m = DKV.get("rest_gbm_b")
+    per_rest = {k: v / REST_GBM["ntrees"] for k, v in HC.LAUNCHES.items()
+                if v}
+    HC.reset_launches()
+    t0 = time.perf_counter()
+    ref = h2o.H2OGradientBoostingEstimator(**REST_GBM)
+    ref.train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    t_gbm_in = time.perf_counter() - t0
+    per_in = {k: v / REST_GBM["ntrees"] for k, v in HC.LAUNCHES.items()
+              if v}
+    trees_same = _trees_equal(torch, m._trees, ref._trees)
+    check(trees_same, "(bb) the REST-built GBM's trees differ from train()'s")
+    check(per_rest == per_in == PER_TREE["default"],
+          f"(bb) launches per tree REST {per_rest}, train() {per_in}")
+    out["gbm"] = (t_gbm_rest, t_gbm_in, per_rest)
+    DKV.remove(ref.key)
+    # predictions on the 1M validation rows, with their metrics
+    _, pr = _rest_ok(port, "POST",
+                     f"/3/Predictions/models/{m.key}/frames/{valid.key}",
+                     "ModelMetricsListSchemaV3", user="gold",
+                     data={"predictions_frame": "rest_pred_b"})
+    rp = DKV.get("rest_pred_b")
+    ip = m.predict(valid)
+    check(_frames_bits_equal(torch, rp, ip),
+          "(bb) REST predictions differ from predict's")
+    auc_rest = pr["model_metrics"][0]["auc"]
+    auc_in = m.model_performance(valid).auc
+    check(auc_rest == auc_in, f"(bb) AUC {auc_rest} vs {auc_in}")
+    out["auc"] = auc_rest
+    # the MOJO bytes through import_mojo
+    st, h, raw = _http(port, "GET", f"/3/Models/{m.key}/mojo", user="gold")
+    check(st == 200 and h["content-type"] == "application/zip",
+          f"(bb) mojo: {st}")
+    mpath = os.path.join(tmp, "rest_gbm_b.zip")
+    with open(mpath, "wb") as f:
+        f.write(raw)
+    gen = h2o.import_mojo(mpath)
+    gp = gen.predict(valid)
+    d = float((gp.vec("p1").as_f32() - ip.vec("p1").as_f32()).abs().max())
+    check(d <= EXPORT_TOL, f"(bb) MOJO vs predict {d}")
+    out["mojo"] = (len(raw), d)
+    for f in (rp, ip, gp):
+        DKV.remove(f.key)
+    # Rapids: a group-by and a row filter against rapids_exec
+    exprs = [f'(GB {fr.key} [28] mean 0 "all" nrow 0 "all")',
+             f"(rows {fr.key} (> (cols {fr.key} [0]) 1.5))"]
+    rows = []
+    for e in exprs:
+        _, r = _rest_ok(port, "POST", "/99/Rapids", "RapidsFrameV3",
+                        data={"ast": e}, user="gold")
+        a = DKV.get(r["key"]["name"])
+        b2 = rapids_exec(e)
+        check(_frames_bits_equal(torch, a, b2),
+              f"(bb) REST Rapids differs: {e}")
+        rows.append(a.nrows)
+        DKV.remove(a.key)
+        DKV.remove(b2.key)
+    out["rapids"] = rows
+    return m, out
+
+
+def rest_traffic_run(torch, port, models, pools, names, tmp):
+    """(bc): (ay)'s mix of requests over HTTP from REST_PROCS client
+    processes of REST_THREADS closed-loop threads, POST
+    /3/Predictions/models/{m}; every answer against score_payload of its
+    rows alone. The server's process CPU time over the traffic, and that
+    of its handler threads (each request's thread: HTTP, auth, JSON and
+    the serving work it runs, a micro-batch leader's dispatch included)."""
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.api import server as S
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import microbatch as mb
+    rng = np.random.default_rng(37)
+    n = REST_REQUESTS
+    tags = rng.choice(list("bkqt"), n)
+    sizes = rng.choice(QOS_SIZES, n, p=QOS_SIZE_P)
+    offs = rng.integers(0, QOS_POOL - 64, n)
+    bodies = [_payload(pools[t][o:o + k], names)
+              for t, o, k in zip(tags, offs, sizes)]
+    jobs = [[] for _ in range(REST_PROCS)]
+    for i in range(n):
+        jobs[i % REST_PROCS].append(
+            [i, f"/3/Predictions/models/{models[tags[i]].key}",
+             json.dumps({"rows": bodies[i]})])
+    start_at = time.time() + 3.0
+    procs, outs = [], []
+    for p, reqs in enumerate(jobs):
+        jf = os.path.join(tmp, f"client{p}.json")
+        of = os.path.join(tmp, f"client{p}.out.json")
+        with open(jf, "w") as f:
+            json.dump({"port": port, "auth": _basic("gold"),
+                       "threads": REST_THREADS, "start_at": start_at,
+                       "requests": reqs}, f)
+        procs.append(subprocess.Popen([sys.executable, "-c", _REST_CLIENT,
+                                       jf, of]))
+        outs.append(of)
+    c0, r0, d0 = om.graph_capture_count(), mb.REQUESTS.value(), \
+        mb.DISPATCHES.value()
+    handler_cpu, cpu_lock, handle = [0.0], threading.Lock(), \
+        S._Handler.handle
+
+    def timed_handle(self):
+        t = time.thread_time()
+        try:
+            handle(self)
+        finally:
+            with cpu_lock:
+                handler_cpu[0] += time.thread_time() - t
+
+    S._Handler.handle = timed_handle
+    try:
+        time.sleep(max(start_at - time.time(), 0.0))
+        cpu0 = time.process_time()
+        rcs = [pr.wait(timeout=600) for pr in procs]
+        cpu = time.process_time() - cpu0
+    finally:
+        S._Handler.handle = handle
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    check(rcs == [0] * REST_PROCS, f"(bc) client processes exited {rcs}")
+    captures = om.graph_capture_count() - c0
+    dr, dd = mb.REQUESTS.value() - r0, mb.DISPATCHES.value() - d0
+    with _SENT_LOCK:
+        REST_SENT[0] += n
+    res = [None] * n
+    t0s, t1s = [], []
+    for of in outs:
+        with open(of) as f:
+            o = json.load(f)
+        t0s.append(o["t0"])
+        t1s.append(o["t1"])
+        for i, st, dt, timing, raw in o["out"]:
+            res[i] = (st, dt, timing, raw)
+    check(all(r is not None and r[0] == 200 for r in res),
+          f"(bc) answers not 200: "
+          f"{[(r[0], r[3][:200]) for r in res if r[0] != 200][:3]}")
+    # every answer against its rows scored alone, in their own dispatch
+    t_verify = time.perf_counter()
+    old = _set_env(H2O3_SCORE_LINGER_MS="0")
+    wrong, worst = 0, {t: 0.0 for t in "bkqt"}
+    try:
+        for i in range(n):
+            got = json.loads(res[i][3])["predictions"]
+            want = serving.score_payload(models[tags[i]], bodies[i])
+            tag = str(tags[i])
+            exact = tag in "bt"
+            for g, w in zip(got, want):
+                for k, wv in w.items():
+                    gv = g[k]
+                    if isinstance(wv, str) or exact:
+                        wrong += (gv != wv) and (exact or k != "predict")
+                    else:
+                        d = abs(float(gv) - float(wv))
+                        worst[tag] = max(worst[tag], d)
+                        wrong += d > QOS_TOL
+            wrong += len(got) != len(want)
+    finally:
+        _set_env(**old)
+    t_verify = time.perf_counter() - t_verify
+    check(wrong == 0, f"(bc) {wrong} answers differ from score_payload "
+          f"of their rows alone; largest |diff| {worst}")
+    lat = np.array([r[1] for r in res])
+    stages = [_timings(r[2]) for r in res]
+    wall = max(t1s) - min(t0s)
+    slow = lat >= _pctl(lat, 99)
+    return {"rps": n / wall, "p50": _pctl(lat, 50) * 1e3,
+            "p99": _pctl(lat, 99) * 1e3, "wall": wall,
+            "cpu_ms": cpu / n * 1e3, "cores": cpu / wall,
+            "handler_cpu_ms": handler_cpu[0] / n * 1e3,
+            "per_dispatch": dr / max(dd, 1), "requests": dr,
+            "dispatches": dd, "batched": int(sum(t != "t" for t in tags)),
+            "captures": captures, "worst": worst, "t_verify": t_verify,
+            "tail": _tail_split(lat, stages),
+            "tail_models": {str(t): int(c) for t, c in zip(*np.unique(
+                tags[slow], return_counts=True))}}
+
+
+def rest_tenants_run(torch, port, m, rows, names):
+    """(bc) continued: (az)'s tenants as the basic-auth users gold,
+    silver and flood on one device slot — flood over its rate (429) and
+    its queue share (503), both with Retry-After; a 0 ms deadline 504;
+    gold and silver never refused."""
+    from h2o3_tpu_torch.serving import qos
+    old = _set_env(H2O3_QOS_WEIGHTS="gold:4,silver:1,flood:1",
+                   H2O3_QOS_MAX_INFLIGHT=1,
+                   H2O3_QOS_RATES=f"flood:{REST_FLOOD_RPS}",
+                   H2O3_SCORE_QUEUE_DEPTH=REST_QUEUE_DEPTH,
+                   H2O3_QOS_TENANT_SHARE=REST_TENANT_SHARE)
+    outcome = {p: {} for p in REST_USERS}
+    lock = threading.Lock()
+    path = f"/3/Predictions/models/{m.key}"
+    one = [{"rows": _payload(rows[o:o + 1], names)} for o in range(0, 512, 7)]
+    big = [{"rows": _payload(rows[o:o + 64], names)}
+           for o in range(0, 512, 7)]
+    stop = []
+    barrier = threading.Barrier(QOS_FLOOD_THREADS)
+
+    def note(user, st, h):
+        key = str(st) if st == 200 or "retry-after" in h or st == 504 \
+            else f"{st} without Retry-After"
+        with lock:
+            outcome[user][key] = outcome[user].get(key, 0) + 1
+
+    def tenant(user, th):
+        for i in range(REST_TENANT_REQUESTS):
+            st, h, _ = _http(port, "POST", path, user=user,
+                             body=one[(th * 13 + i) % len(one)])
+            note(user, st, h)
+
+    def flood(th):
+        barrier.wait()          # a burst first: the queue share
+        i = th
+        while not stop:
+            st, h, _ = _http(port, "POST", path, user="flood",
+                             body=big[i % len(big)])
+            note("flood", st, h)
+            if st != 200:
+                time.sleep(0.001)
+            i += QOS_FLOOD_THREADS
+    try:
+        qos.reset()
+        fl = [threading.Thread(target=flood, args=(th,), daemon=True)
+              for th in range(QOS_FLOOD_THREADS)]
+        for t in fl:
+            t.start()
+        time.sleep(0.2)
+        _run_threads([threading.Thread(target=tenant, args=(u, th))
+                      for u in ("gold", "silver")
+                      for th in range(QOS_TENANT_THREADS)])
+        stop.append(1)
+        for t in fl:
+            t.join()
+        st, h, _ = _http(port, "POST", path, user="gold", body=one[0],
+                         headers={"X-H2O3-Deadline-Ms": "0"})
+        note("gold", st, h)
+    finally:
+        _set_env(**old)
+        qos.reset()
+    n_ok = REST_TENANT_REQUESTS * QOS_TENANT_THREADS
+    check(outcome["gold"] == {"200": n_ok, "504": 1}
+          and outcome["silver"] == {"200": n_ok},
+          f"(bc) gold/silver over REST: {outcome}")
+    check(set(outcome["flood"]) <= {"200", "429", "503"}
+          and outcome["flood"].get("429", 0) > 0
+          and outcome["flood"].get("503", 0) > 0,
+          f"(bc) the flood over REST: {outcome['flood']}")
+    return outcome
+
+
+def _rest_count(text):
+    """Requests in h2o3_rest_request_seconds, over every label set."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("h2o3_rest_request_seconds_count"))
+
+
+def rest_operations_run(torch, port, models, fr, tmp):
+    """(bd): the operations surface of the server on the card."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.obs import usage
+    out = {}
+    _, cl = _rest_ok(port, "GET", "/3/Cloud", "CloudV3", user="gold")
+    name = torch.cuda.get_device_name(0)
+    check(cl["cloud_size"] == 1 and cl["nodes"][0]["h2o"] == name,
+          f"(bd) /3/Cloud {cl}")
+    _, ab = _rest_ok(port, "GET", "/3/About", "AboutV3", user="gold")
+    about = {e["name"]: e["value"] for e in ab["entries"]}
+    check(about["Backend"] == "torch/cuda" and about["Device"] == name,
+          f"(bd) /3/About {about}")
+    # 1,000 unauthenticated requests: 401, no QoS counter moved
+    qos_lines = [ln for ln in om.REGISTRY.prometheus_text().splitlines()
+                 if ln.startswith("h2o3_qos_")]
+    codes = {}
+    lock = threading.Lock()
+
+    def unauth(th):
+        for _ in range(REST_UNAUTH // 8):
+            st, h, _ = _http(port, "POST", f"/3/Predictions/models/"
+                             f"{models['b'].key}", body={"rows": []})
+            key = (st, "www-authenticate" in h)
+            with lock:
+                codes[key] = codes.get(key, 0) + 1
+    _run_threads([threading.Thread(target=unauth, args=(th,))
+                  for th in range(8)])
+    after = [ln for ln in om.REGISTRY.prometheus_text().splitlines()
+             if ln.startswith("h2o3_qos_")]
+    check(codes == {(401, True): REST_UNAUTH} and after == qos_lines,
+          f"(bd) unauthenticated: {codes}; QoS lines moved "
+          f"{sorted(set(after) ^ set(qos_lines))[:4]}")
+    out["unauth"] = codes
+    # the profiler around a two-tree REST build on 1M rows
+    sub = _sub_frame(fr, REST_PROFILE_N)
+    _, st = _rest_ok(port, "POST", "/3/Profiler", "ProfilerV3", user="gold",
+                     data={"action": "start", "kind": "auto",
+                           "trace_dir": os.path.join(tmp, "profile")})
+    check(st["kind"] == "torch", f"(bd) profiler kind {st}")
+    tid = "rest-bd-build"
+    h, b = _rest_ok(port, "POST", "/3/ModelBuilders/gbm",
+                    "ModelBuilderJobV3", user="gold",
+                    headers={"X-H2O3-Trace-Id": tid},
+                    data=dict(REST_GBM, ntrees=2, training_frame=sub.key,
+                              response_column="y", model_id="rest_prof"))
+    check(h.get("x-h2o3-trace-id") == tid, f"(bd) trace echo {h}")
+    _rest_job(port, b["job"]["key"])
+    torch.cuda.synchronize()
+    _, sp = _rest_ok(port, "POST", "/3/Profiler", "ProfilerV3", user="gold",
+                     data={"action": "stop"})
+    check("trace" in sp and "error" not in sp, f"(bd) profiler stop {sp}")
+    with open(sp["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k in ("fused_kernel", "radix_kernel", "route_kernel"):
+                if k in e.get("name", ""):
+                    kernels[k] = kernels.get(k, 0) + 1
+    check(set(kernels) == {"fused_kernel", "radix_kernel", "route_kernel"},
+          f"(bd) the trace's kernel events {kernels}")
+    out["profile"] = (sp["seconds"], len(events), kernels,
+                      os.path.getsize(sp["trace"]))
+    DKV.remove("rest_prof")
+    DKV.remove(sub.key)
+    _, tr = _rest_ok(port, "GET", f"/3/Trace/{tid}", "TraceV3", user="gold")
+    names = {s["name"] for s in tr["spans"]}
+    check({"rest.request", "job.run"} <= names, f"(bd) trace spans {names}")
+    out["trace"] = (tr["n_spans"], sorted(names)[:8])
+    for path, schema in (("/3/Timeline", "TimelineV3"),
+                         ("/3/JStack", "JStackV3"),
+                         ("/3/Alerts", "AlertsV3"),
+                         ("/3/CloudHealth", "CloudHealthV3"),
+                         (f"/3/ModelMonitor/{models['b'].key}",
+                          "ModelMonitorV3")):
+        _rest_ok(port, "GET", path, schema, user="gold")
+    _, us = _rest_ok(port, "GET", "/3/Usage", "UsageV3", user="gold")
+    snap = usage.merge_usage([usage.usage_snapshot()])
+    check(us["device_seconds_total"] == snap["device_seconds_total"]
+          and us["ledger"] == snap["ledger"],
+          f"(bd) /3/Usage {us['device_seconds_total']} vs the ledger "
+          f"{snap['device_seconds_total']}")
+    out["usage"] = (us["device_seconds_total"], len(us["ledger"]))
+    # /metrics: the exposition grammar; every request of the phase in
+    # h2o3_rest_request_seconds (the observe lands a hair after each
+    # response: poll); the device gauge = torch.cuda.memory_allocated
+    deadline = time.monotonic() + 10.0
+    while _rest_count(om.REGISTRY.prometheus_text()) < REST_SENT[0] \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    sent = REST_SENT[0]
+    st, h, raw = _http(port, "GET", "/metrics", user="gold")
+    text = raw.decode() if isinstance(raw, bytes) else str(raw)
+    allocated = torch.cuda.memory_allocated(0)
+    bad = [ln for ln in text.splitlines() if not _PROM_LINE.fullmatch(ln)]
+    n_scraped = _rest_count(text)
+    dev_bytes = _series_value(text, "h2o3_device_memory_bytes",
+                              {"device": "0", "kind": "bytes_in_use"})
+    check(st == 200 and not bad and n_scraped == sent
+          and dev_bytes == allocated,
+          f"(bd) /metrics: {len(bad)} lines outside the grammar "
+          f"{bad[:2]}; h2o3_rest_request_seconds counts {n_scraped} of "
+          f"{sent}; device bytes {dev_bytes} vs {allocated}")
+    out["metrics"] = (len(text.splitlines()), n_scraped, dev_bytes)
+    return out
+
+
+def rest_guarded_run(torch, m, rows, names):
+    """(bd) continued: a second server started with
+    H2O3_TRANSFER_GUARD=disallow (torch's sync debug mode "error",
+    process-wide): REST_GUARDED warm one-row predicts answer 200, and an
+    .item() on a card tensor raises, so the guard is live."""
+    from h2o3_tpu_torch.api import server as S
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    old = _set_env(H2O3_TRANSFER_GUARD="disallow")
+    srv = None
+    try:
+        body = {"rows": _payload(rows[:1], names)}
+        srv = S.H2OServer(port=0).start()
+        mode = torch.cuda.get_sync_debug_mode()
+        c0 = om.graph_capture_count()
+        f0 = SC.FALLBACKS.value(reason="trace-error")
+        codes = {}
+        for i in range(REST_GUARDED):
+            st, _, js = _http(srv.port, "POST",
+                              f"/3/Predictions/models/{m.key}", body=body)
+            codes[st] = codes.get(st, 0) + 1
+            if st != 200:
+                say(f"rest (bd) guarded predict {i}: {st} {str(js)[:300]}")
+        live = False
+        try:
+            torch.ones(1, device="cuda").sum().item()
+        except RuntimeError:
+            live = True
+        captures = om.graph_capture_count() - c0
+        fb = SC.FALLBACKS.value(reason="trace-error") - f0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        _set_env(**old)
+        if srv is not None:
+            srv.stop()
+    check(mode == 2 and live and codes == {200: REST_GUARDED}
+          and captures == 0 and fb == 0,
+          f"(bd) under the transfer guard: mode {mode}, guard live {live}, "
+          f"answers {codes}, captures {captures}, trace-error fallbacks "
+          f"{fb}")
+    return codes
+
+
+def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
+    """Runs (bb)-(bd): the port's H2OServer in this process with a
+    basic-auth file of three users, spoken to over loopback HTTP; lockdep
+    and leaktrack raising over the whole phase. `higgs_csv` is (ap)'s file
+    (run alone: `_write_higgs_csv` of the HIGGS frame first), `ay` (ay)'s
+    numbers at a 2 ms linger from the same call (or None), `card`
+    nvidia-smi's name and power limit."""
+    from h2o3_tpu_torch.analysis import leaktrack, lockdep
+    from h2o3_tpu_torch.api import server as S
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.obs import modelmon, watchdog
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    t_phase = time.perf_counter()
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    DKV.put(fr.key, fr)
+    DKV.put(valid.key, valid)
+    blobs = _blob_frame(torch, dev, HIGGS_N, 12)[0] if "t" not in KEPT \
+        else None
+    blobs_valid, _ = _blob_frame(torch, dev, QOS_POOL, 12)
+    models = _kept_models(torch, h2o, fr, valid, blobs, label="rest (bb)")
+    models = {t: models[t] for t in ("b", "k", "q", "t")}
+    for m in models.values():
+        DKV.put(m.key, m)
+    if blobs is not None:
+        DKV.remove(blobs.key)
+    del blobs
+    from h2o3_tpu_torch import udf
+    udf.register_udf("chip_logloss", _logloss_udf(torch))
+    modelmon.reset()
+    _timed_baseline(torch, models["b"], fr)
+    names = [f"x{j}" for j in range(HIGGS_C)]
+    vsub = _sub_frame(valid, QOS_POOL)
+    pools = {}
+    for t, m in models.items():
+        src = blobs_valid if t == "t" else vsub
+        pools[t] = SC.stage_frame(m._dinfo, m._dinfo.adapt(src), QOS_POOL)
+    DKV.remove(vsub.key)
+    # every bucket a request can reach, captured here on the main thread
+    for t in models:
+        b = SC.row_bucket(1)
+        while b <= SC.row_bucket(64 * REST_PROCS * REST_THREADS):
+            SC.score_rows(models[t], pools[t][:b] if b <= QOS_POOL else
+                          np.resize(pools[t], (b, HIGGS_C)), 1)
+            b <<= 1
+    tmp = tempfile.mkdtemp(prefix="h2o3_rest_")
+    auth = os.path.join(tmp, "realm.properties")
+    with open(auth, "w") as f:
+        f.write("".join(f"{u}:{p}\n" for u, p in REST_USERS.items()))
+    REST_SENT[0] = 0
+    lockdep.reset()
+    lockdep.enable("raise")
+    leaktrack.enable("raise")
+    srv = S.H2OServer(port=0, auth=auth).start()
+    try:
+        t0 = time.perf_counter()
+        m_b, bb = rest_main_path_run(torch, h2o, HC, srv.port, fr, valid,
+                                     tmp, higgs_csv)
+        t_bb = time.perf_counter() - t0
+        size, t_rest, t_in, types = bb["parse"]
+        say(f"rest (bb) parse of (ap)'s {HIGGS_CSV_N:,}-row HIGGS CSV "
+            f"({size / 1e6:.1f} MB) through "
+            f"/3/ImportFiles, /3/ParseSetup (types {types}...) and "
+            f"/3/Parse polled on /3/Jobs: {t_rest:.2f} s "
+            f"({size / t_rest / 1e6:.1f} MB/s) against import_file "
+            f"{t_in:.2f} s ({size / t_in / 1e6:.1f} MB/s) in the same call; "
+            f"the frame = import_file's = the in-memory rows bit for bit")
+        t_gr, t_gi, per = bb["gbm"]
+        say(f"rest (bb) POST /3/ModelBuilders/gbm on the {HIGGS_N:,} x "
+            f"{HIGGS_C} HIGGS frame at (b)'s configuration cut to "
+            f"{REST_GBM['ntrees']} trees: {t_gr:.2f} s to the job's DONE "
+            f"against train() {t_gi:.2f} s with the same keyword "
+            f"arguments; the trees bit for bit; hist.cu launches per tree "
+            f"{per} (= (ap)'s {PER_TREE['default']})")
+        say(f"rest (bb) POST /3/Predictions on the {HIGGS_VALID_N:,} "
+            f"validation rows: the predictions frame = predict's bit for "
+            f"bit, model_metrics AUC {bb['auc']:.6f} = "
+            f"model_performance's; GET /3/Models/{{m}}/mojo "
+            f"{bb['mojo'][0]:,} bytes through import_mojo: largest "
+            f"|p1 - predict| {bb['mojo'][1]:.3g} (<= {EXPORT_TOL:g}); "
+            f"POST /99/Rapids group-by ({bb['rapids'][0]} groups) and row "
+            f"filter ({bb['rapids'][1]:,} rows) = rapids_exec's bit for "
+            f"bit; {t_bb:.1f} s")
+        t0 = time.perf_counter()
+        bc = rest_traffic_run(torch, srv.port, models, pools, names, tmp)
+        say(f"rest (bc) {REST_REQUESTS:,} requests over HTTP from "
+            f"{REST_PROCS} client processes x {REST_THREADS} closed-loop "
+            f"threads ((ay)'s mix: sizes 1/8/64 rows at 70/20/10%, over "
+            f"(b), (k), (q), (t)) to POST /3/Predictions/models/{{m}} at "
+            f"the default 2 ms linger, card {card}: "
+            f"{bc['rps']:,.0f} requests/s, p50/p99 {bc['p50']:.3f}/"
+            f"{bc['p99']:.3f} ms; {bc['requests']:.0f} micro-batched "
+            f"requests in {bc['dispatches']:.0f} dispatches = "
+            f"{bc['per_dispatch']:.2f} a dispatch; the server's process "
+            f"CPU {bc['cpu_ms']:.3f} ms a request ({bc['cores']:.2f} "
+            f"cores busy), its handler threads' {bc['handler_cpu_ms']:.3f} "
+            f"ms; beside (ay) in process in this call: "
+            + (f"{ay['rps']:,.0f} requests/s, p50/p99 {ay['p50']:.3f}/"
+               f"{ay['p99']:.3f} ms (payload p50 {ay['p50_payload']:.3f}), "
+               f"{ay['per_dispatch']:.2f} a dispatch, process CPU "
+               f"{ay['cpu_ms']:.3f} ms a request ({ay['cores']:.2f} cores "
+               f"busy, its client threads included); the server's own "
+               f"overhead a request: serialized time (1/requests/s over "
+               f"HTTP less in process) "
+               f"{1e3 / bc['rps'] - 1e3 / ay['rps']:.3f} ms, process CPU "
+               f"{bc['cpu_ms'] - ay['cpu_ms']:.3f} ms, p50 "
+               f"{bc['p50'] - ay['p50_payload']:.3f} ms over (ay)'s "
+               f"payload p50" if ay else "(ay) not run")
+            + f"; the slowest 1% (ms a stage from Server-Timing) "
+            f"{_split_text(bc['tail'])} (requests of each model "
+            f"{bc['tail_models']}); every answer = score_payload of its "
+            f"rows alone (GBM and KMeans bit for bit, GLM/DL largest "
+            f"|diff| {max(bc['worst']['k'], bc['worst']['q']):.3g}; "
+            f"checked in {bc['t_verify']:.1f} s); graph captures during "
+            f"(bc) {bc['captures']:.0f}; {time.perf_counter() - t0:.1f} s")
+        check(bc["captures"] == 0,
+              f"(bc) {bc['captures']} captures on the handler threads")
+        check(bc["requests"] == bc["batched"],
+              f"(bc) {bc['requests']} micro-batched of {bc['batched']}")
+        ten = rest_tenants_run(torch, srv.port, models["b"], pools["b"],
+                               names)
+        t_bc = time.perf_counter() - t0
+        say(f"rest (bc) tenants over HTTP as basic-auth users (weights "
+            f"4:1:1, one device slot, flood rate {REST_FLOOD_RPS}/s, queue "
+            f"depth {REST_QUEUE_DEPTH}, share "
+            f"{int(REST_QUEUE_DEPTH * REST_TENANT_SHARE)}): gold "
+            f"{ten['gold']}, silver "
+            f"{ten['silver']}, flood {ten['flood']} (every 429 and 503 "
+            f"with Retry-After; gold's one 504 a 0 ms "
+            f"X-H2O3-Deadline-Ms); {t_bc:.1f} s")
+        t0 = time.perf_counter()
+        bd = rest_operations_run(torch, srv.port, models, fr, tmp)
+        codes = rest_guarded_run(torch, models["b"], pools["b"], names)
+        t_bd = time.perf_counter() - t0
+        say(f"rest (bd) /3/Cloud names {torch.cuda.get_device_name(0)}, "
+            f"/3/About torch/cuda; {REST_UNAUTH} unauthenticated requests "
+            f"{bd['unauth']} (401 with WWW-Authenticate), the QoS counters "
+            f"unchanged; /3/Profiler kind torch around a 2-tree REST build "
+            f"on {REST_PROFILE_N:,} rows: {bd['profile'][0]:.2f} s, "
+            f"{bd['profile'][1]:,} trace events "
+            f"({bd['profile'][3] / 1e6:.1f} MB), CUDA kernel events "
+            f"{bd['profile'][2]}; /3/Trace of the build {bd['trace'][0]} "
+            f"spans {bd['trace'][1]}, the X-H2O3-Trace-Id echoed; "
+            f"/3/Timeline, /3/JStack, /3/Alerts, /3/CloudHealth, "
+            f"/3/ModelMonitor/{{b}} 200; /3/Usage {bd['usage'][0]:.6f} "
+            f"device-s over {bd['usage'][1]} ledger rows = the ledger; "
+            f"/metrics {bd['metrics'][0]} lines in the grammar, "
+            f"h2o3_rest_request_seconds counting all {bd['metrics'][1]:.0f} "
+            f"requests of the phase, device bytes {bd['metrics'][2]:.0f} = "
+            f"torch.cuda.memory_allocated; a second server under "
+            f"H2O3_TRANSFER_GUARD=disallow: {REST_GUARDED} warm one-row "
+            f"predicts {codes}, no capture, an .item() raised; "
+            f"{t_bd:.1f} s")
+    finally:
+        srv.stop()
+        leaktrack_reports = leaktrack.reports()
+        deadline = time.monotonic() + 5.0
+        while leaktrack.open_counts() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        leak_open = leaktrack.open_counts()
+        leaktrack.disable()
+        inversions = lockdep.counts()["inversions"]
+        lockdep.disable()
+        watchdog.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not leaktrack_reports and not leak_open,
+          f"(bd) leaktrack: {leaktrack_reports[:3]} open {leak_open}")
+    check(inversions == 0, f"(bb)-(bd) {inversions} lock-order inversions")
+    say(f"rest (bd) leaktrack raising over the phase: 0 leaks, nothing "
+        f"open; lockdep raising: {inversions} inversions; graph captures "
+        f"so far {om.graph_capture_count():.0f}")
+    modelmon.reset()
+    KEPT.clear()
+    say(f"rest: the phase {time.perf_counter() - t_phase:.1f} s")
     DKV.clear()
 
 
@@ -8105,11 +8916,15 @@ def main():
     framework = phase_framework(torch, h2o, HC)
     derived = phase_derived(torch, h2o, HC)
     phase_data_plane(torch, h2o, HC)
-    phase_ingest(torch, h2o, HC)
-    phase_munging(torch, h2o, HC)
-    phase_export_explain(torch, h2o, HC)
-    phase_obs_serving(torch, h2o, HC)
-    phase_qos_serving(torch, h2o, HC)
+    # (ap)'s CSV, parsed again over REST by (bb); removed on any exit
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_") as keep:
+        higgs_csv = os.path.join(keep, "higgs-1m.csv")
+        phase_ingest(torch, h2o, HC, higgs_csv)
+        phase_munging(torch, h2o, HC)
+        phase_export_explain(torch, h2o, HC)
+        phase_obs_serving(torch, h2o, HC)
+        ay = phase_qos_serving(torch, h2o, HC)
+        phase_rest(torch, h2o, HC, higgs_csv, ay, card)
     runs["d"] = covtype
     kernels = phase_timing(torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
@@ -8117,7 +8932,7 @@ def main():
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(ba) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(bd) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)

@@ -88,7 +88,10 @@ from h2o3_tpu_torch.models import (
     H2OStackedEnsembleEstimator, H2OSupportVectorMachineEstimator,
     H2OTargetEncoderEstimator, H2OWord2vecEstimator, H2OXGBoostEstimator,
     SegmentModels, train_segments)
-from h2o3_tpu_torch.parallel.mesh import cloud, init, shutdown
+from h2o3_tpu_torch.core.jobs import Job
+from h2o3_tpu_torch.parallel.mesh import cloud, cluster_info, init, shutdown
+
+__version__ = "0.5.0"
 
 
 def get_frame(key):
@@ -202,7 +205,8 @@ __all__ = ["DKV", "Frame", "H2OAggregatorEstimator",
            "H2OSingularValueDecompositionEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
            "H2OTargetEncoderEstimator", "H2OWord2vecEstimator",
-           "H2OXGBoostEstimator", "SegmentModels", "Vec", "cloud",
+           "H2OXGBoostEstimator", "Job", "SegmentModels", "Vec", "cloud",
+           "cluster_info",
            "automl", "create_frame", "explain", "explain_row", "export_file",
            "get_frame", "get_model", "import_file", "import_mojo", "init", "load_model", "ls", "parse_setup",
            "quantile", "rapids", "remove", "save_model", "shutdown",

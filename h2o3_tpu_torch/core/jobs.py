@@ -104,9 +104,13 @@ class Job:
         parent_trace = _tracing.current()
 
         def _run():
+            from h2o3_tpu_torch.analysis import sanitizers
             from h2o3_tpu_torch.obs.timeline import span
             try:
-                with _tracing.trace(parent_trace), \
+                # the process-wide sanitizers that torch keeps per thread
+                # (debug_nans) hold on the job's thread too
+                with sanitizers.thread_scope(), \
+                        _tracing.trace(parent_trace), \
                         _qos.job_context(parent_principal), \
                         span("job.run", job=self.key,
                              description=self.description) as _sp:

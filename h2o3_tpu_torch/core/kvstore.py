@@ -8,8 +8,10 @@ nests under it; `raw_get` skips the hook; `remove` runs `_on_remove`, and
 `put` over another value runs the old value's `_on_replace` (a retrained
 model frees its predecessor's serving residency), both outside the lock.
 The registry lock is the lockdep class `dkv`.
-Replication, homes and divergence checks are the JAX package's and wait
-for the compute-substrate item of ROADMAP.md.
+Replication and homes are the JAX package's and wait for the
+compute-substrate item of ROADMAP.md; `rehome_status` answers for the one
+process. `put` and `remove` report each mutation to `_div_hook`
+when the divergence sanitizer is on (analysis/divergence.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ from __future__ import annotations
 from typing import Any
 
 from h2o3_tpu_torch.analysis.lockdep import make_rlock
+
+# replay-divergence sanitizer seam (analysis/divergence.py): its _record
+# function while H2O3_DIVERGENCE is on, else None (one global load a
+# mutation)
+_div_hook = None
 
 
 class _DKV:
@@ -34,6 +41,9 @@ class _DKV:
         if old is not None and old is not value \
                 and hasattr(old, "_on_replace"):
             old._on_replace()
+        hk = _div_hook
+        if hk is not None:
+            hk("put", key, value)
         return key
 
     def get(self, key: str, default=None):
@@ -63,6 +73,9 @@ class _DKV:
             v = self._store.pop(key, None)
         if v is not None and hasattr(v, "_on_remove"):
             v._on_remove()
+        hk = _div_hook
+        if hk is not None:
+            hk("remove", key, None)
 
     def clear(self):
         with self._mutex:
@@ -88,6 +101,12 @@ class _DKV:
                     pass
         return {"keys": len(keys), "frames": nframes,
                 "frame_bytes": fbytes, "write_locked": 0}
+
+    def rehome_status(self) -> dict:
+        """GET /3/Cloud's re-home view. One process is one home (node 0):
+        nothing is ever queued or moved."""
+        return {"epoch": 1, "pending": 0, "keys_moved": 0,
+                "bytes_moved": 0, "nodes": [0]}
 
     def make_key(self, prefix: str = "obj") -> str:
         """Deterministic keys, as in the JAX package: prefix + counter."""

@@ -26,7 +26,39 @@ from h2o3_tpu_torch.models.tree.isofor import H2OIsolationForestEstimator
 from h2o3_tpu_torch.models.tree.xgboost import H2OXGBoostEstimator
 from h2o3_tpu_torch.models.word2vec import H2OWord2vecEstimator
 
-__all__ = ["H2OAggregatorEstimator", "H2OCoxProportionalHazardsEstimator",
+# generated parameter docs (h2o-bindings gen_python.py docstring surface)
+from h2o3_tpu_torch.models.param_docs import document as _document
+
+# algo name -> estimator class: the REST builders' table
+# (/3/ModelBuilders/{algo}) and the extension SPI's merge target
+ESTIMATORS = {
+    "kmeans": H2OKMeansEstimator,
+    "glm": H2OGeneralizedLinearEstimator,
+    "gbm": H2OGradientBoostingEstimator,
+    "drf": H2ORandomForestEstimator,
+    "isolationforest": H2OIsolationForestEstimator,
+    "deeplearning": H2ODeepLearningEstimator,
+    "pca": H2OPrincipalComponentAnalysisEstimator,
+    "glrm": H2OGeneralizedLowRankEstimator,
+    "naivebayes": H2ONaiveBayesEstimator,
+    "svd": H2OSingularValueDecompositionEstimator,
+    "aggregator": H2OAggregatorEstimator,
+    "stackedensemble": H2OStackedEnsembleEstimator,
+    "targetencoder": H2OTargetEncoderEstimator,
+    "word2vec": H2OWord2vecEstimator,
+    "coxph": H2OCoxProportionalHazardsEstimator,
+    "extendedisolationforest": H2OExtendedIsolationForestEstimator,
+    "gam": H2OGeneralizedAdditiveEstimator,
+    "rulefit": H2ORuleFitEstimator,
+    "generic": H2OGenericEstimator,
+    "psvm": H2OSupportVectorMachineEstimator,
+    "xgboost": H2OXGBoostEstimator,
+}
+
+for _cls in set(ESTIMATORS.values()):
+    _document(_cls)
+
+__all__ = ["ESTIMATORS", "H2OAggregatorEstimator", "H2OCoxProportionalHazardsEstimator",
            "H2ODeepLearningEstimator", "H2OExtendedIsolationForestEstimator",
            "H2OGeneralizedAdditiveEstimator", "H2OGenericEstimator",
            "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",

@@ -25,12 +25,36 @@ class Cloud:
     device: torch.device
     name: str = "h2o3-tpu-torch"
 
+    @property
+    def n_devices(self) -> int:
+        return 1
+
+    def describe(self) -> dict:
+        """The cloud's census (REST /3/Cloud): one device, named as
+        torch.cuda.get_device_name gives it on the card."""
+        if self.device.type == "cuda":
+            devices = [torch.cuda.get_device_name(self.device)]
+            platform = "gpu"
+        else:
+            devices = [str(self.device)]
+            platform = "cpu"
+        return {
+            "cloud_name": self.name,
+            "cloud_size": self.n_devices,
+            "mesh_shape": {"rows": 1, "model": 1},
+            "devices": devices,
+            "platform": platform,
+            "consensus": "locked",  # one controller: formed and locked
+        }
+
 
 def init(device: str | torch.device | None = None,
          name: str | None = None) -> Cloud:
     """Form the cloud (h2o.init analog). `device=None` means the first CUDA
     card and raises when there is none; pass `device="cpu"` to run on the
-    CPU. Calling it again replaces the cloud."""
+    CPU. Calling it again replaces the cloud. Name: explicit arg >
+    ai.h2o.cloud.name property (-name flag) > default. The extensions that
+    ai.h2o.extensions names load once the cloud is formed."""
     global _CLOUD
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":
@@ -42,8 +66,18 @@ def init(device: str | torch.device | None = None,
             dev = torch.device("cuda", 0)
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
+    if name is None:
+        from h2o3_tpu_torch.utils import config as _cfg
+        name = str(_cfg.get_property("cloud.name", None) or "h2o3-tpu-torch")
     with _lock:
-        _CLOUD = Cloud(device=dev, name=name or "h2o3-tpu-torch")
+        _CLOUD = Cloud(device=dev, name=name)
+        # extension lifecycle (ExtensionManager onLocalNodeStarted analog)
+        try:
+            from h2o3_tpu_torch.ext import load_configured_extensions
+            load_configured_extensions(_CLOUD)
+        except Exception:   # an extension failure must not kill the cloud
+            import traceback
+            traceback.print_exc()
         return _CLOUD
 
 
@@ -51,6 +85,11 @@ def cloud() -> Cloud:
     """The formed cloud; forms the default (CUDA) one on first use."""
     c = _CLOUD
     return c if c is not None else init()
+
+
+def cluster_info() -> dict:
+    """REST /3/Cloud analog."""
+    return cloud().describe()
 
 
 def shutdown():

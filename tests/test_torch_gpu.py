@@ -37,7 +37,12 @@ scored alone gets (GBM and KMeans bit for bit, GLM and DL within 1e-6);
 leaders capture again while other threads replay under
 H2O3_QOS_MAX_INFLIGHT=4 and lockdep raising; the drift baseline binned
 on the card equals numpy's counts; the stage split (CUDA events) adds no
-synchronising call.
+synchronising call. Runs (bb)-(bd) small: the REST server on the card
+names it and torch/cuda, builds a GBM over REST with train()'s trees bit
+for bit, answers row predictions equal to score_payload's, profiles the
+binned kernels through torch.profiler, answers warm predicts under
+H2O3_TRANSFER_GUARD=disallow while an .item() raises, and both
+`python -m` entry points serve on the card.
 """
 
 import numpy as np
@@ -1580,3 +1585,152 @@ def test_stage_split_of_capturing_and_eager_dispatches(dev, monkeypatch):
         assert cap["device"] > 0 and cap["readback"] > 0
         np.testing.assert_allclose(eager[:n], graph[:n], rtol=0, atol=1e-6)
     assert eager_models > 0
+
+
+# ---------------------------------------------------------------------------
+# runs (bb)-(bd) small: the REST server on the card
+def _rest(port, method, path, body=None, headers=None):
+    import http.client
+    import json
+    hdrs = dict(headers or {})
+    if body is not None:
+        body = json.dumps(body).encode()
+        hdrs["Content-Type"] = "application/json"
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    c.request(method, path, body=body, headers=hdrs)
+    r = c.getresponse()
+    raw = r.read()
+    c.close()
+    return r.status, json.loads(raw) if raw else None
+
+
+def _rest_job(port, key):
+    import time
+    while True:
+        st, js = _rest(port, "GET", f"/3/Jobs/{key}")
+        assert st == 200, js
+        if js["jobs"][0]["status"] != "RUNNING":
+            assert js["jobs"][0]["status"] == "DONE", js
+            return
+        time.sleep(0.02)
+
+
+@pytest.mark.gpu
+def test_rest_server_on_the_card(dev, tmp_path):
+    """Runs (bb)-(bd) small: the server names the card and torch/cuda; a
+    GBM built over REST (form-encoded parameters) has train()'s trees
+    bit for bit; row predictions equal score_payload's bit for bit; the
+    profiler's kind "auto" takes torch.profiler and its trace holds the
+    binned kernels as CUDA kernel events."""
+    import json
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch import serving
+    from h2o3_tpu_torch.api.server import H2OServer
+    h2o.init()
+    fr = _higgs_like(dev, 20_000, 5)
+    srv = H2OServer(port=0).start()
+    try:
+        st, cl = _rest(srv.port, "GET", "/3/Cloud")
+        assert st == 200
+        assert cl["nodes"][0]["h2o"] == torch.cuda.get_device_name(0)
+        st, ab = _rest(srv.port, "GET", "/3/About")
+        assert {"name": "Backend", "value": "torch/cuda"} in ab["entries"]
+        st, p = _rest(srv.port, "POST", "/3/Profiler",
+                      body={"action": "start", "kind": "auto",
+                            "trace_dir": str(tmp_path)})
+        assert st == 200 and p["kind"] == "torch", p
+        kw = dict(ntrees=3, max_depth=8, nbins=255, seed=1)
+        st, b = _rest(srv.port, "POST", "/3/ModelBuilders/gbm",
+                      body=dict({k: str(v) for k, v in kw.items()},
+                                training_frame=fr.key, response_column="y",
+                                model_id="gpu_rest_gbm"))
+        assert st == 200, b
+        _rest_job(srv.port, b["job"]["key"])
+        st, p = _rest(srv.port, "POST", "/3/Profiler",
+                      body={"action": "stop"})
+        assert st == 200 and "trace" in p, p
+        names = {e.get("name", "") for e in json.load(
+            open(p["trace"]))["traceEvents"] if e.get("cat") == "kernel"}
+        for k in ("fused_kernel", "radix_kernel", "route_kernel"):
+            assert any(k in n for n in names), (k, sorted(names)[:20])
+        m = h2o.get_model("gpu_rest_gbm")
+        ref = h2o.H2OGradientBoostingEstimator(**kw)
+        ref.train(y="y", training_frame=fr)
+        for f in ("col", "thr", "na_left", "value"):
+            assert torch.equal(getattr(m._trees, f), getattr(ref._trees, f))
+        xs = [c for c in fr.names if c != "y"]
+        rows = [dict(zip(xs, map(float, r))) for r in
+                fr.matrix(xs)[:9].cpu().numpy()]
+        st, pr = _rest(srv.port, "POST", f"/3/Predictions/models/{m.key}",
+                       body={"rows": rows})
+        assert st == 200, pr
+        assert pr["predictions"] == serving.score_payload(m, rows)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.gpu
+def test_rest_warm_predict_under_the_transfer_guard(dev, monkeypatch):
+    """Run (bd) small: a server started with H2O3_TRANSFER_GUARD=disallow
+    (torch's sync debug mode "error", process-wide) answers warm one-row
+    predicts; an .item() on a card tensor raises meanwhile."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.api.server import H2OServer
+    fr, models = _serving_models(dev)
+    xs = [c for c in fr.names if c != "y"]
+    row = [dict(zip(xs, map(float, fr.matrix(xs)[0].cpu().numpy())))]
+    gbm = models["gbm"]
+    h2o.DKV.put(gbm.key, gbm)
+    warm = H2OServer(port=0).start()
+    try:
+        st, _ = _rest(warm.port, "POST", f"/3/Predictions/models/{gbm.key}",
+                      body={"rows": row})
+        assert st == 200
+    finally:
+        warm.stop()
+    monkeypatch.setenv("H2O3_TRANSFER_GUARD", "disallow")
+    srv = H2OServer(port=0).start()
+    try:
+        assert torch.cuda.get_sync_debug_mode() == 2
+        for _ in range(10):
+            st, js = _rest(srv.port, "POST",
+                           f"/3/Predictions/models/{gbm.key}",
+                           body={"rows": row})
+            assert st == 200, js
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=dev).sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        srv.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("argv", [["-m", "h2o3_tpu_torch.api.server"],
+                                  ["-m", "h2o3_tpu_torch", "-port"]])
+def test_server_entry_points_serve_on_the_card(dev, argv):
+    """`python -m h2o3_tpu_torch.api.server <port>` and `python -m
+    h2o3_tpu_torch -port <port>` form the cloud on the card and serve
+    /3/Cloud until stopped."""
+    import socket
+    import subprocess
+    import sys
+    import time
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    p = subprocess.Popen([sys.executable, *argv, str(port)])
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert p.poll() is None, p.returncode
+            try:
+                st, cl = _rest(port, "GET", "/3/Cloud")
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.5)
+        assert st == 200
+        assert cl["nodes"][0]["h2o"] == torch.cuda.get_device_name(0)
+    finally:
+        p.terminate()
+        p.wait(timeout=60)

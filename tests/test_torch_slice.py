@@ -517,6 +517,14 @@ def test_port_imports_no_jax():
         "usage", "modelmon", "slo", "watchdog")} | {
         pkg / "deploy" / f"{m}.py" for m in (
             "__init__", "chaos", "membership")} <= set(files)
+    assert {pkg / "api" / f"{m}.py" for m in (
+        "__init__", "server", "routes_ext", "routes_ext2", "routes_ext3",
+        "routes_ext4", "flow")} | {
+        pkg / "analysis" / f"{m}.py" for m in (
+            "divergence", "leaktrack", "sanitizers")} | {
+        pkg / "utils" / "auth.py", pkg / "obs" / "profiler.py",
+        pkg / "models" / "param_docs.py", pkg / "ext.py",
+        pkg / "__main__.py"} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

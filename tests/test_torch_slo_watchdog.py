@@ -216,7 +216,7 @@ def test_slo_reset_retires_the_evaluator(monkeypatch, tmp_path):
 def watchdog_env(tmp_path, monkeypatch):
     monkeypatch.setenv("H2O3_WATCHDOG_STALL_S", "0.15")
     monkeypatch.setenv("H2O3_WATCHDOG_POLL_S", "0.05")
-    old = TR.RECORDER.root
+    old = TR.RECORDER._root         # None: the default root
     TR.RECORDER.set_root(str(tmp_path / "rec"))
     TW.reset()
     yield
