@@ -34,7 +34,8 @@ Phases, each printing its lines before the last:
      alternating-sign grads, every row in one slot and one bin, one NaN
      and one inf stat: their bins as in float64, every other bin within
      tolerance), each launched twice on the same inputs with bit-identical
-     results;
+     results; and (be) the port's own gate, ops/parity.kernel_parity_check
+     (its deviations printed);
   3. the main path at small size: a seeded CSV through import_file, a
      bernoulli GBM (the default configuration, then int8_hist=True),
      predict and AUC, on the card and on the CPU (plain versions), which
@@ -452,6 +453,18 @@ Phases, each printing its lines before the last:
            = torch.cuda.memory_allocated; a second server under
            H2O3_TRANSFER_GUARD=disallow answering 100 warm one-row
            predicts while an .item() raises;
+       (bg) bindings/gen.py against that server: the generated module
+           (standard library only) trains a 10-tree GBM at (bb)'s
+           configuration over HTTP (its trees = (bb)'s REST GBM's bit
+           for bit) and predicts (= (bb)'s predict bit for bit);
+     then (bf) the h2o-py client (h2o3_tpu_torch.client) on (b)'s 11M x
+     28 frame made on the card: arithmetic over two columns, a row
+     filter, mean and sd, split_frame([0.75], seed=42), a group-by of a
+     binned column with sum and count, every Rapids text it sent sent
+     again straight to rapids_exec with the same answer bit for bit;
+     utils/selfbench.run_all() (the triad's GB/s and the bf16 and f32
+     matmuls' TFLOPS beside the card's published peaks); a line saying
+     why the scikit-learn adapters do not run here;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -471,10 +484,18 @@ Phases, each printing its lines before the last:
      non-terminal route at 4 and 8 rows a thread-step and 256, 512 and
      1024 threads, heap ids identical, with the 32-byte sectors of the
      code planes its gathers touch.
-The lines of runs (d)-(bd) are printed again just before the two JSON
-lines. The line before the last is the kernels' JSON record (the adaptive
-engine, GLM, DeepLearning, the unsupervised family and the runs (x)-(av)
-add no kernel to it); the last line is
+Each phase prints `phase <name>: <wall> s (card idle for host-only
+work <s> s)`: the seconds of its host-only blocks (CPU fits, numpy
+references, file writing, a wait on the host worker). The host-only work
+that needs no card runs beside the card's in a spawned worker process
+with CUDA_VISIBLE_DEVICES="" (started at the top of main(): (ao)'s files
+and its Python tokenizer, (ap)'s CSV, (aq)-(ar)'s data and numpy
+answers, (al)'s CPU slice fit, (at)'s float64 scorers), each result held
+where the phase checks it; a failure there fails the script. The lines
+of runs (d)-(bg) and the phase lines are printed again just before the
+two JSON lines. The line before the last is the kernels' JSON record
+(the adaptive engine, GLM, DeepLearning, the unsupervised family and the
+runs (x)-(bg) add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -482,6 +503,8 @@ exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import functools
 import gc
 import gzip
@@ -498,6 +521,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -505,6 +529,7 @@ import numpy as np
 # operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+BF16_DENSE_PEAK = 989e12    # bf16 tensor-core FLOP/s, dense
 HIST_RTOL = 1e-4      # f32 results of sums in another order or fixed point
 F_ATOL = 1e-5         # one f32 multiply-add
 TPU_KERNELS = {
@@ -908,8 +933,10 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"frame data plane|airline \(ao|higgs csv \(ap|"
                    r"ingest and persistence|munging|export and import "
                    r"\(at|explain \(au|automl \(av|export, explain|"
-                   r"observability|serving \(ax\) (speed|lifecycle|1000)|"
-                   r"serving \(ax\) [bkqt]:|qos serving|rest)")
+                   r"observability|"
+                   r"serving \(ax\) (speed|lifecycle|1000|predict)|"
+                   r"serving \(ax\) [bkqt]:|qos serving|rest|"
+                   r"kernel parity \(be\)|client \(bf\)|front ends)")
 
 
 def say(msg):
@@ -928,6 +955,99 @@ def check(cond, msg):
         fail(msg)
 
 
+# seconds of host-only work inside the blocks that `host_only` marks: the
+# card waits while the host computes (CPU fits, numpy references, file
+# writing, a worker's result awaited)
+HOST_ONLY = [0.0]
+
+
+def host_seconds(t):
+    """Adds t host-only seconds measured by the caller; returns t."""
+    HOST_ONLY[0] += t
+    return t
+
+
+class host_only:
+    """Adds the block's host-clock seconds to HOST_ONLY."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        HOST_ONLY[0] += time.perf_counter() - self.t0
+
+
+class HostWorker:
+    """Host-only work moved off the card's critical path: a pool of
+    spawned processes that see no card (CUDA_VISIBLE_DEVICES=""), each
+    with TORCH_THREADS of torch's CPU threads. A task is a module-level
+    function of this script taking its sizes as arguments (a spawned
+    process imports the script afresh); host_result reads its result."""
+
+    TORCH_THREADS = 2
+
+    def __init__(self, processes=2):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            processes, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_worker_init,
+            initargs=(self.TORCH_THREADS,))
+
+    def submit(self, fn, *args):
+        return self.pool.submit(fn, *args)
+
+    def close(self, kill=False):
+        """Wait for the pool; with kill, end its processes first (a
+        failed run does not wait for a task)."""
+        if kill:
+            for proc in list((self.pool._processes or {}).values()):
+                proc.terminate()
+        self.pool.shutdown(wait=not kill, cancel_futures=True)
+
+
+def _host_worker_init(threads):
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(threads)
+
+
+def host_submit(host, fn, *args):
+    """fn(*args) in `host` (a HostWorker) as a future, or, with None (a
+    phase run alone), here and now as a done future."""
+    import concurrent.futures
+    if host is not None:
+        return host.submit(fn, *args)
+    fut = concurrent.futures.Future()
+    try:
+        with host_only():
+            fut.set_result(fn(*args))
+    except Exception as e:      # noqa: BLE001 — re-raised by host_result
+        fut.set_exception(e)
+    return fut
+
+
+def host_result(fut, what):
+    """The worker's result; the seconds waited for it count as host-only.
+    A failure in the worker fails the script."""
+    with host_only():
+        try:
+            return fut.result()
+        except Exception as e:  # noqa: BLE001 — any failure fails the run
+            fail(f"{what}: the host worker failed: {e!r}")
+
+
+def run_phase(name, fn, *args, **kw):
+    """fn(*args, **kw) with its wall seconds and the host-only seconds
+    inside it printed as one `phase` line."""
+    t0, h0 = time.perf_counter(), HOST_ONLY[0]
+    out = fn(*args, **kw)
+    say(f"phase {name}: {time.perf_counter() - t0:.1f} s (card idle for "
+        f"host-only work {HOST_ONLY[0] - h0:.1f} s)")
+    return out
+
+
 # ---------------------------------------------------------------------------
 def phase_card(torch, _build):
     smi = subprocess.run(
@@ -941,7 +1061,8 @@ def phase_card(torch, _build):
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     logs = _build.build_all()
-    say(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    say(f"build: {sorted(logs)} in "
+        f"{host_seconds(time.perf_counter() - t0):.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "entry function" \
@@ -1115,6 +1236,20 @@ def phase_kernels_small(torch, HC, dev, c_pad):
             check_fused(torch, HC, f"fused int8={int8} L_h={L_h} n={n} "
                         f"C={c_pad}",
                         h_k, got, (codes, heap, tbl, route_f, stats), kw, int8)
+
+
+def parity_run(torch, dev, c_pad):
+    """(be): ops/parity.kernel_parity_check on the card at c_pad code
+    columns: every kernel against its plain version through the port's
+    own gate."""
+    from h2o3_tpu_torch.ops import parity
+    t0 = time.perf_counter()
+    devs = parity.kernel_parity_check(seed=0, device=dev, c_pad=c_pad)
+    t = time.perf_counter() - t0
+    say(f"kernel parity (be) C={c_pad}: {len(devs)} checks in {t:.2f} s, "
+        f"largest deviations "
+        + ", ".join(f"{k} {v:.3g}" for k, v in devs.items()))
+    return t
 
 
 def _adversarial(torch, dev, seed, *, n, c_pad, b_val, L, one_bin=False,
@@ -2738,7 +2873,8 @@ def _on_cpu(h2o, fn):
     """fn() with the cloud on the CPU; the card's cloud again after."""
     h2o.init(device="cpu")
     try:
-        return fn()
+        with host_only():
+            return fn()
     finally:
         h2o.init()
 
@@ -4655,9 +4791,36 @@ class _EvalClock:
         self.G._lbfgs = self.orig
 
 
-def sparse_glm_rcv1_run(torch, h2o, HC):
+def sparse_slice_fit(sl, params, n, threads=None):
+    """(al)'s slice of n rows fitted on the cloud's device, or on a CPU
+    cloud (with `threads` of torch's, in the host worker) when `sl`, the
+    slice's (rows, cols, vals, y), holds host arrays. Returns
+    (coefficients, predict_sparse, train() seconds)."""
+    import torch
+    import h2o3_tpu_torch as h2o
+
+    def fit():
+        dev = h2o.cloud().device
+        sf, _, _ = _sparse_frame(torch, h2o, *(torch.as_tensor(t).to(dev)
+                                               for t in sl), n, device=dev)
+        sm = h2o.H2OGeneralizedLinearEstimator(**dict(params, lambda_=1.0 / n))
+        t0 = time.perf_counter()
+        sm.train(y="target", training_frame=sf)
+        out = (sm._state.beta, sm.predict_sparse(sf),
+               time.perf_counter() - t0)
+        h2o.remove(sf.key)
+        return out
+    if all(isinstance(t, np.ndarray) for t in sl):
+        if threads:
+            torch.set_num_threads(threads)
+        return _cpu_cloud(h2o, fit)
+    return fit()
+
+
+def sparse_glm_rcv1_run(torch, h2o, HC, host=None):
     """(al): GLM binomial, alpha 0, lambda 1/n (LIBLINEAR's C = 1 L2
-    logistic regression) at rcv1.binary's width."""
+    logistic regression) at rcv1.binary's width; its CPU slice fit in
+    `host` (a HostWorker) when given."""
     from h2o3_tpu_torch.models import metrics as M
     dev = h2o.init().device
     t0 = time.perf_counter()
@@ -4667,6 +4830,16 @@ def sparse_glm_rcv1_run(torch, h2o, HC):
     t_gen = time.perf_counter() - t0
     nnz = int(rows.numel())
     empty = RCV1_C - int(torch.unique(cols).numel())
+    params = dict(family="binomial", alpha=0.0, lambda_=1.0 / RCV1_N)
+    # the card against the CPU on a slice of rows, every column kept: the
+    # CPU fit runs in the host worker while the card fits below
+    keep = rows < RCV1_SLICE_N
+    sl = (rows[keep], cols[keep], vals[keep], y[:RCV1_SLICE_N])
+    # the worker's other tasks are done by now; the card's process runs one
+    # thread of Python meanwhile
+    cpu_fit = host_submit(host, sparse_slice_fit, tuple(
+        t.cpu().numpy() for t in sl), params, RCV1_SLICE_N,
+        max(1, (os.cpu_count() or 2) - 2) if host else None)
     fr, t_build, t_reg = _sparse_frame(torch, h2o, rows, cols, vals, y,
                                        RCV1_N)
     valid, _, _ = _sparse_frame(torch, h2o, vr, vc, vv, vy, RCV1_VALID_N)
@@ -4681,7 +4854,6 @@ def sparse_glm_rcv1_run(torch, h2o, HC):
         f"{t_gen:.2f} s; {RCV1_C} SparseVecs built {t_build:.2f} s, of "
         f"which the pager's registration {t_reg:.2f} s; sparse_coo "
         f"{t_coo:.3f} s; a validation frame of {RCV1_VALID_N} rows")
-    params = dict(family="binomial", alpha=0.0, lambda_=1.0 / RCV1_N)
     betas, evals = [], []
     for k in range(2):
         torch.cuda.synchronize()
@@ -4730,24 +4902,8 @@ def sparse_glm_rcv1_run(torch, h2o, HC):
         "model_performance(valid) = train()'s validation metrics")
     check(g_end <= 1e-3 * g_0, f"(al) gradient ratio {g_end / g_0}")
     del fr, valid, vg
-    # the card against the CPU on a slice of rows, every column kept
-    keep = rows < RCV1_SLICE_N
-    sl = (rows[keep], cols[keep], vals[keep], y[:RCV1_SLICE_N])
-    res = {}
-    for where in ("cpu", "cuda"):
-        dev_s = torch.device(where)
-        h2o.init(device=dev_s) if where == "cpu" else h2o.init()
-        sf, _, _ = _sparse_frame(torch, h2o, *(t.to(dev_s) for t in sl),
-                                 RCV1_SLICE_N, device=dev_s)
-        sm = h2o.H2OGeneralizedLinearEstimator(**dict(
-            params, lambda_=1.0 / RCV1_SLICE_N))
-        t0 = time.perf_counter()
-        sm.train(y="target", training_frame=sf)
-        res[where] = (sm._state.beta, sm.predict_sparse(sf),
-                      time.perf_counter() - t0)
-        del sf
-    h2o.init()
-    (cb, cp, ct), (gb, gp, gt) = res["cpu"], res["cuda"]
+    gb, gp, gt = sparse_slice_fit(sl, params, RCV1_SLICE_N)
+    cb, cp, ct = host_result(cpu_fit, "(al) the CPU slice fit")
     db = float(np.abs(cb - gb).max() / np.abs(cb).max())
     dp = float(np.abs(cp - gp).max())
     say(f"sparse glm (al) slice {RCV1_SLICE_N} rows x {RCV1_C} columns: "
@@ -4997,16 +5153,16 @@ def pager_higgs_run(torch, h2o, HC):
     DKV.remove(fr.key)
 
 
-def phase_data_plane(torch, h2o, HC):
+def phase_data_plane(torch, h2o, HC, host=None):
     """Runs (al)-(an), each timed, after every earlier frame is dropped
-    from the store."""
+    from the store; (al)'s CPU slice fit in `host` when given."""
     from h2o3_tpu_torch.core.kvstore import DKV
     DKV.clear()
     gc.collect()
     torch.cuda.empty_cache()
     t_all = time.perf_counter()
     times = {}
-    for label, fn in (("al", sparse_glm_rcv1_run),
+    for label, fn in (("al", lambda *a: sparse_glm_rcv1_run(*a, host)),
                       ("am", svmlight_covtype_run),
                       ("an", pager_higgs_run)):
         torch.cuda.synchronize()
@@ -5219,44 +5375,91 @@ def _run_grid(h2o, gid, rdir, fr, kill_after=None):
     return g, trained
 
 
-def airline_run(torch, h2o, HC):
+def _cpu_cloud(h2o, fn):
+    """fn() on a CPU cloud: in the host worker (no card visible) the
+    cloud stays there; in the card's process the card's cloud comes back
+    after."""
+    import torch
+    if torch.cuda.is_available():
+        return _on_cpu(h2o, fn)
+    h2o.init(device="cpu")
+    return fn()
+
+
+def airline_files(tmp, n=AIR_N, py_rows=AIR_PY_ROWS):
+    """(ao)'s host work, in the host worker from the top of main(): the
+    n-row file, its AIR_PARTS parts and level-1 gzip, the head of py_rows
+    rows, and the plain Python tokenizer's parse of the head on a CPU
+    cloud (the frame's digest, for airline_run to hold against the native
+    parse on the card). Returns what airline_run prints."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.io import dparse
+    out = {}
+    path = os.path.join(tmp, "train-10m.csv")
+    t0 = time.perf_counter()
+    out["yshare"] = airline_csv(path, n)
+    out["t_gen"] = time.perf_counter() - t0
+    # the other forms, from the file's bytes
+    t0 = time.perf_counter()
+    parts = os.path.join(tmp, "parts")
+    os.makedirs(parts)
+    with open(path, "rb") as f:
+        head = f.readline()
+        body = f.read()
+    cuts = [0]
+    for k in range(1, AIR_PARTS):
+        cuts.append(body.index(b"\n", len(body) * k // AIR_PARTS) + 1)
+    cuts.append(len(body))
+    for k in range(AIR_PARTS):
+        with open(os.path.join(parts, f"part-{k}.csv"), "wb") as f:
+            f.write(head)
+            f.write(body[cuts[k]:cuts[k + 1]])
+    del body
+    with open(path, "rb") as fi, gzip.open(path + ".gz", "wb",
+                                           compresslevel=1) as fo:
+        shutil.copyfileobj(fi, fo, 16 << 20)
+    out["t_forms"] = time.perf_counter() - t0
+    # the plain Python tokenizer on the head of the file
+    hpath = os.path.join(tmp, "head.csv")
+    _head_rows(path, hpath, py_rows)
+
+    def python_parse():
+        t0 = time.perf_counter()
+        cols = dparse._tokenize_range_py(hpath, ",", True, 0, -1)
+        py = dparse._merge_chunks([cols], h2o.parse_setup(hpath), None,
+                                  None)
+        t_py = time.perf_counter() - t0
+        digest = _frame_digest(py)
+        h2o.remove(py.key)
+        return t_py, digest
+    out["t_py"], out["py_digest"] = _cpu_cloud(h2o, python_parse)
+    return out
+
+
+def airline_run(torch, h2o, HC, files=None):
     """(ao): the airline file in four forms through import_file, the same
     Frame from each and every byte through the native tokenizer; the
     Python tokenizer on its head; GBM at H2O's defaults; the .hex round
     trip; save and load on the card and in a card-less process; a grid
-    killed after 2 models and resumed."""
+    killed after 2 models and resumed. `files`: (directory, the host
+    worker's airline_files future), or None to make them here."""
     from h2o3_tpu_torch.core.kvstore import DKV
     from h2o3_tpu_torch.core.memory import frame_chunks
     from h2o3_tpu_torch.io import dparse, fastcsv
     from h2o3_tpu_torch.io.persist import import_frame
     y = "dep_delayed_15min"
-    with tempfile.TemporaryDirectory() as tmp:
+    if files is None:
+        tmp = tempfile.mkdtemp(prefix="h2o3_air_")
+        files = (tmp, host_submit(None, airline_files, tmp, AIR_N,
+                                  AIR_PY_ROWS))
+    tmp, fut = files
+    try:
+        info = host_result(fut, "(ao) the airline files")
         path = os.path.join(tmp, "train-10m.csv")
-        t0 = time.perf_counter()
-        yshare = airline_csv(path, AIR_N)
-        t_gen = time.perf_counter() - t0
+        parts, gz = os.path.join(tmp, "parts"), path + ".gz"
         size = os.path.getsize(path)
-        # the other forms, from the file's bytes
-        t0 = time.perf_counter()
-        parts = os.path.join(tmp, "parts")
-        os.makedirs(parts)
-        with open(path, "rb") as f:
-            head = f.readline()
-            body = f.read()
-        cuts = [0]
-        for k in range(1, AIR_PARTS):
-            cuts.append(body.index(b"\n", len(body) * k // AIR_PARTS) + 1)
-        cuts.append(len(body))
-        for k in range(AIR_PARTS):
-            with open(os.path.join(parts, f"part-{k}.csv"), "wb") as f:
-                f.write(head)
-                f.write(body[cuts[k]:cuts[k + 1]])
-        del body
-        gz = path + ".gz"
-        with open(path, "rb") as fi, gzip.open(gz, "wb", compresslevel=1) \
-                as fo:
-            shutil.copyfileobj(fi, fo, 16 << 20)
-        t_forms = time.perf_counter() - t0
+        yshare, t_gen, t_forms = info["yshare"], info["t_gen"], \
+            info["t_forms"]
         httpd = http.server.ThreadingHTTPServer(
             ("127.0.0.1", 0), functools.partial(_RangeHandler,
                                                 directory=tmp))
@@ -5318,18 +5521,12 @@ def airline_run(torch, h2o, HC):
             f"{[v.codec.kind for v in one.vecs]}, planes and NA planes)")
         shutil.rmtree(parts)
         os.unlink(gz)
-        # the plain Python tokenizer on the head of the file
+        # the plain Python tokenizer's parse of the head (in the host
+        # worker) against the native one here
         hpath = os.path.join(tmp, "head.csv")
-        _head_rows(path, hpath, AIR_PY_ROWS)
-        fastcsv.reset_counts()
-        t0 = time.perf_counter()
-        cols = dparse._tokenize_range_py(hpath, ",", True, 0, -1)
-        py = dparse._merge_chunks([cols], h2o.parse_setup(hpath), None,
-                                  None)
-        t_py = time.perf_counter() - t0
-        del cols
+        t_py = info["t_py"]
         native = h2o.import_file(hpath)
-        same = _frame_digest(py) == _frame_digest(native)
+        same = info["py_digest"] == _frame_digest(native)
         rows_same = all(np.array_equal(a, b) for a, b in zip(
             _decoded(native, AIR_PY_ROWS), _decoded(one, AIR_PY_ROWS)))
         say(f"airline (ao): the Python tokenizer on the first "
@@ -5338,7 +5535,6 @@ def airline_run(torch, h2o, HC):
             f"parse of those rows bit for bit {same}, their values the "
             f"10M-row frame's {rows_same}")
         check(same and rows_same, "(ao) the Python tokenizer disagrees")
-        DKV.remove(py.key)
         DKV.remove(native.key)
         os.unlink(path)
         # GBM at H2O's defaults
@@ -5403,15 +5599,30 @@ def airline_run(torch, h2o, HC):
             "h2o.init(device='cpu')\nm = h2o.load_model(sys.argv[2])\n"
             "np.save(sys.argv[4], m.predict(import_frame(sys.argv[3]))"
             ".vecs[-1].to_numpy())\n")
+        # the card-less process runs while the grid below trains
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, "-c", code,
              os.path.dirname(os.path.abspath(__file__)), mpath, slp, outp],
             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
-            capture_output=True, text=True, timeout=600)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # a grid killed after 2 models and resumed
+        t_grid0 = time.perf_counter()
+        full, _ = _run_grid(h2o, "air_full", None, one)
+        rdir = os.path.join(tmp, "recovery")
+        first, trained1 = _run_grid(h2o, "air_rec", rdir, one, kill_after=2)
+        for key in first.model_ids:
+            DKV.remove(key)
+        second, trained2 = _run_grid(h2o, "air_rec", rdir, one)
+        t_grid = time.perf_counter() - t_grid0
+        with host_only():
+            try:
+                _, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
         t_sub = time.perf_counter() - t0
         check(proc.returncode == 0,
-              f"(ao) the card-less load failed: {proc.stderr[-2000:]}")
+              f"(ao) the card-less load failed: {err[-2000:]}")
         cpu_err = float(np.abs(np.load(outp) - p_card[:AIR_SLICE_N]
                                .cpu().numpy()).max())
         say(f"airline (ao) save_model {os.path.getsize(mpath) / 1e6:.2f} MB "
@@ -5419,18 +5630,9 @@ def airline_run(torch, h2o, HC):
             f"on the card bit for bit {same}; a process with "
             f"CUDA_VISIBLE_DEVICES='' loaded it onto the CPU and predicted "
             f"{AIR_SLICE_N} rows within {cpu_err:.3g} of the card (limit "
-            f"1e-5; {t_sub:.1f} s with its start)")
+            f"1e-5; {t_sub:.1f} s with its start, beside the grid below)")
         check(same and cpu_err <= 1e-5, f"(ao) save/load: card {same}, "
               f"CPU {cpu_err}")
-        # a grid killed after 2 models and resumed
-        t0 = time.perf_counter()
-        full, _ = _run_grid(h2o, "air_full", None, one)
-        rdir = os.path.join(tmp, "recovery")
-        first, trained1 = _run_grid(h2o, "air_rec", rdir, one, kill_after=2)
-        for key in first.model_ids:
-            DKV.remove(key)
-        second, trained2 = _run_grid(h2o, "air_rec", rdir, one)
-        t_grid = time.perf_counter() - t0
 
         def by_combo(g):
             return {(mm.params["max_depth"], mm.params["learn_rate"]): mm
@@ -5454,36 +5656,78 @@ def airline_run(torch, h2o, HC):
             f"parses {peak_parse / 2**30:.2f} GiB "
             f"({(peak_parse - held) / 2**30:.2f} GiB above what was held "
             f"before them)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     DKV.clear()
+
+
+def _higgs_csv_rows(torch, big):
+    """The first HIGGS_CSV_N rows of the HIGGS frame `big`: (their Frame,
+    float64 host values, names)."""
+    fr = _sub_frame(big, HIGGS_CSV_N)
+    X = fr.matrix(fr.names[:-1]).cpu().numpy().astype(np.float64)
+    data = np.column_stack([X, fr.vec("y").as_f32().cpu().numpy()])
+    return fr, data, list(fr.names)
+
+
+def write_csv_rows(names, data, path):
+    """`data` (a matrix, or the .npy holding it) written to `path` with
+    %.9g (every f32 round-trips): (bytes, seconds). (ap)'s file, written
+    by the host worker from main()'s early copy of the rows."""
+    if isinstance(data, str):
+        data = np.load(data)
+    fmt = ",".join(["%.9g"] * data.shape[1]) + "\n"
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        for s in range(0, data.shape[0], 100_000):
+            blk = data[s:s + 100_000]
+            f.write((fmt * len(blk)) % tuple(blk.ravel().tolist()))
+    return os.path.getsize(path), time.perf_counter() - t0
 
 
 def _write_higgs_csv(torch, big, path):
     """The first HIGGS_CSV_N rows of the HIGGS frame `big` written to
     `path` with %.9g: (the rows' Frame, the file's bytes, seconds)."""
-    fr = _sub_frame(big, HIGGS_CSV_N)
-    X = fr.matrix(fr.names[:-1]).cpu().numpy().astype(np.float64)
-    data = np.column_stack([X, fr.vec("y").as_f32().cpu().numpy()])
-    del X
-    fmt = ",".join(["%.9g"] * data.shape[1]) + "\n"
-    t0 = time.perf_counter()
-    with open(path, "w") as f:
-        f.write(",".join(fr.names) + "\n")
-        for s in range(0, HIGGS_CSV_N, 100_000):
-            blk = data[s:s + 100_000]
-            f.write((fmt * len(blk)) % tuple(blk.ravel().tolist()))
-    return fr, os.path.getsize(path), time.perf_counter() - t0
+    fr, data, names = _higgs_csv_rows(torch, big)
+    with host_only():
+        size, t = write_csv_rows(names, data, path)
+    return fr, size, t
 
 
-def higgs_csv_run(torch, h2o, HC, path):
+def start_higgs_csv(torch, h2o, path, host):
+    """(ap)'s rows copied off the card now and written to `path` by
+    `host` (a HostWorker) meanwhile; the future for higgs_csv_run."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    big = _higgs_frame(torch, h2o, h2o.init().device, HIGGS_N, 7)
+    fr, data, names = _higgs_csv_rows(torch, big)
+    npy = path + ".npy"
+    np.save(npy, data)
+    for f in (fr, big):
+        DKV.remove(f.key)
+    del fr, big
+    gc.collect()
+    torch.cuda.empty_cache()        # the next phase starts from the same pool
+    return host_submit(host, write_csv_rows, names, npy, path)
+
+
+def higgs_csv_run(torch, h2o, HC, path, written=None):
     """(ap): the first HIGGS_CSV_N rows of the HIGGS frame written with
     %.9g to `path` and read back by import_file: the in-memory values bit
     for bit, and (b)'s GBM for 10 trees the same predictions bit for bit on
-    both. The file stays for (bb), which parses it again over REST."""
+    both. The file stays for (bb), which parses it again over REST.
+    `written`: the host worker's write of the file (start_higgs_csv), or
+    None to write it here."""
     from h2o3_tpu_torch.core.kvstore import DKV
     from h2o3_tpu_torch.io import fastcsv
     dev = h2o.init().device
     big = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
-    fr, size, t_write = _write_higgs_csv(torch, big, path)
+    if written is None:
+        fr, size, t_write = _write_higgs_csv(torch, big, path)
+    else:
+        fr = _sub_frame(big, HIGGS_CSV_N)
+        size, t_write = host_result(written, "(ap) the CSV's writing")
+        os.unlink(path + ".npy")
     DKV.remove(big.key)
     del big
     gc.collect()
@@ -5525,17 +5769,21 @@ def higgs_csv_run(torch, h2o, HC, path):
     DKV.clear()
 
 
-def phase_ingest(torch, h2o, HC, higgs_csv):
+def phase_ingest(torch, h2o, HC, higgs_csv, airline=None, written=None):
     """Runs (ao) and (ap), each timed, after every earlier frame is
-    dropped from the store; (ap) writes its CSV to `higgs_csv`."""
+    dropped from the store; (ap) writes its CSV to `higgs_csv`.
+    `airline`, `written`: (ao)'s files and (ap)'s CSV as main() started
+    them in the host worker (airline_run's `files`, higgs_csv_run's
+    `written`), or None."""
     from h2o3_tpu_torch.core.kvstore import DKV
     DKV.clear()
     gc.collect()
     torch.cuda.empty_cache()
     t_all = time.perf_counter()
     times = {}
-    for label, fn in (("ao", airline_run),
-                      ("ap", lambda *a: higgs_csv_run(*a, higgs_csv))):
+    for label, fn in (("ao", lambda *a: airline_run(*a, files=airline)),
+                      ("ap", lambda *a: higgs_csv_run(*a, higgs_csv,
+                                                      written))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -5561,14 +5809,16 @@ def _sync(torch):
         torch.cuda.synchronize()
 
 
-def _db_frame(torch, cols, key, dev):
-    """A Frame of f32 columns made on the device from {name: (values,
-    levels)} (integer codes and keys below 2^24 are exact in f32)."""
+def _db_frame(torch, cols, levels, key, dev):
+    """A Frame of f32 columns made on the device from {name: f32 values}
+    and {name: levels or None} (integer codes and keys below 2^24 are
+    exact in f32)."""
     from h2o3_tpu_torch.core.frame import Frame, T_CAT, T_NUM, Vec
     return Frame(list(cols), [
-        Vec.from_tensor(torch.from_numpy(np.asarray(v, np.float32)).to(dev),
-                        T_CAT if lv is not None else T_NUM, lv)
-        for v, lv in cols.values()], key)
+        Vec.from_tensor(torch.from_numpy(np.array(v, np.float32)).to(dev),
+                        T_CAT if levels.get(name) is not None else T_NUM,
+                        levels.get(name))
+        for name, v in cols.items()], key)
 
 
 def _np_of(fr, j):
@@ -5612,20 +5862,43 @@ def _same_bits(torch, a, b):
                for u, v in zip(a.vecs, b.vecs))
 
 
-def groupby_run(torch, h2o, n=GB_N, k=GB_K):
-    """Run (aq): db-benchmark's group-by questions 1-8 and 10 on
-    G1_<n>_<k>_0_0, each twice, each checked against float64 numpy over
-    the frame's values. Returns the frame and its columns for (as)."""
-    from h2o3_tpu_torch.core.kvstore import DKV
-    dev = h2o.cloud().device
-    t0 = time.perf_counter()
-    cols = groupby_columns(n, k, GB_SEED)
-    fr = _db_frame(torch, cols, "gb_x", dev)
-    c = {name: v.astype(np.float32).astype(np.float64)
-         for name, (v, _) in cols.items()}
-    say(f"munging (aq) G1_{n:.0e}_{k:.0e}_0_0 made in "
-        f"{time.perf_counter() - t0:.1f} s: {fr.nrows} rows, "
-        f"{[len(v[1]) for v in cols.values() if v[1] is not None]} levels")
+def _spill_arrays(tmp, tag, obj, limit=1 << 20):
+    """obj with every numpy array above `limit` bytes saved under tmp as
+    .npy and replaced by {"npy": path}: the host worker's large results
+    cross as files, read back memory-mapped by _load_arrays."""
+    if isinstance(obj, np.ndarray) and obj.nbytes > limit:
+        path = os.path.join(tmp, f"{tag}.npy")
+        np.save(path, obj)
+        return {"npy": path}
+    if isinstance(obj, dict):
+        return {k: _spill_arrays(tmp, f"{tag}_{k}", v, limit)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_spill_arrays(tmp, f"{tag}_{j}", v, limit)
+                         for j, v in enumerate(obj))
+    return obj
+
+
+def _load_arrays(obj):
+    if isinstance(obj, dict):
+        if list(obj) == ["npy"]:
+            return np.load(obj["npy"], mmap_mode="r")
+        return {k: _load_arrays(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_load_arrays(v) for v in obj)
+    return obj
+
+
+def _db_columns(cols):
+    """{name: (values, levels)} as the frame holds it: f32 values (codes,
+    keys below 2^24 and numbers) and the levels apart."""
+    return ({name: np.asarray(v, np.float32) for name, (v, _) in
+             cols.items()}, {name: lv for name, (_, lv) in cols.items()})
+
+
+def groupby_wants(c, n):
+    """float64 numpy's answers to (aq)'s questions over the f32 values c
+    of G1's columns."""
     v1, v2, v3 = c["v1"], c["v2"], c["v3"]
     cache = {}
 
@@ -5637,86 +5910,239 @@ def groupby_run(torch, h2o, n=GB_N, k=GB_K):
     def sums(inv, x):
         return np.bincount(inv, weights=x)
 
-    def keys_equal(r, keys, cnt=None):
+    w = {}
+    keys, inv, cnt = groups("id1")
+    w["q1"] = {"keys": keys, "sum_v1": sums(inv, v1)}
+    keys, inv, cnt = groups("id1", "id2")
+    w["q2"] = {"keys": keys, "sum_v1": sums(inv, v1)}
+    keys, inv, cnt = groups("id3")
+    w["q3"] = {"keys": keys, "sum_v1": sums(inv, v1),
+               "mean_v3": sums(inv, v3) / cnt}
+    order = np.argsort(inv, kind="stable")
+    start = np.cumsum(cnt) - cnt
+    w["q7"] = {"groups": cnt.size,
+               "range": np.maximum.reduceat(v1[order], start)
+               - np.minimum.reduceat(v2[order], start)}
+    keys, inv, cnt = groups("id4")
+    w["q4"] = {"keys": keys, "means": [sums(inv, x) / cnt
+                                       for x in (v1, v2, v3)]}
+    keys, inv, cnt = groups("id6")
+    w["q5"] = {"keys": keys, "sums": [sums(inv, x) for x in (v1, v2, v3)]}
+    keys, inv, cnt = groups("id4", "id5")
+    # medians as numpy's nanmedian gives them over the f32 values
+    x32 = v3.astype(np.float32)
+    order = np.lexsort((x32, inv))
+    xs = x32[order]
+    start = np.cumsum(cnt) - cnt
+    lo, hi = xs[start + (cnt - 1) // 2], xs[start + cnt // 2]
+    med = np.where(cnt % 2 == 1, lo, (lo + hi) / np.float32(2))
+    mean = sums(inv, v3) / cnt
+    w["q6"] = {"keys": keys, "median": med.astype(np.float64),
+               "sd": np.sqrt(sums(inv, (v3 - mean[inv]) ** 2) / (cnt - 1))}
+    order = np.lexsort((-v3, c["id6"]))
+    g = c["id6"][order]
+    new = np.concatenate([[True], g[1:] != g[:-1]])
+    pos = np.arange(n)
+    start = np.maximum.accumulate(np.where(new, pos, 0))
+    top = order[pos - start < 2]
+    want = np.lexsort((c["v3"][top], c["id6"][top]))
+    w["q8"] = {"rows": top.size, "id6": c["id6"][top][want],
+               "v3": v3[top][want]}
+    keys, inv, cnt = groups("id1", "id2", "id3", "id4", "id5", "id6")
+    w["q10"] = {"keys": keys, "sum_v3": sums(inv, v3),
+                "count": cnt.astype(np.float64)}
+    return w
+
+
+def munger_wants(c, n):
+    """(as)'s inputs beside G1 (v3 with 1% NAs, the pivot's slice) and
+    float64 numpy's answer to each munger over the f32 values c."""
+    v1, v2, v3, id4 = c["v1"], c["v2"], c["v3"], c["id4"]
+    rng = np.random.default_rng(GB_SEED + 1)
+    v3na = v3.copy()
+    v3na[rng.random(n) < 0.01] = np.nan
+    npiv = min(PIVOT_ROWS, n)
+    o = np.lexsort((-v3, id4))
+    br = np.float32([0, 25, 50, 75, 100])
+    code = np.searchsorted(br, v3.astype(np.float32), "left") - 1
+    r = np.lexsort((v3, id4))
+    g = id4[r]
+    new = np.concatenate([[True], g[1:] != g[:-1]])
+    pos = np.arange(n)
+    rank = np.empty(n)
+    rank[r] = pos - np.maximum.accumulate(np.where(new, pos, 0)) + 1
+    _, inv, _ = _np_groups([id4])
+    return {"v3na": v3na, "pivot": v3[:npiv].copy(),
+            "sort": [id4[o], v3[o], v1[o]],
+            "cut": np.where((code < 0) | (code >= 4), np.nan, code),
+            "fill": [_fill_np(v3na, 2, True), _fill_np(v3na, 2, False)],
+            "rank": rank,
+            "melt": [np.tile(id4, 3), np.repeat([0.0, 1.0, 2.0], n),
+                     np.concatenate([v1, v2, v3])],
+            "cor": np.corrcoef(np.stack([v1, v2, v3])),
+            "scale": [(x - x.mean()) / x.std(ddof=1) for x in (v1, v2, v3)],
+            "ifelse": np.where(v3 > 50, v1, v2),
+            "cumsum": np.cumsum(v1.astype(np.float32)).astype(np.float64),
+            "chain": 2 * np.bincount(inv, weights=v1)}
+
+
+def groupby_data(tmp, n=GB_N, k=GB_K):
+    """(aq) and (as)'s host work, in the host worker: G1's columns as the
+    frame holds them, and every numpy answer (aq)'s questions and (as)'s
+    mungers are held against. The large arrays come back as files."""
+    t0 = time.perf_counter()
+    cols, levels = _db_columns(groupby_columns(n, k, GB_SEED))
+    t_gen = time.perf_counter() - t0
+    c = {name: v.astype(np.float64) for name, v in cols.items()}
+    t0 = time.perf_counter()
+    out = {"cols": cols, "levels": levels, "aq": groupby_wants(c, n)}
+    t_aq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["as"] = munger_wants(c, n)
+    out["seconds"] = (t_gen, t_aq, time.perf_counter() - t0)
+    return _spill_arrays(tmp, f"gb{n}", out)
+
+
+JOIN_QUESTIONS = [("q1 small inner on int", "small", "id1", "inner"),
+                  ("q2 medium inner on int", "medium", "id2", "inner"),
+                  ("q3 medium left on int", "medium", "id2", "left"),
+                  ("q4 medium inner on factor", "medium", "id5", "inner"),
+                  ("q5 big inner on int", "big", "id3", "inner"),
+                  ("q6 medium outer on int", "medium", "id2", "outer")]
+
+
+def join_wants(x, tabs):
+    """float64 numpy's answers to (ar)'s questions: each x row's matches
+    (a factor id<k> matches as its key), the joined rows, the sums of v1
+    and v2 over them, the names, q3's NaN rows, q6's NaN counts."""
+    v1 = x["v1"][0].astype(np.float32).astype(np.float64)
+    out = {}
+    for label, side, key, how in JOIN_QUESTIONS:
+        tab = tabs[side]
+        ikey = {"id5": "id2"}.get(key, key)
+        rk = tab[ikey][0]
+        uk, rcnt = np.unique(rk, return_counts=True)
+        v2 = tab["v2"][0].astype(np.float32).astype(np.float64)
+        v2sum = np.bincount(np.searchsorted(uk, rk), weights=v2)
+        pos = np.clip(np.searchsorted(uk, x[ikey][0]), 0, uk.size - 1)
+        hit = uk[pos] == x[ikey][0]
+        cnt = np.where(hit, rcnt[pos], 0)
+        xrows = cnt if how == "inner" else np.maximum(cnt, 1)
+        w = {"rows": int(xrows.sum()), "s1": float((v1 * xrows).sum()),
+             "s2": float(np.where(hit, v2sum[pos], 0.0).sum())}
+        lnames = list(x)
+        rnames = [c for c in tab if c != key]
+        if how == "outer":
+            # the right rows x's keys miss, once each; pandas' _x and _y
+            lone = ~np.isin(rk, x[ikey][0])
+            w["rows"] += int(lone.sum())
+            w["s2"] += float(v2[lone].sum())
+            w["lone"], w["nohit"] = int(lone.sum()), int((~hit).sum())
+            clash = set(lnames) & set(rnames)
+            w["names"] = [c + "_x" if c in clash else c for c in lnames] + [
+                c + "_y" if c in clash else c for c in rnames]
+        else:
+            w["names"] = lnames + [
+                (c if c not in lnames else c + "_y") for c in rnames]
+        if how == "left":
+            w["nan_rows"] = np.repeat(~hit, np.maximum(cnt, 1))
+        out[label] = w
+    return out
+
+
+def join_data(tmp, n=JN_N, n1=None, n2=None):
+    """(ar)'s host work, in the host worker: J1's four tables as the
+    frames hold them and every numpy answer of (ar)'s questions."""
+    t0 = time.perf_counter()
+    x, small, medium, big = join_tables(n, JN_SEED, n1, n2)
+    t_gen = time.perf_counter() - t0
+    tabs = {"small": small, "medium": medium, "big": big}
+    t0 = time.perf_counter()
+    wants = join_wants(x, tabs)
+    out = {"tables": {t: _db_columns(tab) for t, tab in
+                      (("x", x), *tabs.items())},
+           "wants": wants,
+           "seconds": (t_gen, time.perf_counter() - t0)}
+    return _spill_arrays(tmp, f"jn{n}", out)
+
+
+def groupby_run(torch, h2o, n=GB_N, k=GB_K, data=None):
+    """Run (aq): db-benchmark's group-by questions 1-8 and 10 on
+    G1_<n>_<k>_0_0, each twice, each checked against float64 numpy over
+    the frame's values (`groupby_wants`, from the host worker's
+    `groupby_data`: `data` is its result, made here when None). Returns
+    the frame and the munger answers for (as)."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    dev = h2o.cloud().device
+    if data is None:
+        tmp = tempfile.mkdtemp(prefix="h2o3_gb_")
+        data = host_result(host_submit(None, groupby_data, tmp, n, k),
+                           "(aq) the group-by answers")
+    d = _load_arrays(data)
+    t0 = time.perf_counter()
+    fr = _db_frame(torch, d["cols"], d["levels"], "gb_x", dev)
+    t_gen, t_aq, t_as = d["seconds"]
+    say(f"munging (aq) G1_{n:.0e}_{k:.0e}_0_0 uploaded in "
+        f"{time.perf_counter() - t0:.1f} s (made in {t_gen:.1f} s, the "
+        f"numpy answers in {t_aq:.1f} s, (as)'s in {t_as:.1f} s, in the "
+        f"host worker): {fr.nrows} rows, "
+        f"{[len(lv) for lv in d['levels'].values() if lv is not None]} "
+        f"levels")
+    w = d["aq"]
+
+    def keys_equal(r, keys):
         for j, kv in enumerate(keys):
             check(np.array_equal(_np_of(r, j), kv), f"{r.names[j]} keys")
         check(r.nrows == keys[0].size, "group count")
 
     def q1(r):
-        keys, inv, cnt = groups("id1")
-        keys_equal(r, keys)
-        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q1 sum v1")
+        keys_equal(r, w["q1"]["keys"])
+        check(np.array_equal(_np_of(r, 1), w["q1"]["sum_v1"]), "q1 sum v1")
 
     def q2(r):
-        keys, inv, cnt = groups("id1", "id2")
-        keys_equal(r, keys)
-        check(np.array_equal(_np_of(r, 2), sums(inv, v1)), "q2 sum v1")
+        keys_equal(r, w["q2"]["keys"])
+        check(np.array_equal(_np_of(r, 2), w["q2"]["sum_v1"]), "q2 sum v1")
 
     def q3(r):
-        keys, inv, cnt = groups("id3")
-        keys_equal(r, keys)
-        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q3 sum v1")
-        rel(_np_of(r, 2), sums(inv, v3) / cnt, 1e-6, "q3 mean v3")
+        keys_equal(r, w["q3"]["keys"])
+        check(np.array_equal(_np_of(r, 1), w["q3"]["sum_v1"]), "q3 sum v1")
+        rel(_np_of(r, 2), w["q3"]["mean_v3"], 1e-6, "q3 mean v3")
 
     def q4(r):
-        keys, inv, cnt = groups("id4")
-        keys_equal(r, keys)
-        for j, x in enumerate((v1, v2, v3)):
-            rel(_np_of(r, 1 + j), sums(inv, x) / cnt, 1e-6, f"q4 mean {j}")
+        keys_equal(r, w["q4"]["keys"])
+        for j, mean in enumerate(w["q4"]["means"]):
+            rel(_np_of(r, 1 + j), mean, 1e-6, f"q4 mean {j}")
 
     def q5(r):
-        keys, inv, cnt = groups("id6")
-        keys_equal(r, keys)
-        check(np.array_equal(_np_of(r, 1), sums(inv, v1)), "q5 sum v1")
-        check(np.array_equal(_np_of(r, 2), sums(inv, v2)), "q5 sum v2")
-        rel(_np_of(r, 3), sums(inv, v3), 1e-6, "q5 sum v3")
+        keys_equal(r, w["q5"]["keys"])
+        s1, s2, s3 = w["q5"]["sums"]
+        check(np.array_equal(_np_of(r, 1), s1), "q5 sum v1")
+        check(np.array_equal(_np_of(r, 2), s2), "q5 sum v2")
+        rel(_np_of(r, 3), s3, 1e-6, "q5 sum v3")
 
     def q6(r):
-        keys, inv, cnt = groups("id4", "id5")
-        keys_equal(r, keys)
-        # medians as numpy's nanmedian gives them over the f32 values
-        x32 = v3.astype(np.float32)
-        order = np.lexsort((x32, inv))
-        xs = x32[order]
-        start = np.cumsum(cnt) - cnt
-        lo, hi = xs[start + (cnt - 1) // 2], xs[start + cnt // 2]
-        med = np.where(cnt % 2 == 1, lo, (lo + hi) / np.float32(2))
-        check(np.array_equal(_np_of(r, 2), med.astype(np.float64)),
+        keys_equal(r, w["q6"]["keys"])
+        check(np.array_equal(_np_of(r, 2), w["q6"]["median"]),
               "q6 median v3")
-        mean = sums(inv, v3) / cnt
-        sd = np.sqrt(sums(inv, (v3 - mean[inv]) ** 2) / (cnt - 1))
-        rel(_np_of(r, 3), sd, 1e-5, "q6 sd v3")
+        rel(_np_of(r, 3), w["q6"]["sd"], 1e-5, "q6 sd v3")
 
     def q7(r):
-        keys, inv, cnt = groups("id3")
-        order = np.argsort(inv, kind="stable")
-        start = np.cumsum(cnt) - cnt
-        mx = np.maximum.reduceat(v1[order], start)
-        mn = np.minimum.reduceat(v2[order], start)
-        check(r.nrows == cnt.size and np.array_equal(_np_of(r, 0), mx - mn),
+        check(r.nrows == w["q7"]["groups"]
+              and np.array_equal(_np_of(r, 0), w["q7"]["range"]),
               "q7 max v1 - min v2")
 
     def q8(r):
-        order = np.lexsort((-v3, c["id6"]))
-        g = c["id6"][order]
-        new = np.concatenate([[True], g[1:] != g[:-1]])
-        pos = np.arange(n)
-        start = np.maximum.accumulate(np.where(new, pos, 0))
-        top = order[pos - start < 2]
-        want = np.lexsort((c["v3"][top], c["id6"][top]))
         got_g, got_v = _np_of(r, 5), _np_of(r, 8)
         got = np.lexsort((got_v, got_g))
-        check(r.nrows == top.size
-              and np.array_equal(got_g[got], c["id6"][top][want])
-              and np.array_equal(got_v[got], v3[top][want]),
+        check(r.nrows == w["q8"]["rows"]
+              and np.array_equal(got_g[got], w["q8"]["id6"])
+              and np.array_equal(got_v[got], w["q8"]["v3"]),
               "q8 the largest two v3 by id6")
 
     def q10(r):
-        keys, inv, cnt = groups("id1", "id2", "id3", "id4", "id5", "id6")
-        keys_equal(r, keys)
-        rel(_np_of(r, 6), sums(inv, v3), 1e-6, "q10 sum v3")
-        check(np.array_equal(_np_of(r, 7), cnt.astype(np.float64)),
-              "q10 count")
+        keys_equal(r, w["q10"]["keys"])
+        rel(_np_of(r, 6), w["q10"]["sum_v3"], 1e-6, "q10 sum v3")
+        check(np.array_equal(_np_of(r, 7), w["q10"]["count"]), "q10 count")
 
     questions = [
         ("q1 sum v1 by id1", "(GB gb_x [0] sum 6 \"rm\")", q1),
@@ -5752,11 +6178,12 @@ def groupby_run(torch, h2o, n=GB_N, k=GB_K):
         times[label.split()[0]] = (t1, t2)
         say(f"munging (aq) {label}: {t1:.3f} s, {t2:.3f} s "
             f"({n / t2:.3e} rows/s), {r1.nrows} rows out, the two runs "
-            f"{'bit for bit' if same else 'differ in bits'}; numpy check "
-            f"{time.perf_counter() - tc:.1f} s")
+            f"{'bit for bit' if same else 'differ in bits'}; the check "
+            f"against numpy's answers "
+            f"{host_seconds(time.perf_counter() - tc):.1f} s")
         del r1, r2
         _drop_new(before)
-    return fr, c, times
+    return fr, d["as"], times
 
 
 def rel(got, want, tol, what):
@@ -5765,71 +6192,45 @@ def rel(got, want, tol, what):
     check(err <= tol, f"{what}: relative error {err:.3g} above {tol}")
 
 
-def join_run(torch, h2o, n=JN_N, n1=None, n2=None):
+def join_run(torch, h2o, n=JN_N, n1=None, n2=None, data=None):
     """Run (ar): db-benchmark's join questions 1-5 on J1_<n>_NA_0_0 through
     (merge …), and q6, x outer-joined with medium, each twice; rows, the
     sums of v1 and v2 over the joined rows and the names against numpy,
-    q3's NaN rows exactly, q6's NaN counts and its key in sorted order."""
+    q3's NaN rows exactly, q6's NaN counts and its key in sorted order
+    (`join_wants`, from the host worker's `join_data`: `data` is its
+    result, made here when None)."""
     from h2o3_tpu_torch.core.kvstore import DKV
     dev = h2o.cloud().device
+    if data is None:
+        tmp = tempfile.mkdtemp(prefix="h2o3_jn_")
+        data = host_result(host_submit(None, join_data, tmp, n, n1, n2),
+                           "(ar) the join answers")
+    d = _load_arrays(data)
     t0 = time.perf_counter()
-    x, small, medium, big = join_tables(n, JN_SEED, n1, n2)
-    fx = _db_frame(torch, x, "jn_x", dev)
-    rhs = {"small": _db_frame(torch, small, "jn_small", dev),
-           "medium": _db_frame(torch, medium, "jn_medium", dev),
-           "big": _db_frame(torch, big, "jn_big", dev)}
-    tabs = {"small": small, "medium": medium, "big": big}
-    say(f"munging (ar) J1_{n:.0e}_NA_0_0 made in "
-        f"{time.perf_counter() - t0:.1f} s: x {fx.nrows}, small "
-        f"{rhs['small'].nrows}, medium {rhs['medium'].nrows}, big "
-        f"{rhs['big'].nrows} rows")
-    v1 = x["v1"][0].astype(np.float32).astype(np.float64)
-    questions = [("q1 small inner on int", "small", "id1", "inner"),
-                 ("q2 medium inner on int", "medium", "id2", "inner"),
-                 ("q3 medium left on int", "medium", "id2", "left"),
-                 ("q4 medium inner on factor", "medium", "id5", "inner"),
-                 ("q5 big inner on int", "big", "id3", "inner"),
-                 ("q6 medium outer on int", "medium", "id2", "outer")]
+    tables = d["tables"]
+    fx = _db_frame(torch, *tables["x"], "jn_x", dev)
+    rhs = {side: _db_frame(torch, *tables[side], f"jn_{side}", dev)
+           for side in ("small", "medium", "big")}
+    t_gen, t_np = d["seconds"]
+    say(f"munging (ar) J1_{n:.0e}_NA_0_0 uploaded in "
+        f"{time.perf_counter() - t0:.1f} s (made in {t_gen:.1f} s, the "
+        f"numpy answers in {t_np:.1f} s, in the host worker): x "
+        f"{fx.nrows}, small {rhs['small'].nrows}, medium "
+        f"{rhs['medium'].nrows}, big {rhs['big'].nrows} rows")
+    lnames = list(tables["x"][0])
     times = {}
-    for label, side, key, how in questions:
-        tab, rf = tabs[side], rhs[side]
-        # numpy: each x row's matches (a factor id<k> matches as its key)
-        tc = time.perf_counter()
-        ikey = {"id5": "id2"}.get(key, key)
-        rk = tab[ikey][0]
-        uk, rcnt = np.unique(rk, return_counts=True)
-        v2 = tab["v2"][0].astype(np.float32).astype(np.float64)
-        v2sum = np.bincount(np.searchsorted(uk, rk), weights=v2)
-        pos = np.clip(np.searchsorted(uk, x[ikey][0]), 0, uk.size - 1)
-        hit = uk[pos] == x[ikey][0]
-        cnt = np.where(hit, rcnt[pos], 0)
-        xrows = cnt if how == "inner" else np.maximum(cnt, 1)
-        rows = int(xrows.sum())
-        s1 = float((v1 * xrows).sum())
-        s2 = float(np.where(hit, v2sum[pos], 0.0).sum())
-        lnames = list(x)
-        rnames = [c for c in tab if c != key]
-        if how == "outer":
-            # the right rows x's keys miss, once each; pandas' _x and _y
-            lone = ~np.isin(rk, x[ikey][0])
-            rows += int(lone.sum())
-            s2 += float(v2[lone].sum())
-            clash = set(lnames) & set(rnames)
-            want_names = [c + "_x" if c in clash else c for c in lnames] + [
-                c + "_y" if c in clash else c for c in rnames]
-        else:
-            want_names = lnames + [
-                (c if c not in lnames else c + "_y") for c in rnames]
-        tc = time.perf_counter() - tc
+    for label, side, key, how in JOIN_QUESTIONS:
+        rf, w = rhs[side], d["wants"][label]
+        rows, s1, s2 = w["rows"], w["s1"], w["s2"]
         before = set(DKV.keys())
         expr = (f"(merge jn_x jn_{side} {int(how != 'inner')} "
                 f"{int(how == 'outer')} [{lnames.index(key)}] "
-                f"[{list(tab).index(key)}] \"auto\")")
+                f"[{list(tables[side][0]).index(key)}] \"auto\")")
         (r1, t1), (r2, t2) = _twice(torch, h2o, expr)
         t_check = time.perf_counter()
         for r in (r1, r2):
-            check(list(r.names) == want_names, f"(ar) {label}: names "
-                  f"{r.names}, want {want_names}")
+            check(list(r.names) == w["names"], f"(ar) {label}: names "
+                  f"{r.names}, want {w['names']}")
             check(r.nrows == rows, f"(ar) {label}: {r.nrows} rows, numpy "
                   f"{rows}")
             w1 = r.vec("v1").as_f32().double()
@@ -5839,21 +6240,21 @@ def join_run(torch, h2o, n=JN_N, n1=None, n2=None):
                   and abs(g2 - s2) <= 1e-9 * abs(s2),
                   f"(ar) {label}: sums {g1}, {g2}; numpy {s1}, {s2}")
             if how == "left":
-                nan_rows = np.repeat(~hit, np.maximum(cnt, 1))
                 check(np.array_equal(torch.isnan(w2).cpu().numpy(),
-                                     nan_rows), f"(ar) {label}: NaN rows")
+                                     w["nan_rows"]), f"(ar) {label}: NaN "
+                      "rows")
             if how == "outer":
                 kk = r.vec(key).as_f32()
-                check(int(torch.isnan(w1).sum()) == int(lone.sum())
-                      and int(torch.isnan(w2).sum()) == int((~hit).sum())
+                check(int(torch.isnan(w1).sum()) == w["lone"]
+                      and int(torch.isnan(w2).sum()) == w["nohit"]
                       and not bool(torch.isnan(kk).any())
                       and bool((kk[1:] >= kk[:-1]).all()),
                       f"(ar) {label}: NaN counts or key order")
         times[label.split()[0]] = (t1, t2)
-        tc += time.perf_counter() - t_check
+        tc = host_seconds(time.perf_counter() - t_check)
         say(f"munging (ar) {label}: {t1:.3f} s, {t2:.3f} s, {rows} rows "
             f"out ({(n + rf.nrows) / t2:.3e} input rows/s), names "
-            f"{r1.names[len(lnames):]}; numpy and checks {tc:.1f} s")
+            f"{r1.names[len(lnames):]}; checks {tc:.1f} s")
         del r1, r2
         _drop_new(before)
     return times
@@ -5871,22 +6272,19 @@ def _fill_np(x, maxlen, forward=True):
     return out if forward else out[::-1]
 
 
-def mungers_run(torch, h2o, fr, c):
+def mungers_run(torch, h2o, fr, w):
     """Run (as): the card's mungers on (aq)'s frame, each timed and held
-    against numpy; a Rapids chain of temps in a session; create_frame."""
+    against numpy (`munger_wants`, from the host worker: `w`); a Rapids
+    chain of temps in a session; create_frame."""
     from h2o3_tpu_torch.core.kvstore import DKV
     from h2o3_tpu_torch.rapids import Session
     dev = h2o.cloud().device
     n = fr.nrows
-    v1, v2, v3, id4 = c["v1"], c["v2"], c["v3"], c["id4"]
-    rng = np.random.default_rng(GB_SEED + 1)
-    v3na = v3.copy()
-    v3na[rng.random(n) < 0.01] = np.nan
-    _db_frame(torch, {"v3na": (v3na, None)}, "gb_na", dev)
-    npiv = min(PIVOT_ROWS, n)
+    _db_frame(torch, {"v3na": w["v3na"]}, {}, "gb_na", dev)
+    npiv = len(w["pivot"])
     i = np.arange(npiv)
-    _db_frame(torch, {"i": (i // 100, None), "c": (i % 100, None),
-                      "v": (v3[:npiv], None)}, "gb_pv", dev)
+    _db_frame(torch, {"i": i // 100, "c": i % 100, "v": w["pivot"]}, {},
+              "gb_pv", dev)
     out = {}
 
     def run(label, expr, chk):
@@ -5896,64 +6294,50 @@ def mungers_run(torch, h2o, fr, c):
         r = h2o.rapids(expr)
         _sync(torch)
         out[label] = time.perf_counter() - t0
-        chk(r)
+        with host_only():
+            chk(r)
         del r
         _drop_new(before)
 
     def sort_chk(r):
-        o = np.lexsort((-v3, id4))
-        for j, want in ((3, id4), (8, v3), (6, v1)):
-            check(np.array_equal(_np_of(r, j), want[o]), "sort order")
+        for j, want in zip((3, 8, 6), w["sort"]):
+            check(np.array_equal(_np_of(r, j), want), "sort order")
 
     def cut_chk(r):
-        br = np.float32([0, 25, 50, 75, 100])
-        code = np.searchsorted(br, v3.astype(np.float32), "left") - 1
-        want = np.where((code < 0) | (code >= 4), np.nan, code)
-        check(np.array_equal(_np_of(r, 0), want, equal_nan=True), "cut")
+        check(np.array_equal(_np_of(r, 0), w["cut"], equal_nan=True), "cut")
 
     def fill_chk(forward):
-        return lambda r: check(np.array_equal(
-            _np_of(r, 0), _fill_np(v3na, 2, forward), equal_nan=True),
-            "fillna")
+        want = w["fill"][0 if forward else 1]
+        return lambda r: check(np.array_equal(_np_of(r, 0), want,
+                                              equal_nan=True), "fillna")
 
     def rank_chk(r):
-        o = np.lexsort((v3, id4))
-        g = id4[o]
-        new = np.concatenate([[True], g[1:] != g[:-1]])
-        pos = np.arange(n)
-        rank = np.empty(n)
-        rank[o] = pos - np.maximum.accumulate(np.where(new, pos, 0)) + 1
-        check(np.array_equal(_np_of(r, 9), rank), "rank_within_groupby")
+        check(np.array_equal(_np_of(r, 9), w["rank"]), "rank_within_groupby")
 
     def melt_chk(r):
-        check(r.nrows == 3 * n and np.array_equal(
-            _np_of(r, 2), np.concatenate([v1, v2, v3]))
-            and np.array_equal(_np_of(r, 1), np.repeat([0.0, 1.0, 2.0], n))
-            and np.array_equal(_np_of(r, 0), np.tile(id4, 3)), "melt")
+        check(r.nrows == 3 * n and all(np.array_equal(_np_of(r, j), want)
+                                       for j, want in enumerate(w["melt"])),
+              "melt")
 
     def pivot_chk(r):
-        want = v3[:npiv].reshape(-1, 100)
+        want = np.asarray(w["pivot"]).reshape(-1, 100)
         got = np.column_stack([_np_of(r, 1 + j) for j in range(100)])
         check(r.nrows == npiv // 100 and np.array_equal(got, want)
               and r.names[1] == "0.0", "pivot")
 
     def cor_chk(r):
-        want = np.corrcoef(np.stack([v1, v2, v3]))
         got = np.column_stack([_np_of(r, j) for j in range(3)])
-        check(np.max(np.abs(got - want)) <= 1e-9, "cor")
+        check(np.max(np.abs(got - w["cor"])) <= 1e-9, "cor")
 
     def scale_chk(r):
-        for j, x in enumerate((v1, v2, v3)):
-            z = (x - x.mean()) / x.std(ddof=1)
+        for j, z in enumerate(w["scale"]):
             check(np.max(np.abs(_np_of(r, j) - z)) <= 1e-5, "scale")
 
     def ifelse_chk(r):
-        check(np.array_equal(_np_of(r, 0), np.where(v3 > 50, v1, v2)),
-              "ifelse")
+        check(np.array_equal(_np_of(r, 0), w["ifelse"]), "ifelse")
 
     def cumsum_chk(r):
-        check(np.array_equal(_np_of(r, 0), np.cumsum(v1.astype(np.float32))
-                             .astype(np.float64)), "cumsum")
+        check(np.array_equal(_np_of(r, 0), w["cumsum"]), "cumsum")
 
     run("sort by id4 asc, v3 desc", "(sort gb_x [3 8] [1 0])", sort_chk)
     run("cut", "(cut (cols gb_x [8]) [0 25 50 75 100])", cut_chk)
@@ -5980,9 +6364,8 @@ def mungers_run(torch, h2o, fr, c):
     g = h2o.rapids("(tmp= as_c (GB (cbind (cols gb_x [3]) as_b) [0] sum 1 "
                    "\"rm\"))", s)
     h2o.rapids("(rm as_a)", s)
-    keys, inv, _ = _np_groups([id4])
     check(DKV.get("as_a") is None and np.array_equal(
-        _np_of(g, 1), 2 * np.bincount(inv, weights=v1)), "session chain")
+        _np_of(g, 1), w["chain"]), "session chain")
     s.end()
     check(all(DKV.get(k) is None for k in ("as_b", "as_c")),
           "session temps left after end()")
@@ -6011,9 +6394,11 @@ def mungers_run(torch, h2o, fr, c):
     return out
 
 
-def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N):
+def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N, data=None):
     """Runs (aq), (as) and (ar), each timed with its peak device memory,
-    after every earlier frame is dropped from the store."""
+    after every earlier frame is dropped from the store. `data`: the host
+    worker's (groupby_data, join_data) futures as main() started them, or
+    None to make the answers here."""
     from h2o3_tpu_torch.core.kvstore import DKV
     DKV.clear()
     gc.collect()
@@ -6022,6 +6407,13 @@ def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N):
         torch.cuda.empty_cache()
     t_all = time.perf_counter()
     times = {}
+    n1 = None if jn_n >= 10**7 else 10
+    n2 = None if jn_n >= 10**5 else 100
+    tmp = None
+    if data is None:
+        tmp = tempfile.mkdtemp(prefix="h2o3_munging_")
+        data = (host_submit(None, groupby_data, tmp, gb_n, GB_K),
+                host_submit(None, join_data, tmp, jn_n, n1, n2))
 
     def start():
         if cuda:
@@ -6033,22 +6425,27 @@ def phase_munging(torch, h2o, HC, gb_n=GB_N, jn_n=JN_N):
         return (f"peak HBM {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                 "GiB") if cuda else "on the CPU"
 
-    t0 = start()
-    fr, c, _ = groupby_run(torch, h2o, n=gb_n)
-    times["aq"] = time.perf_counter() - t0
-    say(f"munging (aq): {times['aq']:.1f} s, {peak()}")
-    t0 = start()
-    mungers_run(torch, h2o, fr, c)
-    times["as"] = time.perf_counter() - t0
-    say(f"munging (as): {times['as']:.1f} s, {peak()}")
-    del fr, c
-    DKV.clear()
-    gc.collect()
-    t0 = start()
-    join_run(torch, h2o, n=jn_n, n1=None if jn_n >= 10**7 else 10,
-             n2=None if jn_n >= 10**5 else 100)
-    times["ar"] = time.perf_counter() - t0
-    say(f"munging (ar): {times['ar']:.1f} s, {peak()}")
+    try:
+        t0 = start()
+        fr, w_as, _ = groupby_run(torch, h2o, n=gb_n, data=host_result(
+            data[0], "(aq) the group-by answers"))
+        times["aq"] = time.perf_counter() - t0
+        say(f"munging (aq): {times['aq']:.1f} s, {peak()}")
+        t0 = start()
+        mungers_run(torch, h2o, fr, w_as)
+        times["as"] = time.perf_counter() - t0
+        say(f"munging (as): {times['as']:.1f} s, {peak()}")
+        del fr, w_as
+        DKV.clear()
+        gc.collect()
+        t0 = start()
+        join_run(torch, h2o, n=jn_n, n1=n1, n2=n2,
+                 data=host_result(data[1], "(ar) the join answers"))
+        times["ar"] = time.perf_counter() - t0
+        say(f"munging (ar): {times['ar']:.1f} s, {peak()}")
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
     DKV.clear()
     gc.collect()
     say("munging, runs (aq)-(as): "
@@ -6140,8 +6537,45 @@ def _kept_models(torch, h2o, fr, valid, blobs, label="export and import (at)"):
     return out
 
 
-def export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid, tmp):
-    """Run (at)."""
+def mojo_scores(paths, xv_path, xb_path, pojo_path, xd):
+    """(at)'s float64 scorers, in the host worker: (b)'s native MOJO
+    through its numpy scorer on the validation rows (a frame of them on a
+    CPU cloud, built a column at a time as on the card), the H2O-3 MOJO
+    oracles of (k), (q) and (t) on their matrices, and (b)'s POJO arrays
+    replayed on `xd`. Returns each scorer's output and seconds."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame
+    from h2o3_tpu_torch.genmodel import h2o_mojo as HM
+    Xv, Xb = np.load(xv_path), np.load(xb_path)
+    out = {}
+
+    def native():
+        gn = h2o.import_mojo(paths["native"])
+        fr = Frame.from_dict({f"x{j}": Xv[:, j] for j in range(HIGGS_C)})
+        t0 = time.perf_counter()
+        pn = gn.predict(fr).vec("p1").to_numpy()
+        return pn, time.perf_counter() - t0
+    out["native"] = _cpu_cloud(h2o, native)
+    for key in ("k", "q", "t"):
+        t0 = time.perf_counter()
+        o = HM.import_h2o_mojo_any(paths[key])
+        t_i = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = o.predict_raw(Xb if key == "t" else Xv)
+        out[key] = (raw, t_i, time.perf_counter() - t0)
+    with open(pojo_path) as f:
+        col, thr, nal, val, depth = _pojo_arrays(f.read(), "T")
+    out["pojo"] = _np_tree_walk(col, thr, nal, val, depth, xd)
+    return out
+
+
+def export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid, tmp,
+                      host=None):
+    """Run (at). The float64 scorers run in `host` (a HostWorker, or here
+    when None: mojo_scores) from the artifacts written to `tmp`; the
+    returned function waits for them and holds each against predict on
+    the card (the phase calls it after (au) and (av), which keep the card
+    busy meanwhile)."""
     from h2o3_tpu_torch.genmodel import h2o_mojo as HM
     gbm = models["b"]
     lr = float(gbm.params["learn_rate"])
@@ -6191,75 +6625,79 @@ def export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid, tmp):
     check(d_p <= EXPORT_TOL, f"export and import (at): probabilities "
           f"differ by {d_p}")
     del got, want, p_got, p_want
-    # the native MOJO of the same GBM on the validation rows
+    # the other artifacts, scored in the host worker
+    paths, sizes, t_e = {}, {}, {}
     t0 = time.perf_counter()
-    npath = gbm.download_mojo(os.path.join(tmp, "gbm.zip"))
-    t_nexp = time.perf_counter() - t0
-    nmb = os.path.getsize(npath) / 1e6
-    t0 = time.perf_counter()
-    gn = h2o.import_mojo(npath)
-    t_nimp = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pn = gn.predict(valid).vec("p1").to_numpy()
-    t_npred = time.perf_counter() - t0
-    pv = gbm.predict(valid).vec("p1").to_numpy()
-    d_n = float(np.abs(pn - pv).max())
-    say(f"export and import (at): native MOJO of (b): export {t_nexp:.3f} s "
-        f"({nmb:.3f} MB, {nmb / t_nexp:.1f} MB/s), import {t_nimp:.3f} s; "
-        f"the numpy scorer on {valid.nrows} validation rows (the matrix "
-        f"built a column at a time) {t_npred:.3f} s "
-        f"({valid.nrows / t_npred:.0f} rows/s); max diff {d_n:.3g} (limit "
-        f"{EXPORT_TOL})")
-    check(d_n <= EXPORT_TOL, f"export and import (at): native MOJO "
-          f"differs by {d_n}")
-    # (k)'s GLM, (q)'s net, (t)'s KMeans through their H2O-3 MOJO oracles
-    Xv = _raw_matrix(valid, [f"x{j}" for j in range(HIGGS_C)])
-    for key, label in (("k", "glm (k)"), ("q", "deeplearning (q)"),
-                       ("t", "kmeans (t)")):
-        m = models[key]
-        frame = blobs_valid if key == "t" else valid
-        X = _raw_matrix(frame, m._dinfo.cat_cols + m._dinfo.num_cols) \
-            if key == "t" else Xv
+    paths["native"] = gbm.download_mojo(os.path.join(tmp, "gbm.zip"))
+    t_e["native"] = time.perf_counter() - t0
+    for key in ("k", "q", "t"):
         t0 = time.perf_counter()
-        p = m.download_mojo(os.path.join(tmp, f"{key}.zip"), format="h2o3")
-        t_e = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        o = HM.import_h2o_mojo_any(p)
-        t_i = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = o.predict_raw(X)
-        t_s = time.perf_counter() - t0
-        pred = m.predict(frame).to_numpy()
-        if key == "t":
-            diff = int((out != pred[:, 0]).sum())
-            ok = diff == 0
-            what = f"{diff} rows in another cluster"
-        else:
-            diff = float(np.abs(out[:, 1] - pred[:, 2]).max())
-            ok = diff <= EXPORT_TOL
-            what = f"probabilities max diff {diff:.3g} (limit {EXPORT_TOL})"
-        say(f"export and import (at): {label} as an H2O-3 MOJO: export "
-            f"{t_e:.3f} s ({os.path.getsize(p) / 1e3:.1f} kB), the oracle "
-            f"loaded in {t_i:.3f} s, scored {frame.nrows} rows in {t_s:.3f} "
-            f"s ({frame.nrows / t_s:.0f} rows/s, float64 numpy); {what}")
-        check(ok, f"export and import (at): {label}'s oracle: {what}")
-    # the POJO of (b)'s GBM, its arrays replayed on POJO_ROWS rows
+        paths[key] = models[key].download_mojo(
+            os.path.join(tmp, f"{key}.zip"), format="h2o3")
+        t_e[key] = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
     t0 = time.perf_counter()
-    src = open(gbm.download_pojo(tmp)).read()
+    pojo_path = gbm.download_pojo(tmp)
     t_pojo = time.perf_counter() - t0
-    col, thr, nal, val, depth = _pojo_arrays(src, "T")
-    Xd = gbm._dinfo.matrix(valid)[:POJO_ROWS].cpu().double().numpy()
-    acc = _np_tree_walk(col, thr, nal, val, depth, Xd)
-    pj = 1.0 / (1.0 + np.exp(-(float(gbm._f0) + lr * acc)))
-    d_j = float(np.abs(pj - pv[:POJO_ROWS]).max())
-    say(f"export and import (at): POJO of (b): {len(src) / 1e6:.3f} MB of "
-        f"Java in {t_pojo:.3f} s; its arrays replayed on {POJO_ROWS} rows: "
-        f"max diff {d_j:.3g} (limit {EXPORT_TOL})")
-    check(d_j <= EXPORT_TOL, f"export and import (at): POJO differs by "
-          f"{d_j}")
+    xv_path, xb_path = (os.path.join(tmp, f"{k}.npy") for k in ("xv", "xb"))
+    mt = models["t"]
+    np.save(xv_path, _raw_matrix(valid, [f"x{j}" for j in range(HIGGS_C)]))
+    np.save(xb_path, _raw_matrix(blobs_valid, mt._dinfo.cat_cols
+                                 + mt._dinfo.num_cols))
+    xd = gbm._dinfo.matrix(valid)[:POJO_ROWS].cpu().double().numpy()
+    scores = host_submit(host, mojo_scores, paths, xv_path, xb_path,
+                         pojo_path, xd)
+    # the card's answers they are held against
+    pv = gbm.predict(valid).vec("p1").to_numpy()
+    preds = {key: models[key].predict(blobs_valid if key == "t" else
+                                      valid).to_numpy()
+             for key in ("k", "q", "t")}
     launches = {k: v for k, v in HC.LAUNCHES.items() if v}
-    say(f"export and import (at): kernel launches {launches} (scoring walks "
-        "the trees in plain PyTorch)")
+    f0, pojo_mb = float(gbm._f0), os.path.getsize(pojo_path) / 1e6
+
+    def finish():
+        out = host_result(scores, "(at) the float64 scorers")
+        pn, t_npred = out["native"]
+        d_n = float(np.abs(pn - pv).max())
+        nmb = sizes["native"] / 1e6
+        say(f"export and import (at): native MOJO of (b): export "
+            f"{t_e['native']:.3f} s ({nmb:.3f} MB, "
+            f"{nmb / t_e['native']:.1f} MB/s); the numpy scorer on "
+            f"{valid.nrows} validation rows (the matrix built a column at "
+            f"a time) {t_npred:.3f} s ({valid.nrows / t_npred:.0f} rows/s, "
+            f"in the host worker); max diff {d_n:.3g} (limit {EXPORT_TOL})")
+        check(d_n <= EXPORT_TOL, f"export and import (at): native MOJO "
+              f"differs by {d_n}")
+        for key, label in (("k", "glm (k)"), ("q", "deeplearning (q)"),
+                           ("t", "kmeans (t)")):
+            raw, t_i, t_s = out[key]
+            pred = preds[key]
+            rows = pred.shape[0]
+            if key == "t":
+                diff = int((raw != pred[:, 0]).sum())
+                ok = diff == 0
+                what = f"{diff} rows in another cluster"
+            else:
+                diff = float(np.abs(raw[:, 1] - pred[:, 2]).max())
+                ok = diff <= EXPORT_TOL
+                what = (f"probabilities max diff {diff:.3g} (limit "
+                        f"{EXPORT_TOL})")
+            say(f"export and import (at): {label} as an H2O-3 MOJO: export "
+                f"{t_e[key]:.3f} s ({sizes[key] / 1e3:.1f} kB), the oracle "
+                f"loaded in {t_i:.3f} s, scored {rows} rows in {t_s:.3f} s "
+                f"({rows / t_s:.0f} rows/s, float64 numpy in the host "
+                f"worker); {what}")
+            check(ok, f"export and import (at): {label}'s oracle: {what}")
+        pj = 1.0 / (1.0 + np.exp(-(f0 + lr * out["pojo"])))
+        d_j = float(np.abs(pj - pv[:POJO_ROWS]).max())
+        say(f"export and import (at): POJO of (b): {pojo_mb:.3f} MB of "
+            f"Java in {t_pojo:.3f} s; its arrays replayed on {POJO_ROWS} "
+            f"rows: max diff {d_j:.3g} (limit {EXPORT_TOL})")
+        check(d_j <= EXPORT_TOL, f"export and import (at): POJO differs by "
+              f"{d_j}")
+        say(f"export and import (at): kernel launches {launches} (scoring "
+            "walks the trees in plain PyTorch)")
+    return finish
 
 
 def explain_run(torch, h2o, HC, valid, gbm):
@@ -6421,8 +6859,8 @@ def automl_run(torch, h2o, HC, fr):
         check(cv >= bests - SE_MARGIN, f"automl (av): {name} CV AUC {cv}")
 
 
-def phase_export_explain(torch, h2o, HC):
-    """Runs (at)-(av)."""
+def phase_export_explain(torch, h2o, HC, host=None):
+    """Runs (at)-(av); (at)'s float64 scorers in `host` when given."""
     t_phase = time.perf_counter()
     dev = h2o.init().device
     fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
@@ -6436,18 +6874,22 @@ def phase_export_explain(torch, h2o, HC):
     tmp = tempfile.mkdtemp(prefix="h2o3_export_")
     try:
         t0 = time.perf_counter()
-        export_import_run(torch, h2o, HC, fr, valid, models, blobs_valid,
-                          tmp)
+        finish_at = export_import_run(torch, h2o, HC, fr, valid, models,
+                                      blobs_valid, tmp, host)
         t_at = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        explain_run(torch, h2o, HC, valid, models["b"])
+        t_au = time.perf_counter() - t0
+        del blobs_valid, valid, models
+        t0 = time.perf_counter()
+        automl_run(torch, h2o, HC, fr)
+        t_av = time.perf_counter() - t0
+        # (at)'s float64 scorers, which ran in the host worker meanwhile
+        t0 = time.perf_counter()
+        finish_at()
+        t_at += time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    t0 = time.perf_counter()
-    explain_run(torch, h2o, HC, valid, models["b"])
-    t_au = time.perf_counter() - t0
-    del blobs_valid, valid, models
-    t0 = time.perf_counter()
-    automl_run(torch, h2o, HC, fr)
-    t_av = time.perf_counter() - t0
     say(f"export, explain and automl: (at) {t_at:.1f} s, (au) {t_au:.1f} s, "
         f"(av) {t_av:.1f} s; the phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -6824,6 +7266,77 @@ def serve_threads(torch, models, frames):
         DKV.remove(f.key)
 
 
+class _PredictStages:
+    """perf_counter_ns around each stage of one model's `predict` of a
+    one-row frame, read by wrapping the functions predict calls: the
+    design's assembly (the adapted frame staged into its bucket, or the
+    eager design matrix), the scorer (the graph's replay or the eager
+    scorer, with the host copy), `_prediction_columns`, the rest of
+    `_prediction_frame` (the Vecs, their pager chunks, the Frame's store
+    entry) and the store's `remove`; `other` is what is left of the
+    call. Each `sample(fn)` adds one call's stages."""
+
+    STAGES = ("design", "scorer", "columns", "frame", "remove", "other")
+
+    def __init__(self, m):
+        from h2o3_tpu_torch import serving
+        from h2o3_tpu_torch.core.kvstore import DKV
+        from h2o3_tpu_torch.serving import scorer_cache as SC
+        self.ns = {}
+        self.samples = {k: [] for k in self.STAGES}
+        self.patches = [(serving, "score_frame"), (SC, "score_rows"),
+                        (m._dinfo, "matrix"), (m, "_score_host"),
+                        (m, "_prediction_columns"),
+                        (m, "_prediction_frame"), (DKV, "remove")]
+
+    def _wrap(self, obj, name):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ns[name] = self.ns.get(name, 0) + \
+                    time.perf_counter_ns() - t0
+        return timed
+
+    def __enter__(self):
+        self.saved = [(o, n, n in vars(o), vars(o).get(n))
+                      for o, n in self.patches]
+        for o, n in self.patches:
+            setattr(o, n, self._wrap(o, n))
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, had, old in self.saved:
+            if had:
+                setattr(o, n, old)
+            else:
+                delattr(o, n)
+
+    def sample(self, fn):
+        self.ns = {}
+        t0 = time.perf_counter_ns()
+        fn()
+        total = time.perf_counter_ns() - t0
+        g = self.ns.get
+        design = g("score_frame", 0) - g("score_rows", 0) + g("matrix", 0)
+        part = {"design": design, "scorer": g("_score_host", 0) - design,
+                "columns": g("_prediction_columns", 0),
+                "frame": g("_prediction_frame", 0)
+                - g("_prediction_columns", 0), "remove": g("remove", 0)}
+        part["other"] = total - g("_score_host", 0) \
+            - g("_prediction_frame", 0) - g("remove", 0)
+        for k, v in part.items():
+            self.samples[k].append(v)
+        return total / 1e9
+
+    def line(self):
+        return ", ".join(f"{k} {_pctl(v, 50) / 1e3:.1f}" for k, v in
+                         self.samples.items())
+
+
 def serve_speed(torch, h2o, models, frames, raws):
     """(ax): warm rows/s of predict on 4,096-row frames; p50/p99 of
     score_rows with one row and of predict on a one-row frame, through
@@ -6848,9 +7361,12 @@ def serve_speed(torch, h2o, models, frames, raws):
             p = m.predict(f)
             DKV.remove(p.key)
         r = {}
+        stages = {}
         for mode in ("graph", "eager"):
             if mode == "eager":
                 os.environ["H2O3_SCORE_FASTPATH_MAX_ROWS"] = "0"
+            # (q)'s one-row predict, stage by stage, in the timed loop
+            clock = _PredictStages(m) if tag == "q" else None
             try:
                 predict(f4k)
                 t0 = time.perf_counter()
@@ -6863,13 +7379,19 @@ def serve_speed(torch, h2o, models, frames, raws):
                 for _ in range(50):
                     one()
                     predict(f1)
-                for _ in range(SERVE_REQUESTS):
-                    t0 = time.perf_counter()
-                    one()
-                    lat_s.append(time.perf_counter() - t0)
-                    t0 = time.perf_counter()
-                    predict(f1)
-                    lat_p.append(time.perf_counter() - t0)
+                with clock or contextlib.nullcontext():
+                    for _ in range(SERVE_REQUESTS):
+                        t0 = time.perf_counter()
+                        one()
+                        lat_s.append(time.perf_counter() - t0)
+                        if clock is None:
+                            t0 = time.perf_counter()
+                            predict(f1)
+                            lat_p.append(time.perf_counter() - t0)
+                        else:
+                            lat_p.append(clock.sample(lambda: predict(f1)))
+                if clock is not None:
+                    stages[mode] = clock.line()
                 r[mode + "_score_ms"] = (_pctl(lat_s, 50) * 1e3,
                                          _pctl(lat_s, 99) * 1e3)
                 r[mode + "_predict_ms"] = (_pctl(lat_p, 50) * 1e3,
@@ -6887,6 +7409,10 @@ def serve_speed(torch, h2o, models, frames, raws):
             f"{r['graph_predict_ms'][0]:.4f}/{r['graph_predict_ms'][1]:.4f}"
             f" ms (eager {r['eager_predict_ms'][0]:.4f}/"
             f"{r['eager_predict_ms'][1]:.4f})")
+        if stages:
+            say(f"serving (ax) predict stages {tag}, one-row p50 in us "
+                f"(perf_counter_ns): cache: {stages['graph']}; eager: "
+                f"{stages['eager']}")
         check(r["graph_score_ms"][0] < r["eager_score_ms"][0]
               and r["graph_predict_ms"][0] < r["eager_predict_ms"][0],
               f"(ax) {tag}: the cache's one-row p50 is not below eager's")
@@ -8524,6 +9050,7 @@ def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
             f"H2O3_TRANSFER_GUARD=disallow: {REST_GUARDED} warm one-row "
             f"predicts {codes}, no capture, an .item() raised; "
             f"{t_bd:.1f} s")
+        t_bg = bindings_run(torch, HC, srv.port, m_b, fr, valid, tmp)
     finally:
         srv.stop()
         leaktrack_reports = leaktrack.reports()
@@ -8546,6 +9073,212 @@ def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
     KEPT.clear()
     say(f"rest: the phase {time.perf_counter() - t_phase:.1f} s")
     DKV.clear()
+    return t_bg
+
+
+class _BasicAuth(urllib.request.BaseHandler):
+    """Sends one user's basic-auth header with every urllib request (the
+    generated bindings speak plain urllib, and the server asks for
+    auth)."""
+
+    def __init__(self, user):
+        self.header = _basic(user)
+
+    def http_request(self, req):
+        req.add_unredirected_header("Authorization", self.header)
+        with _SENT_LOCK:
+            REST_SENT[0] += 1
+        return req
+
+
+def bindings_run(torch, HC, port, m_b, fr, valid, tmp):
+    """(bg): bindings/gen.py against the phase's server: the generated
+    estimators module (standard library only) imported, a 10-tree GBM at
+    (bb)'s configuration trained through its H2OGradientBoostingEstimator
+    over HTTP on (bb)'s training frame (its trees = (bb)'s REST GBM's bit
+    for bit), then its predict on the validation rows (= (bb)'s model's
+    predict bit for bit)."""
+    import importlib.util
+    from h2o3_tpu_torch.bindings import gen_python
+    from h2o3_tpu_torch.core.kvstore import DKV
+    t_all = time.perf_counter()
+    url = f"http://127.0.0.1:{port}"
+    out = os.path.join(tmp, "bindings")
+    urllib.request.install_opener(urllib.request.build_opener(
+        _BasicAuth("gold")))
+    try:
+        t0 = time.perf_counter()
+        names = gen_python(url, out)
+        t_gen = time.perf_counter() - t0
+        spec = importlib.util.spec_from_file_location(
+            "h2o3_generated_estimators", os.path.join(out, "estimators.py"))
+        gen = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(gen)
+        with open(os.path.join(out, "estimators.py")) as f:
+            tree = ast.parse(f.read())
+        mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names} | {n.module for n in ast.walk(tree)
+                                     if isinstance(n, ast.ImportFrom)}
+        check(mods <= {"json", "time", "urllib.parse", "urllib.request"},
+              f"(bg) the generated module imports {sorted(mods)}")
+        conn = gen.H2OConnection(url)
+        est = gen.H2OGradientBoostingEstimator(conn, model_id="bind_gbm_b",
+                                               **REST_GBM)
+        HC.reset_launches()
+        t0 = time.perf_counter()
+        est.train(y="y", training_frame=fr.key)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        per = {k: v / REST_GBM["ntrees"] for k, v in HC.LAUNCHES.items()
+               if v}
+        m = DKV.get(est.key)
+        same = _trees_equal(torch, m._trees, m_b._trees)
+        check(same, "(bg) the generated binding's GBM differs from (bb)'s")
+        check(per == PER_TREE["default"], f"(bg) launches per tree {per}")
+        t0 = time.perf_counter()
+        dest = est.predict(valid.key)
+        t_pred = time.perf_counter() - t0
+        got, want = DKV.get(dest), m_b.predict(valid)
+        check(_frames_bits_equal(torch, got, want),
+              "(bg) the generated binding's predictions differ")
+        for f in (got, want):
+            DKV.remove(f.key)
+        DKV.remove(m.key)
+    finally:
+        urllib.request.install_opener(None)
+    say(f"rest (bg) bindings: gen_python against the server in "
+        f"{t_gen:.2f} s ({len(names)} estimator classes, "
+        f"NUM_SERVER_ROUTES {gen.NUM_SERVER_ROUTES}; imports "
+        f"{sorted(mods)}); the generated H2OGradientBoostingEstimator "
+        f"over HTTP at (bb)'s configuration ({REST_GBM['ntrees']} trees): "
+        f"{t_train:.2f} s to DONE, the trees = (bb)'s REST GBM's bit for "
+        f"bit, launches per tree {per}; predict of {valid.nrows:,} rows "
+        f"{t_pred:.2f} s = (bb)'s predict bit for bit; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return time.perf_counter() - t_all
+
+
+# ---------------------------------------------------------------------------
+# run (bf): the h2o-py client at HIGGS width, and the self-benchmarks
+CLIENT_BINS = [-100.0, -1.0, 0.0, 1.0, 100.0]
+
+
+def _same_result(torch, a, b):
+    """Two Rapids results bit for bit: frames column by column, numbers
+    (NaN as NaN), lists element by element."""
+    from h2o3_tpu_torch.core.frame import Frame
+    if isinstance(a, Frame):
+        return isinstance(b, Frame) and _frames_bits_equal(torch, a, b)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same_result(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return np.float64(a).tobytes() == np.float64(b).tobytes()
+    return a == b
+
+
+def client_run(torch, h2o, card):
+    """(bf): h2o3_tpu_torch.client on (b)'s 11M x 28 HIGGS frame made on
+    the card: arithmetic over two columns, a boolean row filter, mean and
+    sd, split_frame([0.75], seed=42), a group-by of a binned column with
+    sum and count. Every Rapids text the client sent is sent again
+    straight to rapids_exec, and each answer must be the client's bit for
+    bit. Then utils/selfbench.run_all() on the card."""
+    from h2o3_tpu_torch import client
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.rapids import rapids as R
+    from h2o3_tpu_torch.utils import selfbench
+    dev = h2o.init().device
+    t_all = time.perf_counter()
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    torch.cuda.synchronize()
+    sent = []
+
+    def recording(expr, *a, **kw):
+        out = R.rapids_exec(expr, *a, **kw)
+        sent.append((expr, out))
+        return out
+    steps = {}
+
+    def step(name, fn):
+        n0 = len(sent)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = [time.perf_counter() - t0, len(sent) - n0, 0.0]
+        return out
+    saved = client.rapids_exec
+    client.rapids_exec = recording
+    try:
+        hf = client.H2OFrame_from(fr)
+        arith = step("x0 * 2 + x1", lambda: hf["x0"] * 2 + hf["x1"])
+        sub = step("rows where x0 > 0", lambda: hf[hf["x0"] > 0])
+        mean = step("mean x0", lambda: hf["x0"].mean())
+        sd = step("sd x0", lambda: hf["x0"].sd())
+        tr, te = step("split_frame [0.75] seed 42",
+                      lambda: hf.split_frame([0.75], seed=42))
+        gb = step("group_by cut(x0) sum x1 count", lambda: hf["x0"].cut(
+            CLIENT_BINS).cbind(hf["x1"]).group_by(0).sum(1).count()
+            .get_frame())
+    finally:
+        client.rapids_exec = saved
+    # every text again, straight to rapids_exec: the same answers
+    k = 0
+    for name, st in steps.items():
+        t0 = time.perf_counter()
+        for expr, out in sent[k:k + st[1]]:
+            again = R.rapids_exec(expr)
+            check(_same_result(torch, out, again),
+                  f"(bf) {name}: rapids_exec({expr[:80]}...) differs from "
+                  "the client's answer")
+        torch.cuda.synchronize()
+        st[2] = time.perf_counter() - t0
+        k += st[1]
+    pos = int((fr.vec("x0").as_f32() > 0).sum())
+    check(sub.nrows == pos and tr.nrows + te.nrows == HIGGS_N
+          and gb.nrows == 4
+          and float(gb.frame.vecs[-1].as_f32().sum()) == HIGGS_N
+          and math.isfinite(mean) and math.isfinite(sd)
+          and arith.nrows == HIGGS_N,
+          f"(bf) shapes: filter {sub.nrows}, split {tr.nrows}+{te.nrows}, "
+          f"groups {gb.nrows}")
+    say(f"client (bf) on the {HIGGS_N:,} x {HIGGS_C} HIGGS frame: "
+        + "; ".join(f"{n} {t:.3f} s ({c} Rapids texts, again through "
+                    f"rapids_exec {t2:.3f} s, bit for bit)"
+                    for n, (t, c, t2) in steps.items())
+        + f"; filter {sub.nrows:,} rows, mean {mean:.6g}, sd {sd:.6g}, "
+        f"split {tr.nrows:,} + {te.nrows:,}, {gb.nrows} groups")
+    del arith, sub, tr, te, gb, hf, sent
+    DKV.clear()
+    t0 = time.perf_counter()
+    sb = selfbench.run_all()
+    t_sb = time.perf_counter() - t0
+    lp, lp32, mb = sb["linpack"], sb["linpack_f32"], sb["memory_bandwidth"]
+    check(all(x > 0 and math.isfinite(x) for x in (
+        lp["gflops"], lp32["gflops"], mb["gbps"])), f"(bf) selfbench {sb}")
+    say(f"client (bf) selfbench.run_all() on {card} in {t_sb:.2f} s: "
+        f"triad a = b + 2c over {mb['elements']:,} f32 "
+        f"{mb['gbps']:,.1f} GB/s (nominal HBM3 "
+        f"{HBM_BYTES_S / 1e9:,.0f} GB/s); linpack n {lp['n']} bf16 "
+        f"{lp['gflops'] / 1e3:,.1f} TFLOPS (published dense peak "
+        f"{BF16_DENSE_PEAK / 1e12:,.0f}), f32 with TF32 off "
+        f"{lp32['gflops'] / 1e3:,.1f} TFLOPS (published peak "
+        f"{F32_OPS_S / 1e12:,.0f}); device reductions "
+        + ", ".join(f"{r['payload_bytes_per_device']:,} B "
+                    f"{r['latency_us']:.2f} us" for r in sb["network"])
+        + " (one card: no collective)")
+    try:
+        import sklearn  # noqa: F401
+        why = "scikit-learn is installed here, but this script holds no run"
+    except ImportError:
+        why = "scikit-learn is not installed on this host"
+    say(f"client (bf): the scikit-learn adapters (h2o3_tpu_torch.sklearn) "
+        f"were not run on the card: {why}; tests/test_torch_sklearn.py "
+        f"holds them against the JAX package's on the CPU")
+    t_bf = time.perf_counter() - t_all
+    say(f"client (bf): {t_bf:.1f} s")
+    return t_bf
 
 
 # ---------------------------------------------------------------------------
@@ -8897,46 +9630,98 @@ def main():
         _on_cpu(h2o, lambda: airline_cpu_reference(torch, h2o))
         return
     t_start = time.perf_counter()
-    card = phase_card(torch, _build)
+    # host-only work off the card's critical path: (ao)'s files and its
+    # Python tokenizer, (aq)-(as)'s and (ar)'s data and numpy answers,
+    # made from their seeds in the host worker while the card runs
+    work = tempfile.mkdtemp(prefix="h2o3_smoke_host_")
+    host = HostWorker()
+    try:
+        air_dir = os.path.join(work, "airline")
+        os.makedirs(air_dir)
+        airline = (air_dir, host.submit(airline_files, air_dir, AIR_N,
+                                        AIR_PY_ROWS))
+        munging = (host.submit(groupby_data, work, GB_N, GB_K),
+                   host.submit(join_data, work, JN_N))
+        run_main_path(torch, h2o, HC, _build, t_start, host, airline,
+                      munging)
+    except BaseException:
+        host.close(kill=True)
+        raise
+    else:
+        host.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_main_path(torch, h2o, HC, _build, t_start, host, airline, munging):
+    """Every phase in order, then the recap and the two JSON lines."""
+    card = run_phase("card", phase_card, torch, _build)
     dev = torch.device("cuda", 0)
-    # 32 columns: HIGGS's 28 padded; 56: Covertype's 54, a partial last
-    # group in every kernel's column groups
-    for c_pad in (32, 56):
-        phase_kernels_small(torch, HC, dev, c_pad)
-        phase_adversarial(torch, HC, dev, c_pad)
-    phase_small_path(torch, h2o, HC)
-    phase_small_adaptive(torch, h2o, HC)
-    phase_small_glm(torch, h2o, HC)
-    phase_small_ingest(torch, h2o, HC)
-    covtype = phase_covtype(torch, h2o, HC)
-    runs = phase_higgs(torch, h2o, HC)
-    phase_isofor(torch, h2o, HC)
-    phase_glm_cv(torch, h2o, HC)
-    phase_dl_unsupervised(torch, h2o, HC)
-    framework = phase_framework(torch, h2o, HC)
-    derived = phase_derived(torch, h2o, HC)
-    phase_data_plane(torch, h2o, HC)
+
+    def kernels_small():
+        # 32 columns: HIGGS's 28 padded; 56: Covertype's 54, a partial
+        # last group in every kernel's column groups
+        t_be = 0.0
+        for c_pad in (32, 56):
+            phase_kernels_small(torch, HC, dev, c_pad)
+            phase_adversarial(torch, HC, dev, c_pad)
+            t_be += parity_run(torch, dev, c_pad)
+        return t_be
+    t_be = run_phase("kernels", kernels_small)
     # (ap)'s CSV, parsed again over REST by (bb); removed on any exit
-    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_") as keep:
-        higgs_csv = os.path.join(keep, "higgs-1m.csv")
-        phase_ingest(torch, h2o, HC, higgs_csv)
-        phase_munging(torch, h2o, HC)
-        phase_export_explain(torch, h2o, HC)
-        phase_obs_serving(torch, h2o, HC)
-        ay = phase_qos_serving(torch, h2o, HC)
-        phase_rest(torch, h2o, HC, higgs_csv, ay, card)
+    keep = tempfile.mkdtemp(prefix="h2o3_smoke_")
+    try:
+        _run_phases(torch, h2o, HC, t_start, card, dev, host, airline,
+                    munging, os.path.join(keep, "higgs-1m.csv"), t_be)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def _run_phases(torch, h2o, HC, t_start, card, dev, host, airline, munging,
+                higgs_csv, t_be):
+    for name, fn in (("small_path", phase_small_path),
+                     ("small_adaptive", phase_small_adaptive),
+                     ("small_glm", phase_small_glm),
+                     ("small_ingest", phase_small_ingest)):
+        run_phase(name, fn, torch, h2o, HC)
+    covtype = run_phase("covtype", phase_covtype, torch, h2o, HC)
+    runs = run_phase("higgs", phase_higgs, torch, h2o, HC)
+    run_phase("isofor", phase_isofor, torch, h2o, HC)
+    run_phase("glm_cv", phase_glm_cv, torch, h2o, HC)
+    run_phase("dl_unsupervised", phase_dl_unsupervised, torch, h2o, HC)
+    framework = run_phase("framework", phase_framework, torch, h2o, HC)
+    derived = run_phase("derived", phase_derived, torch, h2o, HC)
+    # (ap)'s rows, written to its CSV by the host worker during (al)-(an)
+    written = start_higgs_csv(torch, h2o, higgs_csv, host)
+    run_phase("data_plane", phase_data_plane, torch, h2o, HC, host)
+    run_phase("ingest", phase_ingest, torch, h2o, HC, higgs_csv, airline,
+              written)
+    run_phase("munging", phase_munging, torch, h2o, HC, data=munging)
+    run_phase("export_explain", phase_export_explain, torch, h2o, HC, host)
+    run_phase("obs_serving", phase_obs_serving, torch, h2o, HC)
+    ay = run_phase("qos_serving", phase_qos_serving, torch, h2o, HC)
+    t_bg = run_phase("rest", phase_rest, torch, h2o, HC, higgs_csv, ay,
+                     card)
+    t_bf = run_phase("client", client_run, torch, h2o, card)
+    say(f"front ends and the parity gate, runs (be)-(bg): (be) {t_be:.1f} "
+        f"s, (bf) {t_bf:.1f} s, (bg) {t_bg:.1f} s; {t_be + t_bf + t_bg:.1f} "
+        f"s together")
     runs["d"] = covtype
-    kernels = phase_timing(torch, HC, runs)
+    kernels = run_phase("timing", phase_timing, torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]
     say("launches over the grid (x), the ensemble (y) and the segments "
         "(z): " + "; ".join(f"({k}) {v}" for k, v in framework.items()))
     say("launches over RuleFit (ah) and the infogram (aj): "
         + "; ".join(f"({k}) {v}" for k, v in derived.items()))
-    say(f"recap of runs (d)-(bd) and the (d)-(f) kernels' timings "
+    say(f"recap of runs (d)-(bg) and the (d)-(f) kernels' timings "
         f"({len(recap)} lines, as printed above):")
     for line in recap:
         print(f"  {line}", flush=True)
-    say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
+    for line in LOG:
+        if line.startswith("phase "):
+            print(f"  {line}", flush=True)
+    say(f"card: {card}; total {time.perf_counter() - t_start:.1f} s (card "
+        f"idle for host-only work {HOST_ONLY[0]:.1f} s)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

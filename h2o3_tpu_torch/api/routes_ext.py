@@ -62,31 +62,16 @@ def _h_network_test(h):
     """NetworkTestHandler (water/init/NetworkBench.java analog). The JAX
     server times a round of mesh collectives; one device has no
     collective to time, so this times a sum reduction of each size on
-    the cloud's device (CUDA events on the card) and says so in
-    `collective` ("none") and `op` ("device_reduce")."""
-    import torch
+    the cloud's device (selfbench.network_bench: CUDA events on the card)
+    and says so in `collective` ("none") and `op` ("device_reduce")."""
     from h2o3_tpu_torch.parallel import mesh as MESH
+    from h2o3_tpu_torch.utils import selfbench
     cl = MESH.cloud()
-    dev = cl.device
-    sizes = [1 << 10, 1 << 16, 1 << 20]
-    results = []
-    for sz in sizes:
-        x = torch.ones(sz // 4, dtype=torch.float32, device=dev)
-        x.sum()                              # warm: allocator, launch
-        if dev.type == "cuda":
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(2))
-            ev0.record()
-            x.sum()
-            ev1.record()
-            ev1.synchronize()
-            micros = ev0.elapsed_time(ev1) * 1e3
-        else:
-            t0 = time.perf_counter()
-            x.sum()
-            micros = (time.perf_counter() - t0) * 1e6
-        results.append({"bytes": sz, "collective": "none",
-                        "op": "device_reduce", "micros": micros})
+    results = [{"bytes": r["payload_bytes_per_device"],
+                "collective": r["collective"], "op": r["op"],
+                "micros": r["latency_us"]}
+               for r in selfbench.network_bench(
+                   sizes=(1 << 10, 1 << 16, 1 << 20), repeats=1)]
     h._send({"__meta": {"schema_type": "NetworkTestV3"},
              "nodes": cl.n_devices, "results": results})
 

@@ -198,23 +198,37 @@ class Vec:
         return Vec._from_floats(col, np.isnan(col), vtype, domain, device)
 
     @staticmethod
-    def _from_floats(col, mask, vtype, domain=None, device=None) -> "Vec":
+    def from_host_floats(col: np.ndarray, domain=None) -> "Vec":
+        """A float64 host column (NaN = NA; categorical codes with
+        `domain`) born in the host tier: its planes reach the card when a
+        read faults them in, so a column the host made and reads back
+        costs no copy to the card and back (a predictions frame)."""
+        col = np.asarray(col, np.float64)
+        return Vec._from_floats(col, np.isnan(col),
+                                T_CAT if domain is not None else T_NUM,
+                                domain, cold=True)
+
+    @staticmethod
+    def _from_floats(col, mask, vtype, domain=None, device=None,
+                     cold=False) -> "Vec":
         n = len(col)
         has_na = bool(mask.any())
         packed, codec = _choose_codec(
             np.where(mask, 0.0, col) if has_na else col, mask)
         mask_np = mask.astype(np.uint8) if has_na else None
         return Vec._from_packed(packed, codec, mask_np, n, vtype, domain,
-                                device)
+                                device, cold)
 
     @staticmethod
     def _from_packed(packed, codec, mask_np, n, vtype, domain=None,
-                     device=None) -> "Vec":
-        """A Vec over host planes already packed by `codec`."""
+                     device=None, cold=False) -> "Vec":
+        """A Vec over host planes already packed by `codec`; `cold`: born
+        in the host tier."""
         dev = _device(device)
-        if PAGER.ingest_cold:
-            # budgeted ingest: a copy to the card now would overshoot the
-            # budget before the pager could act
+        if cold or PAGER.ingest_cold:
+            # born in the host tier: asked for, or under an HBM budget (a
+            # copy to the card now would overshoot it before the pager
+            # could act)
             return Vec(None, codec, None, n, vtype, domain,
                        packed_host=packed, packed_mask=mask_np, device=dev)
         return Vec(_put(packed, dev), codec,

@@ -896,18 +896,20 @@ class H2OGeneralizedLinearEstimator(ModelBase):
     # ------------------------------------------------------------------
     def _score_matrix(self, X):
         st = self._state
-        ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
-        Xi = torch.cat([torch.where(torch.isnan(X), 0.0, X), ones], dim=1)
+        # NA predictors score as 0; the intercept is added after the
+        # product, so no (n, p + 1) copy of X with a ones column is made
+        Xz = X.masked_fill(torch.isnan(X), 0.0)
 
         def t(a):
             return _dev_f32(a, X.device)
         if st.family == ORDINAL:
-            pk = _ordinal_cum(Xi[:, :-1] @ t(self._ord_beta),
-                              t(self._ord_thr))
+            pk = _ordinal_cum(Xz @ t(self._ord_beta), t(self._ord_thr))
             return torch.clamp(pk, 0.0, 1.0)
         if st.family == MULTINOMIAL:
-            return torch.softmax(Xi @ t(st.beta).T, dim=1)
-        mu = _linkinv(st.link, Xi @ t(st.beta),
+            B = t(st.beta)
+            return torch.softmax(Xz @ B[:, :-1].T + B[:, -1], dim=1)
+        b = t(st.beta)
+        mu = _linkinv(st.link, Xz @ b[:-1] + b[-1],
                       self.params.get("tweedie_link_power") or 1.0)
         if st.family in (BINOMIAL, QUASIBINOMIAL) and self._is_classifier:
             return torch.stack([1.0 - mu, mu], dim=1)

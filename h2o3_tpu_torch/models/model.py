@@ -693,11 +693,12 @@ class ModelBase:
         return [("predict", np.asarray(out, np.float64)[:n], None)]
 
     def _prediction_frame(self, out: np.ndarray, n: int) -> Frame:
-        """The predictions Frame from host scores."""
+        """The predictions Frame from host scores, its columns born in
+        the host tier: the scores are on the host already, and reach the
+        card only when a reader faults them in."""
         names, vecs = [], []
         for name, vals, dom in self._prediction_columns(out, n):
-            vecs.append(Vec.from_numpy(vals, type=T_CAT, domain=dom)
-                        if dom is not None else Vec.from_numpy(vals))
+            vecs.append(Vec.from_host_floats(vals, domain=dom))
             names.append(name)
         return Frame(names, vecs)
 

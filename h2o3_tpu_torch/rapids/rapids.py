@@ -48,6 +48,11 @@ from h2o3_tpu_torch.core.kvstore import DKV
 
 # ===========================================================================
 # Parser (Rapids.java)
+# a [...] list of plain numbers, read in one pass (a client's row list can
+# hold millions)
+_PLAIN_NUMS = re.compile(r"[0-9eE.+\-\s]*")
+
+
 class _Parser:
     def __init__(self, s: str):
         self.s = s
@@ -82,6 +87,15 @@ class _Parser:
 
     def _numlist(self):
         self.i += 1
+        end = self.s.find("]", self.i)
+        if end >= 0 and _PLAIN_NUMS.fullmatch(self.s, self.i, end):
+            try:
+                out = [float(t) for t in self.s[self.i:end].split()]
+            except ValueError:      # a lone sign or exponent: token by token
+                out = None
+            if out is not None:
+                self.i = end + 1
+                return ("numlist", out)
         out = []
         while self.peek() != "]":
             if not self.peek():
@@ -582,7 +596,10 @@ def _rows(a, e):
         mask = sel.vecs[0].as_f32()[: f.nrows] != 0
         idx = torch.nonzero(mask).squeeze(1)
     elif isinstance(sel, list):
-        idx = np.array([int(s) for s in sel], np.int64)
+        pos = np.asarray(sel, np.float64)
+        if not np.isfinite(pos).all():
+            raise ValueError("a row position is not a finite number")
+        idx = pos.astype(np.int64)      # int() of each: toward zero
         if len(idx) and idx[0] < 0:
             keep = np.ones(f.nrows, bool)
             keep[-idx - 1] = False

@@ -42,7 +42,9 @@ names it and torch/cuda, builds a GBM over REST with train()'s trees bit
 for bit, answers row predictions equal to score_payload's, profiles the
 binned kernels through torch.profiler, answers warm predicts under
 H2O3_TRANSFER_GUARD=disallow while an .item() raises, and both
-`python -m` entry points serve on the card.
+`python -m` entry points serve on the card. The port's own parity gate
+(`ops/parity.kernel_parity_check`) holds every kernel at C_pad 32 and
+56, and `utils/selfbench.run_all()` gives positive, finite rates.
 """
 
 import numpy as np
@@ -1734,3 +1736,38 @@ def test_server_entry_points_serve_on_the_card(dev, argv):
     finally:
         p.terminate()
         p.wait(timeout=60)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_pad", [32, 56])
+def test_kernel_parity_check(dev, c_pad):
+    """ops/parity.py on the card: every kernel against its plain version
+    (heap ids bit for bit, int32 sums equal, f32 histograms within 1e-4
+    of each stat row's scale against float64, F within 1e-5)."""
+    from h2o3_tpu_torch.ops import parity
+    devs = parity.kernel_parity_check(seed=0, device=dev, c_pad=c_pad)
+    assert {"hist_half=False", "i8_half=True", "radix_L=2_half=True",
+            "radix_i8_L=4_half=True", "route_cat=True_F",
+            "route_cat=False_noF_heap", "fused_L=32_hist",
+            "fused_i8_L=8_heap"} <= set(devs)
+    assert max(v for k, v in devs.items() if "heap" in k or "i8" in k) == 0
+    assert max(v for k, v in devs.items() if k.endswith("_F")) < F_ATOL
+    assert max(devs.values()) <= HIST_RTOL
+
+
+@pytest.mark.gpu
+def test_selfbench_run_all_on_the_card(dev):
+    """utils/selfbench.py on the card: every probe's rate positive and
+    finite, f32 linpack with TF32 off."""
+    import math
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.utils import selfbench
+    h2o.init()
+    r = selfbench.run_all()
+    assert r["backend"] == "cuda" and r["n_devices"] == 1
+    assert r["linpack_f32"]["tf32"] is False
+    rates = [r["linpack"]["gflops"], r["linpack_f32"]["gflops"],
+             r["memory_bandwidth"]["gbps"]]
+    rates += [x for row in r["network"] for x in (row["latency_us"],
+                                                  row["algo_bw_gbps"])]
+    assert all(x > 0 and math.isfinite(x) for x in rates)
