@@ -375,7 +375,7 @@ Phases, each printing its lines before the last:
            through score_frame_with_response within 1e-7 of the eager
            metrics; a warm dispatch under set_sync_debug_mode("error");
            the param bytes one copy, constant over buckets, and the MiB
-           the graphs hold; 1,000 one-row requests in turn under an HBM
+           the graphs hold; 500 one-row requests in turn under an HBM
            budget the two largest models' params do not fit together, and
            again with a host budget that spills every demote to an npz:
            predictions bit for bit, the budget kept, one capture per
@@ -457,6 +457,25 @@ Phases, each printing its lines before the last:
            (standard library only) trains a 10-tree GBM at (bb)'s
            configuration over HTTP (its trees = (bb)'s REST GBM's bit
            for bit) and predicts (= (bb)'s predict bit for bit);
+     then (bh) the cloud: two processes of `python -m h2o3_tpu_torch` on
+     cuda:0 over gloo, started beside phase rest (a coordinator serving
+     REST to this script, a worker replaying each request), and a third
+     started after the parse to replace the worker: /3/Cloud 2 nodes;
+     /3/ParseDistributed of (ap)'s CSV (= import_file's frame bit for
+     bit, MB/s beside (bb)'s); (b)'s frames, written as stored .hex files
+     beside phase rest, through /3/Frames/load (each rank holds its rows);
+     (bb)'s GBM over REST (= (bb)'s trees bit for bit; launches a tree in
+     each process = (bb)'s; all-reduce calls, MB and seconds a tree from
+     /metrics?scope=cluster); /3/Predictions on the validation rows (=
+     (bb)'s bit for bit, the same AUC); the collect fan-outs (/3/JStack,
+     /3/Timeline, /3/Usage, /3/CloudHealth, /3/ModelMonitor, /3/Logs,
+     /3/Trace, /3/WaterMeter?cluster=1, /3/Profiler cluster=1) with both
+     processes' entries; the divergence sanitizer raising and counting no
+     mismatch; the worker killed after a third of 300 (ay)-size requests
+     from 16 threads (excised, the epoch up, no request failed), the
+     replacement joined, synced and answering 100 of them again as before
+     bit for bit (= score_payload's; its answers equal the coordinator's);
+     /3/Cloud/drain; every process stopped;
      then (bf) the h2o-py client (h2o3_tpu_torch.client) on (b)'s 11M x
      28 frame made on the card: arithmetic over two columns, a row
      filter, mean and sd, split_frame([0.75], seed=42), a group-by of a
@@ -492,10 +511,10 @@ with CUDA_VISIBLE_DEVICES="" (started at the top of main(): (ao)'s files
 and its Python tokenizer, (ap)'s CSV, (aq)-(ar)'s data and numpy
 answers, (al)'s CPU slice fit, (at)'s float64 scorers), each result held
 where the phase checks it; a failure there fails the script. The lines
-of runs (d)-(bg) and the phase lines are printed again just before the
+of runs (d)-(bh) and the phase lines are printed again just before the
 two JSON lines. The line before the last is the kernels' JSON record
 (the adaptive engine, GLM, DeepLearning, the unsupervised family and the
-runs (x)-(bg) add no kernel to it); the last line is
+runs (x)-(bh) add no kernel to it); the last line is
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. Without a
 CUDA card, or without the rest of the repository beside it, the script
 exits non-zero before printing a result.
@@ -936,7 +955,8 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"observability|"
                    r"serving \(ax\) (speed|lifecycle|1000|predict)|"
                    r"serving \(ax\) [bkqt]:|qos serving|rest|"
-                   r"kernel parity \(be\)|client \(bf\)|front ends)")
+                   r"kernel parity \(be\)|client \(bf\)|front ends|"
+                   r"cloud \(bh\)|the cloud)")
 
 
 def say(msg):
@@ -6906,8 +6926,8 @@ _PROM_LINE = re.compile(
     r" (-?[0-9.e+-]+|[+-]?Inf|NaN))$")
 # (ax)'s row buckets and the requests of its timings
 SERVE_BUCKETS = [128 << i for i in range(10)]          # 128 .. 65,536
-SERVE_REQUESTS = 2000
-SERVE_BUDGET_REQUESTS = 1000
+SERVE_REQUESTS = 1000            # (of 2,000: time)
+SERVE_BUDGET_REQUESTS = 500      # (of 1,000: time)
 SERVE_THREADS = 8
 
 
@@ -7531,7 +7551,7 @@ def phase_obs_serving(torch, h2o, HC):
 # ---------------------------------------------------------------------------
 # (ay)-(ba): the rest of serving — the micro-batcher under QoS, usage
 # attribution, the watchdog and chaos, drift
-QOS_REQUESTS = 20_000        # (ay) requests a run
+QOS_REQUESTS = 6_000         # (ay) requests a run (of 20,000: time)
 QOS_THREADS = 64             # (ay) client threads
 QOS_SIZES = (1, 8, 64)       # (ay) rows a request ...
 QOS_SIZE_P = (0.7, 0.2, 0.1)  # ... and their shares
@@ -8316,7 +8336,7 @@ def phase_qos_serving(torch, h2o, HC, n_requests=QOS_REQUESTS,
 # (bb)-(bd): the REST front end — the port's H2OServer in this process,
 # spoken to over loopback HTTP
 REST_USERS = {"gold": "gold-pw", "silver": "silver-pw", "flood": "flood-pw"}
-REST_REQUESTS = 5000         # (bc) requests over HTTP
+REST_REQUESTS = 3000         # (bc) requests over HTTP (of 5,000: time)
 REST_PROCS = 4               # (bc) client processes ...
 REST_THREADS = 16            # ... of 16 closed-loop threads each
 REST_TENANT_REQUESTS = 20    # (bc) requests of each gold/silver thread
@@ -8515,6 +8535,7 @@ def rest_main_path_run(torch, h2o, HC, port, fr, valid, tmp, path):
     auc_in = m.model_performance(valid).auc
     check(auc_rest == auc_in, f"(bb) AUC {auc_rest} vs {auc_in}")
     out["auc"] = auc_rest
+    out["pred"] = (rp.names, [v.as_f32().cpu() for v in rp.vecs])
     # the MOJO bytes through import_mojo
     st, h, raw = _http(port, "GET", f"/3/Models/{m.key}/mojo", user="gold")
     check(st == 200 and h["content-type"] == "application/zip",
@@ -8895,7 +8916,7 @@ def rest_guarded_run(torch, m, rows, names):
     return codes
 
 
-def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
+def phase_rest(torch, h2o, HC, higgs_csv, ay, card, cloud=None):
     """Runs (bb)-(bd): the port's H2OServer in this process with a
     basic-auth file of three users, spoken to over loopback HTTP; lockdep
     and leaktrack raising over the whole phase. `higgs_csv` is (ap)'s file
@@ -8914,6 +8935,8 @@ def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
     valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
     DKV.put(fr.key, fr)
     DKV.put(valid.key, valid)
+    if cloud is not None:
+        save_cloud_frames(torch, fr, valid, cloud)     # for (bh)
     blobs = _blob_frame(torch, dev, HIGGS_N, 12)[0] if "t" not in KEPT \
         else None
     blobs_valid, _ = _blob_frame(torch, dev, QOS_POOL, 12)
@@ -8956,6 +8979,8 @@ def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
         m_b, bb = rest_main_path_run(torch, h2o, HC, srv.port, fr, valid,
                                      tmp, higgs_csv)
         t_bb = time.perf_counter() - t0
+        BB.update(trees=m_b._trees.to("cpu"), pred=bb["pred"],
+                  auc=bb["auc"], gbm=bb["gbm"], parse=bb["parse"])
         size, t_rest, t_in, types = bb["parse"]
         say(f"rest (bb) parse of (ap)'s {HIGGS_CSV_N:,}-row HIGGS CSV "
             f"({size / 1e6:.1f} MB) through "
@@ -8982,6 +9007,8 @@ def phase_rest(torch, h2o, HC, higgs_csv, ay, card):
             f"bit; {t_bb:.1f} s")
         t0 = time.perf_counter()
         bc = rest_traffic_run(torch, srv.port, models, pools, names, tmp)
+        if ay:
+            BB["rps"] = (bc["rps"], ay["rps"])
         say(f"rest (bc) {REST_REQUESTS:,} requests over HTTP from "
             f"{REST_PROCS} client processes x {REST_THREADS} closed-loop "
             f"threads ((ay)'s mix: sizes 1/8/64 rows at 70/20/10%, over "
@@ -9282,6 +9309,568 @@ def client_run(torch, h2o, card):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# (bh): the cloud of two processes on the card
+CLOUD_REQUESTS = 300      # (bh) scoring requests of the load around the kill
+CLOUD_AFTER = 100         # ... and of the load after the replacement joined
+CLOUD_THREADS = 16        # (bh) client threads
+CLOUD_PROCS = []          # every process (bh) starts; all stopped at exit
+BB = {}                   # (bb)'s REST GBM: trees, predictions, AUC, times
+CLOUD_ENV = {}            # more environment for (bh)'s processes
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rest_port():
+    """A free port whose replay channel (the port + 2) is free too."""
+    import socket
+    while True:
+        port = _free_port()
+        s = socket.socket()
+        try:
+            s.bind(("0.0.0.0", port + 2))
+            return port
+        except OSError:
+            continue
+        finally:
+            s.close()
+
+
+def _stop_cloud():
+    """Stops every process (bh) started (also at exit, after a failure)."""
+    import signal
+    for p in CLOUD_PROCS:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in CLOUD_PROCS:
+        try:
+            p.wait(20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(10)
+
+
+def _cloud_proc(cloud, pid, join=False):
+    """One `python -m h2o3_tpu_torch` of the cloud on cuda:0, its output in
+    the cloud's directory."""
+    env = dict(cloud["env"], H2O3_PROCESS_ID=str(pid))
+    if join:
+        env["H2O3_JOIN_CLOUD"] = "1"
+    tag = f"p{pid}{'-join' if join else ''}"
+    log = open(os.path.join(cloud["tmp"], f"cloud-{tag}.log"), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "h2o3_tpu_torch", "-port",
+         str(cloud["rest"]), "-basic_auth", cloud["auth"]],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    CLOUD_PROCS.append(p)
+    return p
+
+
+def start_cloud():
+    """(bh)'s two processes, a coordinator (rank 0, REST) and a worker
+    (rank 1), started while the phase before runs: their interpreters,
+    CUDA contexts and kernel loads are host-only time the card does not
+    wait for. They form their world over gloo and wait for requests."""
+    import atexit
+    import secrets
+    tmp = tempfile.mkdtemp(prefix="h2o3_cloud_")
+    auth = os.path.join(tmp, "realm.properties")
+    with open(auth, "w") as f:
+        f.write("".join(f"{u}:{p}\n" for u, p in REST_USERS.items()))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("H2O3_")}
+    env.update(H2O3_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               H2O3_NUM_PROCESSES="2",
+               H2O3_CLUSTER_SECRET=secrets.token_hex(16),
+               H2O3_DIVERGENCE="1", H2O3_CLOUD_FORM_TIMEOUT_S="600",
+               H2O3_REPLAY_ACK_TIMEOUT_S="120",
+               H2O3_REPLAY_RECONNECT_S="600", **CLOUD_ENV)
+    cloud = {"rest": _rest_port(), "env": env, "tmp": tmp, "auth": auth,
+             "t0": time.perf_counter()}
+    atexit.register(_stop_cloud)
+    cloud["procs"] = [_cloud_proc(cloud, r) for r in (0, 1)]
+    return cloud
+
+
+def save_cloud_frames(torch, fr, valid, cloud):
+    """(b)'s training and validation frames as .hex files in the cloud's
+    directory, written on a thread while the phase runs on (the rows come
+    off the card first)."""
+    from h2o3_tpu_torch.io.persist import export_frame
+    jobs = [(f, os.path.join(cloud["tmp"], name + ".h2o3frame"))
+            for f, name in ((fr, "cloud_higgs"), (valid, "cloud_valid"))]
+    out = {}
+
+    def write():
+        t0 = time.perf_counter()
+        try:
+            for f, path in jobs:
+                # stored, not deflated: random floats do not compress, and
+                # each rank reads the whole member
+                export_frame(f, path, compress=False)
+            out["s"] = time.perf_counter() - t0
+        except Exception as e:      # noqa: BLE001 — joined and failed below
+            out["err"] = repr(e)
+    t = threading.Thread(target=write, daemon=True, name="cloud-save")
+    t.start()
+    cloud["save"] = (t, out)
+
+
+def _cloud_scrape(port):
+    """The cloud's per-host launch counts, all-reduce and row-gather totals
+    from /metrics?scope=cluster: {host: {"launches": {kernel: n}, "bytes",
+    "seconds", "calls", "gather_bytes", "gather_seconds", "gather_calls",
+    "checks", "mismatches"}}."""
+    st, _, text = _http(port, "GET", "/metrics?scope=cluster", user="gold")
+    check(st == 200, f"(bh) /metrics?scope=cluster {st}")
+    text = text.decode() if isinstance(text, bytes) else str(text)
+    out = {}
+    pat = re.compile(r'^(h2o3_[a-z_]+)\{([^}]*)\} (\S+)$')
+    for line in text.splitlines():
+        m = pat.match(line)
+        if not m:
+            continue
+        name, labels, val = m.group(1), dict(
+            kv.split("=", 1) for kv in m.group(2).split(",")), \
+            float(m.group(3))
+        labels = {k: v.strip('"') for k, v in labels.items()}
+        h = out.setdefault(labels.get("host"), {"launches": {}})
+        if name == "h2o3_hist_kernel_launches":
+            h["launches"][labels["kernel"]] = val
+        elif name.startswith("h2o3_allreduce_"):
+            h[name[len("h2o3_allreduce_"):]] = val
+        elif name.startswith("h2o3_gather_"):
+            h["gather_" + name[len("h2o3_gather_"):]] = val
+        elif name == "h2o3_divergence_checks_total":
+            h["checks"] = val
+        elif name == "h2o3_divergence_mismatches_total":
+            h["mismatches"] = val
+    return out
+
+
+def _cloud_build_split(port, trace):
+    """Each host's seconds of the traced build from GET /3/Trace: its
+    job.run, the set-up before the first gbm.chunk, the chunks (with the
+    level all-reduces' dispatches inside them), the scoring events
+    between the chunks, and what follows the last chunk (the final
+    metrics)."""
+    st, _, js = _http(port, "GET", f"/3/Trace/{trace}", user="gold")
+    check(st == 200 and isinstance(js, dict), f"(bh) /3/Trace {st}")
+    out = {}
+    for host in {str(sp.get("host")) for sp in js.get("spans", [])}:
+        sps = [sp for sp in js["spans"] if str(sp.get("host")) == host
+               and sp.get("end") is not None]
+        job = [sp for sp in sps if sp["name"] == "job.run"]
+        ch = sorted((sp for sp in sps if sp["name"] == "gbm.chunk"),
+                    key=lambda sp: sp["start"])
+        if not job or not ch:
+            continue
+        red = [sp for sp in sps if sp["name"] == "mrtask.map_reduce"]
+        j = job[0]
+        whole = j["end"] - j["start"]
+        setup = ch[0]["start"] - j["start"]
+        chunks = sum(sp["end"] - sp["start"] for sp in ch)
+        after = j["end"] - ch[-1]["end"]
+        out[host] = {
+            "job": round(whole, 3), "setup": round(setup, 3),
+            "chunks": round(chunks, 3),
+            "level_all_reduces": round(sum(sp["end"] - sp["start"]
+                                           for sp in red), 3),
+            "n_level_all_reduces": len(red),
+            "between": round(whole - setup - chunks - after, 3),
+            "after": round(after, 3)}
+    check(set(out) >= {"0", "1"}, f"(bh) the build's spans {out}")
+    return out
+
+
+def _cloud_state(port):
+    st, _, js = _http(port, "GET", "/3/Cloud", user="gold")
+    check(st == 200, f"(bh) /3/Cloud {st} {str(js)[:300]}")
+    return js
+
+
+def _cloud_load(port, mid, bodies, threads, on_answer=None):
+    """POST /3/Predictions/models/{mid} of each body from `threads`
+    closed-loop threads: the answers in order, and the failures."""
+    out, fails, nxt, lock = [None] * len(bodies), [], [0], threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(bodies):
+                return
+            st, _, js = _http(port, "POST", f"/3/Predictions/models/{mid}",
+                              body={"rows": bodies[i]}, user="gold")
+            if st == 200 and isinstance(js, dict) \
+                    and len(js.get("predictions", ())) == len(bodies[i]):
+                out[i] = js["predictions"]
+                if on_answer is not None:
+                    on_answer(i)
+            else:
+                with lock:
+                    fails.append((i, st, str(js)[:200]))
+    ts = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return out, fails, time.perf_counter() - t0
+
+
+def phase_cloud(torch, h2o, HC, cloud, higgs_csv, card):
+    """(bh): the cloud of two processes on cuda:0 (deploy/multihost), over
+    REST from this script: /3/Cloud; /3/ParseDistributed of (ap)'s CSV (=
+    import_file's frame bit for bit); (b)'s frames through /3/Frames/load,
+    each rank keeping its own rows; (bb)'s GBM over REST (= (bb)'s trees
+    bit for bit; launches a tree in each process; the all-reduce seconds
+    and bytes a tree); /3/Predictions on the validation rows (= (bb)'s bit
+    for bit, the same AUC); the collect fan-outs with both processes'
+    entries; the divergence sanitizer raising and counting no mismatch;
+    the worker killed under a scoring load (excised, the epoch up, no
+    request failed), a replacement that joins, syncs and answers as
+    before, and /3/Cloud/drain."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.io.persist import import_frame
+    port, tmp = cloud["rest"], cloud["tmp"]
+    torch.cuda.empty_cache()        # the cloud's processes load next
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + 300
+    while True:
+        try:
+            st, _, js = _http(port, "GET", "/3/Cloud", user="gold")
+            if st == 200:
+                break
+        except OSError:
+            pass
+        for p in cloud["procs"]:
+            check(p.poll() is None, f"(bh) a cloud process exited "
+                  f"({p.returncode}); see {tmp}")
+        check(time.monotonic() < deadline, "(bh) the cloud did not form")
+        time.sleep(0.05)
+    t_up = time.perf_counter() - cloud["t0"]
+    t_wait = time.perf_counter() - t_phase
+    check(js["cloud_size"] == 2 and js["epoch"] == 1
+          and [(w["pid"], w["state"]) for w in js["workers"]]
+          == [(1, "active")] and js["locked"] is False,
+          f"(bh) /3/Cloud {js}")
+    # /3/ParseDistributed of (ap)'s CSV: the coordinator plans the byte
+    # ranges, the worker tokenizes its share
+    size = os.path.getsize(higgs_csv)
+    t0 = time.perf_counter()
+    _, p = _rest_ok(port, "POST", "/3/ParseDistributed", "ParseV3",
+                    user="gold", data={"source_frames": [higgs_csv],
+                                       "destination_frame": "cloud_csv"})
+    _rest_job(port, p["job"]["key"])
+    t_pd = time.perf_counter() - t0
+    _rest_ok(port, "POST", "/3/Frames/cloud_csv/save", "FramesV3",
+             user="gold", data={"dir": tmp})
+    got = import_frame(os.path.join(tmp, "cloud_csv.h2o3frame"),
+                       key="cloud_csv_back")
+    t0 = time.perf_counter()
+    pf = h2o.import_file(higgs_csv)
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t0
+    check(_frames_bits_equal(torch, got, pf),
+          "(bh) /3/ParseDistributed's frame differs from import_file's")
+    DKV.remove(got.key)
+    DKV.remove(pf.key)
+    # the replacement of the worker killed below starts now: its
+    # interpreter and CUDA context come up while the phase runs on, and
+    # the coordinator refuses its handshakes until the worker is cut out
+    replacement = _cloud_proc(cloud, 1, join=True)
+    # (b)'s frames through /3/Frames/load: each rank keeps its own rows
+    t_save, out = cloud["save"][0], cloud["save"][1]
+    with host_only():
+        t_save.join()
+    check("err" not in out, f"(bh) saving (b)'s frames: {out.get('err')}")
+    t0 = time.perf_counter()
+    for name in ("cloud_higgs", "cloud_valid"):
+        _rest_ok(port, "POST", "/3/Frames/load", "FramesV3", user="gold",
+                 data={"dir": tmp, "frame_id": name})
+    t_load = time.perf_counter() - t0
+    # (bb)'s GBM over REST, traced: each rank's job and its spans
+    before = _cloud_scrape(port)
+    t0 = time.perf_counter()
+    _, b = _rest_ok(port, "POST", "/3/ModelBuilders/gbm",
+                    "ModelBuilderJobV3", user="gold",
+                    data=dict(REST_GBM, training_frame="cloud_higgs",
+                              response_column="y", model_id="cloud_gbm"),
+                    headers={"X-H2O3-Trace-Id": "cloud-bh-gbm"})
+    _rest_job(port, b["job"]["key"])
+    t_gbm = time.perf_counter() - t0
+    after = _cloud_scrape(port)
+    split = _cloud_build_split(port, "cloud-bh-gbm")
+    nt = REST_GBM["ntrees"]
+    per = {}
+    for host in ("0", "1"):
+        a, z = after.get(host, {}), before.get(host, {})
+        per[host] = {
+            "launches": {k: (v - z["launches"].get(k, 0.0)) / nt
+                         for k, v in a.get("launches", {}).items()
+                         if v - z["launches"].get(k, 0.0)},
+            "seconds": (a.get("seconds", 0) - z.get("seconds", 0)) / nt,
+            "mb": (a.get("bytes", 0) - z.get("bytes", 0)) / nt / 1e6,
+            "calls": (a.get("calls", 0) - z.get("calls", 0)) / nt,
+            # the row gathers of the whole build (f0's response and
+            # weights, the bin edges' sample), not a tree's
+            "g_calls": a.get("gather_calls", 0) - z.get("gather_calls", 0),
+            "g_mb": (a.get("gather_bytes", 0)
+                     - z.get("gather_bytes", 0)) / 1e6,
+            "g_s": a.get("gather_seconds", 0) - z.get("gather_seconds", 0)}
+        check(per[host]["launches"] == PER_TREE["default"],
+              f"(bh) host {host}'s launches a tree {per[host]['launches']}")
+    st, _, raw = _http(port, "GET", "/3/Models.fetch.bin/cloud_gbm",
+                       user="gold")
+    check(st == 200 and isinstance(raw, bytes), f"(bh) fetch.bin {st}")
+    mpath = os.path.join(tmp, "cloud_gbm.bin")
+    with open(mpath, "wb") as f:
+        f.write(raw)
+    cm = h2o.load_model(mpath)
+    check(_trees_equal(torch, cm._trees.to("cpu"), BB["trees"]),
+          "(bh) the cloud's trees differ from (bb)'s")
+    # predictions on the validation rows
+    _, pr = _rest_ok(port, "POST",
+                     "/3/Predictions/models/cloud_gbm/frames/cloud_valid",
+                     "ModelMetricsListSchemaV3", user="gold",
+                     data={"predictions_frame": "cloud_pred"})
+    auc = pr["model_metrics"][0]["auc"]
+    check(auc == BB["auc"], f"(bh) AUC {auc} against (bb)'s {BB['auc']}")
+    _rest_ok(port, "POST", "/3/Frames/cloud_pred/save", "FramesV3",
+             user="gold", data={"dir": tmp})
+    pred = import_frame(os.path.join(tmp, "cloud_pred.h2o3frame"),
+                        key="cloud_pred_back")
+    names, cols = BB["pred"]
+    check(pred.names == names and all(
+        torch.equal(v.as_f32().cpu().view(torch.int32), c.view(torch.int32))
+        for v, c in zip(pred.vecs, cols)),
+        "(bh) the cloud's predictions differ from (bb)'s")
+    DKV.remove(pred.key)
+    # the collect fan-outs answer with both processes' entries
+    trace = "cloud-bh-trace"
+    _http(port, "GET", "/3/Jobs", user="gold",
+          headers={"X-H2O3-Trace-Id": trace})
+    fan = {}
+    for path, key in (("/3/JStack", "traces"), ("/3/Timeline", "hosts"),
+                      ("/3/Usage", "hosts"), ("/3/CloudHealth", "hosts"),
+                      ("/3/ModelMonitor/cloud_gbm", "hosts"),
+                      ("/3/Logs", "hosts"), (f"/3/Trace/{trace}", "hosts"),
+                      ("/3/WaterMeter?cluster=1", "hosts")):
+        st, _, js = _http(port, "GET", path, user="gold")
+        check(st == 200 and isinstance(js, dict),
+              f"(bh) {path}: {st} {str(js)[:200]}")
+        entries = js.get(key) or []
+        hosts = {str(e.get("host", e)) if isinstance(e, dict) else str(e)
+                 for e in entries}
+        fan[path.split("?")[0]] = len(entries)
+        check(not js.get("lagging_hosts") and len(entries) >= 2
+              and {"0", "1"} <= hosts | {"0"},
+              f"(bh) {path} hosts {hosts} lagging "
+              f"{js.get('lagging_hosts')}")
+    for action in ("start", "stop"):
+        _, js = _rest_ok(port, "POST", "/3/Profiler", "ProfilerV3",
+                         user="gold", data={"action": action,
+                                            "kind": "sampling",
+                                            "cluster": 1})
+        check(len(js.get("hosts", [])) == 2 and not js["lagging_hosts"],
+              f"(bh) /3/Profiler cluster {action}: {str(js)[:300]}")
+    scrape = _cloud_scrape(port)
+    check(set(scrape) >= {"0", "1"}, f"(bh) cluster scrape {set(scrape)}")
+    checks0 = scrape["0"].get("checks", 0.0)
+    check(checks0 > 0 and scrape["0"].get("mismatches", 0.0) == 0,
+          f"(bh) divergence {scrape['0']}")
+    # a scoring load of (ay)'s sizes on the validation rows; the worker
+    # is killed when a third of it is answered; a replacement starts then
+    vrows = np.stack([v.to_numpy() for v in import_frame(
+        os.path.join(tmp, "cloud_valid.h2o3frame"),
+        key="cloud_pool").vecs[:HIGGS_C]], 1)[:QOS_POOL]
+    DKV.remove("cloud_pool")
+    names_x = [f"x{j}" for j in range(HIGGS_C)]
+    rng = np.random.default_rng(41)
+    sizes = rng.choice(QOS_SIZES, CLOUD_REQUESTS, p=QOS_SIZE_P)
+    offs = rng.integers(0, QOS_POOL - 64, CLOUD_REQUESTS)
+    bodies = [_payload(vrows[o:o + k], names_x) for o, k in zip(offs, sizes)]
+    killed = {}
+    lock = threading.Lock()
+
+    def kill_at_third(_i):
+        with lock:
+            killed["n"] = killed.get("n", 0) + 1
+            if killed["n"] == CLOUD_REQUESTS // 3 and "t" not in killed:
+                cloud["procs"][1].kill()
+                killed["t"] = time.perf_counter()
+    killed["join"] = replacement
+    ans, fails, t_load1 = _cloud_load(port, "cloud_gbm", bodies,
+                                      CLOUD_THREADS, kill_at_third)
+    check("t" in killed, "(bh) the worker was not killed")
+    check(not fails, f"(bh) {len(fails)} requests failed around the "
+          f"kill: {fails[:3]}")
+    # the excision (the replacement may have joined already: it knocks
+    # until the worker is cut out)
+    st1 = _cloud_state(port)
+    st, _, text = _http(port, "GET", "/metrics", user="gold")
+    text = text.decode() if isinstance(text, bytes) else str(text)
+    cut = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^h2o3_cloud_excisions_total\{reason="([a-z_]+)"\} (\S+)$', text,
+        re.M)}
+    check(st1["epoch"] >= 2 and sum(cut.values()) == 1
+          and set(cut) <= {"recv_error", "bad_ack", "send_error", "eof",
+                           "ack_timeout"},
+          f"(bh) after the kill: {st1} excisions {cut}")
+    dead = [{"reason": next(iter(cut))}]
+    # the replacement joins: GET /3/Cloud answers once its sync is done
+    t0 = time.perf_counter()
+    while True:
+        st2 = _cloud_state(port)
+        if st2["epoch"] >= 3:
+            break
+        check(killed["join"].poll() is None,
+              f"(bh) the replacement exited; see {tmp}")
+        check(time.perf_counter() - t0 < 240, "(bh) no replacement joined")
+        time.sleep(0.1)
+    t_join = time.perf_counter() - killed["t"]
+    check([(w["pid"], w["state"]) for w in st2["workers"]] == [(1, "active")]
+          and st2["cloud_healthy"], f"(bh) after the join: {st2}")
+    # the same requests again: the coordinator answers as before and the
+    # replacement's answers equal its (the sanitizer's answer digests)
+    checks1 = _cloud_scrape(port)["0"].get("checks", 0.0)
+    again, fails2, t_load2 = _cloud_load(port, "cloud_gbm",
+                                         bodies[:CLOUD_AFTER], CLOUD_THREADS)
+    check(not fails2, f"(bh) {len(fails2)} requests failed after the join")
+    check(again == ans[:CLOUD_AFTER],
+          "(bh) the answers after the join differ from before")
+    from h2o3_tpu_torch import serving
+    want = [serving.score_payload(cm, b) for b in bodies[:CLOUD_AFTER]]
+    check(all([d["p1"] for d in a] == [d["p1"] for d in w]
+              for a, w in zip(again, want)),
+          "(bh) the cloud's answers differ from score_payload's")
+    deadline = time.monotonic() + 30
+    while True:
+        sc = _cloud_scrape(port)["0"]
+        if sc.get("checks", 0) >= checks1 + CLOUD_AFTER:
+            break
+        check(time.monotonic() < deadline, f"(bh) divergence checks {sc}")
+        _cloud_state(port)          # a frame home for the last riders
+    check(sc.get("mismatches", 0.0) == 0, f"(bh) divergence {sc}")
+    st, _, dr = _http(port, "POST", "/3/Cloud/drain", data={"node": 1},
+                      user="gold")
+    check(st == 200 and dr["left_cleanly"] and dr["epoch"] >= 4,
+          f"(bh) drain {st} {dr}")
+    check(killed["join"].wait(60) == 0, "(bh) the drained worker's exit")
+    st3 = _cloud_state(port)
+    _stop_cloud()
+    t_ph = time.perf_counter() - t_phase
+    shutil.rmtree(tmp, ignore_errors=True)
+    t_gr, _, _ = BB["gbm"]
+    bsize, bt_rest, bt_in, _ = BB["parse"]
+    say(f"cloud (bh) two processes of python -m h2o3_tpu_torch on cuda:0 "
+        f"over gloo, card {card}: up {t_up:.1f} s after their start (the "
+        f"phase waited {t_wait:.2f} s for it); /3/Cloud 2 nodes, epoch 1; "
+        f"/3/ParseDistributed of (ap)'s {HIGGS_CSV_N:,}-row CSV "
+        f"({size / 1e6:.1f} MB) {t_pd:.2f} s ({size / t_pd / 1e6:.1f} MB/s) "
+        f"= import_file's frame bit for bit (in this process "
+        f"{size / t_in / 1e6:.1f} MB/s; (bb)'s /3/Parse "
+        f"{bsize / bt_rest / 1e6:.1f} MB/s); (b)'s {HIGGS_N:,} x {HIGGS_C} "
+        f"and {HIGGS_VALID_N:,}-row frames through /3/Frames/load "
+        f"{t_load:.2f} s (written beside the phase before in "
+        f"{out['s']:.1f} s), each rank holding its rows")
+    say(f"cloud (bh) POST /3/ModelBuilders/gbm at (bb)'s configuration "
+        f"({nt} trees): {t_gbm:.2f} s to DONE against (bb)'s {t_gr:.2f} s "
+        f"in one process; the trees = (bb)'s bit for bit; hist.cu launches "
+        f"a tree on rank 0 {per['0']['launches']}, on rank 1 "
+        f"{per['1']['launches']}; all-reduces a tree: rank 0 "
+        f"{per['0']['calls']:.0f} of {per['0']['mb']:.2f} MB in "
+        f"{per['0']['seconds']:.3f} s, rank 1 {per['1']['calls']:.0f} of "
+        f"{per['1']['mb']:.2f} MB in {per['1']['seconds']:.3f} s; row "
+        f"gathers of the whole build: rank 0 {per['0']['g_calls']:.0f} of "
+        f"{per['0']['g_mb']:.2f} MB in {per['0']['g_s']:.3f} s, rank 1 "
+        f"{per['1']['g_calls']:.0f} of {per['1']['g_mb']:.2f} MB in "
+        f"{per['1']['g_s']:.3f} s; the build's spans (s): "
+        + "; ".join(f"rank {h} {v}" for h, v in sorted(split.items())))
+    say(f"cloud (bh) /3/Predictions on the {HIGGS_VALID_N:,} validation "
+        f"rows = (bb)'s bit for bit, AUC {auc:.6f} = (bb)'s; collect "
+        f"fan-outs with both hosts {fan}, /3/Profiler cluster=1 2 hosts; "
+        f"divergence (raise mode) {sc.get('checks', 0):.0f} checks, "
+        f"{sc.get('mismatches', 0):.0f} mismatches")
+    say(f"cloud (bh) the worker killed after {CLOUD_REQUESTS // 3} of "
+        f"{CLOUD_REQUESTS} (ay)-size requests from {CLOUD_THREADS} threads "
+        f"({t_load1:.2f} s): excised ({dead[0]['reason']}), epoch "
+        f"{st1['epoch']}, 0 requests failed; the replacement (started after "
+        f"the parse, refused while the worker lived) joined, synced the "
+        f"snapshot and served {t_join:.1f} s after the kill, epoch "
+        f"{st2['epoch']}; {CLOUD_AFTER} requests "
+        f"again ({t_load2:.2f} s, {CLOUD_AFTER / t_load2:,.0f} requests/s "
+        f"against {CLOUD_REQUESTS / t_load1:,.0f} around the kill"
+        + (f"; one process: (bc) over HTTP, {REST_PROCS} x {REST_THREADS} "
+           f"threads on 4 models, {BB['rps'][0]:,.0f} requests/s, (ay) in "
+           f"process {BB['rps'][1]:,.0f}" if "rps" in BB
+           else "; (bc) not run in this call") +
+        f"): the answers of before bit for bit, = "
+        f"score_payload's, the replacement's equal (0 mismatches); "
+        f"/3/Cloud/drain left cleanly, epoch {st3['epoch']}; the phase "
+        f"{t_ph:.1f} s")
+    return t_ph
+
+
+def cloud_only(torch, h2o, HC, _build):
+    """`python3 chip_smoke.py --cloud-only`: (bh) alone after the build,
+    against (bb)'s GBM trained by train() in this process (the same trees
+    (bb) holds its REST GBM to), with (ap)'s CSV written first."""
+    from h2o3_tpu_torch.core.kvstore import DKV
+    t_all = time.perf_counter()
+    card = run_phase("card", phase_card, torch, _build)
+    dev = h2o.init().device
+    fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+    valid = _higgs_frame(torch, h2o, dev, HIGGS_VALID_N, 8)
+    keep = tempfile.mkdtemp(prefix="h2o3_smoke_")
+    try:
+        csv = os.path.join(keep, "higgs-1m.csv")
+        cloud = start_cloud()
+        _write_higgs_csv(torch, fr, csv)
+        save_cloud_frames(torch, fr, valid, cloud)
+        t0 = time.perf_counter()
+        DKV.remove(h2o.import_file(csv).key)
+        torch.cuda.synchronize()
+        t_in = time.perf_counter() - t0
+        HC.reset_launches()
+        t0 = time.perf_counter()
+        m = h2o.H2OGradientBoostingEstimator(**REST_GBM)
+        m.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        t_gbm = time.perf_counter() - t0
+        per = {k: v / REST_GBM["ntrees"] for k, v in HC.LAUNCHES.items()
+               if v}
+        p = m.predict(valid)
+        BB.update(trees=m._trees.to("cpu"),
+                  pred=(p.names, [v.as_f32().cpu() for v in p.vecs]),
+                  auc=m.model_performance(valid).auc,
+                  gbm=(t_gbm, t_gbm, per),
+                  parse=(os.path.getsize(csv), t_in, t_in, None))
+        say(f"cloud (bh) reference: train() {t_gbm:.2f} s, launches a tree "
+            f"{per}; import_file of (ap)'s CSV {t_in:.2f} s")
+        DKV.clear()
+        del p
+        try:
+            run_phase("cloud", phase_cloud, torch, h2o, HC, cloud, csv, card)
+        finally:
+            _stop_cloud()
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    say(f"cloud only: total {time.perf_counter() - t_all:.1f} s")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def time_ms(torch, fn, reps):
     fn()                                  # warm up
     torch.cuda.synchronize()
@@ -9629,6 +10218,9 @@ def main():
     if sys.argv[1:] == ["--airline-cpu-reference"]:
         _on_cpu(h2o, lambda: airline_cpu_reference(torch, h2o))
         return
+    if sys.argv[1:] == ["--cloud-only"]:
+        cloud_only(torch, h2o, HC, _build)
+        return
     t_start = time.perf_counter()
     # host-only work off the card's critical path: (ao)'s files and its
     # Python tokenizer, (aq)-(as)'s and (ar)'s data and numpy answers,
@@ -9700,12 +10292,17 @@ def _run_phases(torch, h2o, HC, t_start, card, dev, host, airline, munging,
     run_phase("export_explain", phase_export_explain, torch, h2o, HC, host)
     run_phase("obs_serving", phase_obs_serving, torch, h2o, HC)
     ay = run_phase("qos_serving", phase_qos_serving, torch, h2o, HC)
+    # (bh)'s processes start here, beside phase rest
+    cloud = start_cloud()
     t_bg = run_phase("rest", phase_rest, torch, h2o, HC, higgs_csv, ay,
-                     card)
+                     card, cloud=cloud)
+    t_bh = run_phase("cloud", phase_cloud, torch, h2o, HC, cloud,
+                     higgs_csv, card)
     t_bf = run_phase("client", client_run, torch, h2o, card)
     say(f"front ends and the parity gate, runs (be)-(bg): (be) {t_be:.1f} "
         f"s, (bf) {t_bf:.1f} s, (bg) {t_bg:.1f} s; {t_be + t_bf + t_bg:.1f} "
         f"s together")
+    say(f"the cloud, run (bh): {t_bh:.1f} s")
     runs["d"] = covtype
     kernels = run_phase("timing", phase_timing, torch, HC, runs)
     recap = [line for line in LOG if RECAP.match(line)]

@@ -2,12 +2,16 @@
 h2o3_tpu/__main__.py).
 
 Parses the OptArgs-style CLI (water/H2O.java:327: -port, -name, -ip,
--basic_auth/-hash_login file, -ssl, …), forms the cloud on the card and
-serves REST + Flow until interrupted. Without a card `init()` raises: a
-CPU cloud is formed in-process only (`h2o3_tpu_torch.init(device="cpu")`
-before `H2OServer(...).start()`). The JAX package's multi-host launch
-(H2O3_COORDINATOR_ADDRESS) waits for the multi-device item of
-ROADMAP.md and raises NotImplementedError here."""
+-basic_auth/-hash_login file, -ssl, …), forms the cloud on the card (one
+process, or a world of several through deploy/multihost when
+H2O3_COORDINATOR_ADDRESS is set: rank 0 serves REST + Flow and replays
+each request to the others) and serves until interrupted. Without a card
+`init()` raises; H2O3_DEVICE=cpu asks for the CPU (the options are the
+JAX package's). H2O3_JOIN_CLOUD=1 starts a replacement worker instead:
+it joins the replay channel of the running cloud whose coordinator
+serves REST on -port at H2O3_COORDINATOR_ADDRESS's host, as worker
+H2O3_PROCESS_ID (deploy/multihost.join_cloud). `-n_model_shards` other
+than 1 raises ValueError: the port has no model axis."""
 
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-ssl_cert", default=None)
     ap.add_argument("-ssl_key", default=None)
     ap.add_argument("-n_rows_shards", type=int, default=None,
-                    help="mesh rows axis (one device: 1)")
+                    help="row shards: the world's size (one a process)")
     ap.add_argument("-n_model_shards", type=int, default=1)
     return ap
 
@@ -43,15 +47,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from h2o3_tpu_torch.utils import config as _cfg
-    from h2o3_tpu_torch.utils.env import env_str
-    if env_str("H2O3_COORDINATOR_ADDRESS", ""):
-        raise NotImplementedError(
-            "H2O3_COORDINATOR_ADDRESS asks for a multi-host cloud; the "
-            "port runs one process on one card until the multi-device "
-            "item of ROADMAP.md (section 1, item 2) lands")
-    if (args.n_rows_shards or 1) != 1 or args.n_model_shards != 1:
-        raise ValueError("the port's cloud is one device: -n_rows_shards "
-                         "and -n_model_shards must be 1")
+    if args.n_model_shards != 1:
+        raise ValueError("the port's cloud has no model axis: "
+                         "-n_model_shards must be 1")
     if args.name:
         _cfg.set_property("cloud.name", args.name)
     if args.bind_all:
@@ -63,8 +61,25 @@ def main(argv=None):
     if args.ssl_key:
         _cfg.set_property("api.ssl_key", args.ssl_key)
 
+    from h2o3_tpu_torch.deploy import multihost
+    from h2o3_tpu_torch.utils.env import env_bool, env_str, process_id
+    device = env_str("H2O3_DEVICE", "") or None
+    if env_bool("H2O3_JOIN_CLOUD", False):
+        host = env_str("H2O3_COORDINATOR_ADDRESS", "").rpartition(":")[0]
+        multihost.join_cloud(host or "127.0.0.1", args.port, process_id(),
+                             device=device)
+        return 0
+    if multihost.is_multihost():
+        multihost.serve(args.port, n_rows_shards=args.n_rows_shards,
+                        n_model_shards=args.n_model_shards, device=device,
+                        host=args.ip)
+        return 0
+    if (args.n_rows_shards or 1) != 1:
+        raise ValueError("a cloud of one process on one device holds one "
+                         "row shard: -n_rows_shards needs "
+                         "H2O3_COORDINATOR_ADDRESS")
     import h2o3_tpu_torch
-    cloud = h2o3_tpu_torch.init()
+    cloud = h2o3_tpu_torch.init(device)
     from h2o3_tpu_torch.api.server import H2OServer
     srv = H2OServer(args.port, host=args.ip)
     print(f"h2o3-tpu-torch cloud up: {cloud.n_devices} device "

@@ -22,6 +22,12 @@ def _h_post_file(h):
     """POST /3/PostFile (PostFileHandler): upload a file body and stage it
     server-side; h2o.upload_file then parses the staged key. Accepts raw
     bodies and single-part multipart/form-data."""
+    if getattr(getattr(h, "server", None), "broadcaster", None) is not None:
+        # multi-process cloud: the body would stage on this process only
+        # and the later broadcast /3/Parse would diverge across workers
+        return h._error(
+            "PostFile bodies cannot ride the SPMD replay channel; "
+            "stage files on shared storage and use ImportFiles", 501)
     ln = int(h.headers.get("Content-Length") or 0)
     if ln <= 0:
         return h._error("empty upload", 400)

@@ -17,14 +17,21 @@ Each request runs on a fresh thread. The scoring and metrics paths switch
 autograd off themselves (the scorer cache scores under no_grad), and
 request threads enter the process-wide sanitizers
 (`sanitizers.thread_scope`), since torch keeps its dispatch modes per
-thread. The JAX package replays each request to its workers through a
-broadcaster and fans the observability routes out over it; the port has
-one process and no broadcaster, so every route answers as the JAX server
-does without one (ROADMAP.md, the multi-device item).
+thread.
+
+In a cloud of several processes (deploy/multihost) the coordinator's
+server carries a broadcaster: each request but the static, observability,
+PostFile and ParseDistributed ones is replayed to every worker before the
+local handler runs (`_dispatch_routed`, under the collective guard's
+dispatch order, parallel/compat.py), the observability routes fan out
+over its collect ops, and `/3/Cloud/drain` drains a worker. The
+divergence sanitizer digests each replayed request's mutations, and a
+scoring route's answer, against the workers'.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import threading
@@ -35,6 +42,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 import h2o3_tpu_torch
+from h2o3_tpu_torch.analysis import divergence as _dvg
 from h2o3_tpu_torch.analysis import leaktrack as _ltk
 from h2o3_tpu_torch.core.frame import Frame
 from h2o3_tpu_torch.core.jobs import Job, jobs_list
@@ -44,6 +52,7 @@ from h2o3_tpu_torch.obs import metrics as _obs_metrics
 from h2o3_tpu_torch.obs import tracing as _tracing
 from h2o3_tpu_torch.obs import usage as _usage
 from h2o3_tpu_torch.obs.timeline import span as _span
+from h2o3_tpu_torch.parallel import compat as _compat
 from h2o3_tpu_torch.rapids import rapids_exec, Session
 from h2o3_tpu_torch.utils import env as _env
 
@@ -52,6 +61,40 @@ from h2o3_tpu_torch.utils import env as _env
 REQUEST_SECONDS = _obs_metrics.histogram(
     "h2o3_rest_request_seconds",
     "REST request wall time by route pattern, method and status")
+
+
+def _kernel_launches():
+    from h2o3_tpu_torch.ops import hist_cuda as _hc
+    return [({"kernel": k}, float(v)) for k, v in _hc.LAUNCHES.items()]
+
+
+def _world_stat(table, what):
+    from h2o3_tpu_torch.parallel import mrtask as _mr
+    return float(getattr(_mr, table)[what])
+
+
+# the card's work and the world's reductions of this process, read per
+# host through `/metrics?scope=cluster` (a cloud of several ranks)
+_obs_metrics.gauge(
+    "h2o3_hist_kernel_launches",
+    "hist.cu kernel launches by this process, by kernel (each wrapper "
+    "counts where it launches; ops/hist_cuda.LAUNCHES)",
+    fn=_kernel_launches)
+for _tab, _name, _what in (("ALLREDUCE", "allreduce", "all-reduces"),
+                           ("GATHER", "gather", "row gathers")):
+    _obs_metrics.gauge(
+        f"h2o3_{_name}_bytes",
+        f"bytes of this rank's {_what} over its world (parallel/mrtask)",
+        fn=lambda t=_tab: _world_stat(t, "bytes"))
+    _obs_metrics.gauge(
+        f"h2o3_{_name}_seconds",
+        f"host seconds this rank spent in {_what} over its world, waiting "
+        "for the other ranks included",
+        fn=lambda t=_tab: _world_stat(t, "seconds"))
+    _obs_metrics.gauge(
+        f"h2o3_{_name}_calls",
+        f"{_what} this rank issued over its world",
+        fn=lambda t=_tab: _world_stat(t, "calls"))
 
 
 def _frame_schema(f: Frame, with_summary=False) -> dict:
@@ -149,6 +192,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ---- plumbing -------------------------------------------------------
     def _send(self, obj, code=200, extra_headers=None):
+        if getattr(self, "_div_answer", False):
+            _dvg.note_answer(obj)
         body = json.dumps(obj, default=_json_default).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
@@ -200,6 +245,9 @@ class _Handler(BaseHTTPRequestHandler):
                     "msg": str(ex), "http_status": 504}, 504)
 
     def _params(self) -> dict:
+        cached = getattr(self, "_cached_params", None)
+        if cached is not None:   # body already consumed by the broadcaster
+            return dict(cached)
         parsed = urllib.parse.urlparse(self.path)
         q = {k: v[0] for k, v in urllib.parse.parse_qs(parsed.query).items()}
         ln = int(self.headers.get("Content-Length") or 0)
@@ -441,14 +489,68 @@ class _Handler(BaseHTTPRequestHandler):
                 _qos.end_request()
 
     def _dispatch_routed(self, method, path, pat, fn, groups):
-        # the JAX server broadcasts the request to its workers here, and
-        # digests its replicated-state mutations against theirs
-        # (divergence); one process has neither
+        # SPMD replay (deploy/multihost): requests broadcast to every
+        # worker BEFORE local dispatch so all ranks issue the same
+        # collectives (a lone rank in a collective would wedge). GETs are
+        # included: a frame read may gather over the world. The broadcast
+        # and the handler run under the collective guard's dispatch order,
+        # so the handlers of the ranks take their collective tickets in
+        # sequence order (parallel/compat.py); a `stateless` handler
+        # (payload scoring: no collective) runs after the broadcast,
+        # outside it, so that concurrent scoring requests batch together.
+        bc = getattr(self.server, "broadcaster", None)
+        replayed = bc is not None and not _is_static_path(path) \
+            and not _is_obs_path(path) \
+            and not path.startswith("/3/PostFile") \
+            and not path.startswith("/3/ParseDistributed")
+        free = replayed and getattr(fn, "_stateless", False)
+        order = _compat.dispatch_order() if replayed \
+            else contextlib.nullcontext()
         try:
-            if fn is not None:
-                self._route_label = pat.pattern
-                fn(self, *groups)
-                return
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(order)
+                if replayed:
+                    # PostFile is excluded: its body is raw (often binary)
+                    # bytes that neither parse as params nor replay through
+                    # the channel. ParseDistributed is excluded because the
+                    # workers participate through the parse fan-out collect
+                    # ops instead. Inside the try: a wedged replay channel
+                    # must answer a 500 H2OError, not drop the connection.
+                    params = self._params()
+                    self._cached_params = params
+                    # the trace id rides the replay channel so every worker
+                    # tags its replayed spans with the ORIGINATING
+                    # request's trace
+                    seq = bc.broadcast(method, path, params,
+                                       trace=getattr(self, "_trace_id",
+                                                     None),
+                                       sampled=self.headers.get(
+                                           "X-H2O3-Sample") == "1",
+                                       log=not getattr(fn, "_stateless",
+                                                       False))
+                else:
+                    seq = None
+                if free:
+                    stack.close()           # the dispatch order's lock
+                    stack.enter_context(_compat.collective_free())
+                if fn is not None:
+                    self._route_label = pat.pattern
+                    if seq is not None and _dvg.active():
+                        # surface any mismatch a prior request's ack riders
+                        # proved, then digest this handler's mutations (and
+                        # a scoring route's answer) under the broadcast seq
+                        _dvg.raise_if_pending()
+                        _dvg.local_begin(seq, path)
+                        self._div_answer = bool(getattr(fn, "_scores",
+                                                        False))
+                        try:
+                            fn(self, *groups)
+                        finally:
+                            self._div_answer = False
+                            _dvg.local_end()
+                    else:
+                        fn(self, *groups)
+                    return
             self._error(f"no route {method} {path}", 404)
         except Exception as ex:  # noqa: BLE001 — handler errors → H2OError
             # QoS rejections raised inside handlers (rate limit at
@@ -479,6 +581,14 @@ def scores(fn):
     return fn
 
 
+def stateless(fn):
+    """Marks a handler that changes no replicated state (payload scoring):
+    an elastic broadcaster keeps it out of the join-sync snapshot, which
+    a replacement worker replays to converge."""
+    fn._stateless = True
+    return fn
+
+
 def _match_route(method: str, path: str):
     """One ROUTES scan per request: (pattern, handler, match groups) for
     (method, path), or (None, None, None). The edge QoS marks
@@ -491,6 +601,28 @@ def _match_route(method: str, path: str):
         if mm:
             return pat, fn, mm.groups()
     return None, None, None
+
+
+def _is_static_path(path: str) -> bool:
+    """Static Flow-UI assets never touch device tensors — broadcasting
+    them would serialize page loads behind the cluster replay barrier."""
+    return path == "/" or path.startswith("/flow")
+
+
+def _is_obs_path(path: str) -> bool:
+    """Observability endpoints launch no device programs (registry reads +
+    memory_stats are host-local), and /3/Timeline, /3/Trace and
+    cluster-scope /metrics do their own explicit cloud-wide collects —
+    replaying them would put every Prometheus scrape behind the replay
+    barrier. /3/Profiler is deliberately host-local too: a capture
+    profiles THIS node, and the profiler is process-global state the
+    replay barrier must not serialize behind."""
+    return path in ("/metrics", "/3/Timeline", "/3/WaterMeter",
+                    "/3/Profiler", "/3/Traces", "/3/Alerts",
+                    "/3/JStack", "/3/Usage", "/3/CloudHealth") \
+        or path.startswith("/3/Logs") or path.startswith("/3/Trace/") \
+        or path.startswith("/3/Cloud/") \
+        or path.startswith("/3/ModelMonitor/")
 
 
 def _json_default(o):
@@ -506,11 +638,15 @@ def _json_default(o):
 def _h_cloud(h: _Handler):
     """GET /3/Cloud — device census plus the elastic-membership view:
     the cloud EPOCH, per-worker states, and the DKV re-home status.
-    `locked` is the reference's Paxos.lockCloud flag: one process admits
-    no joiners, so it is always locked."""
+    `locked` is the reference's Paxos.lockCloud flag — false whenever an
+    elastic broadcaster can still admit joiners."""
     from h2o3_tpu_torch.core.kvstore import DKV as _dkv
     from h2o3_tpu_torch.deploy.membership import MEMBERSHIP as _mb
     info = h2o3_tpu_torch.cluster_info()
+    # getattr chain: worker-side replays dispatch through _ReplayHandler,
+    # which carries no HTTP server object
+    bc = getattr(getattr(h, "server", None), "broadcaster", None)
+    elastic = bc is not None and hasattr(bc, "drain")
     workers = _mb.nodes()
     # healthy = no UNRESOLVED death: a worker dead at the CURRENT epoch
     # is a live incident; once a later membership change (replacement
@@ -522,7 +658,7 @@ def _h_cloud(h: _Handler):
              "cloud_name": info["cloud_name"],
              "cloud_size": info["cloud_size"],
              "cloud_healthy": healthy,
-             "consensus": True, "locked": True,
+             "consensus": True, "locked": not elastic,
              "epoch": _mb.epoch,
              "workers": workers,
              "rehome": _dkv.rehome_status(),
@@ -533,10 +669,22 @@ def _h_cloud(h: _Handler):
 
 def _h_cloud_drain(h: _Handler):
     """POST /3/Cloud/drain?node=N — graceful worker departure: finish
-    in-flight work and leave. It needs an elastic multi-host cloud,
-    which one process is not: the answer is the JAX server's without a
-    broadcaster."""
-    return h._error("drain requires an elastic multi-host cloud", 400)
+    in-flight jobs and micro-batches (bounded by H2O3_DRAIN_TIMEOUT_S),
+    send the worker a clean leave, bump the epoch. Coordinator-control
+    only: never broadcast (workers hold no broadcaster)."""
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is None or not hasattr(bc, "drain"):
+        return h._error("drain requires an elastic multi-host cloud", 400)
+    p = h._params()
+    try:
+        node = int(p.get("node", ""))
+    except ValueError:
+        return h._error("node must be a worker id", 400)
+    try:
+        out = bc.drain(node)
+    except ValueError as ex:
+        return h._error(str(ex), 404)
+    h._send({"__meta": {"schema_type": "CloudDrainV3"}, **out})
 
 
 def _h_import(h: _Handler):
@@ -621,27 +769,42 @@ def _h_parse(h: _Handler):
 
 
 @starts_job
+# the job record is coordinator-owned control state (a local job key, so
+# the replicated key counter stays in step); the FRAME planes workers
+# produce ship back over the parse: fan-out and land under the
+# coordinator's dest key, not via replay
 def _h_parse_distributed(h: _Handler):
     """POST /3/ParseDistributed — the cloud-wide chunked parse: the
-    coordinator plans byte ranges (io/dparse). On a single-host cloud
-    this is simply the local pipelined parse; the fan-out of the ranges
-    to workers waits for more than one process."""
+    coordinator plans byte ranges and fans shares out over the replay
+    channel (io/dparse `parse:` collect op); each host tokenizes its
+    consistent-hash share and ships codec-byte planes back. NOT
+    broadcast-replayed (see _dispatch_routed): the workers participate
+    through the fan-out, so replaying the request would have every host
+    also parse the whole file. On a single-host cloud this is simply
+    the local pipelined parse.
+
+    Topology contract: the merged frame lives in the COORDINATOR's DKV,
+    whole — frames destined for training over the world go through the
+    broadcast-replayed /3/Parse or /3/Frames/load instead (every rank
+    holds its own row block)."""
     p = h._params()
     src = p.get("source_frames")
     if isinstance(src, str):
         src = json.loads(src) if src.startswith("[") else [src]
     paths = [s.strip('"') for s in src]
     dest = p.get("destination_frame") or None
+    bc = getattr(h.server, "broadcaster", None)
     job = Job(description=f"ParseDistributed {paths[0]}",
-              dest=dest or "parsed")
+              dest=dest or "parsed", local=bc is not None)
 
     def work(job):
         from h2o3_tpu_torch.io import dparse
-        f = dparse.parse_files(paths, destination_frame=dest)
+        f = dparse.parse_files(paths, destination_frame=dest,
+                               broadcaster=bc)
         job.dest = f.key
         return f
 
-    job.start(work)
+    job.start(work, collective=False)
     h._send({"__meta": {"schema_type": "ParseV3"},
              "job": job.to_dict(), "destination_frame": {"name": dest}})
 
@@ -760,6 +923,8 @@ def _h_predict(h: _Handler, mid, fid):
         pred = serving.predict_via_rest(m, f)
     except serving.QueueFull as qf:
         return h._unavailable(qf)
+    # each rank of a cloud scores its own rows of the frame
+    pred.shard = f.shard
     if dest:
         DKV.remove(pred.key)
         pred.key = dest
@@ -784,6 +949,7 @@ def _h_predict(h: _Handler, mid, fid):
 
 
 @scores
+@stateless
 def _h_predict_rows(h: _Handler, mid):
     """POST /3/Predictions/models/{m} — lightweight row-payload scoring:
     JSON rows in, per-row predictions out, no DKV frame round-trip.
@@ -972,8 +1138,11 @@ def _h_logs_download(h: _Handler):
 
 def _h_logs_search(h: _Handler):
     """GET /3/Logs?level=&since=&trace=&grep=&limit= — structured log
-    search over ring + durable segments, newest first, with host labels
-    on each record (one host here)."""
+    search over ring + durable segments, CLUSTER-scoped: the same
+    filters fan out to every worker over the `logs:` collect op and the
+    records merge time-sorted (newest first) with host labels already on
+    each record. A lagging host is flagged, never waited on."""
+    import json as _json
     from h2o3_tpu_torch.obs import timeline as _obs_tl
     from h2o3_tpu_torch.utils import log as _log
     p = h._params()
@@ -988,6 +1157,23 @@ def _h_logs_search(h: _Handler):
     recs = _log.search(**filters)
     hosts = [{"host": _obs_tl.host_id(), "n_records": len(recs),
               "files": [f["name"] for f in _log.list_files()]}]
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None and str(p.get("scope", "")).lower() != "local":
+        op = "logs:search:" + _json.dumps(filters)
+        seen = {(r.get("host"), r.get("id")) for r in recs}
+        for i, remote in enumerate(bc.collect(op,
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                rr = [r for r in remote.get("records", [])
+                      if (r.get("host"), r.get("id")) not in seen]
+                seen.update((r.get("host"), r.get("id")) for r in rr)
+                recs.extend(rr)
+                hosts.append({"host": remote.get("host", i + 1),
+                              "n_records": len(rr),
+                              "files": remote.get("files", [])})
+            else:
+                hosts.append({"host": i + 1, "n_records": None,
+                              "lagging": True})
     recs.sort(key=lambda r: r.get("t") or 0.0, reverse=True)
     h._send({"__meta": {"schema_type": "LogsV3"},
              "records": recs[:limit], "n_records": min(len(recs), limit),
@@ -996,9 +1182,10 @@ def _h_logs_search(h: _Handler):
 
 def _h_logs_node_file(h: _Handler, node, name):
     """GET /3/Logs/nodes/{node}/files/{name} — the named NODE's durable
-    log file content (GetLogsFromNode), not the ring. `node` is this
-    host's rank or "self"; `name` a file basename from GET /3/Logs
-    hosts[].files, or "default" for the node's newest file."""
+    log file content (GetLogsFromNode routed over the replay channel),
+    not the coordinator's ring. `node` is a host rank or "self"; `name`
+    a file basename from GET /3/Logs hosts[].files, or "default" for
+    the node's newest file."""
     from h2o3_tpu_torch.obs import timeline as _obs_tl
     from h2o3_tpu_torch.utils import log as _log
     local = _obs_tl.host_id()
@@ -1009,32 +1196,79 @@ def _h_logs_node_file(h: _Handler, node, name):
                             f"{local}", 404)
         return h._send({"__meta": {"schema_type": "LogsV3"},
                         "node": local, "name": name, "log": content})
-    return h._error(f"unknown node {node!r} (single-host cloud)", 404)
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is None:
+        return h._error(f"unknown node {node!r} (single-host cloud)", 404)
+    for remote in bc.collect(f"logs:file:{node}:{name}",
+                             timeout=_collect_timeout()):
+        if isinstance(remote, dict) and remote.get("log") is not None:
+            return h._send({"__meta": {"schema_type": "LogsV3"},
+                            "node": remote.get("host"),
+                            "name": remote.get("name", name),
+                            "log": remote["log"]})
+    return h._error(f"log file {name!r} not found on node {node!r} "
+                    "(host absent, lagging, or no such file)", 404)
 
 
 def _h_jstack(h: _Handler):
     """GET /3/JStack — all-thread stack dumps per node with a cluster
-    merge (water/api/JStackHandler analog): this host's threads, and the
-    watchdog's currently-stalled operations so a live hang is visible in
-    the same response that shows the threads stuck in it."""
+    merge (water/api/JStackHandler analog): this host's threads plus
+    every worker's over the `jstack` collect op, and the watchdog's
+    currently-stalled operations so a live hang is visible in the same
+    response that shows the threads stuck in it."""
     from h2o3_tpu_torch.obs import timeline as _obs_tl
     from h2o3_tpu_torch.obs import watchdog as _wd
     traces = [{"node": f"h2o3-{_obs_tl.host_id()}",
                "host": _obs_tl.host_id(),
                "thread_traces": _wd.thread_dump()}]
+    lagging = []
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(bc.collect("jstack",
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                traces.append({"node": f"h2o3-{remote.get('host', i + 1)}",
+                               "host": remote.get("host", i + 1),
+                               "thread_traces": remote.get("threads", [])})
+            else:
+                lagging.append(i + 1)
     h._send({"__meta": {"schema_type": "JStackV3"},
-             "traces": traces, "lagging_hosts": [],
+             "traces": traces, "lagging_hosts": lagging,
              "stalled": _wd.WATCHDOG.stalled(),
              "trips": _wd.WATCHDOG.trips()})
 
 
+def _collect_timeout() -> float:
+    """Per-host deadline for cluster-wide observability collects
+    (timeline/trace/metrics). The discipline: every wait the
+    coordinator performs while holding the broadcast lock is bounded —
+    a stalled worker costs one deadline, never a frozen scrape."""
+    return _env.env_float("H2O3_OBS_COLLECT_TIMEOUT_S", 2.0)
+
+
 def _h_timeline(h: _Handler):
     """GET /3/Timeline — the TimelineSnapshot analog: this host's span
-    ring (the whole cloud's, on one host)."""
+    ring plus every worker's, collected through the multihost replay
+    channel so the response covers the whole cloud."""
     import time as _time
     from h2o3_tpu_torch.obs import timeline as _obs_tl
     spans = _obs_tl.SPANS.snapshot(limit=512)
     hosts = [{"host": _obs_tl.host_id(), "n_spans": len(spans)}]
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        # one flat merged list; hosts[] summarizes who answered (a None
+        # entry is a worker that outwaited the collect timeout)
+        for i, remote in enumerate(bc.collect("timeline",
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                rs = remote.get("spans", [])
+                spans.extend(rs)
+                hosts.append({"host": remote.get("host", i + 1),
+                              "n_spans": len(rs)})
+            else:
+                hosts.append({"host": i + 1, "n_spans": None,
+                              "lagging": True})
+        spans.sort(key=lambda s: s.get("start") or 0.0)
     # legacy dispatch-event ring (utils/timeline) rides along
     from h2o3_tpu_torch.utils.timeline import TIMELINE
     try:
@@ -1048,20 +1282,44 @@ def _h_timeline(h: _Handler):
 
 def _h_trace(h: _Handler, tid):
     """GET /3/Trace/{id} — the Dapper-style stitched view of one request,
-    read through ring → disk: this host's timeline ring, then the flight
-    recorder's durable segments (so a trace evicted from the ring — or
-    recorded by a PREVIOUS process over the same ice_root — is still
-    answerable). Correlated structured LOG records (utils/log, matched
-    by trace id) interleave into the view as a time-sorted `logs`
-    array."""
+    read through ring → disk → cluster: this host's timeline ring, then
+    the flight recorder's durable segments (so a trace evicted from the
+    ring — or recorded by a PREVIOUS process over the same ice_root — is
+    still answerable), then every worker's fragments over the replay
+    channel. Correlated structured LOG records (utils/log, matched by
+    trace id cluster-wide) interleave into the view as a time-sorted
+    `logs` array. Bounded by the same collect deadline as /3/Timeline."""
     from h2o3_tpu_torch.obs import recorder as _obs_rec
     from h2o3_tpu_torch.obs import timeline as _obs_tl
     from h2o3_tpu_torch.utils import log as _log
     spans, disk = _obs_rec.RECORDER.read_through(
         tid, _obs_tl.SPANS.trace_snapshot(tid))
+    seen = {(s.get("host"), s.get("id")) for s in spans}
     logs = _log.trace_records(tid)
+    seen_logs = {(r.get("host"), r.get("id")) for r in logs}
     hosts = [{"host": _obs_tl.host_id(), "n_spans": len(spans),
               "from_disk": disk}]
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(bc.collect(f"trace:{tid}",
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                # dedup against what the shared-ice_root disk read already
+                # loaded: a worker's collect reply re-reads the same
+                # segments its own recorder wrote
+                rs = [s for s in remote.get("spans", [])
+                      if (s.get("host"), s.get("id")) not in seen]
+                seen.update((s.get("host"), s.get("id")) for s in rs)
+                spans.extend(rs)
+                rl = [r for r in remote.get("logs", [])
+                      if (r.get("host"), r.get("id")) not in seen_logs]
+                seen_logs.update((r.get("host"), r.get("id")) for r in rl)
+                logs.extend(rl)
+                hosts.append({"host": remote.get("host", i + 1),
+                              "n_spans": len(rs)})
+            else:
+                hosts.append({"host": i + 1, "n_spans": None,
+                              "lagging": True})
     spans.sort(key=lambda s: s.get("start") or 0.0)
     logs.sort(key=lambda r: r.get("t") or 0.0)
     h._send({"__meta": {"schema_type": "TraceV3"},
@@ -1116,13 +1374,24 @@ def _h_alerts(h: _Handler):
 
 def _h_usage(h: _Handler):
     """GET /3/Usage — the per-tenant/per-model cost table: device-second
-    attribution from the dispatch-funnel ledger plus device-memory
-    occupancy (ParamStore placements, tier-pager budgets), in the
-    cluster merge's shape (one host here)."""
+    attribution from the dispatch-funnel ledger plus HBM occupancy
+    (ParamStore placements, tier-pager budgets), merged cluster-wide over
+    the `usage` collect op with the same lagging-host absorption as the
+    federated /metrics scrape."""
     from h2o3_tpu_torch.obs import usage as _us
-    body = _us.merge_usage([_us.usage_snapshot()])
+    snaps = [_us.usage_snapshot()]
+    lagging = []
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(bc.collect("usage",
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                snaps.append(remote)
+            else:
+                lagging.append(i + 1)
+    body = _us.merge_usage(snaps)
     body["__meta"] = {"schema_type": "UsageV3"}
-    body["lagging_hosts"] = []
+    body["lagging_hosts"] = lagging
     h._send(body)
 
 
@@ -1133,41 +1402,79 @@ def _h_cloudhealth(h: _Handler):
     runs on every call — the response never trails a background period —
     and refreshes the h2o3_pressure{dimension} gauges as a side effect."""
     from h2o3_tpu_torch.obs import usage as _us
-    body = _us.merge_cloudhealth([_us.evaluate_pressure()])
+    snaps = [_us.evaluate_pressure()]
+    lagging = []
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(
+                bc.collect("cloudhealth", timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                snaps.append(remote)
+            else:
+                lagging.append(i + 1)
+    body = _us.merge_cloudhealth(snaps)
     body["__meta"] = {"schema_type": "CloudHealthV3"}
-    body["lagging_hosts"] = []
+    body["lagging_hosts"] = lagging
     h._send(body)
 
 
 def _h_model_monitor(h: _Handler, mid):
     """GET /3/ModelMonitor/{model} — baseline-vs-live distribution
-    profiles and drift scores for one monitored model, scored once over
-    the integer count sketches (the cluster merge's path, one host
-    here)."""
+    profiles and drift scores for one monitored model, merged
+    cluster-wide over the `modelmon:` collect op: every host ships its
+    integer count sketches, the coordinator folds them and scores ONCE
+    over the sums, so host count and merge order never change a drift
+    score bit-for-bit. Lagging workers are absorbed within the collect
+    deadline like every other obs merge."""
     from h2o3_tpu_torch.obs import modelmon as _mm
-    snap = _mm.snapshot(mid)
-    body = _mm.merged_report(mid, [snap] if snap is not None else [])
+    snaps = [_mm.snapshot(mid)]
+    lagging = []
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(
+                bc.collect(f"modelmon:{mid}",
+                           timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                snaps.append(remote)
+            elif remote is None:
+                lagging.append(i + 1)
+    body = _mm.merged_report(mid, [s for s in snaps if s is not None])
     if not body.get("monitored"):
         from h2o3_tpu_torch.core.kvstore import DKV
         if DKV.get(mid) is None:
             return h._error(f"model {mid} not found", 404)
     body["__meta"] = {"schema_type": "ModelMonitorV3"}
-    body["lagging_hosts"] = []
+    body["lagging_hosts"] = lagging
     h._send(body)
 
 
 def _cluster_metric_snapshots(h: _Handler):
-    """[(host, registry-snapshot)] for every answering host (this one),
-    and the lagging hosts (none)."""
+    """[(host, registry-snapshot)] for every answering host, local first.
+    A lagging worker is absorbed within the collect deadline: its slot is
+    skipped, counted in h2o3_cluster_scrape_timeouts_total and reported
+    in the second return value."""
     from h2o3_tpu_torch.obs import metrics as _obs_m
     from h2o3_tpu_torch.obs import timeline as _obs_tl
-    return [(_obs_tl.host_id(), _obs_m.REGISTRY.to_dict())], []
+    snaps = [(_obs_tl.host_id(), _obs_m.REGISTRY.to_dict())]
+    lagging = []
+    bc = getattr(h.server, "broadcaster", None)
+    if bc is not None:
+        for i, remote in enumerate(bc.collect("metrics",
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict) \
+                    and isinstance(remote.get("metrics"), dict):
+                snaps.append((remote.get("host", i + 1), remote["metrics"]))
+            else:
+                _obs_m.CLUSTER_SCRAPE_TIMEOUTS.inc()
+                lagging.append(i + 1)
+    return snaps, lagging
 
 
 def _h_metrics(h: _Handler):
     """GET /metrics — Prometheus text exposition of the process registry.
-    `?scope=cluster` answers in the federated shape: every host's
-    snapshot (this one) under a per-host host= label. When the scraper
+    `?scope=cluster` federates: every host's snapshot is collected over
+    the replay channel and merged under a per-host host= label (counters/
+    histograms stay summable; gauges stay per-host). When the scraper
     negotiates OpenMetrics (Accept: application/openmetrics-text, or
     ?format=openmetrics), the body carries histogram EXEMPLARS — the
     trace ids latency observations recorded — which Prometheus stores
@@ -1202,8 +1509,8 @@ def _h_metrics(h: _Handler):
 def _h_watermeter(h: _Handler):
     """GET /3/WaterMeter — the registry as JSON (WaterMeterCpuTicks/
     WaterMeterIo's REST shape, generalized to the whole registry).
-    `?cluster=1` answers in the cluster merge's shape: per-host
-    snapshots with host= labels (one host here)."""
+    `?cluster=1` answers for the whole cloud: per-host snapshots merged
+    with host= labels, lagging hosts listed instead of waited on."""
     from h2o3_tpu_torch.obs import metrics as _obs_m
     _obs_m.install_runtime_gauges()
     p = h._params()
@@ -1223,13 +1530,21 @@ def _h_profiler(h: _Handler):
     action=start [kind=auto|torch|sampling] [trace_dir=...] starts a
     capture (torch.profiler's CPU and CUDA trace, or the pure-Python
     stack sampler); action=stop ends it and returns the artifact dir.
-    One session at a time — a concurrent start answers 409. `cluster=1`
-    fans the action out to the workers in the JAX server; one process
-    answers for itself."""
+    One session at a time — a concurrent start answers 409.
+
+    `cluster=1` fans the action out over the replay channel: every
+    worker starts/stops its OWN session, stop gathers each host's
+    sampling flamegraph within the collect deadline (a stalled host is
+    listed in lagging_hosts, never waited on), and the collapsed stacks
+    merge into ONE host-prefixed pyprof.merged.collapsed under the
+    coordinator's artifact dir (the local raw capture stays intact)."""
     from h2o3_tpu_torch.obs import profiler as _prof
+    from h2o3_tpu_torch.obs import timeline as _obs_tl
     p = h._params()
     action = str(p.get("action") or "").lower()
     kind = str(p.get("kind") or "auto")
+    cluster = str(p.get("cluster", "")).lower() in ("1", "true", "yes")
+    bc = getattr(h.server, "broadcaster", None)
     try:
         if action == "start":
             out = _prof.PROFILER.start(trace_dir=p.get("trace_dir") or None,
@@ -1240,8 +1555,43 @@ def _h_profiler(h: _Handler):
             return h._error("action must be start|stop", 400)
     except _prof.ProfilerBusy as ex:
         return h._error(str(ex), 409)
-    except (_prof.ProfilerIdle, ValueError) as ex:
+    except _prof.ProfilerIdle as ex:
+        if not (cluster and bc is not None and action == "stop"):
+            return h._error(str(ex), 400)
+        # a locally-dead session (out-of-band stop, coordinator restart)
+        # must not strand the workers' sessions sampling forever — fan
+        # the stop out anyway and answer with their artifacts
+        out = {"status": "idle", "error": str(ex)}
+    except ValueError as ex:
         return h._error(str(ex), 400)
+    if cluster and bc is not None:
+        op = f"profiler:start:{kind}" if action == "start" \
+            else "profiler:stop"
+        hosts = [{"host": _obs_tl.host_id(), **out}]
+        lagging = []
+        parts = []      # (host, collapsed_text) for the merged flamegraph
+        if action == "stop" and out.get("artifact"):
+            parts.append((_obs_tl.host_id(),
+                          _prof.read_collapsed(out["artifact"])))
+        for i, remote in enumerate(bc.collect(op,
+                                              timeout=_collect_timeout())):
+            if isinstance(remote, dict):
+                if remote.get("collapsed"):
+                    parts.append((remote.get("host", i + 1),
+                                  remote["collapsed"]))
+                hosts.append({k: v for k, v in remote.items()
+                              if k != "collapsed"})
+            else:
+                lagging.append(i + 1)
+        out = dict(out, hosts=hosts, lagging_hosts=lagging)
+        if action == "stop" and parts:
+            dest = out.get("dir")
+            if not dest:        # local session was idle: workers' artifacts
+                import tempfile  # still need a home for the merge
+                dest = out["dir"] = tempfile.mkdtemp(prefix="h2o3-profile-")
+            merged = _prof.merge_collapsed(parts, dest)
+            if merged:
+                out["merged_flamegraph"] = merged
     h._send({"__meta": {"schema_type": "ProfilerV3"}, **out})
 
 
@@ -1363,8 +1713,9 @@ class H2OServer:
         (-basic_auth / realm.properties) — enforced on every route with a
         constant-time compare.
       * ssl_cert/ssl_key: PEM pair → serve HTTPS (-jks/-ssl internode;
-        there is no internode traffic here — one process — so TLS
-        terminates at the one REST boundary).
+        the replay channel between the processes of a cloud is
+        HMAC-authenticated, not encrypted — TLS terminates at the one
+        REST boundary).
     Config-file equivalents: ai.h2o.api.auth_file / ssl_cert / ssl_key
     via utils/config properties.
     """
@@ -1434,10 +1785,18 @@ class H2OServer:
         # burn-rate evaluator (idle when the env is unset)
         from h2o3_tpu_torch.obs import slo as _slo
         _slo.install_from_env()
-        # stall watchdog: start the sentinel (its cluster JStack collect
-        # has no workers to ask here)
+        # stall watchdog: start the sentinel and hand it the cluster
+        # fan-out (read dynamically — the multihost bootstrap and the
+        # test harness both attach the broadcaster around start())
         from h2o3_tpu_torch.obs import watchdog as _wd
         _wd.WATCHDOG.start()
+
+        def _wd_collect(op, timeout):
+            bc = getattr(self.httpd, "broadcaster", None)
+            return bc.collect(op, timeout=timeout) if bc is not None \
+                else []
+
+        _wd.WATCHDOG.set_collector(_wd_collect)
         if background:
             self.thread = threading.Thread(target=self.httpd.serve_forever,
                                            daemon=True, name="h2o3-rest")

@@ -683,6 +683,10 @@ class Frame:
         self.names = list(names)
         self.vecs = list(vecs)
         self._pos: Optional[dict] = None
+        # a frame of a cloud of several ranks holds one contiguous block of
+        # its rows on each rank: (lo, hi, global nrows), None for a whole
+        # frame (parallel/mesh.Cloud.row_block)
+        self.shard: Optional[tuple] = None
         self.key = key or DKV.make_key("frame")
         self._matrix_cache: dict = {}
         DKV.put(self.key, self)

@@ -37,11 +37,26 @@ class JobCancelled(Exception):
     pass
 
 
+_LOCAL_KEYS = [0]
+_LOCAL_LOCK = threading.Lock()
+
+
+def _local_key() -> str:
+    with _LOCAL_LOCK:
+        _LOCAL_KEYS[0] += 1
+        return f"job_local_{_LOCAL_KEYS[0]:04d}"
+
+
 class Job:
     """A job keyed in the DKV (water/Job.java)."""
 
-    def __init__(self, description: str = "", dest: Optional[str] = None):
-        self.key = DKV.make_key("job")
+    def __init__(self, description: str = "", dest: Optional[str] = None,
+                 local: bool = False):
+        # `local`: a job only this process runs (the coordinator's
+        # orchestration of a distributed parse). Its key comes from a
+        # counter of its own, so the replicated key counter, which every
+        # rank of a cloud advances in the same order, stays in step.
+        self.key = _local_key() if local else DKV.make_key("job")
         self.description = description
         self.dest = dest              # key of the object being built
         self.status = CREATED
@@ -82,11 +97,16 @@ class Job:
 
     # ---- lifecycle ------------------------------------------------------
     def start(self, work: Callable[["Job"], object],
-              background: bool = True) -> "Job":
+              background: bool = True,
+              collective: Optional[bool] = None) -> "Job":
         """Run `work(job)`; its return value is put in the DKV under
         `dest`. A failure is kept on the job and raised again by join().
         Raises QuotaExceeded when the principal already runs
-        H2O3_QOS_MAX_JOBS jobs."""
+        H2O3_QOS_MAX_JOBS jobs. In a cloud of several ranks the work runs
+        as one region of the collective guard, its ticket taken here on
+        the starting thread (parallel/compat.py); `collective=False`
+        (a job that issues no collective) takes none."""
+        from h2o3_tpu_torch.parallel import compat as _compat
         from h2o3_tpu_torch.obs import tracing as _tracing
         from h2o3_tpu_torch.serving import qos as _qos
         # a REST job-route request may have pre-paid its quota charge
@@ -96,6 +116,9 @@ class Job:
         if qos_slot is None:
             qos_slot = _qos.acquire_job_slot()
         parent_principal = _tracing.principal()
+        ticket = None
+        if collective is not False and not _compat.in_region():
+            ticket = _compat.reserve()
         self.status = RUNNING
         self.start_time = time.time()
         # jobs inherit the starting thread's trace, so job.run and its
@@ -109,7 +132,9 @@ class Job:
             try:
                 # the process-wide sanitizers that torch keeps per thread
                 # (debug_nans) hold on the job's thread too
-                with sanitizers.thread_scope(), \
+                with (_compat.train_guard(ticket) if ticket is not None
+                      else contextlib.nullcontext()), \
+                        sanitizers.thread_scope(), \
                         _tracing.trace(parent_trace), \
                         _qos.job_context(parent_principal), \
                         span("job.run", job=self.key,
@@ -146,6 +171,7 @@ class Job:
             except BaseException as e:
                 # the worker that would release the slot in its finally
                 # never runs: release it here, or the charge leaks
+                _compat.release(ticket)
                 self.exception = e
                 self.status = FAILED
                 _qos.release_job_slot(qos_slot)

@@ -1,5 +1,3 @@
-"""Deployment of the port (h2o3_tpu/deploy/): the chaos layer and the
-single-process form of elastic membership. The replay channel, its
-elastic broadcaster and the heartbeat (`deploy/multihost.py` and the
-rest of `membership.py`) come with the multi-device item (ROADMAP.md
-§1)."""
+"""Deployment of the port (h2o3_tpu/deploy/): the multi-process cloud and
+its replay channel (`multihost.py`), elastic membership (`membership.py`)
+and the chaos layer (`chaos.py`)."""

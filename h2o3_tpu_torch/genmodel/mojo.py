@@ -111,7 +111,12 @@ class _ModelPickler(pickle.Pickler):
 
 
 def save_model(model, path: str) -> str:
-    """h2o.save_model: the model as one binary file at `path`."""
+    """h2o.save_model: the model as one binary file at `path` (by the
+    coordinator of a cloud: a worker replaying the request writes
+    nothing)."""
+    from h2o3_tpu_torch.deploy import multihost as _mh
+    if not _mh.writes_artifacts():
+        return path
     with open(path, "wb") as f:
         _ModelPickler(f, protocol=5).dump(model)
     return path

@@ -16,18 +16,27 @@ water/parser/ParseDataset.java MultiFileParseTask and EnumUpdateTask).
            host arrays are packed by the codecs into Vecs on the cloud's
            device on the calling thread, so only it touches the card.
 
-The JAX package also fans the plan out over the replay channel to the
-hosts of a cloud (`broadcaster=`); the port has one process, and
-`parse_files(broadcaster=...)` raises NotImplementedError until the
-compute substrate (ROADMAP.md §1 item 8).
+With `broadcaster=` (a live replay-channel coordinator) the plan fans
+out cloud-wide, the MultiFileParseTask shape: `_assign_chunks` maps each
+range to a member by a consistent hash of (path, start) over the live
+set, `_fan_out_parse` sends each worker its share in waves over the
+channel's collect op (`parse:`), each worker tokenizes its share
+(`worker_parse_chunks`) and answers with compact codec-byte planes (the
+DKV re-home wire form, lossless: the merge sees the doubles a local
+tokenize gives), while the coordinator tokenizes its own share. A share
+a worker forfeits (timeout, excision) is re-parsed locally, so the frame
+always completes, equal row for row to a one-process parse.
 
 Variables (the JAX package's): H2O3_PARSE_CHUNK_MB, the plan's chunk size
 (default 64); H2O3_PARSE_WORKERS, the pool's threads (0: one a core);
-H2O3_PARSE_READAHEAD, ranges in flight beyond the pool (default 4).
+H2O3_PARSE_READAHEAD, ranges in flight beyond the pool (default 4);
+H2O3_PARSE_FANOUT_TIMEOUT_S, the whole-wave deadline of the worker
+shares (default 30).
 """
 
 from __future__ import annotations
 
+import base64
 import csv
 import glob as _glob
 import gzip
@@ -35,6 +44,7 @@ import io
 import itertools
 import os
 import tempfile
+import threading
 import zipfile
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -50,9 +60,34 @@ from h2o3_tpu_torch.io.fastcsv import StrCells
 from h2o3_tpu_torch.io.parser import (NA_TOKENS, ParseSetup, _num_token,
                                       _parse_time_ms, parse_setup, pack_span)
 from h2o3_tpu_torch.obs.timeline import span as _span
-from h2o3_tpu_torch.utils.env import env_int
+from h2o3_tpu_torch.obs import metrics as _om
+from h2o3_tpu_torch.utils.env import env_float, env_int
+
+INGEST_BYTES = _om.counter(
+    "h2o3_ingest_bytes_total",
+    "distributed-ingest pipeline volume by stage "
+    "(read/decompress/tokenize/pack/wire)")
 
 _COMPRESSED = (".gz", ".zip")
+
+
+def _fanout_timeout_s() -> float:
+    """WHOLE-WAVE deadline for the worker parse shares; a host that
+    blows its slice forfeits the wave AND its remaining shares (the
+    coordinator re-parses locally). The collect grants each worker its
+    slice SEQUENTIALLY while holding the broadcast lock, so the per-
+    worker slice is this value divided by the wave's host count —
+    replayed REST traffic stalls at most ~this long per wave even when
+    every worker is wedged."""
+    return env_float("H2O3_PARSE_FANOUT_TIMEOUT_S", 30.0)
+
+
+# wave budget: source bytes per worker per collect round, bounded so the
+# base64 codec-plane ack stays well under the replay channel's 64MB
+# frame cap. Worst case wire ≈ 2× source (incompressible f64 planes ≈
+# 8B per ~9B token, plus the string planes of a text-heavy share ≈ its
+# source bytes), ×4/3 base64 → 16MB source ≤ ~43MB ack
+_WAVE_BUDGET = 16 << 20
 
 
 def _chunk_bytes_default() -> int:
@@ -295,6 +330,196 @@ def _setup_for(path: str) -> ParseSetup:
 
 
 # ---------------------------------------------------------------------------
+# fan-out: ship chunk shares over the replay channel (collect op
+# "parse:<json>"), workers answer with compact codec-byte planes — the
+# DKV re-home wire format (core/kvstore._plane_payload), never decoded
+# f32, bit-exact by construction.
+def _wire_pack_col(num: np.ndarray, smap: dict) -> dict:
+    """Pack one chunk column for the wire — `_choose_codec` (the one
+    narrowing-logic owner) with a LOSSLESS float policy layered on top:
+    its f32 downgrade ships only when every value round-trips, raw f64
+    otherwise, so the coordinator's merge sees bit-identical doubles to
+    a local tokenize."""
+    from h2o3_tpu_torch.core.frame import _choose_codec
+    from h2o3_tpu_torch.core.kvstore import _plane_payload
+    mask = np.isnan(num)
+    has_na = bool(mask.any())
+    packed, codec = _choose_codec(num, mask)
+    kind, bias, cval = codec.kind, float(codec.bias), 0.0
+    if kind in ("const", "i8", "i16", "i32") and bool(
+            np.any((num == 0.0) & np.signbit(num) & ~mask)):
+        # negative zero doesn't survive the integer/const round trip
+        # (-0.0 - bias + bias = +0.0), and the merge keeps "-0" a
+        # DISTINCT categorical level — ship raw f64 for these rare
+        # columns so fanned-out parses stay bit-identical to local
+        packed = num
+        kind = "f64"
+        bias = 0.0     # raw doubles carry no bias (the JAX packer keeps it)
+    if kind == "const":
+        cval = float(codec.const_val)
+        packed = np.zeros(0, np.int8)        # value rides in `c`
+    elif kind == "f32" and not np.array_equal(
+            packed.astype(np.float64), np.where(mask, 0.0, num),
+            equal_nan=True):
+        packed = num                         # f32 would lose bits
+        kind = "f64"
+        bias = 0.0
+    payload = _plane_payload(packed,
+                             mask.astype(np.uint8) if has_na else None)
+    out = {"p": base64.b64encode(payload).decode("ascii"),
+           "k": kind, "b": bias, "c": cval, "n": int(len(num))}
+    wire_len = len(payload)
+    if smap:
+        # string cells ship as npz planes too (rows/lens/utf-8 bytes) —
+        # a JSON dict per cell would inflate text-heavy shares several×
+        # past the replay channel's frame cap and get the worker
+        # wrongly excised for answering with an oversized ack
+        import io as _io
+        rows = np.fromiter(smap.keys(), np.int64, len(smap))
+        vals = [s.encode("utf-8") for s in smap.values()]
+        lens = np.asarray([len(v) for v in vals], np.int32)
+        blob = np.frombuffer(b"".join(vals), np.uint8)
+        buf = _io.BytesIO()
+        np.savez(buf, rows=rows, lens=lens, blob=blob)
+        spay = buf.getvalue()
+        out["s"] = base64.b64encode(spay).decode("ascii")
+        wire_len += len(spay)
+    INGEST_BYTES.inc(wire_len, stage="wire")
+    return out
+
+
+def _wire_restore_col(w: dict):
+    """Inverse of _wire_pack_col → (float64 ndarray, {row: str})."""
+    import io as _io
+    from h2o3_tpu_torch.core.kvstore import _plane_restore
+    data, mask = _plane_restore(base64.b64decode(w["p"]))
+    n = int(w["n"])
+    kind = w["k"]
+    if kind == "const":
+        num = np.full(n, float(w.get("c", float("nan"))))
+    else:
+        num = data.astype(np.float64)
+        if w.get("b"):
+            num += float(w["b"])
+    if mask is not None:
+        num[mask.astype(bool)] = np.nan
+    smap = {}
+    if w.get("s"):
+        with np.load(_io.BytesIO(base64.b64decode(w["s"])),
+                     allow_pickle=False) as z:
+            rows, lens = z["rows"], z["lens"]
+            blob = z["blob"].tobytes()
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        for i in range(len(rows)):
+            smap[int(rows[i])] = blob[offs[i]:offs[i + 1]].decode(
+                "utf-8", "replace")
+    return num, smap
+
+
+# hard bound on one parse ack's wire payload: whatever the wave-budget
+# heuristic predicted, the ENCODED ack must stay under the replay
+# channel's 64MB frame cap with headroom for JSON/HMAC framing — chunks
+# that don't fit are simply left out of the answer and the coordinator
+# re-parses them locally (the protocol already tolerates partial acks)
+_ACK_WIRE_CAP = 44 << 20
+
+
+def worker_parse_chunks(spec: dict) -> dict:
+    """Worker side of the parse fan-out (multihost._collect_local
+    `parse:` op): tokenize this host's chunk share — entries are
+    [path, start, end, is_head, plan_index] — through the local pipeline
+    and return wire-packed codec planes per plan index, truncated at
+    _ACK_WIRE_CAP so a worst-case column mix (short f64 tokens) can
+    never produce an oversized frame that gets this worker excised."""
+    setup = ParseSetup(separator=spec.get("sep", ","),
+                       header=bool(spec.get("header", True)))
+    chunks = [tuple(c) for c in spec.get("chunks") or []]
+    if not chunks:
+        return {"chunks": {}}
+    out = {}
+    wire = 0
+    for idx, cols in zip(
+            [c[4] for c in chunks],
+            _pipelined([c[:4] for c in chunks],
+                       lambda c: _tokenize_chunk(c, setup),
+                       _pool_workers(len(chunks)))):
+        if wire >= _ACK_WIRE_CAP:
+            continue            # drained, not returned: local fallback
+        packed = [_wire_pack_col(num, cells.to_dict())
+                  for num, cells in cols]
+        wire += sum(len(w["p"]) + len(w.get("s") or "") for w in packed)
+        out[str(idx)] = packed
+    return {"chunks": out}
+
+
+def _assign_chunks(plan, nodes):
+    """Deterministic chunk → node map: consistent hash over
+    (path, start) against the sorted live node set (the Key.java home
+    hash reused for parse work) — replay-safe (R016): same plan + same
+    membership ⇒ same assignment on every host, no RNG, no wall clock."""
+    from h2o3_tpu_torch.core.kvstore import HashRing
+    ring = HashRing(nodes)
+    return [ring.node_for(f"{c[0]}:{c[1]}") for c in plan]
+
+
+def _fan_out_parse(bc, plan, assign, setup, results, done_flags):
+    """Coordinator side: wave the worker shares over the replay channel
+    (bounded per-wave payload so the base64 codec-plane acks stay under
+    the frame cap), restoring codec planes into `results`. A worker that
+    times out, errors or was excised mid-wave simply leaves its chunks
+    unparsed — the caller re-runs them locally."""
+    import json as _json
+    pids = sorted(set(a for a in assign if a != 0))
+    shares = {p: [i for i, a in enumerate(assign) if a == p]
+              for p in pids}
+    waves = []
+    while any(shares.values()):
+        wave = {}
+        for p, idxs in shares.items():
+            take, budget = [], 0
+            while idxs:
+                size = plan[idxs[0]][2] - plan[idxs[0]][1]
+                if take and budget + size > _WAVE_BUDGET:
+                    break      # bound holds: never overshoot by a chunk
+                take.append(idxs.pop(0))
+                budget += size
+            if take:
+                wave[p] = take
+        waves.append(wave)
+    forfeited: set = set()
+    for wave in waves:
+        wave = {p: idxs for p, idxs in wave.items()
+                if p not in forfeited}
+        if not wave:
+            continue
+        spec_shares = {str(p): [list(plan[i][:4]) + [i] for i in idxs]
+                       for p, idxs in wave.items()}
+        op = "parse:" + _json.dumps(
+            {"sep": setup.separator, "header": bool(setup.header),
+             "shares": spec_shares})
+        with _span("parse.fanout", chunks=sum(map(len, wave.values())),
+                   hosts=len(wave)):
+            acks = bc.collect(
+                op, timeout=_fanout_timeout_s() / max(1, len(wave)))
+        answered = set()
+        for ack in acks:
+            if not ack or not isinstance(ack.get("parse"), dict):
+                continue
+            answered.add(ack.get("host"))
+            for sidx, cols in (ack["parse"].get("chunks") or {}).items():
+                i = int(sidx)
+                results[i] = [
+                    (num, StrCells.from_dict(smap))
+                    for num, smap in map(_wire_restore_col, cols)]
+                done_flags[i] = True
+        # a worker that blew the wave deadline (or died) would stall
+        # every later wave for the full timeout again while holding the
+        # broadcast lock — drop its remaining shares to the local
+        # fallback instead
+        forfeited.update(p for p in wave if p not in answered)
+
+
+# ---------------------------------------------------------------------------
 def parse_files(paths, setup: Optional[ParseSetup] = None,
                 destination_frame: Optional[str] = None,
                 col_types: Optional[dict] = None,
@@ -302,11 +527,8 @@ def parse_files(paths, setup: Optional[ParseSetup] = None,
                 workers: Optional[int] = None,
                 broadcaster=None) -> Frame:
     """Phases B and C: the sources (`expand_paths`) parsed chunk-parallel
-    into one Frame, their rows in the order of the paths."""
-    if broadcaster is not None:
-        raise NotImplementedError(
-            "the parse fan-out over a cloud's hosts waits for the compute "
-            "substrate (ROADMAP.md §1 item 8)")
+    into one Frame, their rows in the order of the paths. With
+    `broadcaster` the plan fans out over the cloud's live workers."""
     paths = expand_paths(paths)
     # a remote gzip or zip is staged whole first: the inflate and the
     # setup sniff need its local bytes
@@ -317,7 +539,8 @@ def parse_files(paths, setup: Optional[ParseSetup] = None,
                 paths[i] = _uri.fetch_to_local(p)
                 staged.append(paths[i])
         return _parse_files_inner(paths, setup, destination_frame,
-                                  col_types, chunk_bytes, workers)
+                                  col_types, chunk_bytes, workers,
+                                  broadcaster)
     finally:
         for lp in staged:
             try:
@@ -327,7 +550,7 @@ def parse_files(paths, setup: Optional[ParseSetup] = None,
 
 
 def _parse_files_inner(paths, setup, destination_frame, col_types,
-                       chunk_bytes, workers) -> Frame:
+                       chunk_bytes, workers, broadcaster=None) -> Frame:
     setup = setup or _setup_for(paths[0])
     chunk_bytes = chunk_bytes or _chunk_bytes_default()
     if setup.parse_type != "CSV":
@@ -336,10 +559,48 @@ def _parse_files_inner(paths, setup, destination_frame, col_types,
         frames = [_parse1(p, None if i else setup, None, col_types)
                   for i, p in enumerate(paths)]
         return _rbind_frames(frames, destination_frame)
+    # the live-worker set read ONCE: the chunk-size cap and the
+    # assignment must see the same membership
+    pids = broadcaster.live_pids() if broadcaster is not None else []
+    if pids:
+        # a chunk's codec-plane ack has to stay under the replay
+        # channel's frame cap
+        chunk_bytes = min(chunk_bytes, _WAVE_BUDGET)
     plain = [p for p in paths if not p.endswith(_COMPRESSED)]
     plan = plan_chunks(plain, chunk_bytes) if plain else []
-    results = list(_pipelined(plan, lambda c: _tokenize_chunk(c, setup),
-                              workers or _pool_workers(len(plan) or 1)))
+    results: dict = {}
+    if plan:
+        done = [False] * len(plan)
+        assign = [0] * len(plan)
+        fan_thread = None
+        if pids:
+            assign = _assign_chunks(plan, [0] + pids)
+            fan_thread = threading.Thread(
+                target=_fan_out_parse,
+                args=(broadcaster, plan, assign, setup, results, done),
+                daemon=True, name="h2o3-parse-fanout")
+            fan_thread.start()
+        mine = [i for i, a in enumerate(assign) if a == 0]
+        for i, cols in zip(
+                mine, _pipelined([plan[i] for i in mine],
+                                 lambda c: _tokenize_chunk(c, setup),
+                                 workers or _pool_workers(len(mine) or 1))):
+            results[i] = cols
+            done[i] = True
+        if fan_thread is not None:
+            fan_thread.join()
+            # a share a worker forfeited (timeout, excision) re-parses
+            # locally so the frame always completes
+            missing = [i for i in range(len(plan)) if not done[i]]
+            for i, cols in zip(
+                    missing,
+                    _pipelined([plan[i] for i in missing],
+                               lambda c: _tokenize_chunk(c, setup),
+                               workers or _pool_workers(
+                                   len(missing) or 1))):
+                results[i] = cols
+        for _p, start, end, _h in plan:
+            INGEST_BYTES.inc(end - start, stage="tokenize")
     # the chunks in the order of the paths: each occurrence of a plain
     # path is its plan entries from one is_file_head on, and a compressed
     # member is tokenized in its place

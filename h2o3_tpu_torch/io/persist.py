@@ -66,8 +66,10 @@ def _pad(data: np.ndarray, mask, n: int):
     return d, m
 
 
-def _write_hex(frame: Frame, out):
-    """`frame` as a .hex zip into `out` (a path or a binary file)."""
+def _write_hex(frame: Frame, out, compress: bool = True):
+    """`frame` as a .hex zip into `out` (a path or a binary file), its
+    members deflated at level 1, or stored with `compress=False` (the
+    same layout: a reader takes either)."""
     n = frame.nrows
     header = {"key": frame.key, "names": frame.names, "nrows": n,
               "cols": []}
@@ -104,53 +106,94 @@ def _write_hex(frame: Frame, out):
             arrays[f"d{j}"] = data_h
             if mask_h is not None:
                 arrays[f"m{j}"] = mask_h
-    with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED,
-                         compresslevel=1) as zf:
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED if compress
+                         else zipfile.ZIP_STORED,
+                         compresslevel=1 if compress else None) as zf:
         zf.writestr("header.json", json.dumps(header, default=float))
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         zf.writestr("columns.npz", buf.getvalue())
 
 
-def export_frame(frame: Frame, path: str) -> str:
-    """FramePersist.saveTo: the frame's packed columns, exactly."""
+def _gathered(frame: Frame) -> Frame:
+    """A frame of a cloud of several ranks, gathered whole on every rank:
+    each column's decoded values (NA as NaN) in rank order, packed again
+    by the codecs on the host. Dense columns only."""
+    from h2o3_tpu_torch.parallel import mrtask as _mr
+    vecs = []
+    for v in frame.vecs:
+        if type(v) is not Vec:
+            raise NotImplementedError(
+                f"saving a {type(v).__name__} column of a frame of a cloud "
+                "of several ranks is not ported")
+        col = _mr.host_fetch(v.as_f32()).astype(np.float64)
+        vecs.append(Vec._from_floats(col, np.isnan(col), v.type, v.domain,
+                                     cold=True))
+    whole = Frame(frame.names, vecs, key=frame.key + "__whole")
+    DKV.remove(whole.key)
+    whole.key = frame.key
+    return whole
+
+
+def export_frame(frame: Frame, path: str, compress: bool = True) -> str:
+    """FramePersist.saveTo: the frame's packed columns, exactly. A frame
+    that holds one row block on each rank of a cloud is gathered whole
+    (a collective: every rank calls this); the coordinator alone writes
+    (a worker replaying the request writes nothing)."""
+    from h2o3_tpu_torch.deploy import multihost as _mh
+    from h2o3_tpu_torch.parallel import compat as _compat
+    from h2o3_tpu_torch.parallel import mrtask as _mr
+    if _mr.sharded(frame):
+        # the column gathers as one region of the collective guard
+        frame = _compat.guard_collective(_gathered)(frame)
+    if not _mh.writes_artifacts():
+        # a worker replaying the request: the coordinator writes the file
+        return _uri.local_path(path)
     local = path = _uri.local_path(path)
     if _uri.is_remote(path):
         fd, local = tempfile.mkstemp(suffix=".hex")
         os.close(fd)
-    _write_hex(frame, local)
+    _write_hex(frame, local, compress=compress)
     if local != path:
         _uri.push_from_local(local, path)
     return path
 
 
-def _read_hex(src, key=None, device=None) -> Frame:
-    """A Frame from a .hex zip (a path or a binary file)."""
+def _read_hex(src, key=None, device=None, rows=None) -> Frame:
+    """A Frame from a .hex zip (a path or a binary file). `rows` = (lo, hi)
+    keeps that block of the rows only (a rank's block of a frame of a
+    cloud of several ranks; dense, string and uuid columns)."""
     with zipfile.ZipFile(src) as zf:
         header = json.loads(zf.read("header.json"))
         npz = np.load(io.BytesIO(zf.read("columns.npz")), allow_pickle=False)
-        n = int(header["nrows"])
+        n_all = int(header["nrows"])
+        lo, hi = (0, n_all) if rows is None else rows
+        n = hi - lo
         vecs = []
         for j, c in enumerate(header["cols"]):
             if c.get("is_sparse"):
+                if rows is not None:
+                    raise NotImplementedError(
+                        "a sparse column of a frame of a cloud of several "
+                        "ranks is not ported")
                 vecs.append(SparseVec(npz[f"zr{j}"], npz[f"zv{j}"], n,
                                       type=c["type"], device=device))
             elif c["is_str"]:
-                s = npz[f"s{j}"][:n].astype(object)
-                na = npz[f"sm{j}"][:n].astype(bool)
+                s = npz[f"s{j}"][lo:hi].astype(object)
+                na = npz[f"sm{j}"][lo:hi].astype(bool)
                 levels, inv = np.unique(s[~na], return_inverse=True)
                 codes = np.full(n, -1, np.int32)
                 codes[~na] = inv.reshape(-1)
                 vecs.append(StrVec.from_codes(codes, levels, device))
             elif c.get("is_uuid"):
-                vecs.append(UuidVec(npz[f"u{j}"], npz[f"um{j}"], n,
-                                    device=device))
+                vecs.append(UuidVec(npz[f"u{j}"][lo:hi],
+                                    npz[f"um{j}"][lo:hi], n, device=device))
             else:
                 codec = Codec(c["codec"], bias=c["bias"] or 0.0,
                               const_val=(c["const"] if c["const"] is not None
                                          else float("nan")))
-                data_h = np.array(npz[f"d{j}"][:n])
-                mask_h = np.array(npz[f"m{j}"][:n]) if c["has_mask"] \
+                data_h = np.array(npz[f"d{j}"][lo:hi])
+                mask_h = np.array(npz[f"m{j}"][lo:hi]) if c["has_mask"] \
                     else None
                 if mask_h is not None and not mask_h.any():
                     mask_h = None        # only the padding rows were NA
@@ -158,14 +201,29 @@ def _read_hex(src, key=None, device=None) -> Frame:
                        if c["domain"] is not None else None)
                 vecs.append(Vec._from_packed(data_h, codec, mask_h, n,
                                              c["type"], dom, device))
-    return Frame(header["names"], vecs, key or header["key"])
+    fr = Frame(header["names"], vecs, key or header["key"])
+    if rows is not None:
+        fr.shard = (lo, hi, n_all)
+    return fr
+
+
+def _hex_nrows(path: str) -> int:
+    with zipfile.ZipFile(path) as zf:
+        return int(json.loads(zf.read("header.json"))["nrows"])
 
 
 def import_frame(path: str, key=None) -> Frame:
-    """A .hex file (local or a URI) back into a Frame in the store."""
+    """A .hex file (local or a URI) back into a Frame in the store. In a
+    cloud of several ranks each rank keeps its own block of the rows
+    (parallel/mesh.Cloud.row_block)."""
+    from h2o3_tpu_torch.parallel import mesh as _mesh
     path = _uri.local_path(path)
     local = _uri.fetch_to_local(path)
     try:
+        c = _mesh.cloud()
+        if c.world > 1:
+            return _read_hex(local, key,
+                             rows=c.row_block(_hex_nrows(local)))
         return _read_hex(local, key)
     finally:
         if local != path:

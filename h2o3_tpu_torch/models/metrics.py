@@ -5,6 +5,15 @@ as the JAX package finishes it. The AUC is the 4096-score-bin histogram
 method (hex/AUC2.java with finer bins). `ClusteringMetrics` holds what
 KMeans computes itself. A binomial metric carries its gains/lift table
 (hex/GainsLift.java: 16 groups of the score bins, highest scores first).
+
+With `sharded=True` the tensors are one rank's block of rows of a cloud of
+several ranks (parallel/mesh): each pass's state — its sums, the AUC's
+score-bin weights, the confusion counts — is summed over the world in one
+all-reduce (parallel/mrtask.shard_sum, the JAX package's psum) before it
+is finished. Counts and integer weights add exactly, so the AUC, the
+confusion matrix and the gains/lift table are the one-process ones; the
+float sums (logloss, MSE) differ from one process's only by the order in
+which the f32 partials were added.
 """
 
 from __future__ import annotations
@@ -16,8 +25,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.parallel import mrtask as MR
+
 NBINS_AUC = 4096
 GAINS_GROUPS = 16
+
+
+def _state(parts, sharded: bool) -> np.ndarray:
+    """The pass's state in f64 on the host: the parts (scalars and
+    tensors) flattened and summed over the world when `sharded`."""
+    st = torch.cat([p.reshape(-1).double() for p in parts])
+    return (MR.shard_sum(st) if sharded else st).cpu().numpy()
 
 
 def _wmask(y, w):
@@ -44,17 +62,17 @@ class RegressionMetrics:
                 "r2": self.r2, "nobs": self.nobs}
 
 
-def regression_metrics(y, p, w=None) -> RegressionMetrics:
+def regression_metrics(y, p, w=None, sharded=False) -> RegressionMetrics:
     w = torch.ones_like(y) if w is None else w
     y, w = _wmask(y, w)
     p = torch.where(w > 0, p, 0.0)
     err = y - p
     sle = torch.log1p(p.clamp(min=0.0)) - torch.log1p(y.clamp(min=0.0))
     neg = ((w > 0) & ((y < 0) | (p < 0))).sum().float()
-    n, sse, sae, ssle, neg, sy, syy = torch.stack([
+    n, sse, sae, ssle, neg, sy, syy = _state([torch.stack([
         w.sum(), (w * err * err).sum(), (w * err.abs()).sum(),
         (w * sle * sle).sum(), neg, (w * y).sum(),
-        (w * y * y).sum()]).cpu().tolist()
+        (w * y * y).sum()])], sharded).tolist()
     mse = sse / n if n else math.nan
     var_y = syy / n - (sy / n) ** 2 if n else math.nan
     return RegressionMetrics(
@@ -100,7 +118,7 @@ class BinomialMetrics:
         return d
 
 
-def _binomial_pass(y, p, w):
+def _binomial_pass(y, p, w, sharded=False):
     """Logloss, squared error and the per-score-bin pos/neg weights."""
     y, w = _wmask(y, w)
     p = torch.where(w > 0, p, 0.5).clamp(1e-15, 1 - 1e-15)
@@ -111,14 +129,14 @@ def _binomial_pass(y, p, w):
     neg = torch.zeros(NBINS_AUC, dtype=w.dtype, device=w.device) \
         .index_add_(0, bins, w * (1.0 - y))
     sse = (w * (y - p) ** 2).sum()
-    scal = torch.stack([w.sum(), ll, sse]).cpu().tolist()
-    return (*scal, pos.cpu().numpy().astype(np.float64),
-            neg.cpu().numpy().astype(np.float64))
+    st = _state([torch.stack([w.sum(), ll, sse]), pos, neg], sharded)
+    return (*st[:3].tolist(), st[3:3 + NBINS_AUC], st[3 + NBINS_AUC:])
 
 
-def binomial_metrics(y, p, w=None, domain=None) -> BinomialMetrics:
+def binomial_metrics(y, p, w=None, domain=None,
+                     sharded=False) -> BinomialMetrics:
     w = torch.ones_like(y) if w is None else w
-    n, ll, sse, pos, neg = _binomial_pass(y, p, w)
+    n, ll, sse, pos, neg = _binomial_pass(y, p, w, sharded)
     P, N = pos.sum(), neg.sum()
     # sweep thresholds high to low: cumulative TP/FP above each bin edge
     tp = np.cumsum(pos[::-1])[::-1]
@@ -214,7 +232,7 @@ class MultinomialMetrics:
                 "hit_ratios": self.hit_ratios, "nobs": self.nobs}
 
 
-def _multinomial_pass(y, probs, w):
+def _multinomial_pass(y, probs, w, sharded=False):
     """Weight, logloss, the weighted confusion matrix (actual x argmax),
     the top-k hit weights for k up to min(10, K), and the squared error
     over the one-vs-all encoding."""
@@ -230,14 +248,15 @@ def _multinomial_pass(y, probs, w):
     hit_k = (w[:, None] * (topk == yi[:, None]).to(w.dtype).cumsum(1)).sum(0)
     onehot = torch.nn.functional.one_hot(yi, K).to(probs.dtype)
     sse = (w[:, None] * (onehot - probs) ** 2).sum()
-    n, ll, sse = torch.stack([w.sum(), ll, sse]).cpu().tolist()
-    return n, ll, sse, cm.cpu().double().numpy(), \
-        hit_k.cpu().double().numpy()
+    st = _state([torch.stack([w.sum(), ll, sse]), cm, hit_k], sharded)
+    return (*st[:3].tolist(), st[3:3 + K * K].reshape(K, K),
+            st[3 + K * K:])
 
 
-def multinomial_metrics(y, probs, w=None, domain=None) -> MultinomialMetrics:
+def multinomial_metrics(y, probs, w=None, domain=None,
+                        sharded=False) -> MultinomialMetrics:
     w = torch.ones_like(y) if w is None else w
-    n, ll, sse, cm, hit_k = _multinomial_pass(y, probs, w)
+    n, ll, sse, cm, hit_k = _multinomial_pass(y, probs, w, sharded)
     row_tot = cm.sum(axis=1)
     with np.errstate(invalid="ignore", divide="ignore"):
         per_class_err = np.where(row_tot > 0, 1.0 - np.diag(cm) / row_tot, 0.0)

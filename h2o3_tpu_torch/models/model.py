@@ -40,6 +40,7 @@ from h2o3_tpu_torch.core.frame import (Frame, StrVec, T_CAT,
                                        UuidVec, Vec)
 from h2o3_tpu_torch.core.jobs import Job
 from h2o3_tpu_torch.core.kvstore import DKV
+from h2o3_tpu_torch.parallel import mrtask as _mr
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.udf import resolve_udf
 
@@ -486,6 +487,17 @@ class ModelBase:
         if self.supervised and y is None:
             raise ValueError(f"{self.algo} requires a response column y")
         self._check_ported()
+        if _mr.sharded(frame):
+            if not getattr(self, "_shard_ok", False):
+                raise NotImplementedError(
+                    f"{self.algo} trains on one rank's rows; a frame of a "
+                    "cloud of several ranks trains the binned tree models "
+                    "only")
+            if int(self.params.get("nfolds") or 0) > 1 \
+                    or self.params.get("fold_column"):
+                raise NotImplementedError(
+                    f"{self.algo}: cross-validation of a frame of a cloud "
+                    "of several ranks is not ported")
         x = self._resolve_predictors(frame, x, y)
         self._dinfo = self._make_data_info(frame, x, y)
         self.key = self.params.get("model_id") or DKV.make_key(self.algo)
@@ -664,7 +676,9 @@ class ModelBase:
 
     def predict(self, test_data: Frame) -> Frame:
         out = self._score_host(test_data)
-        return self._prediction_frame(out, test_data.nrows)
+        pred = self._prediction_frame(out, test_data.nrows)
+        pred.shard = test_data.shard     # scoring is local to each rank
+        return pred
 
     def _score_host(self, test_data: Frame) -> np.ndarray:
         """Score a frame and fetch the result in one copy. Serving-sized
@@ -712,6 +726,11 @@ class ModelBase:
     def _compute_metrics(self, frame: Frame):
         di = self._dinfo
         from h2o3_tpu_torch import serving
+        if _mr.sharded(frame):
+            # its all-reduces as one region of the collective guard
+            from h2o3_tpu_torch.parallel import compat as _compat
+            return _compat.run_host_serialized(
+                lambda: self._sharded_metrics(frame))
         fast = serving.score_frame_with_response(self, frame)
         if fast is not None:
             # bucketed fast path: (bucket,)-long y and w with w = 0 on
@@ -738,16 +757,36 @@ class ModelBase:
                                "value": float(udf.metric(agg))}
         return m
 
-    def _metrics_from_preds(self, y, out, w):
+    def _sharded_metrics(self, frame: Frame):
+        """The metrics of a frame that holds one row block on each rank of
+        a cloud: each rank scores its rows, and the metric passes' states
+        are summed over the world (models/metrics.py `sharded`): the AUC
+        and the counts are the one-process ones, the float sums equal to
+        within the order of their f32 partials."""
+        if self.params.get("custom_metric_func"):
+            raise NotImplementedError(
+                "custom metrics of a frame of a cloud of several ranks are "
+                "not ported")
+        di = self._dinfo
+        y = di.response(frame)
+        w = torch.where(torch.isnan(y), 0.0, di.weights(frame))
+        out = self._score_matrix(di.matrix(frame))
+        return self._metrics_from_preds(y, out, w, sharded=True)
+
+    def _metrics_from_preds(self, y, out, w, sharded=False):
+        """The metrics of scores `out`; `sharded`: of this rank's rows of
+        a frame of a cloud of several ranks (summed over the world)."""
         if not self.supervised:
             return None
         if self._is_classifier and self.nclasses == 2:
             return M.binomial_metrics(y, out[:, 1], w,
-                                      domain=self._dinfo.response_domain)
+                                      domain=self._dinfo.response_domain,
+                                      sharded=sharded)
         if self._is_classifier:
             return M.multinomial_metrics(y, out, w,
-                                         domain=self._dinfo.response_domain)
-        return M.regression_metrics(y, out, w)
+                                         domain=self._dinfo.response_domain,
+                                         sharded=sharded)
+        return M.regression_metrics(y, out, w, sharded=sharded)
 
     def _score_train_valid(self, frame, valid):
         if not self.supervised:     # an unsupervised model has no metrics

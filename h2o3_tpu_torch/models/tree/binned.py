@@ -22,19 +22,39 @@ Three trainers grow on it, as in the JAX package: `gbm_chunk_trainer`
 (one tree a step), `gbm_multi_chunk_trainer` (K class trees an iteration)
 and `drf_chunk_trainer` (bagged trees with out-of-bag sums).
 
+Sharded growth (models/tree/binned.py:385-434 of the JAX package): in a
+cloud of several ranks (parallel/mesh) each rank grows on the code plane
+of its own row block (`RowBlock`) and every global quantity is reduced
+over the world so that the trees are the one-process trees bit for bit:
+the f32 kernels' fixed-point scale is the scale of the global stats (an
+all-reduce MAX of each stat row's largest magnitude, over the padded
+global row count), the int8 quantization's absmax likewise; each level's
+histogram is summed over the world in ONE all-reduce of the kernels'
+exact accumulators (int64 fixed point, or int32 with int8) before the
+sibling subtraction (`hist_cuda.level_reduce`; the buffer carries one
+more element, the count of ranks whose side buffer of non-finite stats
+holds a sum, and only when it is not 0 does a second all-reduce sum the
+side buffers); and the trainers' per-row draws are drawn at the global
+padded length and sliced to the block, so the generator's stream is the
+one process's. The histograms of one process are the kernels' exact
+function on every device (on the CPU through `sbh_hist_plain_fixed`), so
+the one-process trees are the reference the world's are equal to.
+
 Differences from the JAX package: its `lax.scan` over trees and classes
-is a Python loop, the random draws come from a torch.Generator, and there
-is no mesh (the sharded psum path is a later slice).
+is a Python loop, the random draws come from a torch.Generator, and the
+shards are processes (torch.distributed over gloo), not a device mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from h2o3_tpu_torch.ops import hist_cuda as HC
+from h2o3_tpu_torch.parallel import mrtask as MR
 
 COL_TILE = 8
 # Row granule of the code plane: n_pad is a multiple of it.
@@ -103,6 +123,56 @@ def quantize(X: torch.Tensor, spec: BinSpec, n_pad: int | None = None):
 def pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     """Zero-pad a per-row vector to the quantize() row layout."""
     return torch.nn.functional.pad(x, (0, n_pad - x.shape[0]))
+
+
+@dataclass
+class RowBlock:
+    """This rank's block of a frame's rows: global rows [lo, lo + n) of
+    n_global (parallel/mesh.Cloud.row_block)."""
+    lo: int
+    n: int
+    n_global: int
+
+    @property
+    def n_pad_global(self) -> int:
+        return padded_rows(self.n_global)
+
+
+def row_uniform(grower, like: torch.Tensor, generator=None):
+    """U(0, 1) per row of the padded layout of `like`: drawn at the
+    one-process length and sliced to this rank's block when the grower
+    grows one (the generator's stream is the one process's)."""
+    rb = grower.rows
+    if rb is None:
+        return torch.rand(like.shape, generator=generator,
+                          device=like.device)
+    u = torch.rand((rb.n_pad_global,), generator=generator,
+                   device=like.device)
+    out = torch.ones(like.shape, dtype=u.dtype, device=like.device)
+    out[: rb.n] = u[rb.lo: rb.lo + rb.n]
+    return out
+
+
+def _level_buffer(acc, side):
+    """A level's all-reduce buffer: the three summed stat rows of its
+    accumulators (row 3 is zero), then 1 when this rank's side buffer
+    holds a non-finite stat's sum."""
+    nf = acc.new_zeros(1) if side is None else \
+        side.ne(0).any().reshape(1).to(acc.dtype)
+    return torch.cat([acc[:, :, :3].reshape(-1), nf])
+
+
+def _world_level_sum(acc, side):
+    """The level reducer of a world of several ranks: the exact
+    accumulators summed over the world through the MRTask funnel, in ONE
+    all-reduce; the side buffers in a second one only when some rank
+    holds a non-finite stat."""
+    buf = MR.map_reduce(_level_buffer, acc, side)
+    L, c, _, b = acc.shape
+    acc[:, :, :3] = buf[:-1].view(L, c, 3, b)
+    if side is not None and int(buf[-1]):
+        side = MR.map_reduce(torch.clone, side)
+    return acc, side
 
 
 # ===========================================================================
@@ -247,8 +317,11 @@ class BinnedGrower:
                  monotone: np.ndarray | None = None, device=None,
                  int8_stats: bool | None = None,
                  use_radix_shallow: bool | None = None,
-                 fused_level: bool | None = None):
+                 fused_level: bool | None = None,
+                 rows: RowBlock | None = None):
         self.int8 = False if int8_stats is None else bool(int8_stats)
+        # sharded growth: this rank's row block
+        self.rows = rows
         self.use_radix = None if use_radix_shallow in (None, True) else False
         self.fused = None if fused_level in (None, True) else False
         self.spec = spec
@@ -266,11 +339,29 @@ class BinnedGrower:
             np.pad(spec.is_cat, (0, spec.c_pad - spec.is_cat.size)),
             device=self.device)
 
+    def _scale(self, stats):
+        """hist_scale of the stats; of the world's stats (an all-reduce
+        MAX of each row's largest finite magnitude, over the global padded
+        row count) when this rank grows one block."""
+        if self.rows is None:
+            return HC.hist_scale(stats)
+        a = stats[:3].abs()
+        m = torch.where(a < float("inf"), a, torch.zeros_like(a)).amax(dim=1)
+        m = MR.shard_max(m)
+        return HC.pow2_scale(m.to(torch.float64) * self.rows.n_pad_global)
+
     def layout(self, n: int) -> int:
         return padded_rows(n)
 
-    def grow(self, codes, stats, F, *, eta, clip_val, generator=None,
-             mtries: int = 0, tree_mask=None):
+    def grow(self, codes, stats, F, **kw):
+        """Grow ONE tree and apply its margin update (`_grow`), each level
+        summed over the world when this grower grows one row block."""
+        with HC.level_reduce(_world_level_sum) if self.rows is not None \
+                else contextlib.nullcontext():
+            return self._grow(codes, stats, F, **kw)
+
+    def _grow(self, codes, stats, F, *, eta, clip_val, generator=None,
+              mtries: int = 0, tree_mask=None):
         """Grow ONE tree and apply its margin update.
 
         codes uint8 (C_pad, n_pad); stats f32 (4, n_pad) rows w, w*grad,
@@ -301,8 +392,11 @@ class BinnedGrower:
         any_cat = bool(spec.is_cat.any())
         if self.int8:
             # per-tree, per-stat-row symmetric quantization; the stats are
-            # fixed for the tree, so one pass serves every level
+            # fixed for the tree, so one pass serves every level (the
+            # world's absmax in a cloud of several ranks)
             absmax = stats.abs().amax(dim=1, keepdim=True)
+            if self.rows is not None:
+                absmax = MR.shard_max(absmax)
             scale = 127.0 / absmax.clamp(min=1e-30)
             stats_in = torch.round(stats * scale).clamp(-127, 127) \
                 .to(torch.int32)
@@ -313,8 +407,9 @@ class BinnedGrower:
             stats_in = stats
             hist_fn = HC.sbh_hist
             # the f32 histogram kernels' fixed-point scale, once per tree
-            # for the same reason (kept on the device)
-            hkw = {"scale": HC.hist_scale(stats)}
+            # for the same reason (kept on the device); of the global
+            # stats in a cloud of several ranks
+            hkw = {"scale": self._scale(stats)}
         # hist_prev keeps the level's full histogram in its native dtype
         # (int32 with int8: the sibling subtraction stays exact)
         prev = hist_prev = did_prev = None
@@ -481,8 +576,7 @@ def gbm_chunk_trainer(grower: BinnedGrower, n: int, *, dist: str, eta: float,
         for _ in range(k_trees):
             g, h = _grad_hess_binned(dist, F, y1)
             if sample_rate < 1.0:
-                u = torch.rand(w1.shape, generator=generator,
-                               device=w1.device)
+                u = row_uniform(grower, w1, generator)
                 wt = w1 * (u < sample_rate)
             else:
                 wt = w1
@@ -523,8 +617,7 @@ def gbm_multi_chunk_trainer(grower: BinnedGrower, n: int, *, n_classes: int,
         for _ in range(k_iters):
             RK = onehot - torch.softmax(F, dim=1)           # residuals
             if sample_rate < 1.0:
-                u = torch.rand(w1.shape, generator=generator,
-                               device=w1.device)
+                u = row_uniform(grower, w1, generator)
                 wt = w1 * (u < sample_rate)
             else:
                 wt = w1
@@ -580,7 +673,10 @@ def drf_chunk_trainer(grower: BinnedGrower, n: int, *, sample_rate: float,
         zero = torch.zeros_like(w1)
         trees = []
         for _ in range(k_trees):
-            inbag = draw_inbag(w1, sample_rate, generator)
+            # a row block draws at the world's length (row_uniform)
+            inbag = draw_inbag(w1, sample_rate, generator) \
+                if grower.rows is None else \
+                row_uniform(grower, w1, generator) < sample_rate
             wt = w1 * inbag
             stats = torch.stack([wt, wt * y1, wt, zero])
             tmask = _tree_col_mask(grower, generator, col_rate_tree)

@@ -63,6 +63,7 @@ class H2ORandomForestEstimator(SharedTreeEstimator):
         return self._fit_adaptive_drf(frame)
 
     def _fit_adaptive_drf(self, frame: Frame):
+        self._refuse_shards(frame, "the adaptive engine")
         p = self.params
         X, y, w = self._prep(frame)
         dev = X.device
@@ -203,7 +204,8 @@ class H2ORandomForestEstimator(SharedTreeEstimator):
         if self._is_classifier:
             mu = mu.clamp(1e-7, 1.0 - 1e-7)
             mu = torch.stack([1.0 - mu, mu], dim=1)
-        vm = self._metrics_from_preds(vs["y"], mu, vs["w"])
+        vm = self._metrics_from_preds(vs["y"], mu, vs["w"],
+                                      sharded=vs["sharded"])
         return {f"validation_{k}": getattr(vm, k)
                 for k in ("logloss", "auc", "pr_auc", "rmse", "mae", "r2")
                 if getattr(vm, k, None) is not None}
@@ -217,8 +219,9 @@ class H2ORandomForestEstimator(SharedTreeEstimator):
         if self._is_classifier:
             # away from exact 0/1 votes, so that logloss stays finite
             return M.binomial_metrics(y, pred.clamp(1e-7, 1.0 - 1e-7), wm,
-                                      domain=self._dinfo.response_domain)
-        return M.regression_metrics(y, pred, wm)
+                                      domain=self._dinfo.response_domain,
+                                      sharded=self._sharded_train)
+        return M.regression_metrics(y, pred, wm, sharded=self._sharded_train)
 
     def _score_train_valid(self, frame, valid):
         super()._score_train_valid(frame, valid)

@@ -23,6 +23,19 @@ above 10, and a checkpoint whose prior that engine grew. Its trees take
 the Newton leaf refit (`engine.gamma_pass`) for every distribution but
 gaussian, and record their node covers, from which
 `predict_contributions` computes TreeSHAP.
+
+A frame of a cloud of several ranks (parallel/mesh) trains on the binned
+engine only, each rank on its own row block (models/tree/shared_tree.py:
+180-213 of the JAX package): the bin edges come from the same strided
+sample of the global rows on every rank (gathered through
+`mrtask.host_fetch`), the grower reduces each level over the world
+(binned.RowBlock), f0 is computed on the world's response and weights
+gathered in rank order, so the trees are the one-process trees bit for
+bit, and the scoring history's training and validation metrics and
+DRF's out-of-bag metrics are summed over the world (models/metrics.py
+`sharded`: the AUC and the counts are the one-process ones, the float
+sums equal to within the order of their f32 partials). The adaptive engine and
+cross-validation raise NotImplementedError on such a frame.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from h2o3_tpu_torch.models.model import ModelBase
 from h2o3_tpu_torch.models.tree import binned as BN
 from h2o3_tpu_torch.models.tree import engine as E
 from h2o3_tpu_torch.obs.timeline import span as _span
+from h2o3_tpu_torch.parallel import mrtask as MR
 from h2o3_tpu_torch.udf import resolve_udf
 
 class SharedTreeEstimator(ModelBase):
@@ -77,6 +91,24 @@ class SharedTreeEstimator(ModelBase):
 
     # a custom distribution's UDF, resolved by GBM's _fit
     _udf_dist = None
+    # a frame of several ranks trains on the binned engine (see the module
+    # docstring); True while such a training runs
+    _shard_ok = True
+    _sharded_train = False
+
+    def _world_rows(self, *ts):
+        """The tensors' rows of the whole world in rank order while a
+        sharded training runs (each as one process holds it, for the
+        one-process f0); the tensors themselves otherwise."""
+        if not self._sharded_train:
+            return ts
+        return tuple(MR.gather_rows(t) for t in ts)
+
+    def _refuse_shards(self, frame, what: str):
+        if MR.sharded(frame):
+            raise NotImplementedError(
+                f"{self.algo}: {what} grows on one rank's rows; a frame of "
+                "a cloud of several ranks trains on the binned engine only")
 
     def _cat_mode(self) -> str:
         return "label"
@@ -187,6 +219,8 @@ class SharedTreeEstimator(ModelBase):
         X, y, w = self._prep(frame)
         n = int(frame.nrows)
         C = X.shape[1]
+        sh = MR.frame_block(frame)
+        self._sharded_train = sh is not None
         is_cat = np.array([c in di.cat_cols for c in di.predictors], bool)
         cards = [di.cardinalities[c] for c in di.cat_cols]
         nbins = int(p["nbins"])
@@ -196,9 +230,15 @@ class SharedTreeEstimator(ModelBase):
                     min(nbins_cats, max(cards, default=0)))
         b_val = int(min(255, max(b_val, 4)))
         # bin edges from a strided row sample (a head slice would bias the
-        # quantiles of ordered data)
-        stride = max(1, n >> 18)
-        Xs = X[::stride][: 1 << 18].cpu().numpy()
+        # quantiles of ordered data); of the global rows, gathered in rank
+        # order, in a cloud of several ranks
+        if sh is None:
+            stride = max(1, n >> 18)
+            Xs = X[::stride][: 1 << 18].cpu().numpy()
+        else:
+            lo, _hi, n_global = sh
+            stride = max(1, n_global >> 18)
+            Xs = MR.host_fetch(X[(-lo) % stride::stride])[: 1 << 18]
         spec = BN.make_bins(Xs, is_cat, b_val)
         mono = np.zeros(spec.c_pad, np.int32)
         mc = p.get("monotone_constraints") or {}
@@ -211,7 +251,8 @@ class SharedTreeEstimator(ModelBase):
             monotone=mono if mc else None, device=X.device,
             int8_stats=p.get("int8_hist"),
             use_radix_shallow=p.get("radix_shallow"),
-            fused_level=p.get("fused_level"))
+            fused_level=p.get("fused_level"),
+            rows=None if sh is None else BN.RowBlock(sh[0], n, sh[2]))
         n_pad = grower.layout(n)
         codes = BN.quantize(X, spec, n_pad=n_pad)
         return dict(X=X, y=y, w=w, y1=BN.pad_rows(y, n_pad),
@@ -258,21 +299,23 @@ class SharedTreeEstimator(ModelBase):
         return ta, gainsT
 
     def _record_history(self, ntrees, F, y, w, dist):
+        sh = self._sharded_train
         mu = _link_inv_dist(dist, F, udf=self._udf_dist)
         if self._is_classifier:
-            m = M.binomial_metrics(y, mu[:, 1], w)
+            m = M.binomial_metrics(y, mu[:, 1], w, sharded=sh)
             h = {"number_of_trees": ntrees, "training_logloss": m.logloss,
                  "training_auc": m.auc, "training_pr_auc": m.pr_auc,
                  "training_rmse": m.rmse}
         else:
-            m = M.regression_metrics(y, mu, w)
+            m = M.regression_metrics(y, mu, w, sharded=sh)
             h = {"number_of_trees": ntrees, "training_rmse": m.rmse,
                  "training_mae": m.mae, "training_r2": m.r2}
         h.update(self._valid_history_entry(dist))
         self._output.scoring_history.append(h)
 
     def _record_history_multi(self, ntrees, F, y, w):
-        m = M.multinomial_metrics(y, torch.softmax(F, dim=1), w)
+        m = M.multinomial_metrics(y, torch.softmax(F, dim=1), w,
+                                  sharded=self._sharded_train)
         h = {"number_of_trees": ntrees, "training_logloss": m.logloss,
              "training_classification_error": m.error}
         h.update(self._valid_history_entry())
@@ -294,7 +337,8 @@ class SharedTreeEstimator(ModelBase):
         yv = torch.where(torch.isnan(yv), 0.0, yv)
         Fv = torch.full((int(vf.nrows),), float(f0), dtype=torch.float32,
                         device=yv.device)
-        self._vstate = {"X": di.matrix(vf), "y": yv, "w": wv, "F": Fv}
+        self._vstate = {"X": di.matrix(vf), "y": yv, "w": wv, "F": Fv,
+                        "sharded": MR.sharded(vf)}
 
     def _valid_advance(self, new_trees, lr):
         """Add a just-trained chunk of trees to the validation margins (one
@@ -308,9 +352,9 @@ class SharedTreeEstimator(ModelBase):
         if getattr(self, "_vstate", None) is None:
             return {}
         vs = self._vstate
-        mu = _link_inv_dist(dist, vs["F"],
-                            udf=self._udf_dist)
-        vm = self._metrics_from_preds(vs["y"], mu, vs["w"])
+        mu = _link_inv_dist(dist, vs["F"], udf=self._udf_dist)
+        vm = self._metrics_from_preds(vs["y"], mu, vs["w"],
+                                      sharded=vs["sharded"])
         out = {}
         for k in ("logloss", "auc", "pr_auc", "rmse", "mae", "r2"):
             v = getattr(vm, k, None)
@@ -417,6 +461,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
             if dist == "multinomial":
                 return self._fit_binned_multinomial(frame)
             return self._fit_binned(frame, dist)
+        self._refuse_shards(frame, "the adaptive engine")
         X, y, w = self._prep(frame)
         if dist == "multinomial":
             return self._fit_multinomial(X, y, w)
@@ -470,7 +515,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         ntrees = int(p["ntrees"])
         lr = float(p["learn_rate"])
         gen = _generator(p, dev)
-        f0 = _initial_f0(dist, y, w)
+        f0 = _initial_f0(dist, *self._world_rows(y, w))
         prev = None
         if p.get("checkpoint"):
             # binned restart (SharedTree.java:132): the prior's f0, and the
@@ -534,7 +579,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
         ntrees = int(p["ntrees"])
         lr = float(p["learn_rate"])
         gen = _generator(p, dev)
-        f0 = _class_prior_f0(y, w, K)
+        f0 = _class_prior_f0(*self._world_rows(y, w), K)
         prevs = None
         if p.get("checkpoint"):
             prev_model = self._resolve_checkpoint(p["checkpoint"])

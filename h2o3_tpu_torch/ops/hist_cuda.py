@@ -27,8 +27,10 @@ JAX package's shape gates (`_radix_shape_ok`, `_fused_applicable`), so the
 launches per level match its dispatch; `radix=False` / `fused=False` force
 the dense / sequential kernels, as there.
 
-Each wrapper runs the plain version for a tensor on the CPU, launches its
-CUDA kernel for a tensor on a CUDA device, and raises for anything else.
+Each wrapper runs the plain version for a tensor on the CPU (for the
+histograms the kernels' own fixed-point function, `sbh_hist_plain_fixed`),
+launches its CUDA kernel for a tensor on a CUDA device, and raises for
+anything else.
 There is no probe and no fallback from the kernel to the plain version.
 The TPU kernels' 4-codes-per-word packing (a Mosaic tiling workaround) is
 not used: the kernels read the uint8 plane directly.
@@ -36,8 +38,10 @@ not used: the kernels read the uint8 plane directly.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -115,6 +119,32 @@ LAUNCHES = {"route": 0, "route_f": 0, "hist": 0, "hist_i8": 0, "radix": 0,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# The level reducer: while one is set on a thread (`level_reduce`), every
+# histogram launch hands its raw accumulators — the int64 fixed-point sums
+# and the f32 side buffer of the non-finite stats, or the int32 sums of the
+# int8 stats — to it before they are turned into the f32 histogram (on the
+# CPU too: the wrappers' plain version there is the kernels' function,
+# `sbh_hist_plain_fixed`). A cloud of several ranks sums them over its
+# world there, exactly (models/tree/binned.py).
+_REDUCE = threading.local()
+
+
+@contextlib.contextmanager
+def level_reduce(fn):
+    """Set `fn(acc, side) -> (acc, side)` as this thread's level reducer
+    for the block."""
+    prev = getattr(_REDUCE, "fn", None)
+    _REDUCE.fn = fn
+    try:
+        yield
+    finally:
+        _REDUCE.fn = prev
+
+
+def _reducer():
+    return getattr(_REDUCE, "fn", None)
 
 
 def hist_layout(L: int, half: bool):
@@ -349,6 +379,49 @@ def sbh_hist_plain(codes, heap, stats, *, base, L, n_bins, half=False):
     return out
 
 
+def sbh_hist_plain_fixed(codes, heap, stats, *, base, L, n_bins, half=False,
+                         int8=False, scale=None):
+    """The histogram kernels' own function, the wrappers' plain version on
+    the CPU: int8 stats sum exactly in int32; f32 stats go to int64 fixed
+    point at `scale` (hist_scale of the stats when None), each value
+    rounded once to the nearest integer (ties to even) as the kernels
+    round it, a NaN or +-inf stat to the f32 side buffer. Returns what the
+    kernel wrapper returns: the accumulators, through the thread's level
+    reducer, as the f32 (or int32) histogram, (L_pad, C_pad, 4, n_bins).
+    `sbh_hist_plain`, which sums in the stats' own dtype, is the reference
+    the kernels are held against."""
+    if int8:
+        return _level_result(sbh_hist_plain(codes, heap, stats, base=base,
+                                            L=L, n_bins=n_bins, half=half),
+                             None, None)
+    if scale is None:
+        scale = hist_scale(stats)
+    c_pad, n_pad = codes.shape
+    _, _, _, L_pad = hist_layout(L, half)
+    slot = _hist_slots(heap, base=base, L=L, half=half, L_pad=L_pad)
+    x = stats[:3].t()
+    fin = torch.isfinite(x)
+    q = torch.where(fin, torch.round(x.double() * scale[None, :]),
+                    torch.zeros((), dtype=torch.float64,
+                                device=x.device)).to(torch.int64)
+    any_nf = not bool(fin.all())
+    nf = torch.where(fin, torch.zeros_like(x), x)
+    shape = (L_pad, c_pad, S_STATS, n_bins)
+    acc = torch.zeros(shape, dtype=torch.int64, device=stats.device)
+    side = torch.zeros(shape, dtype=torch.float32, device=stats.device)
+    for c in range(c_pad):
+        idx = slot * n_bins + codes[c].long()
+        a = torch.zeros(((L_pad + 1) * n_bins, 3), dtype=torch.int64,
+                        device=stats.device).index_add_(0, idx, q)
+        acc[:, c, :3] = a.view(L_pad + 1, n_bins, 3)[:L_pad].permute(0, 2, 1)
+        if any_nf:
+            s = torch.zeros(((L_pad + 1) * n_bins, 3), dtype=torch.float32,
+                            device=stats.device).index_add_(0, idx, nf)
+            side[:, c, :3] = s.view(L_pad + 1, n_bins,
+                                    3)[:L_pad].permute(0, 2, 1)
+    return _level_result(acc, side, scale)
+
+
 def sbh_route_hist_plain(codes, heap, tbl, route_f, stats, *, base_r, L_r,
                          base_h, L_h, n_bins):
     """The sequential pair the fused kernel replaces: route, then the half
@@ -475,7 +548,11 @@ def _level_out(L_pad, c_pad, n_bins, int8, stats, scale, dev):
 def _level_result(acc, side, scale):
     """The f32 histogram of a histogram launch: the fixed-point sums
     over their scale in f64, cast once; a bin that a NaN or +-inf stat
-    reached takes the side buffer's sum there, as an f64 sum would."""
+    reached takes the side buffer's sum there, as an f64 sum would. The
+    thread's level reducer, when set, sees the accumulators first."""
+    red = _reducer()
+    if red is not None:
+        acc, side = red(acc, side)
     if side is None:
         return acc
     inv = torch.cat([scale.reciprocal(), scale.new_ones(1)])
@@ -621,8 +698,9 @@ def sbh_hist_dense(codes, heap, stats, *, base, L, n_bins, half=False,
         # a layout the kernel cannot take raises on every device
         dense_i8_grid(min(l_eff, I8_BAND), n_bins, codes.shape[0], **layout)
     if _device_kind(codes) == "cpu":
-        return sbh_hist_plain(codes, heap, stats, base=base, L=L,
-                              n_bins=n_bins, half=half)
+        return sbh_hist_plain_fixed(codes, heap, stats, base=base, L=L,
+                                    n_bins=n_bins, half=half, int8=int8,
+                                    scale=scale)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     acc, side, scale = _level_out(L_pad, c_pad, n_bins, int8, stats, scale,
                                   dev)
@@ -681,8 +759,9 @@ def sbh_hist_radix(codes, heap, stats, *, base, L, n_bins, half=False,
     if int8:
         _check_i8_rows(codes.shape[1])
     if _device_kind(codes) == "cpu":
-        return sbh_hist_plain(codes, heap, stats, base=base, L=L,
-                              n_bins=n_bins, half=half)
+        return sbh_hist_plain_fixed(codes, heap, stats, base=base, L=L,
+                                    n_bins=n_bins, half=half, int8=int8,
+                                    scale=scale)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     acc, side, scale = _level_out(l_eff, c_pad, n_bins, int8, stats, scale,
                                   dev)
@@ -720,9 +799,11 @@ def sbh_route_hist_fused(codes, heap, tbl, route_f, stats, *, base_r, L_r,
     if int8:
         _check_i8_rows(codes.shape[1])
     if _device_kind(codes) == "cpu":
-        return sbh_route_hist_plain(codes, heap, tbl, route_f, stats,
-                                    base_r=base_r, L_r=L_r, base_h=base_h,
-                                    L_h=L_h, n_bins=n_bins)
+        newheap, _ = sbh_route_plain(codes, heap, tbl, route_f, base=base_r,
+                                     L=L_r)
+        return newheap, sbh_hist_plain_fixed(
+            codes, newheap, stats, base=base_h, L=L_h, n_bins=n_bins,
+            half=True, int8=int8, scale=scale)
     dev, c_pad, n_pad = _check_hist_inputs(codes, heap, stats, n_bins, int8)
     lp = _check_tables(tbl, route_f, n_bins, L_r, dev)
     newheap = torch.empty_like(heap)

@@ -45,9 +45,10 @@ three-tier ladder as chunk planes (core/tiering.py):
     freed exactly once on release/DELETE/retrain.
 
 With no budget set, placement is eager at acquire and nothing demotes.
-One card, so the JAX package's `match_partition_rules`/`shard_params`
-wait for the multi-device item (ROADMAP.md §1); the families keep
-declaring `_partition_rules`.
+The port has no model axis, so the JAX package's `match_partition_rules`
+and `shard_params` have no counterpart (parallel/mesh.py): every rank
+places one whole copy of each leaf; the families keep declaring
+`_partition_rules`.
 """
 
 from __future__ import annotations

@@ -368,10 +368,12 @@ _om.gauge("h2o3_qos_queue_depth",
 # rendezvous across hosts, so a divergent refusal only wastes one
 # worker-side score.
 def single_controller() -> bool:
-    """True on a single-controller runtime. The JAX package asks
-    jax.process_count(); the port runs one process, so it is True until
-    the multi-device item (ROADMAP.md §1) brings more."""
-    return True
+    """True unless this process is one rank of a world of several (the
+    JAX package asks jax.process_count()). A replacement worker joined to
+    the replay channel is a world of one and answers True."""
+    from h2o3_tpu_torch.parallel import mesh as _mesh
+    c = _mesh._CLOUD
+    return c is None or c.world == 1
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ port runs the plain PyTorch versions of its kernels, the JAX package its
 XLA twins. Integer results (codes, split columns and bins, NA directions,
 routing tables, heap ids) must be equal; float results within 1e-5
 (f32 sums in another order). With int8 stats the histograms are exact
-integer sums in both packages, so the tree structure is equal too.
+integer sums in both packages, so the tree structure is equal too. With
+f32 stats the port's histograms are the kernels' exact fixed-point sums
+on the CPU too, so a grown tree is held against the JAX package's grower
+over float64 stats (x64), whose sums carry no f32 rounding of their own.
 """
 
 import jax
@@ -129,11 +132,16 @@ def _growers(spec, int8=False):
 
 def _grow_matches_jax(data, int8):
     ref_g, our_g = _growers(data["spec"], int8)
-    # one jitted program: eager dispatch of grow() costs seconds on the CPU
-    ref = jax.jit(lambda c, s, f: ref_g.grow(
-        c, s, f, eta=0.1, clip_val=19.0, key=jax.random.PRNGKey(0)))(
-        jnp.asarray(data["codes"]), jnp.asarray(data["stats"]),
-        jnp.asarray(data["F"]))
+    # one jitted program: eager dispatch of grow() costs seconds on the
+    # CPU; f32 stats in float64 (the module docstring)
+    with jax.enable_x64(not int8):
+        ref = jax.jit(lambda c, s, f: ref_g.grow(
+            c, s, f, eta=0.1, clip_val=19.0, key=jax.random.PRNGKey(0)))(
+            jnp.asarray(data["codes"]),
+            jnp.asarray(data["stats"] if int8
+                        else data["stats"].astype(np.float64)),
+            jnp.asarray(data["F"]))
+        ref = {k: np.asarray(v) for k, v in ref.items()}
     got = our_g.grow(torch.from_numpy(data["codes"]),
                      torch.from_numpy(data["stats"]),
                      torch.from_numpy(data["F"]), eta=0.1, clip_val=19.0)

@@ -21,8 +21,8 @@ leaktrack.py, divergence.py), the on-demand profiler (obs/profiler.py),
   torch.profiler (kind "torch", a Chrome trace), "jax" is refused, a
   second session is busy;
 - __main__: the same options as the JAX CLI; H2O3_COORDINATOR_ADDRESS
-  raises NotImplementedError; without a card it raises rather than
-  serving on the CPU;
+  without H2O3_NUM_PROCESSES raises; without a card it raises rather
+  than serving on the CPU;
 - the extension SPI: an extension's estimator, route and prim are live.
 """
 
@@ -349,8 +349,11 @@ def test_main_options_match_jax():
 
 
 def test_main_multihost_raises(monkeypatch):
+    """A coordinator address without the world's size raises: a process
+    asked for a cloud never carries on as a cloud of one."""
     monkeypatch.setenv("H2O3_COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.delenv("H2O3_NUM_PROCESSES", raising=False)
+    with pytest.raises(RuntimeError, match="H2O3_NUM_PROCESSES"):
         TMAIN.main(["-port", "0"])
 
 

@@ -42,7 +42,10 @@ names it and torch/cuda, builds a GBM over REST with train()'s trees bit
 for bit, answers row predictions equal to score_payload's, profiles the
 binned kernels through torch.profiler, answers warm predicts under
 H2O3_TRANSFER_GUARD=disallow while an .item() raises, and both
-`python -m` entry points serve on the card. The port's own parity gate
+`python -m` entry points serve on the card. Run (bh) small: two
+processes on cuda:0, each on its own rows, reduce every level over gloo
+and grow one process's trees, history and AUC bit for bit, f32 and int8
+(the quantization's absmax the world's). The port's own parity gate
 (`ops/parity.kernel_parity_check`) holds every kernel at C_pad 32 and
 56, and `utils/selfbench.run_all()` gives positive, finite rates.
 """
@@ -1771,3 +1774,115 @@ def test_selfbench_run_all_on_the_card(dev):
     rates += [x for row in r["network"] for x in (row["latency_us"],
                                                   row["algo_bw_gbps"])]
     assert all(x > 0 and math.isfinite(x) for x in rates)
+
+
+# ---------------------------------------------------------------------------
+# the cloud of two processes on one card (gloo; NCCL refuses two ranks on
+# one device)
+CLOUD_N, CLOUD_C = 60_000, 28
+
+
+def _cloud_case(int8):
+    """A GBM on the formed cloud's block of a seeded HIGGS-shaped frame
+    (all rows in a world of one): its trees, history and AUC."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.core.frame import Frame, T_CAT, Vec
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.parallel import mesh
+    c = mesh.cloud()
+    g = torch.Generator(device=c.device)
+    g.manual_seed(5)
+    X = torch.randn((CLOUD_N, CLOUD_C), generator=g, device=c.device)
+    logit = 1.2 * X[:, 0] - 0.8 * X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
+    y = (torch.rand(CLOUD_N, generator=g, device=c.device)
+         < torch.sigmoid(logit)).float()
+    lo, hi = c.row_block(CLOUD_N)
+    f = Frame([f"x{j}" for j in range(CLOUD_C)] + ["y"],
+              [Vec.from_tensor(X[lo:hi, j].contiguous())
+               for j in range(CLOUD_C)]
+              + [Vec.from_tensor(y[lo:hi].contiguous(), type=T_CAT,
+                                 domain=["0", "1"])])
+    if c.world > 1:
+        f.shard = (lo, hi, CLOUD_N)
+    m = h2o.H2OGradientBoostingEstimator(
+        ntrees=3, max_depth=8, nbins=255, seed=1, sample_rate=0.8,
+        int8_hist=True if int8 else None)
+    m.train(y="y", training_frame=f)
+    t = m._trees
+    out = ([t.col.cpu().numpy(), t.thr.cpu().numpy(),
+            t.na_left.cpu().numpy(), t.value.cpu().numpy()],
+           m._output.scoring_history, m._output.training_metrics.auc)
+    DKV.remove(m.key)
+    DKV.remove(f.key)
+    return out
+
+
+def _cloud_rank_main(rank, port, q):
+    import torch.distributed as dist
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.ops import hist_cuda as HC
+    from h2o3_tpu_torch.parallel import mrtask
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        h2o.init(rank=rank, world=2, group=dist.group.WORLD)
+        HC.reset_launches()
+        mrtask.reset_allreduce_stats()
+        out = {k: _cloud_case(k == "int8") for k in ("f32", "int8")}
+        out["launches"] = dict(HC.LAUNCHES)
+        out["allreduce"] = dict(mrtask.ALLREDUCE)
+        q.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def card_cloud():
+    """Both ranks' results of a 2-process world sharing cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_cloud_rank_main, args=(r, port, q),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(q.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "int8"])
+def test_two_processes_on_the_card_grow_one_process_trees(dev, card_cloud,
+                                                          case):
+    """Two ranks on cuda:0, each on its own rows, reduce each level's exact
+    accumulators over gloo: the trees and AUC are one process's bit for
+    bit, the history's float sums to within their order
+    (test_torch_cloud_ranks._same_metrics); with int8 the quantization's
+    absmax is the world's (the global scale), so the int32 sums add
+    exactly."""
+    import h2o3_tpu_torch as h2o
+    from test_torch_cloud_ranks import _same_metrics
+    h2o.init()
+    want = _cloud_case(case == "int8")
+    for rank in (0, 1):
+        trees, hist, auc = card_cloud[rank][case]
+        assert all(np.array_equal(a, b, equal_nan=True)
+                   for a, b in zip(trees, want[0])), (case, rank)
+        assert _same_metrics(hist, want[1]) and auc == want[2]
+    for rank in (0, 1):
+        assert card_cloud[rank]["launches"]["fused"] > 0
+        assert card_cloud[rank]["launches"]["hist_i8"] > 0
+        assert card_cloud[rank]["allreduce"]["calls"] > 0

@@ -364,13 +364,25 @@ def test_time_fixups_and_compressed_members(tmp_path):
 
 
 def test_broadcaster_is_not_ported(tmp_path):
+    """The name predates the port of the fan-out (tests/test_torch_cloud.py
+    holds the fan-out against the sequential parse): a broadcaster with no
+    live worker leaves every chunk to this process, and the frame is the
+    sequential parse's."""
     p = str(tmp_path / "a.csv")
     with open(p, "w") as f:
-        f.write("x\n1\n")
-    with pytest.raises(NotImplementedError, match="fan-out"):
-        TD.parse_files([p], broadcaster=object())
-    with pytest.raises(NotImplementedError, match="fan-out"):
-        TD.import_files([p], broadcaster=object())
+        f.write("x,y\n1,a\n2.5,b\n,a\n")
+
+    class _Alone:
+        def live_pids(self):
+            return []
+
+    want = TD.parse_files([p])
+    for fn in (TD.parse_files, TD.import_files):
+        got = fn([p], broadcaster=_Alone())
+        assert got.names == want.names and got.types == want.types
+        np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+        _rm(got)
+    _rm(want)
 
 
 # ---------------------------------------------------------------------------

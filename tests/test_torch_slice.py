@@ -525,6 +525,11 @@ def test_port_imports_no_jax():
         pkg / "utils" / "auth.py", pkg / "obs" / "profiler.py",
         pkg / "models" / "param_docs.py", pkg / "ext.py",
         pkg / "__main__.py"} <= set(files)
+    assert {pkg / "parallel" / f"{m}.py" for m in (
+        "compat", "mesh", "mrtask")} | {
+        pkg / "deploy" / "multihost.py", pkg / "core" / "kvstore.py",
+        pkg / "models" / "tree" / "binned.py",
+        pkg / "models" / "tree" / "shared_tree.py"} <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
