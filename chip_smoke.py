@@ -484,6 +484,19 @@ Phases, each printing its lines before the last:
      utils/selfbench.run_all() (the triad's GB/s and the bf16 and f32
      matmuls' TFLOPS beside the card's published peaks); a line saying
      why the scikit-learn adapters do not run here;
+     then phase analysis: the port's static analyzer (python -m
+     h2o3_tpu_torch.analysis, all 25 rules, --check-census) over the
+     package and tests/test_torch_*.py, run in the host worker from the
+     start of main(): files analysed, findings by rule, waived count,
+     seconds and the three slowest rules; an unwaived finding or a stale
+     census fails the script; and (bi) the capture cross-check, phase
+     capture_check, right after phase obs_serving: each scorer family's
+     static capture verdict (an R002 finding in the capture scope or an
+     R025 finding, waived or not, in its modules) held against its
+     program at one 1,024-row bucket on the card: GBM (b), GLM (k), DL
+     (q), KMeans (t) and (w)'s GLRM; a family without such a finding
+     must capture one graph and no strike, a family with one must
+     strike; any disagreement fails the script;
   5. each kernel at the shapes of one tree of runs (a)-(d) and of levels
      8 and 9 of a run (f) tree (with its terminal route): its time from
      CUDA events beside its plain version's, one PyTorch library call's
@@ -956,7 +969,7 @@ RECAP = re.compile(r"(covtype|drf \(f\)|kernel time of (one tree, run "
                    r"serving \(ax\) (speed|lifecycle|1000|predict)|"
                    r"serving \(ax\) [bkqt]:|qos serving|rest|"
                    r"kernel parity \(be\)|client \(bf\)|front ends|"
-                   r"cloud \(bh\)|the cloud)")
+                   r"cloud \(bh\)|the cloud|analysis|capture cross)")
 
 
 def say(msg):
@@ -1056,6 +1069,118 @@ def host_result(fut, what):
             return fut.result()
         except Exception as e:  # noqa: BLE001 — any failure fails the run
             fail(f"{what}: the host worker failed: {e!r}")
+
+
+def analysis_task(repo):
+    """Phase analysis's work, in the host worker: the port's analyzer over
+    the package and its tests, every rule, the censuses checked. Returns
+    (exit code, the --json report, the end of stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "h2o3_tpu_torch.analysis", "h2o3_tpu_torch",
+         "tests", "--json", "--all", "--check-census"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    return (out.returncode, out.stdout, out.stderr[-2000:],
+            time.perf_counter() - t0)
+
+
+def phase_analysis(analysis):
+    """Phase analysis: the host worker's analyzer run (a future of
+    analysis_task); returns its findings, waived ones included."""
+    rc, stdout, stderr, wall = host_result(analysis, "analysis")
+    try:
+        rep = json.loads(stdout)
+    except ValueError:
+        fail(f"analysis: no JSON report (exit {rc}): {stderr}")
+    slow = sorted(rep["rule_timings_s"].items(), key=lambda kv: -kv[1])[:3]
+    waived = sum(1 for f in rep["findings"] if f["suppressed"])
+    say(f"analysis: python -m h2o3_tpu_torch.analysis h2o3_tpu_torch tests "
+        f"--check-census: {rep['files_analyzed']} files, "
+        f"{rep['total']} findings, {waived} waived, {rep['unsuppressed']} "
+        f"unwaived; by rule {rep['by_rule']}; the analyzer's "
+        f"{rep['elapsed_s']} s ({wall:.1f} s with the interpreter's "
+        f"start, in the host worker); slowest "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in slow))
+    check(rep["unsuppressed"] == 0, "analysis: unwaived findings: "
+          + "; ".join(f"{f['file']}:{f['line']} {f['rule']}"
+                      for f in rep["findings"] if not f["suppressed"]))
+    check(rc == 0 and "stale" not in stderr,
+          f"analysis: exit {rc} (a stale census?): {stderr}")
+    return rep["findings"]
+
+
+# (w)'s model and the first CAPTURE_ROWS rows of its frame, kept by run
+# (w) for the capture cross-check (bi)
+KEPT_GLRM = {}
+# the families of the capture cross-check: (run, family)
+CAPTURE_FAMILIES = (("b", "gbm"), ("k", "glm"), ("q", "deeplearning"),
+                    ("t", "kmeans"), ("w", "glrm"))
+CAPTURE_ROWS = 1024
+
+
+def capture_outcome(torch, m, fr):
+    """One program of `m` at the bucket of fr's rows through the scorer
+    cache, none resident before: (graphs captured, strikes added)."""
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    SC.CACHE.invalidate_key(m.key)
+    key = (m.key, SC.model_token(m))
+    c0 = om.graph_capture_count()
+    s0 = SC._BROKEN.get(key, (0, 0.0))[0]
+    out = SC.score_frame(m, fr)
+    torch.cuda.synchronize()
+    strikes = SC._BROKEN.get(key, (0, 0.0))[0] - s0
+    captured = om.graph_capture_count() - c0
+    check((out is None) == (strikes > 0),
+          f"(bi) {m.key}: a result {out is not None} with {strikes} strikes")
+    SC.CACHE.invalidate_key(m.key)
+    return captured, strikes
+
+
+def phase_capture_check(torch, h2o, HC, findings):
+    """Run (bi): the static capture verdicts against the card."""
+    from h2o3_tpu_torch.analysis import rules_torch
+    from h2o3_tpu_torch.core.kvstore import DKV
+    verdicts = rules_torch.capture_verdicts(findings)
+    dev = h2o.init().device
+    valid = _higgs_frame(torch, h2o, dev, CAPTURE_ROWS, 8)
+    blobs, _ = _blob_frame(torch, dev, CAPTURE_ROWS, 12)
+    frames = {"b": valid, "k": valid, "q": valid, "t": blobs}
+    models = dict(KEPT)
+    if not all(t in models for t in "bkqt"):
+        fr = _higgs_frame(torch, h2o, dev, HIGGS_N, 7)
+        models = _kept_models(torch, h2o, fr, valid, _blob_frame(
+            torch, dev, HIGGS_N, 12)[0], label="capture cross-check (bi)")
+        del fr
+    if "w" not in KEPT_GLRM:
+        # the phase run alone: (w)'s GLRM on a cut frame of its kind
+        _full, holed, _X, _L, _na = _rank_frame(torch, dev, 20_000, 13)
+        m = h2o.H2OGeneralizedLowRankEstimator(k=RANK, seed=3)
+        m.train(training_frame=holed)
+        KEPT_GLRM["w"] = (m, _sub_frame(holed, CAPTURE_ROWS))
+    models["w"], frames["w"] = KEPT_GLRM["w"]
+    lines = []
+    for tag, fam in CAPTURE_FAMILIES:
+        m = models[tag]
+        DKV.put(m.key, m)
+        captured, strikes = capture_outcome(torch, m, frames[tag])
+        found = verdicts[fam]
+        where = ", ".join(f"{f['rule']} {f['file']}:{f['line']}"
+                          f"{' (waived)' if f['suppressed'] else ''}"
+                          for f in found) or "no capture finding"
+        lines.append(f"{fam} ({tag}) {where}: {int(captured)} graph(s), "
+                     f"{strikes} strike(s)")
+        if found:
+            check(strikes == 1 and captured == 0,
+                  f"(bi) {fam}: the analyzer says {where}, but the card "
+                  f"captured {captured} graph(s) with {strikes} strike(s)")
+        else:
+            check(captured == 1 and strikes == 0,
+                  f"(bi) {fam}: no capture finding, but the card captured "
+                  f"{captured} graph(s) with {strikes} strike(s)")
+    say(f"capture cross-check (bi), one program at bucket {CAPTURE_ROWS} "
+        f"each, static verdict vs the card, all agree: " + "; ".join(lines))
+    DKV.clear()
 
 
 def run_phase(name, fn, *args, **kw):
@@ -3510,6 +3635,8 @@ def glrm_run(torch, h2o, HC, fr, X, na):
           f"glrm (w): the objective rose: {obj}")
     check(abs(rmse - want) < 0.05 * want,
           f"glrm (w): held-out RMSE {rmse} vs {want}")
+    # its program at one bucket for the capture cross-check (bi)
+    KEPT_GLRM["w"] = (m, _sub_frame(fr, CAPTURE_ROWS))
 
 
 def phase_dl_unsupervised(torch, h2o, HC):
@@ -10234,8 +10361,10 @@ def main():
                                         AIR_PY_ROWS))
         munging = (host.submit(groupby_data, work, GB_N, GB_K),
                    host.submit(join_data, work, JN_N))
+        analysis = host.submit(
+            analysis_task, os.path.dirname(os.path.abspath(__file__)))
         run_main_path(torch, h2o, HC, _build, t_start, host, airline,
-                      munging)
+                      munging, analysis)
     except BaseException:
         host.close(kill=True)
         raise
@@ -10245,7 +10374,8 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_main_path(torch, h2o, HC, _build, t_start, host, airline, munging):
+def run_main_path(torch, h2o, HC, _build, t_start, host, airline, munging,
+                  analysis):
     """Every phase in order, then the recap and the two JSON lines."""
     card = run_phase("card", phase_card, torch, _build)
     dev = torch.device("cuda", 0)
@@ -10264,13 +10394,14 @@ def run_main_path(torch, h2o, HC, _build, t_start, host, airline, munging):
     keep = tempfile.mkdtemp(prefix="h2o3_smoke_")
     try:
         _run_phases(torch, h2o, HC, t_start, card, dev, host, airline,
-                    munging, os.path.join(keep, "higgs-1m.csv"), t_be)
+                    munging, os.path.join(keep, "higgs-1m.csv"), t_be,
+                    analysis)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
 
 def _run_phases(torch, h2o, HC, t_start, card, dev, host, airline, munging,
-                higgs_csv, t_be):
+                higgs_csv, t_be, analysis):
     for name, fn in (("small_path", phase_small_path),
                      ("small_adaptive", phase_small_adaptive),
                      ("small_glm", phase_small_glm),
@@ -10291,6 +10422,9 @@ def _run_phases(torch, h2o, HC, t_start, card, dev, host, airline, munging,
     run_phase("munging", phase_munging, torch, h2o, HC, data=munging)
     run_phase("export_explain", phase_export_explain, torch, h2o, HC, host)
     run_phase("obs_serving", phase_obs_serving, torch, h2o, HC)
+    findings = run_phase("analysis", phase_analysis, analysis)
+    run_phase("capture_check", phase_capture_check, torch, h2o, HC,
+              findings)
     ay = run_phase("qos_serving", phase_qos_serving, torch, h2o, HC)
     # (bh)'s processes start here, beside phase rest
     cloud = start_cloud()

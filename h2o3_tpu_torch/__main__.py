@@ -65,7 +65,7 @@ def main(argv=None):
     from h2o3_tpu_torch.utils.env import env_bool, env_str, process_id
     device = env_str("H2O3_DEVICE", "") or None
     if env_bool("H2O3_JOIN_CLOUD", False):
-        host = env_str("H2O3_COORDINATOR_ADDRESS", "").rpartition(":")[0]
+        host = multihost._coordinator_address().rpartition(":")[0]
         multihost.join_cloud(host or "127.0.0.1", args.port, process_id(),
                              device=device)
         return 0

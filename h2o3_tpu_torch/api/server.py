@@ -80,21 +80,33 @@ _obs_metrics.gauge(
     "hist.cu kernel launches by this process, by kernel (each wrapper "
     "counts where it launches; ops/hist_cuda.LAUNCHES)",
     fn=_kernel_launches)
-for _tab, _name, _what in (("ALLREDUCE", "allreduce", "all-reduces"),
-                           ("GATHER", "gather", "row gathers")):
-    _obs_metrics.gauge(
-        f"h2o3_{_name}_bytes",
-        f"bytes of this rank's {_what} over its world (parallel/mrtask)",
-        fn=lambda t=_tab: _world_stat(t, "bytes"))
-    _obs_metrics.gauge(
-        f"h2o3_{_name}_seconds",
-        f"host seconds this rank spent in {_what} over its world, waiting "
-        "for the other ranks included",
-        fn=lambda t=_tab: _world_stat(t, "seconds"))
-    _obs_metrics.gauge(
-        f"h2o3_{_name}_calls",
-        f"{_what} this rank issued over its world",
-        fn=lambda t=_tab: _world_stat(t, "calls"))
+# literal names, one call each, so that the metric census lists them
+_obs_metrics.gauge(
+    "h2o3_allreduce_bytes",
+    "bytes of this rank's all-reduces over its world (parallel/mrtask)",
+    fn=lambda: _world_stat("ALLREDUCE", "bytes"))
+_obs_metrics.gauge(
+    "h2o3_allreduce_seconds",
+    "host seconds this rank spent in all-reduces over its world, waiting "
+    "for the other ranks included",
+    fn=lambda: _world_stat("ALLREDUCE", "seconds"))
+_obs_metrics.gauge(
+    "h2o3_allreduce_calls",
+    "all-reduces this rank issued over its world",
+    fn=lambda: _world_stat("ALLREDUCE", "calls"))
+_obs_metrics.gauge(
+    "h2o3_gather_bytes",
+    "bytes of this rank's row gathers over its world (parallel/mrtask)",
+    fn=lambda: _world_stat("GATHER", "bytes"))
+_obs_metrics.gauge(
+    "h2o3_gather_seconds",
+    "host seconds this rank spent in row gathers over its world, waiting "
+    "for the other ranks included",
+    fn=lambda: _world_stat("GATHER", "seconds"))
+_obs_metrics.gauge(
+    "h2o3_gather_calls",
+    "row gathers this rank issued over its world",
+    fn=lambda: _world_stat("GATHER", "calls"))
 
 
 def _frame_schema(f: Frame, with_summary=False) -> dict:
@@ -667,6 +679,7 @@ def _h_cloud(h: _Handler):
                        for d in info["devices"]]})
 
 
+# h2o3-ok: R018 coordinator-owned membership control surface
 def _h_cloud_drain(h: _Handler):
     """POST /3/Cloud/drain?node=N — graceful worker departure: finish
     in-flight jobs and micro-batches (bounded by H2O3_DRAIN_TIMEOUT_S),
@@ -773,6 +786,7 @@ def _h_parse(h: _Handler):
 # the replicated key counter stays in step); the FRAME planes workers
 # produce ship back over the parse: fan-out and land under the
 # coordinator's dest key, not via replay
+# h2o3-ok: R018 coordinator-owned job record; frames ship via fan-out
 def _h_parse_distributed(h: _Handler):
     """POST /3/ParseDistributed — the cloud-wide chunked parse: the
     coordinator plans byte ranges and fans shares out over the replay

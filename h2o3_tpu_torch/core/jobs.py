@@ -120,6 +120,7 @@ class Job:
         if collective is not False and not _compat.in_region():
             ticket = _compat.reserve()
         self.status = RUNNING
+        # h2o3-ok: R016 wall-clock progress stamp for /3/Jobs display; no control flow or DKV key derivation reads it, so per-host divergence is cosmetic
         self.start_time = time.time()
         # jobs inherit the starting thread's trace, so job.run and its
         # nested spans stitch into that trace although the work may run
@@ -160,6 +161,7 @@ class Job:
                 self.status = FAILED
             finally:
                 _qos.release_job_slot(qos_slot)
+                # h2o3-ok: R016 wall-clock progress stamp (see start_time): display-only, never replicated into decisions
                 self.end_time = time.time()
                 self._done.set()
 

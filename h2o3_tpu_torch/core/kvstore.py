@@ -350,3 +350,10 @@ class _DKV:
 
 
 DKV = _DKV()
+
+# module-level registration reading the module global (the microbatch
+# pattern: survives a test harness swapping DKV out)
+_om.gauge("h2o3_dkv_rehome_pending",
+          "DKV keys queued or mid-flight in the background re-home "
+          "worker (reads serve through the old home until this drains)",
+          fn=lambda: float(len(DKV._migrating)))

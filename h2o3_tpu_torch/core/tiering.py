@@ -305,17 +305,20 @@ class ChunkPager:
             if has:
                 self._bytes[tier] += ch.nbytes
         if present[0] and self._bytes[TIER_HBM] > self._peak_hbm:
+            # h2o3-ok: R003 _locked helper — every caller holds self._lock
             self._peak_hbm = self._bytes[TIER_HBM]
 
     def _reap_locked(self):
         while self._dead:
             key = self._dead.popleft()
+            # h2o3-ok: R003 _locked helper — every caller holds self._lock (the weakref callback only appends to the lock-free _dead deque)
             self._chunks.pop(key, None)
             acct = self._acct.pop(key, None)
             if acct is not None:
                 for tier, had in zip(_TIERS, acct[0]):
                     if had:
                         self._bytes[tier] -= acct[1]
+            # h2o3-ok: R003 _locked helper — every caller holds self._lock
             path = self._dead_paths.pop(key, None)
             if path is not None:
                 _spill.delete_chunk(path)

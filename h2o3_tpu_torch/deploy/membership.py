@@ -125,8 +125,10 @@ class Membership:
                 self.epoch = e
 
     def _change_locked(self, pid, state, reason):
+        # h2o3-ok: R003 _locked helper — every caller holds self._lock
         self._workers[pid] = {"state": state, "epoch": self.epoch + 1,
                               "reason": reason}
+        # h2o3-ok: R003 _locked helper — every caller holds self._lock
         self.epoch += 1
         return self.epoch
 

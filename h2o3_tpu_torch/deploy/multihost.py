@@ -37,7 +37,7 @@ import io
 import os
 
 from h2o3_tpu_torch.utils.env import (env_bool, env_float, env_int, env_str,
-                                      process_id)
+                                      is_set, process_id)
 
 
 # True in a process that replays the coordinator's requests (a worker of a
@@ -144,7 +144,7 @@ def bootstrap(n_rows_shards=None, n_model_shards: int = 1, device=None):
             "H2O3_COORDINATOR_ADDRESS is set but "
             "H2O3_NUM_PROCESSES is not — explicit multi-host "
             "wiring needs the world size")
-    if not env_str("H2O3_PROCESS_ID", "").strip():
+    if not is_set("H2O3_PROCESS_ID"):
         # keep the old KeyError's loudness: four pods all
         # defaulting to rank 0 fail far from the root cause
         raise RuntimeError(
@@ -871,15 +871,18 @@ def worker_loop(coordinator_host: str, port: int, pid=None, join=False):
             raise
         sock, key, welcome = _rejoin(coordinator_host, port, pid, secret,
                                      _reconnect_window_s(), "join")
-    while True:
-        reason = _replay_session(sock, key, welcome)
-        if reason == "leave":
-            return
-        window = _reconnect_window_s()
-        if window <= 0:
-            return                        # legacy: orphaned worker exits
-        sock, key, welcome = _rejoin(coordinator_host, port, pid, secret,
-                                     window, "reconnect")
+    try:
+        while True:
+            reason = _replay_session(sock, key, welcome)
+            if reason == "leave":
+                return
+            window = _reconnect_window_s()
+            if window <= 0:
+                return                    # legacy: orphaned worker exits
+            sock, key, welcome = _rejoin(coordinator_host, port, pid,
+                                         secret, window, "reconnect")
+    finally:
+        _close_free_pool()
 
 
 def _join_started_job(out):
@@ -963,14 +966,24 @@ _FREE_PENDING: list = []        # its replays not yet waited for
 def _replay_free(msg):
     if not _FREE_POOL:
         from concurrent.futures import ThreadPoolExecutor
-        _FREE_POOL.append(ThreadPoolExecutor(
-            _STATELESS_THREADS, thread_name_prefix="replay-free"))
+        pool = ThreadPoolExecutor(_STATELESS_THREADS,
+                                  thread_name_prefix="replay-free")
+        _FREE_POOL.append(pool)
     _FREE_PENDING.append(_FREE_POOL[0].submit(_replay_one, msg))
 
 
 def _wait_free():
     while _FREE_PENDING:
         _FREE_PENDING.pop(0).result()
+
+
+def _close_free_pool():
+    """Retire the stateless replays' pool when the replay loop ends: its
+    replays finish (each logs its own failure) and its threads exit."""
+    while _FREE_POOL:
+        pool = _FREE_POOL.pop()
+        pool.shutdown(wait=True)
+    _FREE_PENDING.clear()
 
 
 def _replay_session(sock, key, welcome) -> str:
@@ -1105,6 +1118,7 @@ def serve(port: int = 54321, n_rows_shards=None, n_model_shards: int = 1,
         from h2o3_tpu_torch.utils import log as _ulog
         _ulog.info("h2o3-tpu-torch cloud: %s ranks on %s; REST on :%s",
                    nproc, cloud.device, srv.port)
+        # h2o3-ok: R012 the cloud CLI's ready banner on stdout, as __main__.py prints it for a world of one (serve() is `python -m h2o3_tpu_torch`'s entry for a cloud); the line above logs it
         print(f"h2o3-tpu-torch cloud up: {nproc} rank(s) on "
               f"{cloud.device}; REST + Flow on :{srv.port}", flush=True)
         try:

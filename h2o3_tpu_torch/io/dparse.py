@@ -63,10 +63,17 @@ from h2o3_tpu_torch.obs.timeline import span as _span
 from h2o3_tpu_torch.obs import metrics as _om
 from h2o3_tpu_torch.utils.env import env_float, env_int
 
+# per-stage ingest volume: read (remote range bytes fetched), decompress
+# (bytes inflated out of gzip/zip members), tokenize (bytes handed to a
+# tokenizer), pack (packed codec bytes landing in Vec planes), wire
+# (codec-byte planes shipped back by fan-out workers)
 INGEST_BYTES = _om.counter(
     "h2o3_ingest_bytes_total",
     "distributed-ingest pipeline volume by stage "
     "(read/decompress/tokenize/pack/wire)")
+INGEST_ROWS = _om.counter(
+    "h2o3_ingest_rows_total",
+    "rows materialized into Frames by the distributed ingest pipeline")
 
 _COMPRESSED = (".gz", ".zip")
 
@@ -229,7 +236,9 @@ def _read_remote_chunk(path: str, start: int, end: int) -> bytes:
     buf = b""
     while True:
         lo, hi = start + len(buf), end + slack
-        part = _uri.read_range(path, lo, hi)
+        with _span("parse.read", start=lo, end=hi):
+            part = _uri.read_range(path, lo, hi)
+        INGEST_BYTES.inc(len(part), stage="read")
         eof = len(part) < hi - lo
         buf += part
         if len(buf) > end - start:
@@ -284,9 +293,11 @@ def _compressed_units(path: str, chunk_bytes: int):
     first = True
     with stream:
         while True:
-            blk = stream.read(chunk_bytes)
+            with _span("parse.decompress", file=os.path.basename(path)):
+                blk = stream.read(chunk_bytes)
             if not blk:
                 break
+            INGEST_BYTES.inc(len(blk), stage="decompress")
             buf = carry + blk
             nl = buf.rfind(b"\n")
             if nl < 0:
@@ -662,7 +673,13 @@ def _merge_chunks(chunks, setup, destination_frame, col_types) -> Frame:
         else:
             merged = [merge_col(j) for j in range(ncol)]
     with pack_span(cols=ncol):
-        return _pack_merged(merged, names, ncol, destination_frame)
+        fr = _pack_merged(merged, names, ncol, destination_frame)
+    for v in fr.vecs:
+        ch = getattr(v, "_chunk", None)
+        if ch is not None:
+            INGEST_BYTES.inc(ch.nbytes, stage="pack")
+    INGEST_ROWS.inc(n)
+    return fr
 
 
 def _pack_merged(merged, names, ncol, destination_frame) -> Frame:

@@ -227,6 +227,7 @@ def parse_bytes_columns(buf: bytes, sep: str, header: bool,
     `skip_partial_first` the head up to the first newline belongs to the
     previous chunk; otherwise `buf` holds whole lines."""
     lib = _lib()
+    # h2o3-ok: R011 same tokenize stage as the range entry above — one engine, two native entry points
     with _span("parse.tokenize", engine="fastcsv_bytes", nbytes=len(buf)):
         h = lib.fastcsv_parse_bytes(buf, len(buf), sep.encode(),
                                     1 if header else 0,

@@ -363,6 +363,7 @@ def _parse_dispatch(path, setup, destination_frame, col_types) -> Frame:
     if not path.endswith((".gz", ".zip")) and fastcsv.available():
         return _native_parse(path, setup, destination_frame, col_types)
     fastcsv.count_bytes("python", os.path.getsize(path))
+    # h2o3-ok: R011 same tokenize stage as io/fastcsv.py — two engines, engine= attr disambiguates
     with _span("parse.tokenize", engine="python_csv"):
         cols = _tokenize_csv(path, setup)
     names = list(setup.column_names)

@@ -818,6 +818,7 @@ class H2OGeneralizedLinearEstimator(ModelBase):
         for lam in lams:
             for it in range(max(1, max_it)):
                 self._iterations += 1
+                # h2o3-ok: R011 same IRLSM phase as the multinomial sweep below — family= attr disambiguates
                 with _span("glm.irlsm", iter=it, lam=float(lam),
                            family=fam):
                     _IRLSM_ITERS.inc()
@@ -871,6 +872,7 @@ class H2OGeneralizedLinearEstimator(ModelBase):
                 _IRLSM_ITERS.inc()
                 for c in range(K):
                     yk = (yi == c).to(torch.float32)
+                    # h2o3-ok: R015 the IRLSM sweep solves its Gram on the host in float64: the readback IS the work the span measures
                     Gn, qn = _host_gram(*_class_gram(Xi, w, as_t(beta), c,
                                                      yk))
                     if alpha > 0 and lam > 0:

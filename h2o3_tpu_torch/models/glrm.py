@@ -122,6 +122,7 @@ class H2OGeneralizedLowRankEstimator(ModelBase):
     def _score_matrix(self, X):
         # project new rows onto the archetypes (exact masked ridge per row)
         M, Xz = _observed(X)
+        # h2o3-ok: R002 GLRM's program strikes and scores eagerly: the archetypes B are host numpy (GLRM exports no serving params), so this is a host-to-device copy per call, and step_A's torch.linalg.solve synchronises to check its k x k systems; chip_smoke.py's capture cross-check holds the strike on the card
         return step_A(Xz, M, torch.as_tensor(self._B, device=X.device),
                       float(self.params.get("gamma_x") or 0.0))
 

@@ -601,7 +601,7 @@ class TreeGrower:
                 with _span("tree.level", depth=d), \
                         _LEVEL_SECONDS.time(engine="adaptive", level=str(d)):
                     leaf, heap, active, colA, thrA, nalA, valA, gains = \
-                        _level_step(
+                        _level_step(  # h2o3-ok: R015 the adaptive engine partitions a level's rows by leaf with host-known bounds (the per-leaf row counts slice the sorted rows): the readback is part of the level the span measures
                             X, stats, w, leaf, heap, active, colA, thrA,
                             nalA, valA, gains, col_mask, r, d=d, B=self.B,
                             mtries=int(mtries), min_rows=self.min_rows,

@@ -604,6 +604,7 @@ class H2OGradientBoostingEstimator(SharedTreeEstimator):
                 sample_rate=float(p["sample_rate"]),
                 mtries=self._per_level_mtries(C), k_iters=k,
                 col_rate_tree=float(p.get("col_sample_rate_per_tree") or 1.0))
+            # h2o3-ok: R011 same stage as the binomial path, engine= attr disambiguates
             with _span("gbm.chunk", trees=k * K, rows=n,
                        engine="binned_multinomial"):
                 F, trees = trainer(ctx["codes"], y1, w1, F, gen)

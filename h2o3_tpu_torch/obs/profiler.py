@@ -116,9 +116,17 @@ class _TorchSession:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="h2o3-torchprof")
 
+    # the longest a session may take to start: start() runs under the
+    # manager's lock, so a profiler that never comes up must not wedge it
+    START_TIMEOUT_S = 60.0
+
     def start(self):
         self._thread.start()
-        self._ready.wait()
+        if not self._ready.wait(timeout=self.START_TIMEOUT_S):
+            self._stop.set()
+            raise RuntimeError(
+                f"the torch profiler did not start within "
+                f"{self.START_TIMEOUT_S:g} s")
         if self.error is not None:
             raise self.error
 

@@ -305,9 +305,9 @@ class FlightRecorder:
         self._remember(self._sticky, tid)
         # heal the head: fragments of THIS trace dropped earlier (their
         # own roots closed fast-OK before this one erred) go to disk too
-        prior = self._dropped.pop(tid, None)   # _locked helper — every caller holds self._lock
+        prior = self._dropped.pop(tid, None)   # h2o3-ok: R003 _locked helper — every caller holds self._lock
         if prior:
-            self._dropped_n -= len(prior)   # _locked helper — every caller holds self._lock
+            self._dropped_n -= len(prior)   # h2o3-ok: R003 _locked helper — every caller holds self._lock
             SPANS_SEEN.inc(len(prior), disposition="healed")
             self._append_locked(prior)
         self._append_locked(spans)
@@ -317,11 +317,11 @@ class FlightRecorder:
     def _stash_dropped_locked(self, tid, spans: list):
         """Remember a downsampled fragment for a while (bounded FIFO by
         total span count) so a later error fragment can resurrect it."""
-        self._dropped.setdefault(tid, []).extend(spans)   # _locked helper — every caller holds self._lock
-        self._dropped_n += len(spans)   # _locked helper — every caller holds self._lock
+        self._dropped.setdefault(tid, []).extend(spans)   # h2o3-ok: R003 _locked helper — every caller holds self._lock
+        self._dropped_n += len(spans)   # h2o3-ok: R003 _locked helper — every caller holds self._lock
         while self._dropped_n > self._DROPPED_SPAN_CAP and self._dropped:
-            old = self._dropped.pop(next(iter(self._dropped)))   # _locked helper — every caller holds self._lock
-            self._dropped_n -= len(old)   # _locked helper — every caller holds self._lock
+            old = self._dropped.pop(next(iter(self._dropped)))   # h2o3-ok: R003 _locked helper — every caller holds self._lock
+            self._dropped_n -= len(old)   # h2o3-ok: R003 _locked helper — every caller holds self._lock
 
     # ---- segment writing ------------------------------------------------
     def _open_segment_locked(self):

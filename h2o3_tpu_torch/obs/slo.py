@@ -331,8 +331,7 @@ class SLOEngine:
         {model=…} series, bad when the level exceeds spec.threshold, and
         accumulates them engine-side. The counts are monotone, so the
         sample ring and burn-rate deltas apply unchanged."""
-        # every caller (_totals, from evaluate and restore) holds
-        # self._lock
+        # h2o3-ok: R003 every caller (_totals, from evaluate and restore) holds self._lock
         ent = self._drift_counts.setdefault(spec.name, [0, 0])
         g = self._registry.get(spec.metric)
         if isinstance(g, _om.Gauge):
@@ -487,6 +486,7 @@ class SLOEngine:
         # survives a restart instead of resetting with the process
         min_s = self._persist_min_s()
         if self._specs and min_s > 0 and now - self._last_persist >= min_s:
+            # h2o3-ok: R003 _last_persist is the evaluator thread's persist rate-limit stamp; reset() zeroes it under the lock after retiring the thread, and a race costs at most one persist early or late
             self._last_persist = now
             self.persist()
         return alerts

@@ -251,10 +251,8 @@ class Watchdog:
         # promptly instead; the channel being wedged IS the finding.
         channel_stalled = any(s["kind"] == "replay" for s in stalls)
         if self._collector is not None and not channel_stalled:
-            # the JAX package reads api.server._collect_timeout; the
-            # port's REST server comes with the front-end item
-            # (ROADMAP.md §1), so the same variable is read here
-            timeout = env_float("H2O3_OBS_COLLECT_TIMEOUT_S", 2.0)
+            from h2o3_tpu_torch.api.server import _collect_timeout
+            timeout = _collect_timeout()
             try:
                 for i, remote in enumerate(self._collector("jstack",
                                                            timeout)):

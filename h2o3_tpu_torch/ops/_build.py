@@ -37,6 +37,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+# the longest one compile may take: builds run under the module's lock,
+# so a compiler that never returns would wedge every later load
+BUILD_TIMEOUT_S = 600.0
 
 
 class BuildError(RuntimeError):
@@ -98,7 +101,14 @@ def _finish(name: str, out: Path, pending) -> str:
     if pending is None:
         return ""
     proc, tmp = pending
-    log, _ = proc.communicate()
+    try:
+        log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate(timeout=30)
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"build of {name} took more than "
+                         f"{BUILD_TIMEOUT_S:g} s:\n{log}") from None
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"build of {name} failed:\n{log}")

@@ -284,6 +284,7 @@ class ParamStore:
             if has:
                 self._bytes[t] += p.nbytes
         if present[0] and self._bytes[TIER_HBM] > self._peak_hbm:
+            # h2o3-ok: R003 _locked helper — every caller holds self._lock
             self._peak_hbm = self._bytes[TIER_HBM]
         self._gauge_locked(p.key[0])
 
@@ -458,6 +459,7 @@ class ParamStore:
                     with self._lock:
                         p.last = self._tick()
                     return placed
+                # h2o3-ok: R022 the commit CONVERTS the reservation to accounted bytes (self._reserved -= nbytes, reserved=False) inside its critical section; the finally releases it on every other path
                 if self._try_reserve(p.nbytes, force=forced):
                     stale_path = None
                     reserved = True

@@ -623,22 +623,31 @@ class FairGate:
             if best_rounds is None or rounds < best_rounds:
                 best, best_rounds = p, rounds
         if best is None:
+            # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
             self._order.clear()
+            # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
             self._deficit.clear()
             return None
         if best_rounds:
             for p in self._order:
                 if self._waiting.get(p):
+                    # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
                     self._deficit[p] = (self._deficit.get(p, 0.0)
                                         + best_rounds * quantum * weight(p))
+        # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
         t = self._waiting[best].pop(0)
+        # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
         self._deficit[best] = self._deficit.get(best, 0.0) - t.rows
         # rotate the winner to the back so equal-rounds ties round-robin
+        # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
         self._order.remove(best)
         if self._waiting.get(best):
+            # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
             self._order.append(best)
         else:
+            # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
             self._waiting.pop(best, None)
+            # h2o3-ok: R003 _locked helper — only caller is release(), which holds self._lock
             self._deficit.pop(best, None)
         return t
 

@@ -304,14 +304,17 @@ class _Program:
         with self._lock:
             # hold the placed params for the whole dispatch: a concurrent
             # demote cannot free them under a replay
+            # h2o3-ok: R008 the params stay placed for the whole dispatch (a demote cannot free them under a replay); a fault's wait is a 0.1 ms poll while another fault's reservation commits or releases in its finally
             params, pl, gen = self._params()
             dev = _mesh.cloud().device
             if dev.type != "cuda" or (self.shares_params and pl is None):
                 # the CPU, or a one-shot placement (the entry was
                 # invalidated mid-flight): eager, never captured
+                # h2o3-ok: R008,R015 one dispatch at a time: the readback into the program's buffers is the dispatch's work, and the lock keeps the next staging off them
                 return self._eager(params, raw, dev)
             self._stage_in(raw, dev)
             if self._graph is None or self._cap != (pl, gen):
+                # h2o3-ok: R008,R015 captures run under the program's lock: its static input and output buffers belong to the graph being captured
                 self._capture(params, dev)
                 self._cap = (pl, gen)
                 # the capture's host time is no device time: on this
@@ -321,6 +324,7 @@ class _Program:
             self._ev_run.record()
             self._host_out.copy_(self._static_out, non_blocking=True)
             self._event.record()
+            # h2o3-ok: R008 the readback of the replay's fixed output buffer completes before the lock lets the next dispatch stage into the graph's input
             self._event.synchronize()
             if _usage.stage_active():
                 # the events before it completed with the one wait above:
@@ -369,6 +373,7 @@ class _Program:
         if self._static_in is not None and self._static_in.device != dev:
             # the cloud moved to another card: buffers and graph anew
             self._static_in = self._graph = self._static_out = None
+            # h2o3-ok: R003 the only caller, __call__, holds self._lock
             self._cap = None
         if self._static_in is None:
             shape = (self.bucket, self.ncols)
@@ -415,6 +420,7 @@ class _Program:
                     for _ in range(_WARMUP_RUNS):
                         self._fn(params, self._static_in)
                 warmed.add(self)
+            # h2o3-ok: R008 captures are serialised on the one side stream: the warm-up must finish before capture_begin
             side.synchronize()
             before = torch.cuda.memory_reserved(dev)
             g = torch.cuda.CUDAGraph()

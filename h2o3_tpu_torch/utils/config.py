@@ -42,6 +42,7 @@ def get_property(name: str, default=None):
     with _LOCK:
         if key in _PROPS:
             return _PROPS[key]
+    # h2o3-ok: R017 layered property store — names are dynamic ai.h2o.* properties mapped to H2O3_TPU_*; the census covers the typed-accessor surface, properties are censused via register_default
     env = os.environ.get(ENV_PREFIX + key.replace(".", "_").upper())
     if env is not None:
         return env

@@ -77,6 +77,14 @@ def env_bool(name: str, default: bool = False) -> bool:
     return default
 
 
+def is_set(name: str) -> bool:
+    """Presence check (set to a non-blank value) — for call sites whose
+    failure mode must stay LOUD when a variable is missing (the explicit
+    multi-host bootstrap). Value reads still go through the typed
+    accessors and their one declaration site; this never parses."""
+    return bool((_raw(name) or "").strip())
+
+
 def process_id() -> int:
     """This process' rank in the cloud (H2O3_PROCESS_ID, 0 on one card):
     the timeline's span host and the structured logger's record host."""

@@ -145,4 +145,5 @@ if __name__ == "__main__":
     import json
     import h2o3_tpu_torch
     h2o3_tpu_torch.init()
+    # h2o3-ok: R012 `python -m ...selfbench` CLI: the JSON report on stdout IS the interface
     print(json.dumps(run_all(), indent=2, default=float))

@@ -31,7 +31,10 @@ CUDA graph a row bucket for a GBM, GLM, DL and KMeans and replays it
 bit for bit against the eager scorer on the same padded buffer, captures
 again after a demote and a promote (from the host tier and from an npz),
 gives 4 threads their serial answers, and runs a warm dispatch under
-`torch.cuda.set_sync_debug_mode("error")`. Runs (ay)-(ba) small:
+`torch.cuda.set_sync_debug_mode("error")`. Run (bi) small: each
+scorer family's static capture verdict (the port's analyzer) against its
+program at one 1,024-row bucket: GBM, GLM, DL and KMeans capture one
+graph and no strike, GLRM strikes. Runs (ay)-(ba) small:
 requests that coalesce into one micro-batched dispatch get the rows each
 scored alone gets (GBM and KMeans bit for bit, GLM and DL within 1e-6);
 leaders capture again while other threads replay under
@@ -1296,6 +1299,46 @@ def test_scorer_graph_captured_once_a_bucket_and_bit_for_bit(dev):
                                       want.view(np.uint8)), (m.algo, n)
                 nbytes.add(serving.PARAMS.bytes_for(m.key))
         assert len(nbytes) == 1 and nbytes.pop() > 0
+
+
+@pytest.mark.gpu
+def test_capture_verdicts_hold_on_the_card(dev):
+    """Run (bi) small: each scorer family's static capture verdict (the
+    port's analyzer: an R002 finding in the capture scope or an R025
+    finding, waived or not) against its program at one 1,024-row bucket
+    on the card. No finding: one graph captured and no strike; a
+    finding: a strike and no graph."""
+    import h2o3_tpu_torch as h2o
+    from h2o3_tpu_torch.analysis import engine, rules_torch
+    from h2o3_tpu_torch.core.kvstore import DKV
+    from h2o3_tpu_torch.models.model import _subframe
+    from h2o3_tpu_torch.obs import metrics as om
+    from h2o3_tpu_torch.serving import scorer_cache as SC
+    verdicts = rules_torch.capture_verdicts(
+        engine.run([engine.package_root()], rules=["R002", "R025"]))
+    fr, models = _serving_models(dev)
+    glrm = h2o.H2OGeneralizedLowRankEstimator(k=3, seed=3)
+    glrm.train(x=[c for c in fr.names if c != "y"], training_frame=fr)
+    fams = {"gbm": models["gbm"], "glm": models["glm"],
+            "deeplearning": models["dl"], "kmeans": models["km"],
+            "glrm": glrm}
+    sub = _subframe(fr, torch.arange(1024, device=fr.vecs[0].device))
+    got = {}
+    for fam, m in fams.items():
+        SC.CACHE.invalidate_key(m.key)
+        key = (m.key, SC.model_token(m))
+        c0 = om.graph_capture_count()
+        out = SC.score_frame(m, sub)
+        torch.cuda.synchronize()
+        got[fam] = (om.graph_capture_count() - c0,
+                    SC._BROKEN.get(key, (0, 0.0))[0], out is None)
+        SC.CACHE.invalidate_key(m.key)
+    DKV.remove(sub.key)
+    want = {fam: (0, 1, True) if verdicts[fam] else (1, 0, False)
+            for fam in fams}
+    assert got == want, verdicts
+    assert verdicts["glrm"] and not any(
+        verdicts[f] for f in ("gbm", "glm", "deeplearning", "kmeans"))
 
 
 @pytest.mark.gpu

@@ -530,8 +530,33 @@ def test_port_imports_no_jax():
         pkg / "deploy" / "multihost.py", pkg / "core" / "kvstore.py",
         pkg / "models" / "tree" / "binned.py",
         pkg / "models" / "tree" / "shared_tree.py"} <= set(files)
+    assert {pkg / "analysis" / f"{m}.py" for m in ANALYZER_MODULES} \
+        <= set(files)
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "optax", "h2o3_tpu"), \
                 (f, mod)
+
+
+# the static analyzer's modules (the runtime checkers beside them,
+# lockdep/leaktrack/divergence/sanitizers, read the port's metrics and
+# torch)
+ANALYZER_MODULES = (
+    "__main__", "engine", "cfg", "callgraph", "effects", "lifecycle",
+    "rules_env", "rules_torch", "rules_locks", "rules_logging",
+    "rules_metrics", "rules_dist", "rules_protocol", "rules_routes",
+    "rules_sockets", "rules_spans", "sarif")
+
+
+def test_analyzer_imports_only_the_standard_library():
+    """The analyzer runs where neither framework is installed: each of
+    its modules imports the standard library and its own package only."""
+    import sys
+    pkg = ROOT / "h2o3_tpu_torch" / "analysis"
+    assert len(ANALYZER_MODULES) == 17
+    for m in ANALYZER_MODULES:
+        for mod in _imported_modules(pkg / f"{m}.py"):
+            top = mod.split(".")[0]
+            assert top in sys.stdlib_module_names or top == "__future__" \
+                or mod.startswith("h2o3_tpu_torch.analysis"), (m, mod)
